@@ -1,0 +1,41 @@
+"""Carry parameters across from the JAX package.
+
+The two packages draw different random numbers from the same seed, so a
+model is compared across them by moving the reference's variables over as
+numpy arrays: ``variables_from_jax`` for the ``{"params", "state"}`` dict of
+``repro.models.snn_cnn.init``, ``fused_from_jax`` for the list of
+``fuse_model``. This module imports neither JAX nor the JAX package: the
+caller converts leaves with ``np.asarray`` (``jax.tree_util.tree_map``).
+
+Every leaf is copied (``np.array``) before it becomes a tensor.
+``np.asarray`` of a JAX array is read-only, and ``torch.from_numpy`` on a
+read-only array warns; the copy also keeps the tensors independent of the
+caller's buffers.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from . import DeviceLike, resolve_device
+
+
+def _to_torch(tree: Any, device: torch.device) -> Any:
+    if isinstance(tree, dict):
+        return {k: _to_torch(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_torch(v, device) for v in tree)
+    return torch.tensor(np.array(tree), device=device)
+
+
+def variables_from_jax(tree: dict, device: DeviceLike = None) -> dict:
+    """``{"params": [...], "state": [...]}`` with numpy leaves -> the same
+    structure of tensors on ``device`` (the card unless told otherwise)."""
+    return _to_torch(tree, resolve_device(device))
+
+
+def fused_from_jax(fused: list, device: DeviceLike = None) -> list:
+    """The ``fuse_model`` list with numpy leaves -> tensors on ``device``."""
+    return _to_torch(fused, resolve_device(device))

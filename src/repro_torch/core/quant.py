@@ -1,0 +1,67 @@
+"""Fixed-point quantization and BN folding (twin of ``repro.core.quant``,
+the deployment half: the F&Q stage that builds the served artifact).
+
+The folds keep ``gamma / sqrt(var + eps)`` as the reference writes it (not
+``rsqrt``), so folded weights match the JAX package bit for bit.
+``torch.round`` rounds half to even, as ``jnp.round`` does.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantConfig:
+    enabled: bool = False
+    mode: str = "int"          # "int" | "fp8_e4m3" | "fp8_e5m2"
+    bits: int = 8              # for "int" mode
+    per_channel: bool = True   # per-output-channel scale on weights
+    quantize_activations: bool = False
+    act_bits: int = 8
+
+
+def quantize_fixed(x: torch.Tensor, bits: int = 8,
+                   axis: Optional[int] = None) -> torch.Tensor:
+    """Symmetric fixed-point quantization. ``axis`` = per-channel scale
+    axis. Forward value only: the straight-through gradient comes with the
+    training slice. The result is ``x + (q * scale - x)``, the value the
+    reference's straight-through form computes, which can differ from
+    ``q * scale`` in the last bit."""
+    qmax = 2.0 ** (bits - 1) - 1.0
+    if axis is None:
+        amax = x.abs().max()
+    else:
+        dims = tuple(i for i in range(x.ndim) if i != axis)
+        amax = x.abs().amax(dim=dims, keepdim=True)
+    scale = torch.clamp(amax, min=1e-8) / qmax
+    q = torch.clamp(torch.round(x / scale), -qmax - 1, qmax)
+    return x + (q * scale - x)
+
+
+def fuse_bn_into_conv(w: torch.Tensor, b: Optional[torch.Tensor],
+                      bn_gamma: torch.Tensor, bn_beta: torch.Tensor,
+                      bn_mean: torch.Tensor, bn_var: torch.Tensor,
+                      eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fold BN statistics into an HWIO conv weight (output channels last)."""
+    inv_std = bn_gamma / torch.sqrt(bn_var + eps)
+    w_fused = w * inv_std
+    b0 = b if b is not None else torch.zeros_like(bn_mean)
+    b_fused = (b0 - bn_mean) * inv_std + bn_beta
+    return w_fused, b_fused
+
+
+def fuse_bn_into_linear(w: torch.Tensor, b: Optional[torch.Tensor],
+                        bn_gamma: torch.Tensor, bn_beta: torch.Tensor,
+                        bn_mean: torch.Tensor, bn_var: torch.Tensor,
+                        eps: float = 1e-5
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fold a BN that follows a linear layer: y = gamma*(xW+b-mean)/std +
+    beta."""
+    inv_std = bn_gamma / torch.sqrt(bn_var + eps)
+    w_fused = w * inv_std[None, :]
+    b0 = b if b is not None else torch.zeros_like(bn_mean)
+    b_fused = (b0 - bn_mean) * inv_std + bn_beta
+    return w_fused, b_fused

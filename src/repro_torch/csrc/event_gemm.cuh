@@ -1,0 +1,82 @@
+// Event-gated tile product shared by fused_pe.cu and spike_matmul.cu — the
+// Hopper counterpart of repro/kernels/gating.py::accum_tile (dense skip).
+//
+// One CTA owns one 128x128 output tile, which is exactly one tile of the
+// 128x128 event-metadata grid, so the vld_cnt skip is uniform across the
+// CTA (no divergence) and the next layer's vld_next count is a CTA-wide
+// reduction with no atomics. 256 threads, each accumulating an 8x8
+// sub-tile in registers in IEEE f32 (no tensor cores: parity with the
+// plain version rules out TF32 in this slice). K is walked in 32-deep
+// steps through shared memory: x arrives as int8 (16 bytes per thread,
+// converted to f32 on the store), w as f32 (four float4 per thread).
+//
+// The caller guarantees: x is [Mp, Kp] int8 row-major, w is [Kp, Np] f32
+// row-major, vld is [Mp/128, Kp/128] int32, Mp/Kp/Np are multiples of 128,
+// and the base pointers are 16-byte aligned.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace repro {
+
+constexpr int kTile = 128;     // CTA tile edge == metadata block edge
+constexpr int kStep = 32;      // K depth staged through shared memory
+constexpr int kThreads = 256;  // 16 x 16 threads
+constexpr int kSub = 8;        // 8 x 8 outputs per thread
+
+struct GemmSmem {
+  float a[kStep][kTile];  // x tile, transposed: a[k][m]
+  float b[kStep][kTile];  // w tile: b[k][n]
+};
+
+// acc += x[row_blk tile, k] @ w[k, col0 : col0 + 128] over the k blocks
+// whose vld count is nonzero. A silent block is neither loaded nor
+// multiplied: its x entries are all zero, so skipping it is exact.
+__device__ __forceinline__ void event_gemm_tile(
+    const int8_t* __restrict__ x, const float* __restrict__ w,
+    const int* __restrict__ vld, int kp, int np, int row_blk, int col0,
+    GemmSmem& sm, float (&acc)[kSub][kSub]) {
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int gk = kp / kTile;
+  const int8_t* xt = x + static_cast<size_t>(row_blk) * kTile * kp;
+  const int a_row = tid >> 1, a_col = (tid & 1) * 16;
+  for (int kb = 0; kb < gk; ++kb) {
+    if (vld[row_blk * gk + kb] == 0) continue;  // event skip (uniform)
+    for (int ks = 0; ks < kTile; ks += kStep) {
+      const int k0 = kb * kTile + ks;
+      {
+        const int4 v = *reinterpret_cast<const int4*>(
+            xt + static_cast<size_t>(a_row) * kp + k0 + a_col);
+        const int8_t* e = reinterpret_cast<const int8_t*>(&v);
+#pragma unroll
+        for (int i = 0; i < 16; ++i) sm.a[a_col + i][a_row] = static_cast<float>(e[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int idx = tid + i * kThreads;  // 1024 float4 per stage
+        const int r = idx / (kTile / 4), c = (idx % (kTile / 4)) * 4;
+        *reinterpret_cast<float4*>(&sm.b[r][c]) = *reinterpret_cast<const float4*>(
+            w + static_cast<size_t>(k0 + r) * np + col0 + c);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < kStep; ++kk) {
+        const float4 a0 = *reinterpret_cast<const float4*>(&sm.a[kk][ty * kSub]);
+        const float4 a1 = *reinterpret_cast<const float4*>(&sm.a[kk][ty * kSub + 4]);
+        const float4 b0 = *reinterpret_cast<const float4*>(&sm.b[kk][tx * kSub]);
+        const float4 b1 = *reinterpret_cast<const float4*>(&sm.b[kk][tx * kSub + 4]);
+        const float a[kSub] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        const float b[kSub] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < kSub; ++i)
+#pragma unroll
+          for (int j = 0; j < kSub; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+      __syncthreads();
+    }
+  }
+}
+
+}  // namespace repro

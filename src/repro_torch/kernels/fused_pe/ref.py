@@ -1,0 +1,67 @@
+"""Plain versions of the fused PE layer.
+
+``fused_pe_ref`` is the twin of the reference's ``ref.py``: the composed
+chain matmul -> (+bias, +residual) -> LIF -> QK mask -> block counts, on
+unpadded operands. ``fused_pe_block_ref`` is the plain version of the CUDA
+kernel itself, on the same block-aligned operands: it honours the input
+``vld`` map (a silent block contributes nothing) and the ``m_valid`` /
+``n_valid`` margins exactly as the kernel does.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ...core.events import block_count_map_2d, pad_to_blocks
+from ..lif_update.ref import lif_update_ref
+from ..qk_attention.ref import qk_attention_ref
+from ..spike_matmul.ref import block_skip_mask, spike_matmul_ref
+
+
+def fused_pe_ref(x: torch.Tensor, w: torch.Tensor, *,
+                 bias: Optional[torch.Tensor] = None,
+                 residual: Optional[torch.Tensor] = None,
+                 v_prev: Optional[torch.Tensor] = None,
+                 s_prev: Optional[torch.Tensor] = None,
+                 q: Optional[torch.Tensor] = None,
+                 tau: float = 0.5, v_th: float = 1.0,
+                 soft_reset: bool = False, qk_threshold: float = 1.0,
+                 block_m: int = 128, block_n: int = 128
+                 ) -> tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
+    """Returns (spikes int8, v_next f32 | None, vld_next int32); v_next is
+    None in the stateless (T=1) form. The QK mask is whole-row: one row
+    sum of q gates the whole output row (the head-blocked form is still to
+    port, ROADMAP queue 2, K2 heads)."""
+    cur = spike_matmul_ref(x, w)
+    if bias is not None:
+        cur = cur + bias.reshape(1, -1).to(torch.float32)
+    if residual is not None:
+        cur = cur + residual.to(torch.float32)
+    stateless = v_prev is None
+    vp = torch.zeros_like(cur) if stateless else v_prev
+    sp = torch.zeros_like(cur) if s_prev is None else s_prev
+    spk, v_next = lif_update_ref(cur, vp, sp, tau=tau, v_th=v_th,
+                                 soft_reset=soft_reset)
+    if q is not None:
+        spk = qk_attention_ref(q, spk, threshold=qk_threshold)
+    vld_next = block_count_map_2d(pad_to_blocks(spk, block_m, block_n),
+                                  block_m, block_n)
+    return spk, (None if stateless else v_next), vld_next
+
+
+def fused_pe_block_ref(xp: torch.Tensor, wp: torch.Tensor, vld: torch.Tensor,
+                       bp: Optional[torch.Tensor], rp: Optional[torch.Tensor],
+                       qp: Optional[torch.Tensor], m_valid: int, n_valid: int,
+                       v_th: float, qk_threshold: float
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's function on block-aligned operands (128x128 tiles):
+    x [Mp, Kp] int8, w [Kp, Np] f32, vld [Mp/128, Kp/128], bias [Np],
+    residual [Mp, Np] f32, q [Mp, Dq] int8. Returns (spikes [Mp, Np] int8,
+    vld_next [Mp/128, Np/128] int32)."""
+    xs = xp * block_skip_mask(vld, xp.shape)
+    spk, _, _ = fused_pe_ref(xs, wp, bias=bp, residual=rp, q=qp, v_th=v_th,
+                             qk_threshold=qk_threshold)
+    spk[m_valid:, :] = 0
+    spk[:, n_valid:] = 0
+    return spk, block_count_map_2d(spk, 128, 128)

@@ -1,0 +1,168 @@
+"""Format-dispatching entry points (twin of ``repro.ops.dispatch``).
+
+Every op takes spike operands as ``SpikeTensor`` (raw tensors are wrapped)
+plus an ``ExecutionPolicy`` — preset name, instance, or None — and looks
+its implementation up in the ``(op, mode)`` registry. ``policy=None``
+means the fused kernels. The ``"auto"`` policies need the autotuner, which
+is not ported yet: the matmul-sweep ops raise on them, the others run them
+as ``"fused"``, as the reference does.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..core.events import DEFAULT_BLOCKS
+from ..core.lif import LIFConfig
+from .policy import ExecutionPolicy, PolicyLike, as_policy
+from .registry import lookup
+from .spike_tensor import SpikeTensor, Spikes
+
+
+def _policy_for(policy: PolicyLike) -> ExecutionPolicy:
+    """None -> the fused kernels (the port's spike tensors are all dense,
+    so there is no operand format to inherit)."""
+    return (as_policy(policy) if policy is not None
+            else ExecutionPolicy("fused", "dense"))
+
+
+def _tuned(policy: PolicyLike) -> ExecutionPolicy:
+    """The matmul-sweep ops: an ``"auto"`` policy needs the roofline
+    autotuner, which is not ported yet, so it raises."""
+    pol = _policy_for(policy)
+    if pol.auto:
+        raise NotImplementedError(
+            f"policy {pol.name!r} needs the roofline autotuner, which is not "
+            f"ported yet (ROADMAP queue 1 item 5)")
+    return pol
+
+
+def _non_tuned(policy: PolicyLike) -> ExecutionPolicy:
+    """Ops without a tuner cost model run ``"auto"`` as ``"fused"``, as in
+    the reference."""
+    pol = _policy_for(policy)
+    return dataclasses.replace(pol, kernels="fused") if pol.auto else pol
+
+
+class FusedOut(NamedTuple):
+    """``ops.fused_pe_layer`` result: the emitted spike map (metadata
+    attached), optional membrane state, and the raw vld map."""
+    spikes: SpikeTensor
+    v_next: Optional[torch.Tensor]
+    vld_next: Optional[torch.Tensor]
+
+
+def matmul(x: Spikes, w: torch.Tensor, *, policy: PolicyLike = None,
+           skip: str = "dense",
+           block_m: int = DEFAULT_BLOCKS.m, block_n: int = DEFAULT_BLOCKS.n,
+           block_k: int = DEFAULT_BLOCKS.k) -> torch.Tensor:
+    """Event-driven spike matmul: [M, K] spikes @ [K, N] -> f32 current
+    (the reference mode takes any leading dims). The fused mode skips
+    silent blocks on the operand's ``vld_cnt`` (computed here when the
+    SpikeTensor carries none)."""
+    st = SpikeTensor.wrap(x)
+    pol = _tuned(policy)
+    return lookup("matmul", pol.mode)(st, w, block_m=block_m,
+                                      block_n=block_n, block_k=block_k,
+                                      skip=skip)
+
+
+def lif(current: torch.Tensor, v_prev: torch.Tensor, s_prev: torch.Tensor,
+        *, lif_cfg: LIFConfig = LIFConfig(),
+        policy: PolicyLike = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """One LIF membrane step over any-shaped current. Returns (spikes int8,
+    v_next f32)."""
+    pol = _non_tuned(policy)
+    return lookup("lif", pol.mode)(current, v_prev, s_prev, lif_cfg)
+
+
+def fused_pe_layer(x: Spikes, w: torch.Tensor, *,
+                   bias: Optional[torch.Tensor] = None,
+                   residual: Optional[Spikes] = None,
+                   q: Optional[Spikes] = None,
+                   qk_threshold: float = 1.0,
+                   lif_cfg: LIFConfig = LIFConfig(),
+                   policy: PolicyLike = None,
+                   skip: str = "dense",
+                   heads: Optional[tuple[int, int]] = None,
+                   block_m: int = DEFAULT_BLOCKS.m,
+                   block_n: int = DEFAULT_BLOCKS.n,
+                   block_k: int = DEFAULT_BLOCKS.k) -> FusedOut:
+    """Fused layer over [T, M, K] spike trains: event-skipped matmul + bias
+    / residual + LIF threshold + optional QK write-back mask, emitting the
+    next layer's ``vld_cnt`` on the fly. ``residual`` is a spike map or an
+    f32 membrane current. ``heads=(h, dh)`` (the head-blocked QK mask) is
+    still to port and raises in every mode."""
+    st = SpikeTensor.wrap(x)
+    res = SpikeTensor.wrap(residual) if residual is not None else None
+    qs = SpikeTensor.wrap(q) if q is not None else None
+    pol = _tuned(policy)
+    return lookup("fused_pe_layer", pol.mode)(
+        st, w, bias=bias, residual=res, q=qs, qk_threshold=qk_threshold,
+        lif_cfg=lif_cfg, fmt=pol.format, block_m=block_m, block_n=block_n,
+        block_k=block_k, skip=skip, heads=heads)
+
+
+def im2col(x: Spikes, spatial: tuple, kh: int, kw: int, stride: int, *,
+           t: int = 1, policy: PolicyLike = None
+           ) -> tuple[SpikeTensor, tuple[int, int]]:
+    """Conv patch extraction on a token-layout spike map [t, B*H*W, C]
+    (``spatial`` = (B, H, W, C)). Returns (patches [t, B*Ho*Wo, kh*kw*C],
+    (Ho, Wo))."""
+    st = SpikeTensor.wrap(x)
+    pol = _non_tuned(policy)
+    return lookup("im2col", pol.mode)(st, spatial, kh, kw, stride, t=t,
+                                      fmt=pol.format)
+
+
+def pool(x: Spikes, spatial: tuple, *, t: int = 1, window: int = 2,
+         policy: PolicyLike = None) -> tuple[SpikeTensor, tuple[int, int]]:
+    """Spatial max-pool of a binary spike map in token layout. Returns
+    (pooled [t, B*H2*W2, C], (H2, W2))."""
+    st = SpikeTensor.wrap(x)
+    pol = _non_tuned(policy)
+    return lookup("pool", pol.mode)(st, spatial, t=t, window=window,
+                                    fmt=pol.format)
+
+
+def conv_matmul_weights(w: torch.Tensor, patches: Spikes) -> torch.Tensor:
+    """[kh, kw, Cin, Cout] conv weight -> the [K, Cout] matmul weight in
+    ``ops.im2col``'s feature order."""
+    from ..models import nn
+
+    st = SpikeTensor.wrap(patches)
+    kh, kw = w.shape[:2]
+    return nn.conv_weights_as_matmul_packed(w, st.k // (kh * kw))
+
+
+def qk_mask(q: Spikes, k: Spikes, *, threshold: float = 1.0,
+            mode: str = "threshold", surrogate: str = "atan",
+            alpha: float = 2.0, policy: PolicyLike = None) -> SpikeTensor:
+    """QKFormer token attention: mask K's spike rows by Q's per-token
+    row-sum threshold. ``mode``/``surrogate``/``alpha`` shape only the
+    gradient, which comes with the training slice."""
+    qs = SpikeTensor.wrap(q)
+    ks = SpikeTensor.wrap(k)
+    pol = _non_tuned(policy)
+    masked = lookup("qk_mask", pol.mode)(qs.to_dense(), ks.to_dense(),
+                                         threshold)
+    return SpikeTensor.dense(masked)
+
+
+def unpack(x: Spikes, *, dtype: torch.dtype = torch.int8,
+           policy: PolicyLike = None) -> torch.Tensor:
+    """The dense spike map at the logical shape: a cast, since the port's
+    spike tensors are all dense (packed ones come with ROADMAP queue 2,
+    K1)."""
+    return SpikeTensor.wrap(x).data.to(dtype)
+
+
+def w2ttfs_head(spikes: torch.Tensor, fc_w: torch.Tensor,
+                fc_b: torch.Tensor, *, window: int,
+                policy: PolicyLike = None) -> torch.Tensor:
+    """W2TTFS classifier head: window spike-count pooling + unit-scale FC
+    over a dense [B, H, W, C] spike map."""
+    pol = _non_tuned(policy)
+    return lookup("w2ttfs_head", pol.mode)(spikes, fc_w, fc_b, window=window)

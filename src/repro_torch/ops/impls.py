@@ -1,0 +1,208 @@
+"""Kernel-family registrations for the ops dispatch layer (twin of
+``repro.ops.impls``).
+
+Each op binds a ``"reference"`` implementation (plain PyTorch) and, where
+its kernel is ported, a ``"fused"`` one that goes through the kernel
+wrapper: on CUDA tensors that launches the hand-written kernel, on CPU
+tensors it runs the wrapper's plain version. A fused variant whose kernel
+is still to port (packed spikes, ``skip="gated"``/``"two_level"``,
+head-blocked masks, T>1 state) raises; it never runs the reference
+instead. Head-blocked masks raise in the reference mode too, until they
+are ported and held against the reference together.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.events import DEFAULT_BLOCKS, block_count_map_2d, pad_to_blocks
+from ..core.lif import LIFConfig
+# the registry is where the kernel wrappers are bound, so it imports them
+# neurallint: disable=NL-REGISTRY-BYPASS
+from ..kernels.fused_pe import fused_pe, fused_pe_ref
+# neurallint: disable=NL-REGISTRY-BYPASS
+from ..kernels.lif_update import lif_update, lif_update_ref
+# neurallint: disable=NL-REGISTRY-BYPASS
+from ..kernels.qk_attention import qk_attention_ref
+# neurallint: disable=NL-REGISTRY-BYPASS
+from ..kernels.spike_matmul import spike_matmul, spike_matmul_ref
+# neurallint: disable=NL-REGISTRY-BYPASS
+from ..kernels.w2ttfs_pool import w2ttfs_pool_fc, w2ttfs_pool_fc_ref
+from ..models import nn
+from .dispatch import FusedOut
+from .registry import register
+from .spike_tensor import SpikeTensor
+
+
+def _check_dense_skip(skip: str) -> None:
+    if skip != "dense":
+        raise NotImplementedError(
+            f"skip={skip!r} is still to port (ROADMAP queue 2, K3 and K2 "
+            f"gated/two_level); the fused kernels take skip='dense'")
+
+
+def _check_blocks(block_m: int, block_n: int, block_k: int) -> None:
+    """The CUDA kernels' CTA tile is the metadata block, 128x128x128."""
+    if (block_m, block_n, block_k) != tuple(DEFAULT_BLOCKS):
+        raise ValueError(
+            f"the CUDA kernels tile on {tuple(DEFAULT_BLOCKS)}; got "
+            f"(block_m={block_m}, block_n={block_n}, block_k={block_k})")
+
+
+def _check_no_heads(heads) -> None:
+    if heads is not None:
+        raise NotImplementedError(
+            "the head-blocked QK mask is still to port (ROADMAP queue 2, "
+            "K2 heads)")
+
+
+# =============================================================== spike_matmul
+@register("matmul", "fused")
+def _matmul_fused(st: SpikeTensor, w: torch.Tensor, *, block_m, block_n,
+                  block_k, skip="dense"):
+    _check_dense_skip(skip)
+    _check_blocks(block_m, block_n, block_k)
+    if st.data.ndim != 2:
+        raise ValueError(f"the fused matmul takes a 2-D [M, K] operand, got "
+                         f"{tuple(st.shape)}")
+    return spike_matmul(st.data, w, vld_cnt=st.vld_cnt)
+
+
+@register("matmul", "reference")
+def _matmul_ref(st: SpikeTensor, w: torch.Tensor, *, block_m, block_n,
+                block_k, skip="dense"):
+    return spike_matmul_ref(st.data, w)
+
+
+# ================================================================= lif_update
+@register("lif", "fused")
+def _lif_fused(current, v_prev, s_prev, cfg: LIFConfig):
+    return lif_update(current, v_prev, s_prev, tau=cfg.tau, v_th=cfg.v_th,
+                      soft_reset=cfg.soft_reset)
+
+
+@register("lif", "reference")
+def _lif_ref(current, v_prev, s_prev, cfg: LIFConfig):
+    return lif_update_ref(current, v_prev, s_prev, tau=cfg.tau,
+                          v_th=cfg.v_th, soft_reset=cfg.soft_reset)
+
+
+# =================================================================== fused_pe
+@register("fused_pe_layer", "fused")
+def _fused_pe_layer_fused(st: SpikeTensor, w: torch.Tensor, *, bias,
+                          residual, q, qk_threshold, lif_cfg: LIFConfig,
+                          fmt, block_m, block_n, block_k, skip="dense",
+                          heads=None):
+    _check_dense_skip(skip)
+    _check_blocks(block_m, block_n, block_k)
+    t = st.shape[0]
+    if t != 1:
+        raise NotImplementedError(
+            f"the fused PE layer with T={t} needs the kernel's LIF-state "
+            f"variant, which is still to port (ROADMAP queue 2, K2 "
+            f"with_state)")
+    _check_no_heads(heads)
+    spikes, vld = fused_pe(
+        st.data[0], w, bias=bias,
+        residual=None if residual is None else residual.data[0],
+        q=None if q is None else q.data[0],
+        vld_cnt=None if st.vld_cnt is None else st.vld_cnt[0],
+        v_th=lif_cfg.v_th, qk_threshold=qk_threshold)
+    out = SpikeTensor.dense(spikes[None], vld[None], block_m=block_m,
+                            block_k=block_n)
+    return FusedOut(out, None, vld[None])
+
+
+@register("fused_pe_layer", "reference")
+def _fused_pe_layer_reference(st: SpikeTensor, w: torch.Tensor, *, bias,
+                              residual, q, qk_threshold, lif_cfg: LIFConfig,
+                              fmt, block_m, block_n, block_k, skip="dense",
+                              heads=None):
+    # the head-blocked mask is ported with its kernel variant, reference
+    # and fused together, so that both are held against the reference
+    _check_no_heads(heads)
+    x = st.data
+    t, m, _ = x.shape
+    n = w.shape[1]
+    res = residual.to_dense(torch.float32) if residual is not None else None
+    qd = q.to_dense() if q is not None else None
+    spikes_ts, vld_ts = [], []
+    v = torch.zeros((m, n), dtype=torch.float32, device=x.device)
+    s = torch.zeros((m, n), dtype=torch.int8, device=x.device)
+    for ti in range(t):
+        q_t = None if qd is None else qd[ti]
+        if t == 1:
+            spk, _, vld = fused_pe_ref(
+                x[ti], w, bias=bias,
+                residual=None if res is None else res[ti], q=q_t,
+                tau=lif_cfg.tau, v_th=lif_cfg.v_th,
+                soft_reset=lif_cfg.soft_reset, qk_threshold=qk_threshold,
+                block_m=block_m, block_n=block_n)
+        else:
+            # stateful form: the LIF state carries the PRE-mask spikes and
+            # the QK mask gates outside, as the reference's T>1 path does
+            spk, v, vld = fused_pe_ref(
+                x[ti], w, bias=bias,
+                residual=None if res is None else res[ti], v_prev=v,
+                s_prev=s, tau=lif_cfg.tau, v_th=lif_cfg.v_th,
+                soft_reset=lif_cfg.soft_reset, block_m=block_m,
+                block_n=block_n)
+            s = spk
+            if q_t is not None:
+                spk = qk_attention_ref(q_t, spk, threshold=qk_threshold)
+                vld = block_count_map_2d(
+                    pad_to_blocks(spk, block_m, block_n), block_m, block_n)
+        spikes_ts.append(spk)
+        vld_ts.append(vld)
+    vld3 = torch.stack(vld_ts)
+    out = SpikeTensor.dense(torch.stack(spikes_ts), vld3, block_m=block_m,
+                            block_k=block_n)
+    return FusedOut(out, None, vld3)
+
+
+# =============================================================== qk_attention
+# Only the reference is registered: the fused QK-mask kernel (K8) is still
+# to port, so the fused lookup raises. The deployed QKFormer masks inside
+# the fused PE kernel instead.
+@register("qk_mask", "reference")
+def _qk_mask_ref(q: torch.Tensor, k: torch.Tensor, threshold: float):
+    return qk_attention_ref(q, k, threshold=threshold)
+
+
+# ============================================================ spatial reshapes
+# im2col / max-pool are data movement with no kernel of their own; the two
+# registrations differ only in the format conversion a packed operand would
+# need, which comes with the packed slice (ROADMAP queue 2, K1).
+def _im2col_impl(st: SpikeTensor, spatial: tuple, kh, kw, stride, *, t, fmt):
+    b, h, w_, c = spatial
+    dense = st.data.reshape(t * b, h, w_, c).to(torch.int8)
+    pat = nn.im2col(dense, kh, kw, stride)
+    _, ho, wo, kdim = pat.shape
+    return (SpikeTensor.dense(pat.reshape(t, b * ho * wo, kdim),
+                              block_m=st.block_m, block_k=st.block_k),
+            (ho, wo))
+
+
+def _pool_impl(st: SpikeTensor, spatial: tuple, *, t, window, fmt):
+    b, h, w_, c = spatial
+    x = st.data.reshape(t * b, h, w_, c).to(torch.float32)
+    pooled = nn.max_pool(x, window)
+    h2, w2 = pooled.shape[1], pooled.shape[2]
+    return (SpikeTensor.dense(
+        pooled.reshape(t, b * h2 * w2, c).to(torch.int8),
+        block_m=st.block_m, block_k=st.block_k), (h2, w2))
+
+
+for _mode in ("fused", "reference"):
+    register("im2col", _mode)(_im2col_impl)
+    register("pool", _mode)(_pool_impl)
+
+
+# =================================================================== w2ttfs
+@register("w2ttfs_head", "fused")
+def _w2ttfs_head_fused(spikes, fc_w, fc_b, *, window):
+    return w2ttfs_pool_fc(spikes, fc_w, fc_b, window=window)
+
+
+@register("w2ttfs_head", "reference")
+def _w2ttfs_head_ref(spikes, fc_w, fc_b, *, window):
+    return w2ttfs_pool_fc_ref(spikes, fc_w, fc_b, window)

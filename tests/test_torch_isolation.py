@@ -1,0 +1,201 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, its
+entry points never drop to the CPU on their own, and every fused variant
+whose kernel is still to port raises instead of running a plain version.
+"""
+import ast
+import dataclasses
+import os
+import pathlib
+import subprocess
+import sys
+import warnings
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch import convert, ops
+from repro_torch.models import snn_cnn
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    """Top-level names of every absolute import in a file."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_importing_the_port_loads_neither_jax_nor_the_reference():
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.convert, repro_torch.ops\n"
+        "import repro_torch.models.snn_cnn, repro_torch.kernels._build\n"
+        "import repro_torch.kernels.fused_pe, repro_torch.kernels.lif_update\n"
+        "import repro_torch.kernels.spike_matmul\n"
+        "import repro_torch.kernels.w2ttfs_pool\n"
+        "repro_torch.ops.lookup('matmul', 'reference')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+# ------------------------------------------------------------------ devices
+def _entry_points():
+    cfg = snn_cnn.SNNCNNConfig(arch="resnet11", width_mult=0.125,
+                               image_size=16)
+    return {
+        "resolve_device": lambda: repro_torch.resolve_device(),
+        "init": lambda: snn_cnn.init(torch.Generator(), cfg),
+        "variables_from_jax": lambda: convert.variables_from_jax(
+            {"params": [{"w": np.ones(2, np.float32)}], "state": [{}]}),
+        "fused_from_jax": lambda: convert.fused_from_jax(
+            [{"w": np.ones(2, np.float32)}]),
+    }
+
+
+def _first_tensor(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree
+    values = tree.values() if isinstance(tree, dict) else tree
+    for v in values:
+        found = _first_tensor(v)
+        if found is not None:
+            return found
+    return None
+
+
+@pytest.mark.parametrize("name", sorted(_entry_points()))
+def test_entry_points_default_to_the_card(name):
+    """With no device given, the entry points run on CUDA; where there is
+    no card they raise rather than carry on on the CPU."""
+    call = _entry_points()[name]
+    if torch.cuda.is_available():
+        out = call()
+        if not isinstance(out, torch.device):
+            out = _first_tensor(out).device
+        assert out.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
+def test_explicit_cpu_device_is_honoured():
+    assert repro_torch.resolve_device("cpu") == torch.device("cpu")
+    fused = convert.fused_from_jax([{"w": np.ones(2, np.float32)}],
+                                   device="cpu")
+    assert fused[0]["w"].device.type == "cpu"
+
+
+# ------------------------------------------------------ unported variants
+def _spikes(t=1, m=8, k=8):
+    return ops.SpikeTensor.dense(torch.ones((t, m, k), dtype=torch.int8))
+
+
+def _unported():
+    w = torch.ones((8, 8))
+    cfg = snn_cnn.SNNCNNConfig(arch="resnet11", width_mult=0.125,
+                               image_size=16)
+    fused = snn_cnn.fuse_model(
+        snn_cnn.init(torch.Generator(), cfg, device="cpu"), cfg)
+    img = torch.zeros((1, 16, 16, 3))
+    return {
+        "qk_mask fused (K8)": lambda: ops.qk_mask(
+            torch.ones((4, 8)), torch.ones((4, 8)), policy="fused_dense"),
+        "matmul skip=gated": lambda: ops.matmul(
+            torch.ones((8, 8), dtype=torch.int8), w, skip="gated",
+            policy="fused_dense"),
+        "matmul skip=two_level": lambda: ops.matmul(
+            torch.ones((8, 8), dtype=torch.int8), w, skip="two_level",
+            policy="fused_dense"),
+        "fused_pe_layer T=2": lambda: ops.fused_pe_layer(
+            _spikes(t=2), w, policy="fused_dense"),
+        "fused_pe_layer heads": lambda: ops.fused_pe_layer(
+            _spikes(), w, q=_spikes(), heads=(2, 4), policy="fused_dense"),
+        "fused_pe_layer heads reference": lambda: ops.fused_pe_layer(
+            _spikes(), w, q=_spikes(), heads=(2, 4), policy="reference"),
+        "fused_pe_layer dense activations": lambda: ops.fused_pe_layer(
+            ops.SpikeTensor.dense(torch.ones((1, 8, 8))), w,
+            policy="fused_dense"),
+        "packed spike tensor": lambda: ops.SpikeTensor(
+            torch.ones((8, 1), dtype=torch.int32), fmt="packed"),
+        "matmul auto policy": lambda: ops.matmul(
+            torch.ones((8, 8), dtype=torch.int8), w, policy="auto"),
+        "matmul +grad policy": lambda: ops.matmul(
+            torch.ones((8, 8), dtype=torch.int8), w,
+            policy="fused_dense+grad"),
+        "forward fused_packed": lambda: snn_cnn.forward(
+            fused, img, cfg, policy="fused_packed"),
+        "forward +grad": lambda: snn_cnn.forward(
+            fused, img, cfg, policy="reference+grad"),
+        "forward fused T=2": lambda: snn_cnn.forward(
+            fused, img, dataclasses.replace(cfg, timesteps=2),
+            policy="fused_dense"),
+        "forward unfused graph": lambda: snn_cnn.forward(
+            snn_cnn.init(torch.Generator(), cfg, device="cpu"), img, cfg),
+        "fold_train_params": lambda: snn_cnn.fold_train_params([], [], cfg),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_unported()))
+def test_unported_variants_raise(case):
+    with pytest.raises((NotImplementedError, TypeError)) as err:
+        _unported()[case]()
+    assert "ROADMAP" in str(err.value)
+
+
+def test_reference_twins_stay_registered():
+    """Every op of the slice has a reference mode, and a fused mode where
+    its kernel is ported."""
+    table = ops.implementations()
+    for op in ("matmul", "lif", "fused_pe_layer", "im2col", "pool",
+               "qk_mask", "w2ttfs_head"):
+        assert (op, "reference") in table, op
+    for op in ("matmul", "lif", "fused_pe_layer", "im2col", "pool",
+               "w2ttfs_head"):
+        assert (op, "fused") in table, op
+    assert ("qk_mask", "fused") not in table
+
+
+# ---------------------------------------------------------------- convert
+def test_converter_takes_read_only_arrays_without_a_warning():
+    """``np.asarray`` of a JAX array is read-only; ``torch.from_numpy`` on
+    it would warn, and the repo's warnings-as-errors setting would fail the
+    run. The converter copies first."""
+    ro = np.asarray(jnp.arange(6, dtype=jnp.float32).reshape(2, 3))
+    assert not ro.flags.writeable
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        out = convert.fused_from_jax([{"conv": {"w": ro, "b": ro[0]}}],
+                                     device="cpu")
+        tree = convert.variables_from_jax(
+            {"params": [{"fc": {"w": ro}}], "state": [{}]}, device="cpu")
+    np.testing.assert_array_equal(out[0]["conv"]["w"].numpy(), ro)
+    assert tree["params"][0]["fc"]["w"].dtype == torch.float32
+    out[0]["conv"]["w"].add_(1.0)           # a copy: the source is intact
+    assert float(ro[0, 0]) == 0.0
