@@ -2,7 +2,13 @@
 the deployment half: the F&Q stage that builds the served artifact).
 
 The folds keep ``gamma / sqrt(var + eps)`` as the reference writes it (not
-``rsqrt``), so folded weights match the JAX package bit for bit.
+``rsqrt``), with the square root correctly rounded, so folded weights match
+the JAX package bit for bit. ``torch.sqrt`` on f32 is not correctly rounded
+on every build (torch 2.13's CPU kernel misses the last bit on about a fifth
+of inputs in [0.5, 1.5]), while ``jnp.sqrt`` is; one ulp in ``inv_std`` can
+tip a weight across a rounding tie of ``quantize_fixed``. The root is taken
+in f64 and rounded to f32, which is exact: the f64 square root of an f32
+value, rounded to f32, is the correctly rounded f32 square root.
 ``torch.round`` rounds half to even, as ``jnp.round`` does.
 """
 from __future__ import annotations
@@ -41,12 +47,17 @@ def quantize_fixed(x: torch.Tensor, bits: int = 8,
     return x + (q * scale - x)
 
 
+def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded square root in ``x``'s dtype (via f64)."""
+    return torch.sqrt(x.to(torch.float64)).to(x.dtype)
+
+
 def fuse_bn_into_conv(w: torch.Tensor, b: Optional[torch.Tensor],
                       bn_gamma: torch.Tensor, bn_beta: torch.Tensor,
                       bn_mean: torch.Tensor, bn_var: torch.Tensor,
                       eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor]:
     """Fold BN statistics into an HWIO conv weight (output channels last)."""
-    inv_std = bn_gamma / torch.sqrt(bn_var + eps)
+    inv_std = bn_gamma / _sqrt_rn(bn_var + eps)
     w_fused = w * inv_std
     b0 = b if b is not None else torch.zeros_like(bn_mean)
     b_fused = (b0 - bn_mean) * inv_std + bn_beta
@@ -60,7 +71,7 @@ def fuse_bn_into_linear(w: torch.Tensor, b: Optional[torch.Tensor],
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fold a BN that follows a linear layer: y = gamma*(xW+b-mean)/std +
     beta."""
-    inv_std = bn_gamma / torch.sqrt(bn_var + eps)
+    inv_std = bn_gamma / _sqrt_rn(bn_var + eps)
     w_fused = w * inv_std[None, :]
     b0 = b if b is not None else torch.zeros_like(bn_mean)
     b_fused = (b0 - bn_mean) * inv_std + bn_beta

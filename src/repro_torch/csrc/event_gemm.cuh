@@ -7,12 +7,18 @@
 // reduction with no atomics. 256 threads, each accumulating an 8x8
 // sub-tile in registers in IEEE f32 (no tensor cores: parity with the
 // plain version rules out TF32 in this slice). K is walked in 32-deep
-// steps through shared memory: x arrives as int8 (16 bytes per thread,
-// converted to f32 on the store), w as f32 (four float4 per thread).
+// steps through shared memory: w arrives as f32 (four float4 per thread),
+// x as int8 (16 bytes per thread, converted to f32 on the store) or, with
+// PackedX, as int32 words of 32 spikes: a 32-deep step needs exactly one
+// word per tile row, so threads 0..127 each load their row's word and
+// store its 32 bits as 0.f/1.f. Either way the shared tile and the order
+// of the FMAs over k are the same, so a packed operand gives the same
+// f32 sums as the int8 one (its zero pad columns add exact zeros).
 //
-// The caller guarantees: x is [Mp, Kp] int8 row-major, w is [Kp, Np] f32
-// row-major, vld is [Mp/128, Kp/128] int32, Mp/Kp/Np are multiples of 128,
-// and the base pointers are 16-byte aligned.
+// The caller guarantees: x is [Mp, Kp] int8 or [Mp, Kp/32] int32
+// row-major, w is [Kp, Np] f32 row-major, vld is [Mp/128, Kp/128] int32,
+// Mp/Kp/Np are multiples of 128, and the base pointers are 16-byte
+// aligned.
 #pragma once
 
 #include <cstdint>
@@ -33,22 +39,32 @@ struct GemmSmem {
 // acc += x[row_blk tile, k] @ w[k, col0 : col0 + 128] over the k blocks
 // whose vld count is nonzero. A silent block is neither loaded nor
 // multiplied: its x entries are all zero, so skipping it is exact.
+template <bool PackedX>
 __device__ __forceinline__ void event_gemm_tile(
-    const int8_t* __restrict__ x, const float* __restrict__ w,
+    const void* __restrict__ x, const float* __restrict__ w,
     const int* __restrict__ vld, int kp, int np, int row_blk, int col0,
     GemmSmem& sm, float (&acc)[kSub][kSub]) {
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
   const int gk = kp / kTile;
-  const int8_t* xt = x + static_cast<size_t>(row_blk) * kTile * kp;
+  const size_t row0 = static_cast<size_t>(row_blk) * kTile;
   const int a_row = tid >> 1, a_col = (tid & 1) * 16;
   for (int kb = 0; kb < gk; ++kb) {
     if (vld[row_blk * gk + kb] == 0) continue;  // event skip (uniform)
     for (int ks = 0; ks < kTile; ks += kStep) {
       const int k0 = kb * kTile + ks;
-      {
+      if constexpr (PackedX) {
+        if (tid < kTile) {  // one word per row: bit b is column k0 + b
+          const int* xw = static_cast<const int*>(x);
+          const unsigned word = static_cast<unsigned>(
+              xw[(row0 + tid) * (kp / 32) + k0 / 32]);
+#pragma unroll
+          for (int b = 0; b < kStep; ++b) sm.a[b][tid] = ((word >> b) & 1u) ? 1.f : 0.f;
+        }
+      } else {
+        const int8_t* xt = static_cast<const int8_t*>(x);
         const int4 v = *reinterpret_cast<const int4*>(
-            xt + static_cast<size_t>(a_row) * kp + k0 + a_col);
+            xt + (row0 + a_row) * kp + k0 + a_col);
         const int8_t* e = reinterpret_cast<const int8_t*>(&v);
 #pragma unroll
         for (int i = 0; i < 16; ++i) sm.a[a_col + i][a_row] = static_cast<float>(e[i]);

@@ -1,6 +1,8 @@
-// Fused PE layer, dense stateless variant — replaces the Pallas kernel
-// repro/kernels/fused_pe/fused_pe.py::fused_pe_pallas (skip="dense", int8 x,
-// bias, f32 residual, whole-row dense Q mask, emit_vld; T=1, no state).
+// Fused PE layer, stateless variant — replaces the Pallas kernel
+// repro/kernels/fused_pe/fused_pe.py::fused_pe_pallas (skip="dense", bias,
+// residual, whole-row Q mask, emit_vld; T=1, no state), with every spike
+// operand and the output dense (int8) or bit-packed (int32 words of 32
+// spikes, the packed_in / packed_q / packed_residual / packed_out flags).
 //
 // Per 128x128 output tile, in one pass: the event-gated f32 product
 // x @ w (event_gemm.cuh), then in registers
@@ -11,17 +13,28 @@
 // and the tile's spike count is written as the next layer's vld_cnt. The
 // f32 pre-activation never reaches device memory.
 //
+// The packed forms read and write 1/8 of the int8 bytes and never widen a
+// spike map in device memory: packed x is expanded to 0/1 floats in shared
+// memory (event_gemm.cuh); a packed Q row sum is __popc over the row's
+// words; a packed residual (the identity shortcut) is the thread's 8 bits
+// of one word, added as 0.f/1.f where the f32 residual is; a packed output
+// word is the 8-bit rows of four neighbouring threads, combined with
+// __shfl_xor_sync and stored by one of them. The f32 sums are the same as
+// the int8 path's, so both give the same spikes.
+//
 // Bound on the H100: the kernel runs the dense f32 product over every
 // 128x128 block the vld map does not skip, 2*128*128*Np operations per
-// block against int8 x and f32 w, so the 67 TFLOP/s f32 rate outside the
-// tensor cores bounds it (parity with the reference rules out TF32). The
-// data needs less: one add per spike and output column, a quarter to a
-// half of that at the main path's spike rates, and a layer with N < 128
-// (resblock 1, N = 64) computes a half-empty tile. The design keeps 64
-// accumulators per thread in registers and stages x and w through 32 KB
-// of shared memory so each loaded value feeds 8 FMAs; the skip removes
-// both the loads and the FMAs of a silent block. wgmma, TMA, a multi-stage
-// pipeline and a narrower tile for N = 64 are later work.
+// block, so the 67 TFLOP/s f32 rate outside the tensor cores bounds it
+// (parity with the reference rules out TF32). The data needs less: one add
+// per spike and output column, a quarter to a half of that at the main
+// path's spike rates, and a layer with N < 128 (resblock 1, N = 64)
+// computes a half-empty tile. A packed patch matrix pads each 3x3 tap's
+// channels to whole 128-wide blocks, so at C = 64 its K is twice the int8
+// one (1152, not 576): the padding is zeros the block skip cannot see. The
+// design keeps 64 accumulators per thread in registers and stages x and w
+// through 32 KB of shared memory so each loaded value feeds 8 FMAs; the
+// skip removes both the loads and the FMAs of a silent block. wgmma, TMA,
+// a multi-stage pipeline and a narrower tile for N = 64 are later work.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -29,36 +42,48 @@
 
 using namespace repro;
 
-extern "C" __global__ void __launch_bounds__(kThreads)
-fused_pe_kernel(const int8_t* __restrict__ x, const float* __restrict__ w,
+// the flags argument of repro_fused_pe, one bit per packed operand
+constexpr int kPackedX = 1, kPackedQ = 2, kPackedResidual = 4, kPackedOut = 8;
+
+template <bool PackedX>
+__global__ void __launch_bounds__(kThreads)
+fused_pe_kernel(const void* __restrict__ x, const float* __restrict__ w,
                 const int* __restrict__ vld, const float* __restrict__ bias,
-                const float* __restrict__ residual, const int8_t* __restrict__ q,
-                int dq, int8_t* __restrict__ spikes, int* __restrict__ vld_next,
+                const void* __restrict__ residual, const void* __restrict__ q,
+                int dq, void* __restrict__ spikes, int* __restrict__ vld_next,
                 int kp, int np, int m_valid, int n_valid, float v_th,
-                float qk_threshold) {
+                float qk_threshold, int flags) {
   __shared__ GemmSmem sm;
   __shared__ float row_gate[kTile];
   __shared__ int warp_count[kThreads / 32];
   const int row_blk = blockIdx.y, col0 = blockIdx.x * kTile;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int lane = tid % 32, warp = tid / 32;
+  const bool packed_q = flags & kPackedQ, packed_res = flags & kPackedResidual;
+  const bool packed_out = flags & kPackedOut;
 
   float acc[kSub][kSub];
 #pragma unroll
   for (int i = 0; i < kSub; ++i)
 #pragma unroll
     for (int j = 0; j < kSub; ++j) acc[i][j] = 0.f;
-  event_gemm_tile(x, w, vld, kp, np, row_blk, col0, sm, acc);
+  event_gemm_tile<PackedX>(x, w, vld, kp, np, row_blk, col0, sm, acc);
 
   if (q != nullptr) {  // one warp per row: integer row sum of Q spikes
     for (int r = warp; r < kTile; r += kThreads / 32) {
-      const int8_t* qr = q + static_cast<size_t>(row_blk * kTile + r) * dq;
+      const size_t row = static_cast<size_t>(row_blk) * kTile + r;
       int s = 0;
-      for (int c = lane * 16; c < dq; c += 32 * 16) {
-        const int4 v = *reinterpret_cast<const int4*>(qr + c);
-        const int8_t* e = reinterpret_cast<const int8_t*>(&v);
+      if (packed_q) {  // dq words per row: the row sum is a popcount
+        const int* qr = static_cast<const int*>(q) + row * dq;
+        for (int c = lane; c < dq; c += 32) s += __popc(static_cast<unsigned>(qr[c]));
+      } else {         // dq int8 spikes per row
+        const int8_t* qr = static_cast<const int8_t*>(q) + row * dq;
+        for (int c = lane * 16; c < dq; c += 32 * 16) {
+          const int4 v = *reinterpret_cast<const int4*>(qr + c);
+          const int8_t* e = reinterpret_cast<const int8_t*>(&v);
 #pragma unroll
-        for (int i = 0; i < 16; ++i) s += e[i];
+          for (int i = 0; i < 16; ++i) s += e[i];
+        }
       }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
@@ -68,6 +93,7 @@ fused_pe_kernel(const int8_t* __restrict__ x, const float* __restrict__ w,
   }
 
   const int c0 = col0 + tx * kSub;
+  const int words_per_row = np / 32;
   float b[kSub];
 #pragma unroll
   for (int j = 0; j < kSub; ++j) b[j] = 0.f;
@@ -83,15 +109,22 @@ fused_pe_kernel(const int8_t* __restrict__ x, const float* __restrict__ w,
     const int rl = ty * kSub + i;
     const int row = row_blk * kTile + rl;
     float r[kSub] = {};
-    if (residual != nullptr) {
-      const float* rp = residual + static_cast<size_t>(row) * np + c0;
+    if (residual != nullptr && packed_res) {  // this thread's 8 bits of a word
+      const unsigned word = static_cast<unsigned>(static_cast<const int*>(residual)[
+          static_cast<size_t>(row) * words_per_row + c0 / 32]);
+      const unsigned bits = (word >> (c0 % 32)) & 0xffu;
+#pragma unroll
+      for (int j = 0; j < kSub; ++j) r[j] = ((bits >> j) & 1u) ? 1.f : 0.f;
+    } else if (residual != nullptr) {
+      const float* rp = static_cast<const float*>(residual) + static_cast<size_t>(row) * np + c0;
       const float4 r0 = *reinterpret_cast<const float4*>(rp);
       const float4 r1 = *reinterpret_cast<const float4*>(rp + 4);
       r[0] = r0.x; r[1] = r0.y; r[2] = r0.z; r[3] = r0.w;
       r[4] = r1.x; r[5] = r1.y; r[6] = r1.z; r[7] = r1.w;
     }
     const bool row_on = row < m_valid && (q == nullptr || row_gate[rl] != 0.f);
-    uint64_t packed = 0;
+    uint64_t bytes = 0;
+    unsigned bits = 0;
 #pragma unroll
     for (int j = 0; j < kSub; ++j) {
       float cur = acc[i][j];
@@ -99,9 +132,22 @@ fused_pe_kernel(const int8_t* __restrict__ x, const float* __restrict__ w,
       if (residual != nullptr) cur = __fadd_rn(cur, r[j]);
       const bool s = row_on && (c0 + j) < n_valid && cur >= v_th;
       count += s;
-      packed |= static_cast<uint64_t>(s) << (8 * j);
+      bytes |= static_cast<uint64_t>(s) << (8 * j);
+      bits |= static_cast<unsigned>(s) << j;
     }
-    *reinterpret_cast<uint64_t*>(spikes + static_cast<size_t>(row) * np + c0) = packed;
+    if (packed_out) {
+      // lanes 4g..4g+3 hold columns 32g'..32g'+31 of one row (tx = 4g'..),
+      // each 8 of them: shift each byte into place and OR the four
+      unsigned word = bits << (8 * (tx % 4));
+      word |= __shfl_xor_sync(0xffffffffu, word, 1);
+      word |= __shfl_xor_sync(0xffffffffu, word, 2);
+      if (tx % 4 == 0)
+        static_cast<int*>(spikes)[static_cast<size_t>(row) * words_per_row + c0 / 32] =
+            static_cast<int>(word);
+    } else {
+      *reinterpret_cast<uint64_t*>(static_cast<int8_t*>(spikes) +
+                                   static_cast<size_t>(row) * np + c0) = bytes;
+    }
   }
 
 #pragma unroll
@@ -116,20 +162,29 @@ fused_pe_kernel(const int8_t* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// x [mp, kp] int8, w [kp, np] f32, vld [mp/128, kp/128] int32; bias [np] f32,
-// residual [mp, np] f32 and q [mp, dq] int8 (dq a multiple of 128) may be
-// null. Writes spikes [mp, np] int8 and vld_next [mp/128, np/128] int32.
-extern "C" int repro_fused_pe(const int8_t* x, const float* w, const int* vld,
-                              const float* bias, const float* residual,
-                              const int8_t* q, int dq, int8_t* spikes,
+// x [mp, kp] int8 or [mp, kp/32] int32 words (flags & kPackedX), w [kp, np]
+// f32, vld [mp/128, kp/128] int32. May be null: bias [np] f32; residual
+// [mp, np] f32 or [mp, np/32] words (kPackedResidual); q [mp, dq] int8 (dq
+// a multiple of 128) or [mp, dq] words (kPackedQ, dq words per row). Writes
+// spikes [mp, np] int8 or [mp, np/32] words (kPackedOut) and vld_next
+// [mp/128, np/128] int32.
+extern "C" int repro_fused_pe(const void* x, const float* w, const int* vld,
+                              const float* bias, const void* residual,
+                              const void* q, int dq, void* spikes,
                               int* vld_next, int mp, int kp, int np,
                               int m_valid, int n_valid, float v_th,
-                              float qk_threshold, cudaStream_t stream) {
+                              float qk_threshold, int flags,
+                              cudaStream_t stream) {
   if (mp > 0 && np > 0) {
     const dim3 grid(np / kTile, mp / kTile);
-    fused_pe_kernel<<<grid, kThreads, 0, stream>>>(
-        x, w, vld, bias, residual, q, dq, spikes, vld_next, kp, np, m_valid,
-        n_valid, v_th, qk_threshold);
+    if (flags & kPackedX)
+      fused_pe_kernel<true><<<grid, kThreads, 0, stream>>>(
+          x, w, vld, bias, residual, q, dq, spikes, vld_next, kp, np,
+          m_valid, n_valid, v_th, qk_threshold, flags);
+    else
+      fused_pe_kernel<false><<<grid, kThreads, 0, stream>>>(
+          x, w, vld, bias, residual, q, dq, spikes, vld_next, kp, np,
+          m_valid, n_valid, v_th, qk_threshold, flags);
   }
   return static_cast<int>(cudaGetLastError());
 }

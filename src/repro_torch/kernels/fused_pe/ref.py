@@ -5,15 +5,18 @@ chain matmul -> (+bias, +residual) -> LIF -> QK mask -> block counts, on
 unpadded operands. ``fused_pe_block_ref`` is the plain version of the CUDA
 kernel itself, on the same block-aligned operands: it honours the input
 ``vld`` map (a silent block contributes nothing) and the ``m_valid`` /
-``n_valid`` margins exactly as the kernel does.
+``n_valid`` margins exactly as the kernel does. Its packed variants unpack
+their packed operands, run the dense plain version, and pack its spikes,
+so the dense plain version is the one definition of the function.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
-from ...core.events import block_count_map_2d, pad_to_blocks
+from ...core.events import (block_count_map_2d, pack_words, pad_to_blocks,
+                            unpack_words)
 from ..lif_update.ref import lif_update_ref
 from ..qk_attention.ref import qk_attention_ref
 from ..spike_matmul.ref import block_skip_mask, spike_matmul_ref
@@ -50,18 +53,40 @@ def fused_pe_ref(x: torch.Tensor, w: torch.Tensor, *,
     return spk, (None if stateless else v_next), vld_next
 
 
+class Packing(NamedTuple):
+    """Which spike operands of one launch are int32 words of 32 spikes
+    (the reference's packed_in / packed_q / packed_residual / packed_out)."""
+    x: bool = False
+    q: bool = False
+    residual: bool = False
+    out: bool = False
+
+    @property
+    def flags(self) -> int:
+        """The kernel's flags argument: one bit per operand, in order."""
+        return (int(self.x) | int(self.q) << 1 | int(self.residual) << 2
+                | int(self.out) << 3)
+
+
 def fused_pe_block_ref(xp: torch.Tensor, wp: torch.Tensor, vld: torch.Tensor,
                        bp: Optional[torch.Tensor], rp: Optional[torch.Tensor],
                        qp: Optional[torch.Tensor], m_valid: int, n_valid: int,
-                       v_th: float, qk_threshold: float
+                       v_th: float, qk_threshold: float,
+                       packing: Packing = Packing()
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernel's function on block-aligned operands (128x128 tiles):
     x [Mp, Kp] int8, w [Kp, Np] f32, vld [Mp/128, Kp/128], bias [Np],
-    residual [Mp, Np] f32, q [Mp, Dq] int8. Returns (spikes [Mp, Np] int8,
-    vld_next [Mp/128, Np/128] int32)."""
-    xs = xp * block_skip_mask(vld, xp.shape)
-    spk, _, _ = fused_pe_ref(xs, wp, bias=bp, residual=rp, q=qp, v_th=v_th,
+    residual [Mp, Np] f32, q [Mp, Dq] int8; each spike operand that
+    ``packing`` marks comes as its int32 words instead. Returns (spikes
+    [Mp, Np] int8, or [Mp, Np/32] words with ``packing.out``, and vld_next
+    [Mp/128, Np/128] int32)."""
+    x = unpack_words(xp) if packing.x else xp
+    r = unpack_words(rp, torch.float32) if packing.residual else rp
+    q = unpack_words(qp) if packing.q else qp
+    xs = x * block_skip_mask(vld, x.shape)
+    spk, _, _ = fused_pe_ref(xs, wp, bias=bp, residual=r, q=q, v_th=v_th,
                              qk_threshold=qk_threshold)
     spk[m_valid:, :] = 0
     spk[:, n_valid:] = 0
-    return spk, block_count_map_2d(spk, 128, 128)
+    vld_next = block_count_map_2d(spk, 128, 128)
+    return (pack_words(spk) if packing.out else spk), vld_next

@@ -3,6 +3,8 @@ from __future__ import annotations
 
 import torch
 
+from ...core.events import unpack_words
+
 
 def spike_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Dense f32 product of spikes and weights (twin of the reference's
@@ -18,8 +20,11 @@ def block_skip_mask(vld: torch.Tensor, shape: tuple) -> torch.Tensor:
 
 
 def spike_matmul_block_ref(xp: torch.Tensor, wp: torch.Tensor,
-                           vld: torch.Tensor) -> torch.Tensor:
-    """The kernel's function on block-aligned operands: x [Mp, Kp] int8,
+                           vld: torch.Tensor, packed_x: bool = False
+                           ) -> torch.Tensor:
+    """The kernel's function on block-aligned operands: x [Mp, Kp] int8
+    (or, with ``packed_x``, its [Mp, Kp/32] int32 words, unpacked here),
     w [Kp, Np] f32, vld [Mp/128, Kp/128]; blocks with a zero count
     contribute nothing. Returns out [Mp, Np] f32."""
-    return spike_matmul_ref(xp * block_skip_mask(vld, xp.shape), wp)
+    x = unpack_words(xp) if packed_x else xp
+    return spike_matmul_ref(x * block_skip_mask(vld, x.shape), wp)

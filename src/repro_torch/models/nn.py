@@ -101,6 +101,21 @@ def im2col(x: torch.Tensor, kh: int, kw: int, stride: int = 1,
     return torch.cat(cols, dim=-1)
 
 
+# ``im2col`` keeps each pixel's whole channel vector together per (i, j)
+# tap, so with the channel axis padded to whole blocks and bit-packed
+# (32 spikes per int32 word) patch extraction runs on the word tensor
+# unchanged: the words of im2col(packed) ARE the packing of im2col(dense),
+# and zero words are zero spikes, so SAME padding stays silent.
+def im2col_packed(words: torch.Tensor, kh: int, kw: int, stride: int = 1,
+                  padding: str = "SAME") -> torch.Tensor:
+    """Patch extraction on channel-packed spike words: [B, H, W, Cp/32]
+    int32 -> [B, Ho, Wo, kh*kw*Cp/32] int32, bit for bit the packed form of
+    ``im2col`` on the dense map."""
+    if words.dtype != torch.int32:
+        raise TypeError(f"im2col_packed takes int32 words, got {words.dtype}")
+    return im2col(words, kh, kw, stride, padding)
+
+
 def conv_weights_as_matmul_packed(w: torch.Tensor,
                                   c_padded: int) -> torch.Tensor:
     """[kh, kw, Cin, Cout] -> [kh*kw*c_padded, Cout], with zero rows for the
@@ -141,3 +156,24 @@ def max_pool(x: torch.Tensor, window: int = 2,
     stride = stride or window
     y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride)
     return y.permute(0, 2, 3, 1).contiguous()
+
+
+def max_pool_packed(words: torch.Tensor, window: int = 2,
+                    stride: Optional[int] = None) -> torch.Tensor:
+    """Max-pool of binary spike maps is the OR over each window, which on
+    packed words [B, H, W, Cp/32] is their bitwise OR (VALID padding): the
+    pooled map never exists dense. Torch has no OR reduction, so the
+    window's strided slices are OR-ed in turn."""
+    if words.dtype != torch.int32:
+        raise TypeError(f"max_pool_packed takes int32 words, got "
+                        f"{words.dtype}")
+    stride = stride or window
+    ho = (words.shape[1] - window) // stride + 1
+    wo = (words.shape[2] - window) // stride + 1
+    out = None
+    for i in range(window):
+        for j in range(window):
+            tap = words[:, i:i + (ho - 1) * stride + 1:stride,
+                        j:j + (wo - 1) * stride + 1:stride, :]
+            out = tap if out is None else out | tap
+    return out.contiguous()

@@ -10,9 +10,10 @@ Execution contract, as in the reference:
     produces the artifact ``forward`` deploys.
 
 ``forward`` walks the layer list once. Under ``"reference"`` it runs the
-plain PyTorch chain (conv, LIF, QK mask); under ``"fused_dense"`` every
-binary-activation layer is one fused PE pass on the hand-written kernels,
-with int8 spike maps and their ``vld_cnt`` maps between layers. The unfused
+plain PyTorch chain (conv, LIF, QK mask); under ``"fused_dense"`` and
+``"fused_packed"`` every binary-activation layer is one fused PE pass on
+the hand-written kernels, with int8 or bit-packed spike maps and their
+``vld_cnt`` maps between layers. The unfused
 training graph (``init``'s ``{"params", "state"}``) comes with the training
 slice (ROADMAP queue 1 item 4).
 """
@@ -49,7 +50,7 @@ class SNNCNNConfig:
     head: str = "w2ttfs"            # w2ttfs | avgpool
     qk_blocks: int = 1
     dtype: torch.dtype = torch.float32
-    # "reference" (the None default), "fused_dense"; "fused_packed" and the
+    # "reference" (the None default), "fused_dense", "fused_packed"; the
     # "+grad" policies parse but are still to port. The reference's
     # training-graph fields (qk_mask_mode, bn_fold) come with training.
     policy: Optional[Any] = None    # ExecutionPolicy | preset name | None
@@ -226,12 +227,18 @@ def forward(variables, images: torch.Tensor, cfg: SNNCNNConfig, *,
 
     ``images``: [B, H, W, C] analog input on the device the walk runs on
     (direct encoding, repeated across T). ``policy`` (or
-    ``cfg.exec_policy``) is ``"reference"`` or ``"fused_dense"``.
+    ``cfg.exec_policy``) is ``"reference"``, ``"fused_dense"`` or
+    ``"fused_packed"``. Under ``"fused_packed"`` the first LIF's spikes are
+    packed (``ops.pack``), every later spike map crosses device memory as
+    int32 words with its ``vld_cnt`` map, the identity shortcut stays
+    packed, and the head unpacks (``ops.unpack``).
 
     Returns (logits [B, classes], None, aux) as the reference does: ``aux``
     carries per-layer spike counts, spike rates, ``vld_reused``,
     ``total_spikes``, ``active_frac`` and, on the event path, the spike
-    bytes shipped between kernels (``spike_hbm_bytes``).
+    bytes shipped between kernels (``spike_hbm_bytes``; packed, also
+    ``spike_hbm_packed_bytes`` and the int8 ``spike_hbm_dense_bytes`` they
+    replace).
     """
     if isinstance(variables, dict) and "params" in variables:
         raise NotImplementedError(_TRAINING_TODO)
@@ -240,10 +247,6 @@ def forward(variables, images: torch.Tensor, cfg: SNNCNNConfig, *,
         raise NotImplementedError(
             f"policy {pol.name!r}: the differentiable graph comes with the "
             f"training slice (ROADMAP queue 1 item 4)")
-    if pol.packed:
-        raise NotImplementedError(
-            f"policy {pol.name!r}: packed spike tensors are still to port "
-            f"(ROADMAP queue 2, K1)")
     event = pol.fused
     layers = build_layers(cfg)
     t = cfg.timesteps
@@ -252,23 +255,33 @@ def forward(variables, images: torch.Tensor, cfg: SNNCNNConfig, *,
     aux: dict = {"spikes": {}, "rates": {}, "vld_reused": 0}
     if event:
         aux["spike_hbm_bytes"] = 0
+        if pol.packed:
+            aux["spike_hbm_packed_bytes"] = 0
+            aux["spike_hbm_dense_bytes"] = 0
     st: Optional[SpikeTensor] = None   # [T, B*H*W, C] once the net spikes
     spatial = None                     # (B, H, W, C)
     logits = None
 
     # ------------------------------------------------------ shared helpers
     def account(s_: SpikeTensor) -> SpikeTensor:
+        """Device-memory bytes of every spike map shipped between kernels,
+        in the format it shipped in."""
         if event:
             aux["spike_hbm_bytes"] += s_.hbm_bytes
+            if pol.packed:
+                aux["spike_hbm_packed_bytes"] += s_.hbm_bytes
+                aux["spike_hbm_dense_bytes"] += s_.dense_bytes
         return s_
 
     def to_tokens(spk5: torch.Tensor) -> tuple[SpikeTensor, tuple]:
-        """[T, B, H, W, C] spikes -> (token SpikeTensor, spatial)."""
+        """[T, B, H, W, C] spikes -> (token SpikeTensor, spatial); the
+        event path enters the policy's format here."""
         b, h, w_, c = spk5.shape[1:]
         flat = spk5.reshape(t, b * h * w_, c)
         if event:
-            return account(SpikeTensor.dense(flat.to(torch.int8))), \
-                (b, h, w_, c)
+            flat = flat.to(torch.int8)
+            s_ = ops.pack(flat) if pol.packed else SpikeTensor.dense(flat)
+            return account(s_), (b, h, w_, c)
         return SpikeTensor.dense(flat), (b, h, w_, c)
 
     def lif_chain(cur: torch.Tensor) -> torch.Tensor:
@@ -342,7 +355,9 @@ def forward(variables, images: torch.Tensor, cfg: SNNCNNConfig, *,
                 if "conv_sc" in fp:
                     res = conv_cur_event(fp["conv_sc"], st, spatial, stride)
                 else:
-                    res = st            # identity: binary spike shortcut
+                    # identity: the binary spike shortcut, in the
+                    # policy's format (a packed map stays packed)
+                    res = st
                 aux["spikes"][f"res{li}_s1"] = s1.count()
                 st, spatial = conv_lif(fp["conv2"], s1, sp1, 1, residual=res)
             else:

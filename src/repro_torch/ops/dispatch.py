@@ -1,11 +1,14 @@
 """Format-dispatching entry points (twin of ``repro.ops.dispatch``).
 
-Every op takes spike operands as ``SpikeTensor`` (raw tensors are wrapped)
-plus an ``ExecutionPolicy`` — preset name, instance, or None — and looks
-its implementation up in the ``(op, mode)`` registry. ``policy=None``
-means the fused kernels. The ``"auto"`` policies need the autotuner, which
-is not ported yet: the matmul-sweep ops raise on them, the others run them
-as ``"fused"``, as the reference does.
+Every op takes spike operands as ``SpikeTensor`` (raw tensors and
+``PackedSpikes`` are wrapped) plus an ``ExecutionPolicy`` — preset name,
+instance, or None — and looks its implementation up in the ``(op, mode)``
+registry. ``policy.format`` is the format of the emitted spike maps
+(operands are converted as needed), so a chain of ``ops.*`` calls keeps its
+format end to end. ``policy=None`` means the fused kernels, with the format
+of the first spike operand. The ``"auto"`` policies need the autotuner,
+which is not ported yet: the matmul-sweep ops raise on them, the others run
+them as ``"fused"``, as the reference does.
 """
 from __future__ import annotations
 
@@ -21,17 +24,21 @@ from .registry import lookup
 from .spike_tensor import SpikeTensor, Spikes
 
 
-def _policy_for(policy: PolicyLike) -> ExecutionPolicy:
-    """None -> the fused kernels (the port's spike tensors are all dense,
-    so there is no operand format to inherit)."""
-    return (as_policy(policy) if policy is not None
-            else ExecutionPolicy("fused", "dense"))
+def _policy_for(policy: PolicyLike, *sts: Optional[SpikeTensor]
+                ) -> ExecutionPolicy:
+    """None -> the fused kernels, the format inherited from the first
+    packed spike operand (dense when there is none)."""
+    if policy is not None:
+        return as_policy(policy)
+    packed = any(st is not None and st.is_packed for st in sts)
+    return ExecutionPolicy("fused", "packed" if packed else "dense")
 
 
-def _tuned(policy: PolicyLike) -> ExecutionPolicy:
+def _tuned(policy: PolicyLike, *sts: Optional[SpikeTensor]
+           ) -> ExecutionPolicy:
     """The matmul-sweep ops: an ``"auto"`` policy needs the roofline
     autotuner, which is not ported yet, so it raises."""
-    pol = _policy_for(policy)
+    pol = _policy_for(policy, *sts)
     if pol.auto:
         raise NotImplementedError(
             f"policy {pol.name!r} needs the roofline autotuner, which is not "
@@ -39,10 +46,11 @@ def _tuned(policy: PolicyLike) -> ExecutionPolicy:
     return pol
 
 
-def _non_tuned(policy: PolicyLike) -> ExecutionPolicy:
+def _non_tuned(policy: PolicyLike, *sts: Optional[SpikeTensor]
+               ) -> ExecutionPolicy:
     """Ops without a tuner cost model run ``"auto"`` as ``"fused"``, as in
     the reference."""
-    pol = _policy_for(policy)
+    pol = _policy_for(policy, *sts)
     return dataclasses.replace(pol, kernels="fused") if pol.auto else pol
 
 
@@ -60,10 +68,10 @@ def matmul(x: Spikes, w: torch.Tensor, *, policy: PolicyLike = None,
            block_k: int = DEFAULT_BLOCKS.k) -> torch.Tensor:
     """Event-driven spike matmul: [M, K] spikes @ [K, N] -> f32 current
     (the reference mode takes any leading dims). The fused mode skips
-    silent blocks on the operand's ``vld_cnt`` (computed here when the
-    SpikeTensor carries none)."""
+    silent blocks on the operand's ``vld_cnt`` (computed here when a dense
+    SpikeTensor carries none) and takes a packed operand as it is."""
     st = SpikeTensor.wrap(x)
-    pol = _tuned(policy)
+    pol = _tuned(policy, st)
     return lookup("matmul", pol.mode)(st, w, block_m=block_m,
                                       block_n=block_n, block_k=block_k,
                                       skip=skip)
@@ -92,13 +100,14 @@ def fused_pe_layer(x: Spikes, w: torch.Tensor, *,
                    block_k: int = DEFAULT_BLOCKS.k) -> FusedOut:
     """Fused layer over [T, M, K] spike trains: event-skipped matmul + bias
     / residual + LIF threshold + optional QK write-back mask, emitting the
-    next layer's ``vld_cnt`` on the fly. ``residual`` is a spike map or an
-    f32 membrane current. ``heads=(h, dh)`` (the head-blocked QK mask) is
-    still to port and raises in every mode."""
+    next layer's ``vld_cnt`` on the fly, in ``policy.format``.
+    ``residual`` is a spike map (dense or packed) or an f32 membrane
+    current. ``heads=(h, dh)`` (the head-blocked QK mask) is still to port
+    and raises in every mode."""
     st = SpikeTensor.wrap(x)
     res = SpikeTensor.wrap(residual) if residual is not None else None
     qs = SpikeTensor.wrap(q) if q is not None else None
-    pol = _tuned(policy)
+    pol = _tuned(policy, st)
     return lookup("fused_pe_layer", pol.mode)(
         st, w, bias=bias, residual=res, q=qs, qk_threshold=qk_threshold,
         lif_cfg=lif_cfg, fmt=pol.format, block_m=block_m, block_n=block_n,
@@ -112,7 +121,7 @@ def im2col(x: Spikes, spatial: tuple, kh: int, kw: int, stride: int, *,
     (``spatial`` = (B, H, W, C)). Returns (patches [t, B*Ho*Wo, kh*kw*C],
     (Ho, Wo))."""
     st = SpikeTensor.wrap(x)
-    pol = _non_tuned(policy)
+    pol = _non_tuned(policy, st)
     return lookup("im2col", pol.mode)(st, spatial, kh, kw, stride, t=t,
                                       fmt=pol.format)
 
@@ -122,7 +131,7 @@ def pool(x: Spikes, spatial: tuple, *, t: int = 1, window: int = 2,
     """Spatial max-pool of a binary spike map in token layout. Returns
     (pooled [t, B*H2*W2, C], (H2, W2))."""
     st = SpikeTensor.wrap(x)
-    pol = _non_tuned(policy)
+    pol = _non_tuned(policy, st)
     return lookup("pool", pol.mode)(st, spatial, t=t, window=window,
                                     fmt=pol.format)
 
@@ -145,18 +154,34 @@ def qk_mask(q: Spikes, k: Spikes, *, threshold: float = 1.0,
     gradient, which comes with the training slice."""
     qs = SpikeTensor.wrap(q)
     ks = SpikeTensor.wrap(k)
-    pol = _non_tuned(policy)
+    pol = _non_tuned(policy, ks)
     masked = lookup("qk_mask", pol.mode)(qs.to_dense(), ks.to_dense(),
                                          threshold)
-    return SpikeTensor.dense(masked)
+    out = SpikeTensor.dense(masked)
+    return pack(out, policy=pol) if pol.packed else out
+
+
+def pack(x: Spikes, *, policy: PolicyLike = None,
+         block_m: int = DEFAULT_BLOCKS.m,
+         block_k: int = DEFAULT_BLOCKS.k) -> SpikeTensor:
+    """Convert to the packed format (a packed operand is returned as it
+    is): words, ``vld_cnt`` and ``occ`` from one pass."""
+    st = SpikeTensor.wrap(x)
+    if st.is_packed:
+        return st
+    pol = _non_tuned(as_policy(policy, ExecutionPolicy("fused", "packed")))
+    return lookup("pack", pol.kernels)(st, block_m=block_m, block_k=block_k)
 
 
 def unpack(x: Spikes, *, dtype: torch.dtype = torch.int8,
            policy: PolicyLike = None) -> torch.Tensor:
-    """The dense spike map at the logical shape: a cast, since the port's
-    spike tensors are all dense (packed ones come with ROADMAP queue 2,
-    K1)."""
-    return SpikeTensor.wrap(x).data.to(dtype)
+    """The dense spike map at the logical shape (a cast for a dense
+    operand)."""
+    st = SpikeTensor.wrap(x)
+    if not st.is_packed:
+        return st.data.to(dtype)
+    pol = _non_tuned(as_policy(policy, ExecutionPolicy("fused", "packed")))
+    return lookup("unpack", pol.kernels)(st, dtype)
 
 
 def w2ttfs_head(spikes: torch.Tensor, fc_w: torch.Tensor,

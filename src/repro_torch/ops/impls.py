@@ -4,23 +4,36 @@
 Each op binds a ``"reference"`` implementation (plain PyTorch) and, where
 its kernel is ported, a ``"fused"`` one that goes through the kernel
 wrapper: on CUDA tensors that launches the hand-written kernel, on CPU
-tensors it runs the wrapper's plain version. A fused variant whose kernel
-is still to port (packed spikes, ``skip="gated"``/``"two_level"``,
-head-blocked masks, T>1 state) raises; it never runs the reference
-instead. Head-blocked masks raise in the reference mode too, until they
-are ported and held against the reference together.
+tensors it runs the wrapper's plain version. Implementations take wrapped
+``SpikeTensor`` operands, hand the kernels dense tensors or
+``PackedSpikes``, and wrap spike outputs back in the format ``fmt`` asks
+for, so neither the kernels nor the call sites fork on the format. A
+packed operand goes to the kernel's packed variant; it is never unpacked
+to run the dense kernel. A fused variant whose kernel is still to port
+(``skip="gated"``/``"two_level"``, head-blocked masks, T>1 state) raises;
+it never runs the reference instead. Head-blocked masks raise in the
+reference mode too, until they are ported and held against the reference
+together.
 """
 from __future__ import annotations
 
+import functools
+from typing import Optional
+
 import torch
 
-from ..core.events import DEFAULT_BLOCKS, block_count_map_2d, pad_to_blocks
+from ..core.events import (DEFAULT_BLOCKS, LANE_BITS, PackedSpikes,
+                           block_count_map_2d, pack_spikes_ref,
+                           packed_from_words, pad_to_blocks,
+                           unpack_spikes_ref)
 from ..core.lif import LIFConfig
 # the registry is where the kernel wrappers are bound, so it imports them
 # neurallint: disable=NL-REGISTRY-BYPASS
 from ..kernels.fused_pe import fused_pe, fused_pe_ref
 # neurallint: disable=NL-REGISTRY-BYPASS
 from ..kernels.lif_update import lif_update, lif_update_ref
+# neurallint: disable=NL-REGISTRY-BYPASS
+from ..kernels.packed import pack_spikes, unpack_spikes
 # neurallint: disable=NL-REGISTRY-BYPASS
 from ..kernels.qk_attention import qk_attention_ref
 # neurallint: disable=NL-REGISTRY-BYPASS
@@ -55,22 +68,37 @@ def _check_no_heads(heads) -> None:
             "K2 heads)")
 
 
+def _operand(st: Optional[SpikeTensor]):
+    """Kernel-level operand: PackedSpikes for packed, the raw payload (no
+    cast: a dense residual current stays f32) for dense."""
+    if st is None:
+        return None
+    return st.to_packed_spikes() if st.is_packed else st.data
+
+
+def _stack_packed(ps: PackedSpikes) -> PackedSpikes:
+    """A 2-D kernel output as the [1, M, N] of a one-step train."""
+    return PackedSpikes(ps.words[None], ps.vld_cnt[None], (1, *ps.shape),
+                        ps.block_m, ps.block_k)
+
+
 # =============================================================== spike_matmul
 @register("matmul", "fused")
 def _matmul_fused(st: SpikeTensor, w: torch.Tensor, *, block_m, block_n,
                   block_k, skip="dense"):
     _check_dense_skip(skip)
     _check_blocks(block_m, block_n, block_k)
-    if st.data.ndim != 2:
+    if len(st.shape) != 2:
         raise ValueError(f"the fused matmul takes a 2-D [M, K] operand, got "
                          f"{tuple(st.shape)}")
-    return spike_matmul(st.data, w, vld_cnt=st.vld_cnt)
+    return spike_matmul(_operand(st), w,
+                        vld_cnt=None if st.is_packed else st.vld_cnt)
 
 
 @register("matmul", "reference")
 def _matmul_ref(st: SpikeTensor, w: torch.Tensor, *, block_m, block_n,
                 block_k, skip="dense"):
-    return spike_matmul_ref(st.data, w)
+    return spike_matmul_ref(st.to_dense() if st.is_packed else st.data, w)
 
 
 # ================================================================= lif_update
@@ -102,13 +130,16 @@ def _fused_pe_layer_fused(st: SpikeTensor, w: torch.Tensor, *, bias,
             f"with_state)")
     _check_no_heads(heads)
     spikes, vld = fused_pe(
-        st.data[0], w, bias=bias,
-        residual=None if residual is None else residual.data[0],
-        q=None if q is None else q.data[0],
-        vld_cnt=None if st.vld_cnt is None else st.vld_cnt[0],
-        v_th=lif_cfg.v_th, qk_threshold=qk_threshold)
-    out = SpikeTensor.dense(spikes[None], vld[None], block_m=block_m,
-                            block_k=block_n)
+        _operand(st[0]), w, bias=bias,
+        residual=None if residual is None else _operand(residual[0]),
+        q=None if q is None else _operand(q[0]),
+        vld_cnt=None if st.is_packed or st.vld_cnt is None else st.vld_cnt[0],
+        v_th=lif_cfg.v_th, qk_threshold=qk_threshold, out_format=fmt)
+    if fmt == "packed":
+        out = SpikeTensor.from_packed(_stack_packed(spikes))
+    else:
+        out = SpikeTensor.dense(spikes[None], vld[None], block_m=block_m,
+                                block_k=block_n)
     return FusedOut(out, None, vld[None])
 
 
@@ -120,7 +151,7 @@ def _fused_pe_layer_reference(st: SpikeTensor, w: torch.Tensor, *, bias,
     # the head-blocked mask is ported with its kernel variant, reference
     # and fused together, so that both are held against the reference
     _check_no_heads(heads)
-    x = st.data
+    x = st.to_dense() if st.is_packed else st.data
     t, m, _ = x.shape
     n = w.shape[1]
     res = residual.to_dense(torch.float32) if residual is not None else None
@@ -153,10 +184,37 @@ def _fused_pe_layer_reference(st: SpikeTensor, w: torch.Tensor, *, bias,
                     pad_to_blocks(spk, block_m, block_n), block_m, block_n)
         spikes_ts.append(spk)
         vld_ts.append(vld)
+    spk3 = torch.stack(spikes_ts)
     vld3 = torch.stack(vld_ts)
-    out = SpikeTensor.dense(torch.stack(spikes_ts), vld3, block_m=block_m,
-                            block_k=block_n)
+    if fmt == "packed":
+        out = SpikeTensor.from_packed(
+            pack_spikes_ref(spk3, block_m=block_m, block_k=block_n))
+    else:
+        out = SpikeTensor.dense(spk3, vld3, block_m=block_m, block_k=block_n)
     return FusedOut(out, None, vld3)
+
+
+# ======================================================== packed (pack/unpack)
+@register("pack", "fused")
+def _pack_fused(st: SpikeTensor, *, block_m, block_k):
+    return SpikeTensor.from_packed(
+        pack_spikes(st.data, block_m=block_m, block_k=block_k))
+
+
+@register("pack", "reference")
+def _pack_ref(st: SpikeTensor, *, block_m, block_k):
+    return SpikeTensor.from_packed(
+        pack_spikes_ref(st.data, block_m=block_m, block_k=block_k))
+
+
+@register("unpack", "fused")
+def _unpack_fused(st: SpikeTensor, dtype):
+    return unpack_spikes(st.to_packed_spikes(), dtype=dtype)
+
+
+@register("unpack", "reference")
+def _unpack_ref(st: SpikeTensor, dtype):
+    return unpack_spikes_ref(st.to_packed_spikes(), dtype)
 
 
 # =============================================================== qk_attention
@@ -169,11 +227,39 @@ def _qk_mask_ref(q: torch.Tensor, k: torch.Tensor, threshold: float):
 
 
 # ============================================================ spatial reshapes
-# im2col / max-pool are data movement with no kernel of their own; the two
-# registrations differ only in the format conversion a packed operand would
-# need, which comes with the packed slice (ROADMAP queue 2, K1).
-def _im2col_impl(st: SpikeTensor, spatial: tuple, kh, kw, stride, *, t, fmt):
+# im2col / max-pool are data movement with no kernel of their own, but they
+# are format-dispatched: the packed branches work on the word tensor and
+# rebuild vld_cnt by popcount over the words. The two registrations differ
+# only in how a format conversion runs: the pack/unpack kernels for
+# "fused", their plain versions for "reference".
+def _spatial_words(st: SpikeTensor, spatial: tuple, t: int) -> torch.Tensor:
+    b, h, w_, _ = spatial
+    return st.data[:, :b * h * w_].reshape(t * b, h, w_, st.data.shape[-1])
+
+
+def _to_fmt(st: SpikeTensor, fmt: str, use_kernels: bool) -> SpikeTensor:
+    if fmt == "packed" and not st.is_packed:
+        pack = _pack_fused if use_kernels else _pack_ref
+        return pack(st, block_m=st.block_m, block_k=st.block_k)
+    if fmt == "dense" and st.is_packed:
+        unpack = _unpack_fused if use_kernels else _unpack_ref
+        return SpikeTensor.dense(unpack(st, torch.int8), block_m=st.block_m,
+                                 block_k=st.block_k)
+    return st
+
+
+def _im2col_impl(st: SpikeTensor, spatial: tuple, kh, kw, stride, *, t, fmt,
+                 use_kernels: bool = True):
+    st = _to_fmt(st, fmt, use_kernels)
     b, h, w_, c = spatial
+    if st.is_packed:
+        pat = nn.im2col_packed(_spatial_words(st, spatial, t), kh, kw,
+                               stride)
+        _, ho, wo, kww = pat.shape
+        ps = packed_from_words(pat.reshape(t, b * ho * wo, kww),
+                               (t, b * ho * wo, kww * LANE_BITS),
+                               block_m=st.block_m, block_k=st.block_k)
+        return SpikeTensor.from_packed(ps), (ho, wo)
     dense = st.data.reshape(t * b, h, w_, c).to(torch.int8)
     pat = nn.im2col(dense, kh, kw, stride)
     _, ho, wo, kdim = pat.shape
@@ -182,8 +268,17 @@ def _im2col_impl(st: SpikeTensor, spatial: tuple, kh, kw, stride, *, t, fmt):
             (ho, wo))
 
 
-def _pool_impl(st: SpikeTensor, spatial: tuple, *, t, window, fmt):
+def _pool_impl(st: SpikeTensor, spatial: tuple, *, t, window, fmt,
+               use_kernels: bool = True):
+    st = _to_fmt(st, fmt, use_kernels)
     b, h, w_, c = spatial
+    if st.is_packed:
+        pooled = nn.max_pool_packed(_spatial_words(st, spatial, t), window)
+        h2, w2 = pooled.shape[1], pooled.shape[2]
+        ps = packed_from_words(
+            pooled.reshape(t, b * h2 * w2, pooled.shape[3]),
+            (t, b * h2 * w2, c), block_m=st.block_m, block_k=st.block_k)
+        return SpikeTensor.from_packed(ps), (h2, w2)
     x = st.data.reshape(t * b, h, w_, c).to(torch.float32)
     pooled = nn.max_pool(x, window)
     h2, w2 = pooled.shape[1], pooled.shape[2]
@@ -192,9 +287,12 @@ def _pool_impl(st: SpikeTensor, spatial: tuple, *, t, window, fmt):
         block_m=st.block_m, block_k=st.block_k), (h2, w2))
 
 
-for _mode in ("fused", "reference"):
-    register("im2col", _mode)(_im2col_impl)
-    register("pool", _mode)(_pool_impl)
+register("im2col", "fused")(_im2col_impl)
+register("im2col", "reference")(functools.partial(_im2col_impl,
+                                                  use_kernels=False))
+register("pool", "fused")(_pool_impl)
+register("pool", "reference")(functools.partial(_pool_impl,
+                                                use_kernels=False))
 
 
 # =================================================================== w2ttfs

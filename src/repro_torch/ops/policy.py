@@ -4,8 +4,8 @@
   * ``"reference"``    — plain PyTorch paths, no hand-written kernels.
   * ``"fused_dense"``  — the fused event-driven kernels with int8 spike maps
                          between layers.
-  * ``"fused_packed"`` — the fused kernels and the bit-packed interchange
-                         (not ported yet: ROADMAP queue 2, K1).
+  * ``"fused_packed"`` — the fused kernels with bit-packed spike maps (32
+                         spikes per int32 word) between layers.
   * ``"auto"`` / ``"auto_packed"`` — autotuned (not ported yet: ROADMAP
                          queue 1 item 5).
 

@@ -15,8 +15,6 @@ _LOADED = False
 
 # ops whose fused kernel is still to port -> its ROADMAP queue 2 item
 _FUSED_TODO = {
-    "pack": "K1",
-    "unpack": "K1",
     "qk_mask": "K8",
     "attention": "K9",
     "dense_lif": "K2 (dense-activation and head-blocked variants)",

@@ -53,6 +53,7 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import repro_torch.models.snn_cnn, repro_torch.kernels._build\n"
         "import repro_torch.kernels.fused_pe, repro_torch.kernels.lif_update\n"
         "import repro_torch.kernels.spike_matmul\n"
+        "import repro_torch.kernels.packed\n"
         "import repro_torch.kernels.w2ttfs_pool\n"
         "repro_torch.ops.lookup('matmul', 'reference')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -117,6 +118,11 @@ def _spikes(t=1, m=8, k=8):
     return ops.SpikeTensor.dense(torch.ones((t, m, k), dtype=torch.int8))
 
 
+def _packed(t=1, m=8, k=8):
+    return ops.pack(torch.ones((t, m, k), dtype=torch.int8),
+                    policy="fused_packed")
+
+
 def _unported():
     w = torch.ones((8, 8))
     cfg = snn_cnn.SNNCNNConfig(arch="resnet11", width_mult=0.125,
@@ -142,15 +148,24 @@ def _unported():
         "fused_pe_layer dense activations": lambda: ops.fused_pe_layer(
             ops.SpikeTensor.dense(torch.ones((1, 8, 8))), w,
             policy="fused_dense"),
-        "packed spike tensor": lambda: ops.SpikeTensor(
-            torch.ones((8, 1), dtype=torch.int32), fmt="packed"),
+        "fused_pe_layer packed T=2": lambda: ops.fused_pe_layer(
+            _packed(t=2), w, policy="fused_packed"),
+        "fused_pe_layer packed heads": lambda: ops.fused_pe_layer(
+            _packed(), w, q=_packed(), heads=(2, 4), policy="fused_packed"),
+        "fused_pe_layer packed skip=gated": lambda: ops.fused_pe_layer(
+            _packed(), w, skip="gated", policy="fused_packed"),
+        "matmul packed skip=gated": lambda: ops.matmul(
+            _packed()[0], w, skip="gated", policy="fused_packed"),
+        "matmul packed skip=two_level": lambda: ops.matmul(
+            _packed()[0], w, skip="two_level", policy="fused_packed"),
         "matmul auto policy": lambda: ops.matmul(
             torch.ones((8, 8), dtype=torch.int8), w, policy="auto"),
         "matmul +grad policy": lambda: ops.matmul(
             torch.ones((8, 8), dtype=torch.int8), w,
             policy="fused_dense+grad"),
-        "forward fused_packed": lambda: snn_cnn.forward(
-            fused, img, cfg, policy="fused_packed"),
+        "forward fused_packed T=2": lambda: snn_cnn.forward(
+            fused, img, dataclasses.replace(cfg, timesteps=2),
+            policy="fused_packed"),
         "forward +grad": lambda: snn_cnn.forward(
             fused, img, cfg, policy="reference+grad"),
         "forward fused T=2": lambda: snn_cnn.forward(
@@ -174,10 +189,10 @@ def test_reference_twins_stay_registered():
     its kernel is ported."""
     table = ops.implementations()
     for op in ("matmul", "lif", "fused_pe_layer", "im2col", "pool",
-               "qk_mask", "w2ttfs_head"):
+               "qk_mask", "w2ttfs_head", "pack", "unpack"):
         assert (op, "reference") in table, op
     for op in ("matmul", "lif", "fused_pe_layer", "im2col", "pool",
-               "w2ttfs_head"):
+               "w2ttfs_head", "pack", "unpack"):
         assert (op, "fused") in table, op
     assert ("qk_mask", "fused") not in table
 

@@ -95,7 +95,8 @@ def assert_aux_equal(j_aux, t_aux):
         for name in j_aux[key]:
             assert as_float(t_aux[key][name]) == pytest.approx(
                 as_float(j_aux[key][name]), rel=1e-6, abs=0), (key, name)
-    for key in ("vld_reused", "spike_hbm_bytes"):
+    for key in ("vld_reused", "spike_hbm_bytes", "spike_hbm_packed_bytes",
+                "spike_hbm_dense_bytes"):
         if key in j_aux:
             assert int(t_aux[key]) == int(j_aux[key]), key
     for key in ("total_spikes", "active_frac"):
@@ -163,7 +164,8 @@ def test_init_layout_matches_jax():
 
 # ----------------------------------------------------------------- forward
 @pytest.mark.parametrize("arch,size", ARCHS)
-@pytest.mark.parametrize("policy", ["reference", "fused_dense"])
+@pytest.mark.parametrize("policy", ["reference", "fused_dense",
+                                    "fused_packed"])
 def test_forward_matches_jax(models, arch, size, policy):
     jcfg, tcfg, _, fused = models[arch]
     x = images(size)
@@ -195,6 +197,26 @@ def test_fused_dense_matches_jax_reference(models):
                                rtol=RTOL, atol=ATOL)
     for name in t_aux["rates"]:
         assert float(t_aux["spikes"][name]) == float(j_aux["spikes"][name])
+
+
+@pytest.mark.parametrize("arch,size", ARCHS)
+def test_fused_packed_equals_fused_dense(models, arch, size):
+    """The packed format changes the bytes, not the spikes: the port's
+    fused_packed logits and per-layer spike counts equal its fused_dense
+    ones exactly, and the packed spike maps ship about 1/8 of the int8
+    bytes."""
+    _, tcfg, _, fused = models[arch]
+    t_fused = convert.fused_from_jax(to_numpy(fused), device="cpu")
+    x = torch.tensor(images(size, seed=4))
+    d_logits, _, d_aux = tsnn.forward(t_fused, x, tcfg, policy="fused_dense")
+    p_logits, _, p_aux = tsnn.forward(t_fused, x, tcfg, policy="fused_packed")
+    assert torch.equal(p_logits, d_logits)
+    assert sorted(p_aux["spikes"]) == sorted(d_aux["spikes"])
+    for name in d_aux["spikes"]:
+        assert float(p_aux["spikes"][name]) == float(d_aux["spikes"][name])
+    assert p_aux["spike_hbm_bytes"] == p_aux["spike_hbm_packed_bytes"]
+    assert 7 * p_aux["spike_hbm_packed_bytes"] < \
+        p_aux["spike_hbm_dense_bytes"] < 9 * p_aux["spike_hbm_packed_bytes"]
 
 
 def test_reference_multi_timestep_matches_jax(models):
