@@ -5,8 +5,10 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
 
-1. setup   — the card's name and power limit; TF32 off for matmul and cuDNN.
-2. build   — nvcc builds the six kernels from ``src/repro_torch/csrc`` (one
+1. setup   — the card's name and power limit; TF32 off for matmul and cuDNN;
+             cuDNN deterministic (the stem conv's backward), so two kernel
+             paths with the same sums give the same gradient bits.
+2. build   — nvcc builds the nine kernels from ``src/repro_torch/csrc`` (one
              process per source, all started together); prints the build
              seconds and each kernel's registers, shared memory and spills.
 3. parity  — each kernel's launcher against its plain PyTorch version on
@@ -14,7 +16,12 @@ Phases, in order; any failure raises and the script exits non-zero:
              silent row blocks, at the main paths' shapes plus ragged ones:
              the int8 (``fused_dense``) operands, then the packed ones of
              ``fused_packed`` (pack and unpack bit-equal, round trip exact;
-             the packed fused PE and spike-matmul variants).
+             the packed fused PE and spike-matmul variants), then the
+             KD training's: the dx kernel with and without the membrane
+             current for all four surrogates, the dw kernel (bit-equal on a
+             second launch, silent tiles contributing exactly 0), the QK
+             mask kernel (bit-equal) and the fused PE's emitted current
+             (its spikes exactly its own current thresholded).
 4. end to end — QKFResNet-11 at full width (64/128/256/512 channels,
              QKFormer d=512, CIFAR-10 32x32x3 inputs), random weights from
              ``torch.Generator`` seed 0 with every BN beta = 0.5, folded by
@@ -25,11 +32,33 @@ Phases, in order; any failure raises and the script exits non-zero:
              after it. Then VGG-11 at full width, batch 64, under
              ``"fused_packed"`` against ``"reference"`` (parity only: it is
              the arch that reaches the packed max-pool).
-5. timing  — CUDA events: median forward time of each policy, the
+5. training — the paper's KD step (``train.trainer.make_kd_train_step``):
+             the same QKFResNet-11 unfused, the ANN ResNet-18 teacher at
+             full width in eval mode, SGD momentum 0.9, weight decay 5e-4,
+             ``cosine_lr(0.1, 10)``, ``KDConfig(alpha=0.7)``, batches of
+             ``SyntheticImageDataset(seed=0)``. Three steps from one initial
+             state under ``reference+grad``, ``fused_dense+grad`` and
+             ``fused_packed+grad`` on the BN-folded graph, and under
+             ``reference+grad`` and ``fused_dense+grad`` on the unfused one;
+             each step's launch counts are reset before it and read after
+             it. The packed path's losses and gradients must be bit-equal to
+             the dense path's. The first step of each kernel path is held
+             (spike totals 0.1 %, loss 1e-4, gradients a relative L2 error
+             of 1e-3 per leaf) on the folded graph against
+             ``reference+grad``, and on the unfused graph against the same
+             ``fused_dense+grad`` step with every kernel launcher swapped
+             for its plain version on the card: there train-mode BN carries
+             a one-ulp change of any conv current to every later layer, so
+             ``reference+grad``, whose cuDNN convs sum in another order,
+             is printed beside it for information only.
+6. timing  — CUDA events: median forward time of each policy, the
              profiler's device breakdown of both kernel paths, and each
              kernel's time at the operands its main path gave it, beside
-             its bound, its plain version and, for the matmul kernels, one
-             ``torch.matmul``.
+             its bound, its plain version and, where one PyTorch call does
+             the same product, that call; the median step time of each
+             training path with its forward/backward split and peak memory,
+             and the profiler's top kernels of one ``fused_dense+grad``
+             step.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Without a
@@ -38,6 +67,8 @@ and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import math
 import statistics
@@ -59,14 +90,27 @@ ITERS = 10               # timed forwards per policy
 V_TH = 1.0
 NEAR_VTH = 1e-4          # |plain current - v_th| below this may flip
 RTOL, ATOL = 1e-5, 1e-4  # f32 outputs: the sums run in another order
+DW_C = 3.0               # dw limit, in sqrt(n) u |x|ᵀ|g| (check_dw)
 VGG_BATCH = 64           # images in the VGG-11 packed parity forward
+TRAIN_BATCH = 256        # images in a training step
+TRAIN_STEPS = 3          # steps of each training path from one state
+TRAIN_ITERS = 5          # timed steps per training path
+# the KD training kernels, which an inference forward never launches
+NO_BACKWARD = {"spike_matmul_dx": 0, "spike_matmul_dw": 0, "qk_attention": 0}
 # launches per forward of each kernel path, every count read after a reset
 EXPECTED_LAUNCHES = {
     "fused_dense": {"lif_update": 1, "fused_pe": 13, "spike_matmul": 3,
-                    "w2ttfs_pool": 1, "pack_spikes": 0, "unpack_spikes": 0},
+                    "w2ttfs_pool": 1, "pack_spikes": 0, "unpack_spikes": 0,
+                    **NO_BACKWARD},
     "fused_packed": {"lif_update": 1, "fused_pe": 13, "spike_matmul": 3,
-                     "w2ttfs_pool": 1, "pack_spikes": 1, "unpack_spikes": 1},
+                     "w2ttfs_pool": 1, "pack_spikes": 1, "unpack_spikes": 1,
+                     **NO_BACKWARD},
 }
+# launches per step of the BN-folded training graph under the kernels
+FOLD_STEP_LAUNCHES = {"lif_update": 1, "fused_pe": 13, "spike_matmul": 3,
+                      "w2ttfs_pool": 1, "pack_spikes": 0, "unpack_spikes": 0,
+                      "spike_matmul_dx": 16, "spike_matmul_dw": 16,
+                      "qk_attention": 0}
 # row of the kernels line -> (kernel, path whose launches it reports,
 # source, the TPU kernel's pallas_call it replaces)
 ROWS = {
@@ -94,6 +138,18 @@ ROWS = {
                             "src/repro_torch/csrc/spike_matmul.cu",
                             "src/repro/kernels/spike_matmul/"
                             "spike_matmul.py:83"),
+    "fused_pe_emit": ("fused_pe", "train fold fused_dense+grad",
+                      "src/repro_torch/csrc/fused_pe.cu",
+                      "src/repro/kernels/fused_pe/fused_pe.py:362"),
+    "spike_matmul_dx": ("spike_matmul_dx", "train fold fused_dense+grad",
+                        "src/repro_torch/csrc/spike_matmul_dx.cu",
+                        "src/repro/kernels/spike_matmul/backward.py:106"),
+    "spike_matmul_dw": ("spike_matmul_dw", "train fold fused_dense+grad",
+                        "src/repro_torch/csrc/spike_matmul_dw.cu",
+                        "src/repro/kernels/spike_matmul/backward.py:162"),
+    "qk_attention": ("qk_attention", "train unfused fused_dense+grad",
+                     "src/repro_torch/csrc/qk_attention.cu",
+                     "src/repro/kernels/qk_attention/qk_attention.py:52"),
 }
 
 
@@ -120,12 +176,14 @@ def phase_setup(torch) -> str:
     say(f"[setup] nvidia-smi: {smi}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
     say(f"[setup] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     say(f"[setup] torch.backends.cuda.matmul.allow_tf32 = "
         f"{torch.backends.cuda.matmul.allow_tf32}")
     say(f"[setup] torch.backends.cudnn.allow_tf32 = "
-        f"{torch.backends.cudnn.allow_tf32}")
+        f"{torch.backends.cudnn.allow_tf32}; deterministic = "
+        f"{torch.backends.cudnn.deterministic}")
     return smi
 
 
@@ -168,9 +226,10 @@ def check_fused_pe(torch, K, args, parity: Parity, label: str) -> None:
     """Kernel vs plain version on one set of block-aligned operands (dense
     or packed; the row is ``fused_pe_packed`` when x is packed)."""
     xp, wp, vld, bp, rp, qp, m0, n0, v_th, _, packing = args
-    row = "fused_pe_packed" if packing.x else "fused_pe"
-    k_out, k_vld = K.fused_pe_cuda(*args)
-    p_out, p_vld = K.fused_pe_block_ref(*args)
+    row = ("fused_pe_emit" if packing.current else
+           "fused_pe_packed" if packing.x else "fused_pe")
+    k_out, k_vld, *k_cur = K.fused_pe_cuda(*args)
+    p_out, p_vld, *p_cur = K.fused_pe_block_ref(*args)
     if packing.out:
         k_spk, p_spk = K.unpack_words(k_out), K.unpack_words(p_out)
         inv = K.check_packed_invariants(K.PackedSpikes(k_out, k_vld,
@@ -196,7 +255,21 @@ def check_fused_pe(torch, K, args, parity: Parity, label: str) -> None:
             f"kernel's own spikes")
     require(not bool(k_spk[m0:].any()) and not bool(k_spk[:, n0:].any()),
             f"{row} {label}: padding fired")
-    parity.note(row, float(bad), int(near.sum()))
+    err = float(bad)
+    if packing.current:
+        (k_c,), (p_c,) = k_cur, p_cur
+        err = float((k_c - p_c).abs().max()) if k_c.numel() else 0.0
+        require(torch.allclose(k_c, p_c, rtol=RTOL, atol=ATOL),
+                f"{row} {label}: current max abs err {err}")
+        # the kernel's spikes are exactly its own current, thresholded
+        own = k_c >= v_th
+        if qp is not None:
+            qd = K.unpack_words(qp) if packing.q else qp
+            own &= (qd[:m0].to(torch.float32).sum(dim=1, keepdim=True)
+                    >= args[9])
+        require(torch.equal(k_spk[:m0, :n0], own.to(torch.int8)),
+                f"{row} {label}: spikes are not its current thresholded")
+    parity.note(row, err, int(near.sum()))
     say(f"[parity] {row} {label}: spikes equal away from v_th; "
         f"{int(near.sum())} positions within {NEAR_VTH} of v_th, {flips} of "
         f"them flipped; rate {float(k_spk[:m0, :n0].float().mean()):.4f}; "
@@ -270,9 +343,79 @@ def check_w2ttfs(torch, K, args, parity: Parity, label: str) -> None:
     say(f"[parity] w2ttfs_pool {label}: max abs err {err:.3e}")
 
 
+def check_dx(torch, K, args, parity: Parity, label: str) -> None:
+    g, w, v, surrogate, alpha, v_th = args
+    dx, dv = K.spike_matmul_dx_cuda(*args)
+    rdx, rdv = K.spike_matmul_dx_ref(g, w, v, surrogate=surrogate,
+                                     alpha=alpha, v_th=v_th)
+    err = float((dx - rdx).abs().max()) if dx.numel() else 0.0
+    err_v = float((dv - rdv).abs().max()) if dv.numel() else 0.0
+    require(torch.allclose(dx, rdx, rtol=RTOL, atol=ATOL),
+            f"spike_matmul_dx {label}: dx max abs err {err}")
+    require(torch.allclose(dv, rdv, rtol=RTOL, atol=ATOL),
+            f"spike_matmul_dx {label}: dv max abs err {err_v}")
+    parity.note("spike_matmul_dx", max(err, err_v))
+    say(f"[parity] spike_matmul_dx {label}: dx max abs err {err:.3e}, dv "
+        f"{err_v:.3e}")
+
+
+def check_dw(torch, K, args, parity: Parity, label: str) -> None:
+    """dw sums over M (up to 262144 rows), so RTOL/ATOL, set for sums of a
+    few thousand terms, do not describe it: each element is held instead
+    against the product in f64 to the statistical size of the rounding of
+    the kernel's own chain of f32 adds, |dw - exact| <= DW_C sqrt(n) u
+    (|x|ᵀ|g|), n the longest chain of adds into one output (a CTA's run of
+    rows plus the partials), u = 2^-24 (the products x*g are exact: x is
+    0 or 1). Sound launches read at most about a sixth of that limit, and
+    one dropped or doubled 128-row block of x exceeds it many times over.
+    Also: the same bits on a second launch; and the g rows of every
+    all-silent 128-row block of x never enter: NaN written there changes
+    no bit of dw. ``max_abs_err`` is against the f32 plain version."""
+    x, g, vld = args
+    dw = K.spike_matmul_dw_cuda(*args)
+    ref = K.spike_matmul_dw_ref(x, g, vld)
+    err = float((dw - ref).abs().max()) if dw.numel() else 0.0
+    splits, per = K.dw_splits(x.shape[0], x.shape[1], g.shape[1])
+    x64, g64 = x.to(torch.float64), g.to(torch.float64)
+    exact = x64.T @ g64
+    limit = DW_C * math.sqrt(per * 128 + splits) * 2.0 ** -24 * (
+        x64.abs().T @ g64.abs())
+    excess = (dw.to(torch.float64) - exact).abs() - limit
+    require(not bool((excess > 0).any()),
+            f"spike_matmul_dw {label}: {int((excess > 0).sum())} elements "
+            f"beyond its limit (max abs err vs plain {err})")
+    require(torch.equal(dw, K.spike_matmul_dw_cuda(*args)),
+            f"spike_matmul_dw {label}: a second launch gave other bits")
+    silent = (vld == 0).all(dim=1).repeat_interleave(128)[:x.shape[0]]
+    g_nan = g.clone()
+    g_nan[silent] = float("nan")
+    require(torch.equal(dw, K.spike_matmul_dw_cuda(x, g_nan, vld)),
+            f"spike_matmul_dw {label}: a silent tile contributed")
+    parity.note("spike_matmul_dw", err)
+    used = float(((dw.to(torch.float64) - exact).abs()
+                  / limit.clamp_min(1e-300)).max()) if dw.numel() else 0.0
+    say(f"[parity] spike_matmul_dw {label}: max abs err vs plain {err:.3e}; "
+        f"worst error {used:.3e} of its limit (n = "
+        f"{per * 128 + splits}); bit-equal across launches; silent x blocks "
+        f"{int((vld == 0).sum())}/{vld.numel()} contribute exactly 0")
+
+
+def check_qk(torch, K, args, parity: Parity, label: str) -> None:
+    q, k, threshold = args
+    out = K.qk_attention_cuda(*args)
+    bad = int((out != K.qk_attention_ref(q, k, threshold=threshold)).sum())
+    require(bad == 0, f"qk_attention {label}: {bad} elements differ")
+    parity.note("qk_attention", float(bad))
+    rows_on = float((q.to(torch.float32).sum(dim=1) >= threshold).float()
+                    .mean()) if q.shape[0] else 0.0
+    say(f"[parity] qk_attention {label}: bit-equal; rows kept {rows_on:.4f}")
+
+
 CHECKS = {"fused_pe": check_fused_pe, "spike_matmul": check_spike_matmul,
           "lif_update": check_lif, "w2ttfs_pool": check_w2ttfs,
-          "pack_spikes": check_pack, "unpack_spikes": check_unpack}
+          "pack_spikes": check_pack, "unpack_spikes": check_unpack,
+          "spike_matmul_dx": check_dx, "spike_matmul_dw": check_dw,
+          "qk_attention": check_qk}
 
 # (label, M, K, N, residual, q mask) of every fused PE pass on the int8 main
 # path (batch 256), plus a ragged one
@@ -351,6 +494,59 @@ def parity_fused_pe(torch, K, gen, dev, parity, shapes, packed: bool
                            f"{label} [{m}x{k}x{n}] density {p}")
 
 
+# KD training's backward launches at the BN-folded graph's shapes
+# (batch 256): dx and dw of the 13 fused PE passes and the 3 shortcut
+# matmuls (M, K, N), and the QK mask of the unfused graph (rows, D)
+DX_SHAPES = ([(label, m, k, n) for label, m, k, n, _, _ in FUSED_PE_SHAPES]
+             + SPIKE_MATMUL_SHAPES)
+QK_SHAPES = [("qkf", 4096, 512), ("ragged", 900, 200)]
+SURROGATES = ("atan", "sigmoid", "triangle", "rect")
+
+
+def parity_training(torch, K, gen, dev, parity: Parity) -> None:
+    for label, m, k, n in DX_SHAPES:
+        g = torch.randn((m, n), generator=gen, device=dev)
+        w = torch.randn((k, n), generator=gen, device=dev) \
+            * (2.0 / math.sqrt(k))
+        v = 1.0 + 0.5 * torch.randn((m, n), generator=gen, device=dev)
+        for surrogate in SURROGATES:
+            check_dx(torch, K, (g, w, v, surrogate, 2.0, V_TH), parity,
+                     f"{label} [{m}x{n}] @ [{k}x{n}]^T {surrogate}")
+        check_dx(torch, K, (g, w, None, "atan", 2.0, V_TH), parity,
+                 f"{label} [{m}x{n}] @ [{k}x{n}]^T without v")
+        for p in DENSITIES:
+            x = rand_spikes(torch, gen, m, k, p, dev)
+            check_dw(torch, K, (x, g, K.vld_map(x)), parity,
+                     f"{label} [{m}x{k}]^T @ [{m}x{n}] density {p}")
+    for label, rows, d in QK_SHAPES:
+        for p in DENSITIES:
+            q = rand_spikes(torch, gen, rows, d, p, dev)
+            k = rand_spikes(torch, gen, rows, d, 0.3, dev)
+            for dtype in (torch.float32, torch.int8):
+                for threshold in (1.0, 0.1 * d):
+                    check_qk(torch, K, (q.to(dtype), k.to(dtype), threshold),
+                             parity, f"{label} [{rows}x{d}] {dtype} q "
+                             f"density {p} threshold {threshold}")
+    for label, m, k, n, res, with_q in FUSED_PE_SHAPES:
+        for p in DENSITIES:
+            x = rand_spikes(torch, gen, m, k, p, dev)
+            w = torch.randn((k, n), generator=gen, device=dev) \
+                * (2.0 / math.sqrt(k))
+            b = 0.6 + 0.4 * torch.randn((n,), generator=gen, device=dev)
+            r = (0.5 * torch.randn((m, n), generator=gen, device=dev)
+                 if res is not None else None)
+            q = (rand_spikes(torch, gen, m, n, 0.002, dev) if with_q
+                 else None)
+            for out_format in ("dense", "packed"):
+                args = K.fused_pe_operands(
+                    x, w, bias=b, residual=r, q=q, v_th=V_TH,
+                    qk_threshold=1.0, out_format=out_format,
+                    emit_current=True)
+                check_fused_pe(torch, K, args, parity,
+                               f"{label} [{m}x{k}x{n}] density {p} "
+                               f"{out_format} out")
+
+
 def phase_parity(torch, K, dev) -> Parity:
     parity = Parity()
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -395,12 +591,14 @@ def phase_parity(torch, K, dev) -> Parity:
             fc_b = torch.randn((classes,), generator=gen, device=dev)
             check_w2ttfs(torch, K, (spikes, fc_w, fc_b, window), parity,
                          f"[{b},{h},{h},{c}] window {window} density {p}")
+    parity_training(torch, K, gen, dev, parity)
     torch.cuda.synchronize()
     return parity
 
 
 # ------------------------------------------------------------------ phase 4
-def build_model(torch, snn_cnn, dev, arch: str = "qkfresnet11"):
+def init_model(torch, snn_cnn, dev, arch: str = "qkfresnet11"):
+    """The full-width config and its training variables, seed 0."""
     cfg = snn_cnn.SNNCNNConfig(arch=arch, width_mult=1.0, image_size=32,
                                in_channels=3, num_classes=10)
     gen = torch.Generator(device="cpu").manual_seed(0)
@@ -411,6 +609,11 @@ def build_model(torch, snn_cnn, dev, arch: str = "qkfresnet11"):
         for key, sub in p.items():
             if key.startswith("bn"):
                 sub["bias"].fill_(0.5)
+    return cfg, variables
+
+
+def build_model(torch, snn_cnn, dev, arch: str = "qkfresnet11"):
+    cfg, variables = init_model(torch, snn_cnn, dev, arch)
     return cfg, snn_cnn.fuse_model(variables, cfg)
 
 
@@ -525,6 +728,314 @@ def phase_vgg(torch, snn_cnn, build_mod, dev, batch: int) -> None:
 
 
 # ------------------------------------------------------------------ phase 5
+TRAIN_PATHS = [("fold", "reference+grad"), ("fold", "fused_dense+grad"),
+               ("fold", "fused_packed+grad"), ("unfused", "reference+grad"),
+               ("unfused", "fused_dense+grad")]
+
+
+def unfused_step_launches(cfg, snn_cnn) -> dict:
+    """Kernel launches of one fused_dense+grad step on the unfused graph,
+    from the layer list: every conv after the stem and every QKFormer
+    linear is one spike matmul forward with one dx and one dw backward;
+    every LIF (the stem's, two a resblock, five a QKFormer block) one
+    lif_update; one QK mask a QKFormer block; one W2TTFS head."""
+    lif = matmul = qk = 0
+    for layer in snn_cnn.build_layers(cfg):
+        kind = layer[0]
+        if kind == "conv_bn_lif":
+            lif += 1
+            matmul += 0 if lif == 1 else 1          # the stem is a cuDNN conv
+        elif kind == "resblock":
+            _, cin, cout, stride = layer
+            lif += 2
+            matmul += 2 + int(stride != 1 or cin != cout)
+        elif kind == "qkformer":
+            lif += 5
+            matmul += 5
+            qk += 1
+    return {"lif_update": lif, "fused_pe": 0, "spike_matmul": matmul,
+            "w2ttfs_pool": 1, "pack_spikes": 0, "unpack_spikes": 0,
+            "spike_matmul_dx": matmul, "spike_matmul_dw": matmul,
+            "qk_attention": qk}
+
+
+def expected_step_launches(graph: str, policy: str, cfg, snn_cnn) -> dict:
+    if policy.startswith("reference"):
+        return dict.fromkeys(FOLD_STEP_LAUNCHES, 0)
+    if graph == "unfused":
+        return unfused_step_launches(cfg, snn_cnn)
+    out = dict(FOLD_STEP_LAUNCHES)
+    if policy.startswith("fused_packed"):
+        out["unpack_spikes"] = 13       # each packed fused PE output
+    return out
+
+
+@contextlib.contextmanager
+def plain_launchers():
+    """Swap every kernel launcher of the unfused training step for its
+    plain PyTorch version, and stop the wrappers counting: inside, the
+    step runs the same wrappers, operands and autograd on the card with
+    no hand-written kernel."""
+    from repro_torch.kernels import _build
+    import repro_torch.kernels.lif_update.ops as lif_ops
+    import repro_torch.kernels.qk_attention.ops as qk_ops
+    import repro_torch.kernels.spike_matmul.backward as bwd_ops
+    import repro_torch.kernels.spike_matmul.ops as mm_ops
+    import repro_torch.kernels.w2ttfs_pool.ops as head_ops
+
+    def dx(g, w, v, surrogate, alpha, v_th):
+        return bwd_ops.spike_matmul_dx_ref(g, w, v, surrogate=surrogate,
+                                           alpha=alpha, v_th=v_th)
+
+    swaps = [(mm_ops, "spike_matmul_cuda", mm_ops.spike_matmul_block_ref),
+             (bwd_ops, "spike_matmul_dx_cuda", dx),
+             (bwd_ops, "spike_matmul_dw_cuda", bwd_ops.spike_matmul_dw_ref),
+             (lif_ops, "lif_update_cuda", lif_ops.lif_update_ref),
+             (qk_ops, "qk_attention_cuda",
+              lambda q, k, threshold: qk_ops.qk_attention_ref(
+                  q, k, threshold=threshold)),
+             (head_ops, "w2ttfs_pool_cuda", head_ops.w2ttfs_pool_fc_ref),
+             (_build, "count_launch", lambda *args: None)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    try:
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+class TrainPath:
+    """One training path: the KD step through ``make_kd_train_step`` and
+    the gradient of its first step through ``make_kd_grad_fn`` (the same
+    loss and autograd, from the same initial state)."""
+
+    def __init__(self, torch, M, cfg, variables, tcfg, tvar, graph, policy,
+                 suffix: str = ""):
+        self.torch, self.M = torch, M
+        self.graph, self.policy = graph, policy
+        self.cfg = dataclasses.replace(cfg, bn_fold=graph == "fold")
+        self.variables, self.tcfg, self.tvar = variables, tcfg, tvar
+        self.aux = None
+
+        def student(p, s, x, policy=None):
+            out = M.snn_cnn.forward({"params": p, "state": s}, x, self.cfg,
+                                    train=True, policy=policy)
+            self.aux = out[2]
+            return out
+
+        def teacher(tp, x):
+            return M.ann_cnn.apply(tp, x, tcfg)[0]
+
+        self.student, self.teacher = student, teacher
+        kd = M.KDConfig(alpha=0.7)
+        self.step = M.trainer.make_kd_train_step(
+            student, teacher, tvar, kd=kd, schedule=M.cosine_lr(0.1, 10),
+            optimizer="sgd", momentum=0.9, weight_decay=5e-4, policy=policy)
+        self.grad_fn = M.trainer.make_kd_grad_fn(student, teacher, tvar,
+                                                 kd=kd, policy=policy)
+        self.name = f"train {graph} {policy}{suffix}"
+
+    def run(self, batches, build_mod) -> None:
+        torch, M = self.torch, self.M
+        v = self.variables
+        self.batch0 = batches[0]
+        _, _, _, grads = self.grad_fn(v["params"], v["state"], batches[0])
+        self.grads = M.tree_leaves(grads)
+        self.spikes = {k: float(val) for k, val in self.aux["spikes"].items()}
+        carry = (v["params"], M.sgd_init(v["params"]), v["state"])
+        self.losses, self.launches, self.peak = [], [], []
+        self.captured = []
+        for i, batch in enumerate(batches):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            build_mod.reset_launches()
+            with build_mod.capture_launches() as captured:
+                carry, metrics = self.step(carry, batch)
+                torch.cuda.synchronize()
+            self.launches.append(dict(build_mod.LAUNCHES))
+            self.peak.append(torch.cuda.max_memory_allocated())
+            if i == 0:
+                self.captured = captured
+            self.losses.append(float(metrics["loss"]))
+            spikes = " ".join(f"{k}={float(val):.0f}"
+                              for k, val in self.aux["spikes"].items())
+            say(f"[train] {self.name} step {i}: loss {float(metrics['loss']):.6f} "
+                f"ce {float(metrics['ce']):.6f} kl {float(metrics['kl']):.6f} "
+                f"lr {float(metrics['lr']):.6f}; spikes {spikes}")
+            say(f"[train] {self.name} step {i}: launches {self.launches[-1]}; "
+                f"peak memory {self.peak[-1] / 2**30:.3f} GiB")
+        self.carry = carry
+
+
+def phase_training(torch, M, build_mod, dev, batch: int):
+    cfg, variables = init_model(torch, M.snn_cnn, dev)
+    tcfg = M.ann_cnn.ANNCNNConfig(arch="resnet18", width_mult=1.0)
+    tvar = M.ann_cnn.init(torch.Generator(device="cpu").manual_seed(1), tcfg,
+                          device=dev)
+    ds = M.SyntheticImageDataset(num_classes=10, image_size=32, seed=0)
+    batches = []
+    for i in range(TRAIN_STEPS):
+        imgs, labels = ds.batch(i, batch)
+        batches.append({"images": torch.tensor(imgs, device=dev),
+                        "labels": torch.tensor(labels, device=dev)})
+    say(f"[train] QKFResNet-11 width 1.0 student "
+        f"({sum(p.numel() for p in M.tree_leaves(variables['params']))} "
+        f"parameters), ANN ResNet-18 width 1.0 teacher in eval mode, batch "
+        f"{batch}, {TRAIN_STEPS} steps from one state per path")
+    paths = {}
+    for graph, policy in TRAIN_PATHS:
+        path = TrainPath(torch, M, cfg, variables, tcfg, tvar, graph, policy)
+        path.run(batches, build_mod)
+        want = expected_step_launches(graph, policy, path.cfg, M.snn_cnn)
+        for i, got in enumerate(path.launches):
+            require(got == want, f"{path.name} step {i}: launches {got} != "
+                                 f"{want}")
+        for loss in path.losses:
+            require(math.isfinite(loss), f"{path.name}: loss {loss}")
+        paths[graph, policy] = path
+    ref = paths["fold", "reference+grad"]
+    for policy in ("fused_dense+grad", "fused_packed+grad"):
+        compare_training(paths["fold", policy], ref)
+    # the unfused graph: the same step on the plain versions (train-mode BN
+    # renormalises every conv, so a current one ulp off spreads to every
+    # later layer; reference+grad's cuDNN convs sum in another order)
+    plain = TrainPath(torch, M, cfg, variables, tcfg, tvar, "unfused",
+                      "fused_dense+grad", suffix=" (plain versions)")
+    with plain_launchers():
+        plain.run(batches[:1], build_mod)
+    kernels = paths["unfused", "fused_dense+grad"]
+    compare_training(kernels, plain)
+    for path in (kernels, plain):
+        rel_loss, errs, worst_spikes = training_distance(
+            path, paths["unfused", "reference+grad"])
+        say(f"[train] for information, {path.name} vs reference+grad step "
+            f"1: loss rel diff {rel_loss:.3e}; gradient leaves past 1e-3: "
+            f"{sum(e > 1e-3 for e in errs)} of {len(errs)}; worst spike "
+            f"total rel diff {worst_spikes:.3e}")
+    dense = paths["fold", "fused_dense+grad"]
+    packed = paths["fold", "fused_packed+grad"]
+    require(packed.losses == dense.losses,
+            f"fused_packed+grad losses {packed.losses} != fused_dense+grad's "
+            f"{dense.losses}")
+    unequal = sum(not torch.equal(a, b)
+                  for a, b in zip(packed.grads, dense.grads))
+    require(unequal == 0, f"fused_packed+grad: {unequal} gradient leaves "
+                          f"differ from fused_dense+grad's")
+    say(f"[train] fused_packed+grad losses and step-1 gradients bit-equal to "
+        f"fused_dense+grad's ({len(dense.grads)} leaves)")
+    return paths
+
+
+def training_distance(path, ref) -> tuple[float, list, float]:
+    """Step 1 of ``path`` against ``ref``: (loss relative difference, each
+    gradient leaf's relative L2 error, the worst spike total's relative
+    difference); prints the three worst leaves."""
+    rel_loss = abs(path.losses[0] - ref.losses[0]) / abs(ref.losses[0])
+    errs = [float((a - b).norm()) / max(float(b.norm()), 1e-30)
+            for a, b in zip(path.grads, ref.grads)]
+    worst_spikes = max(abs(path.spikes[k] - b) / max(b, 1.0)
+                       for k, b in ref.spikes.items())
+    top = sorted(range(len(errs)), key=lambda i: -errs[i])[:3]
+    say(f"[train] {path.name} vs {ref.name} step 1: worst gradient leaves "
+        + ", ".join(f"#{i} {tuple(path.grads[i].shape)} {errs[i]:.3e}"
+                    for i in top))
+    return rel_loss, errs, worst_spikes
+
+
+def compare_training(path, ref) -> None:
+    """Step 1 of a kernel path against ``ref``: spike totals within 0.1 %,
+    the loss within 1e-4 relative, each gradient leaf within a relative L2
+    error of 1e-3."""
+    rel_loss, errs, worst_spikes = training_distance(path, ref)
+    worst = max(range(len(errs)), key=lambda i: errs[i])
+    say(f"[train] {path.name} vs {ref.name} step 1: loss rel diff "
+        f"{rel_loss:.3e} (gate 1e-4); worst gradient leaf #{worst} "
+        f"{tuple(path.grads[worst].shape)}: relative L2 error "
+        f"{errs[worst]:.3e} (gate 1e-3); worst spike total rel diff "
+        f"{worst_spikes:.3e} (gate 1e-3)")
+    require(worst_spikes <= 1e-3, f"{path.name}: step-1 spike totals differ "
+                                  f"by {worst_spikes}")
+    require(rel_loss <= 1e-4, f"{path.name}: step-1 loss {path.losses[0]} "
+                              f"vs {ref.losses[0]}")
+    require(errs[worst] <= 1e-3, f"{path.name}: gradient leaf #{worst} "
+                                 f"relative L2 error {errs[worst]} past 1e-3")
+
+
+def time_training(torch, M, paths, batch: int, iters: int) -> None:
+    """Median step time of each training path (host clock around a
+    synchronised step), its forward (the student alone, no autograd) and
+    the rest (backward and update), images/s and peak memory; then the
+    profiler's device breakdown of one fused_dense+grad step on the folded
+    graph."""
+    medians = {}
+    for (graph, policy), path in paths.items():
+        carry, data = path.carry, path.batch0
+        step_ms, fwd_ms = [], []
+        for i in range(iters + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            carry, _ = path.step(carry, data)
+            torch.cuda.synchronize()
+            if i:
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+        pol = M.as_policy(policy).for_training()
+        with torch.no_grad():
+            for i in range(iters + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                path.student(carry[0], carry[2], data["images"], policy=pol)
+                torch.cuda.synchronize()
+                if i:
+                    fwd_ms.append((time.perf_counter() - t0) * 1e3)
+        med, fwd = statistics.median(step_ms), statistics.median(fwd_ms)
+        medians[graph, policy] = med
+        say(f"[timing] train {graph} {policy}: step median {med:.3f} ms over "
+            f"{iters} (min {min(step_ms):.3f}, max {max(step_ms):.3f}); "
+            f"{batch / med * 1e3:.1f} images/s; forward {fwd:.3f} ms, "
+            f"backward and update {max(med - fwd, 0.0):.3f} ms; peak memory "
+            f"{max(path.peak) / 2**30:.3f} GiB")
+    path = paths["fold", "fused_dense+grad"]
+    profile_step(torch, path, medians["fold", "fused_dense+grad"])
+
+
+def profile_step(torch, path, step_ms: float, reps: int = 2) -> None:
+    """``torch.profiler`` self device time by kernel over ``reps`` steps,
+    and the device's idle share of the step's median time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    carry, data = path.carry, path.batch0
+    carry, _ = path.step(carry, data)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            carry, _ = path.step(carry, data)
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            rows.append((dev_us / 1e3 / reps, ev.count // reps, ev.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    if busy == 0:
+        say(f"[profile] the profiler reported no device time: {path.name} "
+            f"device breakdown not measured")
+        return
+    say(f"[profile] {path.name}: device busy {busy:.3f} ms per step of "
+        f"median {step_ms:.3f} ms: idle share "
+        f"{max(0.0, 1 - busy / step_ms):.3f}")
+    for ms, count, key in rows[:20]:
+        say(f"[profile]   {path.name} {ms:8.4f} ms  x{count:<4d} {key[:100]}")
+
+
 def time_cuda(torch, fn, reps: int, warmup: int = 2) -> float:
     """Mean ms per call over ``reps`` back-to-back calls, after warm-up."""
     for _ in range(warmup):
@@ -591,6 +1102,37 @@ def bound(torch, K, name: str, args, inputs) -> tuple[float, float, float]:
         (ps,) = inputs
         n = float(math.prod(ps.shape))
         return n / 8.0 + n, n, n
+    if name == "spike_matmul_dx":
+        g, w, v = args[:3]
+        (m, n), k = g.shape, w.shape[0]
+        # g (and v) read, w read, dx (and dv) written; the product is
+        # dense in g: 2 * M * N * K operations (the surrogate adds a few an
+        # element of g); the kernel computes over its 128x128 tiles of dx
+        nbytes = 4.0 * (m * n + k * n + m * k) + (8.0 * m * n if v is not None
+                                                  else 0.0)
+        ops = 2.0 * m * n * k + (6.0 * m * n if v is not None else 0.0)
+        tiles = -(-m // 128) * 128 * -(-k // 128) * 128
+        return nbytes, ops, 2.0 * tiles * n + ops - 2.0 * m * n * k
+    if name == "spike_matmul_dw":
+        x, g, vld = args
+        (m, k), n = x.shape, g.shape[1]
+        active = (vld > 0).to(torch.float64).cpu()
+        rows = valid_extent(torch, m, active.shape[0])
+        cols = valid_extent(torch, k, active.shape[1])
+        # the x blocks the skip keeps (one byte a spike position), the g
+        # rows some kept block needs, dw written; 2 * nnz(x) * N operations
+        x_bytes = float((active * rows[:, None] * cols[None, :]).sum())
+        g_rows = float((rows * (active.sum(dim=1) > 0)).sum())
+        nbytes = x_bytes + 4.0 * g_rows * n + 4.0 * k * n + 4.0 * vld.numel()
+        nnz = int((x != 0).sum())
+        block_ops = 2.0 * float(active.sum()) * 128 * 128 * (-(-n // 128) * 128)
+        return nbytes, 2.0 * nnz * n, block_ops
+    if name == "qk_attention":
+        q, k, _ = args
+        n = float(q.numel())
+        # q and k read, the masked k written; an add per q element and a
+        # multiply per output element
+        return 3.0 * n * q.element_size(), 2.0 * n, 2.0 * n
     xp, wp, vld = args[:3]
     x, w = inputs[:2]
     packed_x = isinstance(x, K.PackedSpikes)
@@ -621,6 +1163,8 @@ def bound(torch, K, name: str, args, inputs) -> tuple[float, float, float]:
                    else spike_bytes(K, residual))
     if q is not None:
         nbytes += spike_bytes(K, q)
+    if packing.current:                            # the f32 current out
+        nbytes += 4.0 * m0 * n0
     epilogue = 3.0 * m0 * n0
     return nbytes, 2.0 * nnz * n0 + epilogue, block_ops + epilogue
 
@@ -662,12 +1206,23 @@ def phase_profile(torch, snn_cnn, cfg, fused, images, policy: str,
         say(f"[profile]   {policy} {ms:8.4f} ms  x{count:<4d} {key[:100]}")
 
 
-def library_call(torch, K, name: str, inputs):
+def library_call(torch, K, name: str, args, inputs):
     """One PyTorch call computing the launch's product on the same data,
     or None: torch.matmul of the caller's x (int8 cast to f32, a packed x
-    unpacked to its logical f32 map) by w. No single call packs or
-    unpacks."""
-    if name not in ("fused_pe", "spike_matmul"):
+    unpacked to its logical f32 map) by w; for dx, dv @ wᵀ (dv as the
+    plain version forms it); for dw, xᵀ @ g with x cast to f32. No single
+    call packs or unpacks, masks QK rows, or emits a fused PE's current."""
+    if name == "spike_matmul_dx":
+        g, w, v, surrogate, alpha, v_th = args
+        _, dv = K.spike_matmul_dx_ref(g, w, v, surrogate=surrogate,
+                                      alpha=alpha, v_th=v_th)
+        return lambda: torch.matmul(dv, w.T)
+    if name == "spike_matmul_dw":
+        x, g, _ = args
+        xf = x.to(torch.float32)
+        return lambda: torch.matmul(xf.T, g)
+    if name not in ("fused_pe", "spike_matmul") or (
+            name == "fused_pe" and args[-1].current):
         return None
     x, w = inputs[:2]
     xf = (K.unpack_spikes_ref(x, torch.float32)
@@ -701,13 +1256,22 @@ def phase_timing(torch, K, snn_cnn, cfg, fused, images, paths,
                  "spike_matmul": K.spike_matmul_cuda,
                  "w2ttfs_pool": K.w2ttfs_pool_cuda,
                  "pack_spikes": K.pack_spikes_cuda,
-                 "unpack_spikes": K.unpack_spikes_cuda}
+                 "unpack_spikes": K.unpack_spikes_cuda,
+                 "spike_matmul_dx": K.spike_matmul_dx_cuda,
+                 "spike_matmul_dw": K.spike_matmul_dw_cuda,
+                 "qk_attention": K.qk_attention_cuda}
     plain_fn = {"lif_update": K.lif_update_ref,
                 "fused_pe": K.fused_pe_block_ref,
                 "spike_matmul": K.spike_matmul_block_ref,
                 "w2ttfs_pool": K.w2ttfs_pool_fc_ref,
                 "pack_spikes": lambda x: K.pack_spikes_ref(x, with_occ=True),
-                "unpack_spikes": K.unpack_words}
+                "unpack_spikes": K.unpack_words,
+                "spike_matmul_dx": lambda g, w, v, s_, a, t: (
+                    K.spike_matmul_dx_ref(g, w, v, surrogate=s_, alpha=a,
+                                          v_th=t)),
+                "spike_matmul_dw": K.spike_matmul_dw_ref,
+                "qk_attention": lambda q, k, t: K.qk_attention_ref(
+                    q, k, threshold=t)}
     totals = {row: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                     "library_ms": None, "bytes_s": 0.0, "ops_s": 0.0,
                     "block_ms": 0.0}
@@ -728,7 +1292,7 @@ def phase_timing(torch, K, snn_cnn, cfg, fused, images, paths,
             t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
             t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
             t_block = block_ops / PEAK_F32_OPS_PER_S * 1e3
-            lib = library_call(torch, K, name, inputs)
+            lib = library_call(torch, K, name, args, inputs)
             lib_ms = None if lib is None else time_cuda(torch, lib, reps=10)
             del lib
             tot = totals[row]
@@ -741,7 +1305,8 @@ def phase_timing(torch, K, snn_cnn, cfg, fused, images, paths,
             if lib_ms is not None:
                 tot["library_ms"] = (tot["library_ms"] or 0.0) + lib_ms
             shape = "x".join(str(d) for d in args[0].shape)
-            if name in ("fused_pe", "spike_matmul"):
+            if name in ("fused_pe", "spike_matmul", "spike_matmul_dx",
+                        "spike_matmul_dw"):
                 shape += f" @ {args[1].shape[0]}x{args[1].shape[1]}"
             say(f"[timing] launch {i} {row} [{shape}]: {ms:.4f} ms, bound "
                 f"{max(t_bytes, t_ops):.4f} ms "
@@ -764,7 +1329,7 @@ def phase_timing(torch, K, snn_cnn, cfg, fused, images, paths,
                "bound_by": ("bytes" if tot["bytes_s"] >= tot["ops_s"]
                             else "operations"),
                "library_ms": tot["library_ms"]}
-        say(f"[timing] {row}: {out['ms']:.4f} ms per {policy} forward in "
+        say(f"[timing] {row}: {out['ms']:.4f} ms per {policy} pass in "
             f"{out['launches']} launches; bound {out['bound_ms']:.4f} ms "
             f"({out['bound_by']}); unskipped blocks at the f32 peak "
             f"{tot['block_ms']:.4f} ms; plain {out['plain_ms']:.4f} ms; "
@@ -781,6 +1346,7 @@ def kernels_namespace(torch):
     import repro_torch.kernels.fused_pe as fused_pe
     import repro_torch.kernels.lif_update as lif_update
     import repro_torch.kernels.packed as packed
+    import repro_torch.kernels.qk_attention as qk_attention
     import repro_torch.kernels.spike_matmul as spike_matmul
     import repro_torch.kernels.w2ttfs_pool as w2ttfs_pool
 
@@ -791,6 +1357,14 @@ def kernels_namespace(torch):
         spike_matmul_cuda=spike_matmul.spike_matmul_cuda,
         spike_matmul_block_ref=spike_matmul.spike_matmul_block_ref,
         spike_matmul_operands=spike_matmul.spike_matmul_operands,
+        spike_matmul_dx_cuda=spike_matmul.spike_matmul_dx_cuda,
+        spike_matmul_dx_ref=spike_matmul.spike_matmul_dx_ref,
+        spike_matmul_dw_cuda=spike_matmul.spike_matmul_dw_cuda,
+        spike_matmul_dw_ref=spike_matmul.spike_matmul_dw_ref,
+        vld_map=spike_matmul.vld_map,
+        dw_splits=spike_matmul.dw_splits,
+        qk_attention_cuda=qk_attention.qk_attention_cuda,
+        qk_attention_ref=qk_attention.qk_attention_ref,
         lif_update_cuda=lif_update.lif_update_cuda,
         lif_update_ref=lif_update.lif_update_ref,
         w2ttfs_pool_cuda=w2ttfs_pool.w2ttfs_pool_cuda,
@@ -804,6 +1378,24 @@ def kernels_namespace(torch):
         PackedSpikes=events.PackedSpikes,
         check_packed_invariants=events.check_packed_invariants,
         block_count_map_2d=events.block_count_map_2d)
+
+
+def training_namespace():
+    """The model, data, optimizer and trainer entry points the training
+    phase drives."""
+    from repro_torch.core.kd import KDConfig
+    from repro_torch.data.synthetic import SyntheticImageDataset
+    from repro_torch.models import ann_cnn, snn_cnn
+    from repro_torch.ops import as_policy
+    from repro_torch.optim import cosine_lr, sgd_init
+    from repro_torch.train import trainer
+    from repro_torch.tree import tree_leaves
+
+    return types.SimpleNamespace(
+        KDConfig=KDConfig, SyntheticImageDataset=SyntheticImageDataset,
+        ann_cnn=ann_cnn, snn_cnn=snn_cnn, as_policy=as_policy,
+        cosine_lr=cosine_lr, sgd_init=sgd_init, trainer=trainer,
+        tree_leaves=tree_leaves)
 
 
 def main() -> int:
@@ -821,6 +1413,7 @@ def main() -> int:
     from repro_torch.models import snn_cnn
 
     K = kernels_namespace(torch)
+    M = training_namespace()
     dev = torch.device("cuda")
     t_start = time.perf_counter()
 
@@ -833,8 +1426,14 @@ def main() -> int:
                                                  BATCH)
     phase_vgg(torch, snn_cnn, _build, dev, VGG_BATCH)
     say(f"[e2e] done ({time.perf_counter() - t_start:.1f} s so far)")
+    train_paths = phase_training(torch, M, _build, dev, TRAIN_BATCH)
+    for key in (("fold", "fused_dense+grad"), ("unfused", "fused_dense+grad")):
+        tp = train_paths[key]
+        paths[tp.name] = (None, None, tp.launches[0], tp.captured)
+    say(f"[train] done ({time.perf_counter() - t_start:.1f} s so far)")
     rows = phase_timing(torch, K, snn_cnn, cfg, fused, images, paths,
                         parity, ITERS)
+    time_training(torch, M, train_paths, TRAIN_BATCH, TRAIN_ITERS)
     say(f"[done] {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": rows}))
     say(smi)

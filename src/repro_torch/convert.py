@@ -3,8 +3,10 @@
 The two packages draw different random numbers from the same seed, so a
 model is compared across them by moving the reference's variables over as
 numpy arrays: ``variables_from_jax`` for the ``{"params", "state"}`` dict of
-``repro.models.snn_cnn.init``, ``fused_from_jax`` for the list of
-``fuse_model``. This module imports neither JAX nor the JAX package: the
+``repro.models.snn_cnn.init`` (or ``ann_cnn.init``), ``fused_from_jax`` for
+the list of ``fuse_model``, and ``optimizer_state_from_jax`` for the
+reference's ``SGDState`` or ``AdamWState``, so that both packages can train
+on from one state. This module imports neither JAX nor the JAX package: the
 caller converts leaves with ``np.asarray`` (``jax.tree_util.tree_map``).
 
 Every leaf is copied (``np.array``) before it becomes a tensor.
@@ -28,6 +30,23 @@ def _to_torch(tree: Any, device: torch.device) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(_to_torch(v, device) for v in tree)
     return torch.tensor(np.array(tree), device=device)
+
+
+def optimizer_state_from_jax(opt: Any, device: DeviceLike = None):
+    """The reference's ``SGDState(step, momentum)`` or ``AdamWState(step,
+    m, v)`` with numpy leaves (told apart by their fields) -> the port's
+    ``repro_torch.optim`` state of the same kind on ``device``."""
+    from .optim import AdamWState, SGDState
+
+    dev = resolve_device(device)
+    fields = getattr(opt, "_fields", ())
+    step = _to_torch(opt.step, dev).to(torch.int32)
+    if fields == ("step", "momentum"):
+        return SGDState(step, _to_torch(opt.momentum, dev))
+    if fields == ("step", "m", "v"):
+        return AdamWState(step, _to_torch(opt.m, dev), _to_torch(opt.v, dev))
+    raise TypeError(f"not an SGDState or AdamWState: {type(opt).__name__} "
+                    f"with fields {fields}")
 
 
 def variables_from_jax(tree: dict, device: DeviceLike = None) -> dict:

@@ -6,9 +6,9 @@
 With the deployed single timestep (T=1, v[0]=0) this is ``s = H(I - v_th)``.
 The inference Heaviside is ``v >= v_th`` everywhere in the port (the
 kernels and their plain versions); for finite floats it equals the
-reference's ``(v - v_th) >= 0``. The surrogate-gradient backward comes with
-the training slice (ROADMAP queue 1 item 4); ``surrogate``/``alpha`` are
-kept so one config drives both packages.
+reference's ``(v - v_th) >= 0``. ``surrogate``/``alpha`` choose the
+pseudo-derivative the training backward puts in place of the Heaviside
+(``core.surrogate``).
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
-"""Fixed-point quantization and BN folding (twin of ``repro.core.quant``,
-the deployment half: the F&Q stage that builds the served artifact).
+"""Fixed-point quantization and BN folding (twin of ``repro.core.quant``):
+the F&Q stage that builds the served artifact, and the straight-through
+fake-quant the KD-QAT stage trains with.
 
 The folds keep ``gamma / sqrt(var + eps)`` as the reference writes it (not
 ``rsqrt``), with the square root correctly rounded, so folded weights match
@@ -29,13 +30,17 @@ class QuantConfig:
     act_bits: int = 8
 
 
+def _ste(x: torch.Tensor, xq: torch.Tensor) -> torch.Tensor:
+    """Straight-through estimator: forward ``xq``, backward identity. The
+    value is ``x + (xq - x)``, which can differ from ``xq`` in the last
+    bit, exactly as the reference's form does."""
+    return x + (xq - x).detach()
+
+
 def quantize_fixed(x: torch.Tensor, bits: int = 8,
                    axis: Optional[int] = None) -> torch.Tensor:
-    """Symmetric fixed-point quantization. ``axis`` = per-channel scale
-    axis. Forward value only: the straight-through gradient comes with the
-    training slice. The result is ``x + (q * scale - x)``, the value the
-    reference's straight-through form computes, which can differ from
-    ``q * scale`` in the last bit."""
+    """Symmetric fixed-point fake-quant with a straight-through gradient.
+    ``axis`` = per-channel scale axis."""
     qmax = 2.0 ** (bits - 1) - 1.0
     if axis is None:
         amax = x.abs().max()
@@ -44,7 +49,26 @@ def quantize_fixed(x: torch.Tensor, bits: int = 8,
         amax = x.abs().amax(dim=dims, keepdim=True)
     scale = torch.clamp(amax, min=1e-8) / qmax
     q = torch.clamp(torch.round(x / scale), -qmax - 1, qmax)
-    return x + (q * scale - x)
+    return _ste(x, q * scale)
+
+
+def fake_quant(x: torch.Tensor, cfg: QuantConfig, *,
+               is_weight: bool = True) -> torch.Tensor:
+    """The configured fake-quant (a no-op when disabled). The fp8 modes are
+    still to port (ROADMAP queue 1 item 1) and raise."""
+    if not cfg.enabled:
+        return x
+    if not is_weight and not cfg.quantize_activations:
+        return x
+    if cfg.mode == "int":
+        bits = cfg.bits if is_weight else cfg.act_bits
+        axis = 0 if (is_weight and cfg.per_channel and x.ndim >= 2) else None
+        return quantize_fixed(x, bits, axis)
+    if cfg.mode.startswith("fp8"):
+        raise NotImplementedError(
+            f"fake_quant mode {cfg.mode!r} is still to port (ROADMAP queue "
+            f"1 item 1); the int modes are ported")
+    raise ValueError(f"unknown quant mode {cfg.mode!r}")
 
 
 def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:

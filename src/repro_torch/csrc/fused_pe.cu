@@ -11,7 +11,11 @@
 //   spike &= rowsum(q[row]) >= qk_threshold  (QKFormer write-back mask)
 //   spike &= row < m_valid && col < n_valid  (padding never fires)
 // and the tile's spike count is written as the next layer's vld_cnt. The
-// f32 pre-activation never reaches device memory.
+// f32 pre-activation never reaches device memory, except in the
+// emit_current variant (EmitCurrent, the training forward): there each
+// thread also writes the f32 current of its outputs inside the valid
+// extent to a [m_valid, n_valid] buffer, the residual the backward
+// differentiates from; the spikes are the same compare on that same value.
 //
 // The packed forms read and write 1/8 of the int8 bytes and never widen a
 // spike map in device memory: packed x is expanded to 0/1 floats in shared
@@ -45,12 +49,13 @@ using namespace repro;
 // the flags argument of repro_fused_pe, one bit per packed operand
 constexpr int kPackedX = 1, kPackedQ = 2, kPackedResidual = 4, kPackedOut = 8;
 
-template <bool PackedX>
+template <bool PackedX, bool EmitCurrent>
 __global__ void __launch_bounds__(kThreads)
 fused_pe_kernel(const void* __restrict__ x, const float* __restrict__ w,
                 const int* __restrict__ vld, const float* __restrict__ bias,
                 const void* __restrict__ residual, const void* __restrict__ q,
                 int dq, void* __restrict__ spikes, int* __restrict__ vld_next,
+                float* __restrict__ current,
                 int kp, int np, int m_valid, int n_valid, float v_th,
                 float qk_threshold, int flags) {
   __shared__ GemmSmem sm;
@@ -130,6 +135,10 @@ fused_pe_kernel(const void* __restrict__ x, const float* __restrict__ w,
       float cur = acc[i][j];
       if (bias != nullptr) cur = __fadd_rn(cur, b[j]);
       if (residual != nullptr) cur = __fadd_rn(cur, r[j]);
+      if constexpr (EmitCurrent) {
+        if (row < m_valid && c0 + j < n_valid)
+          current[static_cast<size_t>(row) * n_valid + c0 + j] = cur;
+      }
       const bool s = row_on && (c0 + j) < n_valid && cur >= v_th;
       count += s;
       bytes |= static_cast<uint64_t>(s) << (8 * j);
@@ -162,29 +171,39 @@ fused_pe_kernel(const void* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+template <bool PackedX, bool EmitCurrent>
+void launch(const void* x, const float* w, const int* vld, const float* bias,
+            const void* residual, const void* q, int dq, void* spikes,
+            int* vld_next, float* current, int mp, int kp, int np, int m_valid,
+            int n_valid, float v_th, float qk_threshold, int flags,
+            cudaStream_t stream) {
+  const dim3 grid(np / kTile, mp / kTile);
+  fused_pe_kernel<PackedX, EmitCurrent><<<grid, kThreads, 0, stream>>>(
+      x, w, vld, bias, residual, q, dq, spikes, vld_next, current, kp, np,
+      m_valid, n_valid, v_th, qk_threshold, flags);
+}
+
 // x [mp, kp] int8 or [mp, kp/32] int32 words (flags & kPackedX), w [kp, np]
 // f32, vld [mp/128, kp/128] int32. May be null: bias [np] f32; residual
 // [mp, np] f32 or [mp, np/32] words (kPackedResidual); q [mp, dq] int8 (dq
-// a multiple of 128) or [mp, dq] words (kPackedQ, dq words per row). Writes
-// spikes [mp, np] int8 or [mp, np/32] words (kPackedOut) and vld_next
-// [mp/128, np/128] int32.
+// a multiple of 128) or [mp, dq] words (kPackedQ, dq words per row);
+// current [m_valid, n_valid] f32 (the emit_current variant). Writes spikes
+// [mp, np] int8 or [mp, np/32] words (kPackedOut), vld_next [mp/128,
+// np/128] int32 and, when current is not null, the current.
 extern "C" int repro_fused_pe(const void* x, const float* w, const int* vld,
                               const float* bias, const void* residual,
                               const void* q, int dq, void* spikes,
-                              int* vld_next, int mp, int kp, int np,
-                              int m_valid, int n_valid, float v_th,
+                              int* vld_next, float* current, int mp, int kp,
+                              int np, int m_valid, int n_valid, float v_th,
                               float qk_threshold, int flags,
                               cudaStream_t stream) {
   if (mp > 0 && np > 0) {
-    const dim3 grid(np / kTile, mp / kTile);
-    if (flags & kPackedX)
-      fused_pe_kernel<true><<<grid, kThreads, 0, stream>>>(
-          x, w, vld, bias, residual, q, dq, spikes, vld_next, kp, np,
-          m_valid, n_valid, v_th, qk_threshold, flags);
-    else
-      fused_pe_kernel<false><<<grid, kThreads, 0, stream>>>(
-          x, w, vld, bias, residual, q, dq, spikes, vld_next, kp, np,
-          m_valid, n_valid, v_th, qk_threshold, flags);
+    const bool packed_x = flags & kPackedX, emit = current != nullptr;
+    using Launch = decltype(&launch<false, false>);
+    const Launch fn = packed_x ? (emit ? &launch<true, true> : &launch<true, false>)
+                               : (emit ? &launch<false, true> : &launch<false, false>);
+    fn(x, w, vld, bias, residual, q, dq, spikes, vld_next, current, mp, kp, np,
+       m_valid, n_valid, v_th, qk_threshold, flags, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,131 @@
+// Backward weight-gradient of a spiking linear layer, dense skip — replaces
+// the Pallas kernel repro/kernels/spike_matmul/backward.py::
+// spike_matmul_dw_pallas (int8 x): dw[K, N] = x^T @ g over M, where every
+// 128 x 128 (m, k) block of x whose forward vld_cnt is zero is neither
+// loaded nor multiplied (its spikes are all zero, so the skip is exact).
+// x is [M, K] int8 spikes, g is [M, N] f32, both row-major and unpadded
+// (loads check their bounds); vld is the [ceil(M/128), ceil(K/128)] count
+// map of x.
+//
+// The TPU grid reduces over M inside one output tile. On the card that
+// gives far too few CTAs (at resblock 1, K x N = 576 x 64 is 5 tiles of
+// 128 x 128 for M = 262144 rows), so M is cut into S contiguous runs of
+// 128-row blocks: CTA (n block, k block, s) sums its run into a f32
+// partial [S, Kp, Np], and a second kernel of this source adds the S
+// partials of each output in the order s = 0 .. S-1. S depends only on the
+// shape (the wrapper picks it), and no float atomics are used, so dw is
+// the same bits on every run.
+//
+// Bound on the H100: the data needs 2 * nnz(x) * N operations over the
+// blocks it keeps, against reading x and g once and writing dw; at the
+// training path's spike rates the f32 operations bind at 67 TFLOP/s
+// outside the tensor cores. Each kept block costs the dense 2*128*128*128
+// product, in the register-tiled FMA loop of event_gemm.cuh (8 x 8 outputs
+// a thread, 32-deep steps through shared memory); the partials add
+// 4 * S * Kp * Np bytes written and read once.
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "event_gemm.cuh"
+
+using namespace repro;
+
+namespace {
+
+__global__ void __launch_bounds__(kThreads)
+spike_matmul_dw_kernel(const int8_t* __restrict__ x, const float* __restrict__ g,
+                       const int* __restrict__ vld, float* __restrict__ partial,
+                       int m, int k, int n, int blocks_per_split) {
+  __shared__ __align__(16) float a[kStep][kTile];  // x tile: a[m][k]
+  __shared__ __align__(16) float b[kStep][kTile];  // g tile: b[m][n]
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int nb = blockIdx.x, kb = blockIdx.y, s = blockIdx.z;
+  const int gk = (k + kTile - 1) / kTile, gm = (m + kTile - 1) / kTile;
+  const int kp = gk * kTile, np = gridDim.x * kTile;
+  const int col_k = kb * kTile, col_n = nb * kTile;
+  const int mb_begin = s * blocks_per_split;
+  const int mb_end = min(gm, mb_begin + blocks_per_split);
+
+  float acc[kSub][kSub];
+#pragma unroll
+  for (int i = 0; i < kSub; ++i)
+#pragma unroll
+    for (int j = 0; j < kSub; ++j) acc[i][j] = 0.f;
+
+  for (int mb = mb_begin; mb < mb_end; ++mb) {
+    if (vld[mb * gk + kb] == 0) continue;  // event skip (uniform)
+    for (int ms = 0; ms < kTile; ms += kStep) {
+      const int m0 = mb * kTile + ms;
+#pragma unroll 4
+      for (int i = 0; i < kTile * kStep / kThreads; ++i) {
+        const int idx = tid + i * kThreads;
+        const int r = idx / kTile, c = idx % kTile;  // a warp reads one row
+        const int row = m0 + r;
+        const bool row_ok = row < m;
+        a[r][c] = (row_ok && col_k + c < k)
+                      ? static_cast<float>(x[static_cast<size_t>(row) * k + col_k + c])
+                      : 0.f;
+        b[r][c] = (row_ok && col_n + c < n) ? g[static_cast<size_t>(row) * n + col_n + c]
+                                            : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int mm = 0; mm < kStep; ++mm) {
+        const float4 a0 = *reinterpret_cast<const float4*>(&a[mm][ty * kSub]);
+        const float4 a1 = *reinterpret_cast<const float4*>(&a[mm][ty * kSub + 4]);
+        const float4 b0 = *reinterpret_cast<const float4*>(&b[mm][tx * kSub]);
+        const float4 b1 = *reinterpret_cast<const float4*>(&b[mm][tx * kSub + 4]);
+        const float av[kSub] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        const float bv[kSub] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < kSub; ++i)
+#pragma unroll
+          for (int j = 0; j < kSub; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+      __syncthreads();
+    }
+  }
+
+  float* out = partial + static_cast<size_t>(s) * kp * np;
+#pragma unroll
+  for (int i = 0; i < kSub; ++i) {
+    float* op = out + static_cast<size_t>(col_k + ty * kSub + i) * np + col_n + tx * kSub;
+    *reinterpret_cast<float4*>(op) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    *reinterpret_cast<float4*>(op + 4) = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+  }
+}
+
+// dw[r, c] = partial[0, r, c] + partial[1, r, c] + ... in that order
+__global__ void dw_sum_kernel(const float* __restrict__ partial, float* __restrict__ dw,
+                              int k, int n, int kp, int np, int splits) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<size_t>(k) * n) return;
+  const int r = static_cast<int>(i / n), c = static_cast<int>(i % n);
+  const size_t stride = static_cast<size_t>(kp) * np;
+  const float* p = partial + static_cast<size_t>(r) * np + c;
+  float s = p[0];
+  for (int t = 1; t < splits; ++t) s = __fadd_rn(s, p[t * stride]);
+  dw[i] = s;
+}
+
+}  // namespace
+
+// x [m, k] int8, g [m, n] f32, vld [ceil(m/128), ceil(k/128)] int32,
+// partial [splits, kp, np] f32 scratch (kp, np: k, n rounded up to 128),
+// -> dw [k, n] f32. CTA s covers the 128-row blocks
+// [s * blocks_per_split, (s + 1) * blocks_per_split).
+extern "C" int repro_spike_matmul_dw(const int8_t* x, const float* g, const int* vld,
+                                     float* partial, float* dw, int m, int k, int n,
+                                     int splits, int blocks_per_split,
+                                     cudaStream_t stream) {
+  if (k > 0 && n > 0) {
+    const int kp = (k + kTile - 1) / kTile * kTile, np = (n + kTile - 1) / kTile * kTile;
+    const dim3 grid(np / kTile, kp / kTile, splits);
+    spike_matmul_dw_kernel<<<grid, kThreads, 0, stream>>>(x, g, vld, partial, m, k, n,
+                                                          blocks_per_split);
+    const size_t total = static_cast<size_t>(k) * n;
+    dw_sum_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(
+        partial, dw, k, n, kp, np, splits);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -6,8 +6,9 @@ Spike operands (x, q, residual) may be int8 maps or ``PackedSpikes``, and
 ``vld_cnt`` is the kernel's ``vld_next``; each packed operand selects the
 kernel's packed variant for it (``Packing``). The variants still to port
 (ROADMAP queue 2, K2) — ``skip="gated"``/``"two_level"``, LIF state for
-T>1, head-blocked QK masks and ``emit_current`` — are not accepted here;
-the ops layer raises before it gets this far.
+T>1 and head-blocked QK masks — are not accepted here; the ops layer
+raises before it gets this far. ``emit_current=True`` (the training
+forward) also returns the f32 current the spikes were thresholded from.
 """
 from __future__ import annotations
 
@@ -43,10 +44,10 @@ def fused_pe_cuda(xp: torch.Tensor, wp: torch.Tensor, vld: torch.Tensor,
                   bp: Optional[torch.Tensor], rp: Optional[torch.Tensor],
                   qp: Optional[torch.Tensor], m_valid: int, n_valid: int,
                   v_th: float, qk_threshold: float,
-                  packing: Packing = Packing()
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
+                  packing: Packing = Packing()) -> tuple:
     """Launch the kernel on block-aligned CUDA operands (see
-    ``fused_pe_block_ref`` for the contract). Does not count."""
+    ``fused_pe_block_ref`` for the contract and the outputs). Does not
+    count."""
     dev = xp.device
     if dev.type != "cuda":
         raise ValueError(f"fused_pe_cuda needs CUDA tensors, got {dev}")
@@ -89,12 +90,16 @@ def fused_pe_cuda(xp: torch.Tensor, wp: torch.Tensor, vld: torch.Tensor,
         spikes = torch.empty((mp, np_), dtype=torch.int8, device=dev)
     vld_next = torch.empty((mp // TILE, np_ // TILE), dtype=torch.int32,
                            device=dev)
+    current = (torch.empty((m_valid, n_valid), dtype=torch.float32,
+                           device=dev) if packing.current else None)
     err = _build.library().repro_fused_pe(
         _build.ptr(xp), _build.ptr(wp), _build.ptr(vld), _build.ptr(bp),
         _build.ptr(rp), _build.ptr(qp), dq, _build.ptr(spikes),
-        _build.ptr(vld_next), mp, kp, np_, m_valid, n_valid, v_th,
-        qk_threshold, packing.flags, _build.stream(xp))
+        _build.ptr(vld_next), _build.ptr(current), mp, kp, np_, m_valid,
+        n_valid, v_th, qk_threshold, packing.flags, _build.stream(xp))
     _build.check(err, "repro_fused_pe")
+    if packing.current:
+        return spikes, vld_next, current
     return spikes, vld_next
 
 
@@ -104,7 +109,8 @@ def fused_pe_operands(x: Spikes, w: torch.Tensor, *,
                       q: Optional[Spikes] = None,
                       vld_cnt: Optional[torch.Tensor] = None,
                       v_th: float = 1.0, qk_threshold: float = 1.0,
-                      out_format: str = "dense") -> tuple:
+                      out_format: str = "dense",
+                      emit_current: bool = False) -> tuple:
     """The block-aligned operands of one launch, in the order
     ``fused_pe_cuda`` and ``fused_pe_block_ref`` take them: x (int8, or a
     packed x's words), w padded to x's padded K, the vld map, bias padded
@@ -158,7 +164,7 @@ def fused_pe_operands(x: Spikes, w: torch.Tensor, *,
         qp = pad_to_blocks(q.to(torch.int8), TILE, TILE).contiguous()
     packing = Packing(isinstance(x, PackedSpikes), isinstance(q, PackedSpikes),
                       isinstance(residual, PackedSpikes),
-                      out_format == "packed")
+                      out_format == "packed", emit_current)
     return (xp, wp, vld, bp, rp, qp, m0, n0, v_th, qk_threshold, packing)
 
 
@@ -168,7 +174,7 @@ def fused_pe(x: Spikes, w: torch.Tensor, *,
              q: Optional[Spikes] = None,
              vld_cnt: Optional[torch.Tensor] = None,
              v_th: float = 1.0, qk_threshold: float = 1.0,
-             out_format: str = "dense") -> tuple[Spikes, torch.Tensor]:
+             out_format: str = "dense", emit_current: bool = False) -> tuple:
     """One stateless fused PE layer (the deployed T=1 form), tiled on
     128x128 blocks.
 
@@ -179,20 +185,26 @@ def fused_pe(x: Spikes, w: torch.Tensor, *,
     count map from the producing layer (computed here for a dense x
     without one; a packed x carries its own). Returns (spikes, vld_next
     [Mp/128, Np/128] int32): spikes are int8 [M, N], or with
-    ``out_format="packed"`` a PackedSpikes of the logical shape [M, N]. The
+    ``out_format="packed"`` a PackedSpikes of the logical shape [M, N].
+    With ``emit_current`` a third output is the f32 [M, N] current
+    (post-bias, post-residual) the spikes were thresholded from. The
     kernel on CUDA tensors, the plain version on CPU tensors."""
     args = fused_pe_operands(x, w, bias=bias, residual=residual, q=q,
                              vld_cnt=vld_cnt, v_th=v_th,
-                             qk_threshold=qk_threshold, out_format=out_format)
+                             qk_threshold=qk_threshold, out_format=out_format,
+                             emit_current=emit_current)
     dev = args[0].device
     if dev.type == "cpu":
-        spikes, vld_next = fused_pe_block_ref(*args)
+        outs = fused_pe_block_ref(*args)
     elif dev.type == "cuda":
         _build.count_launch("fused_pe", args, (x, w, bias, residual, q))
-        spikes, vld_next = fused_pe_cuda(*args)
+        outs = fused_pe_cuda(*args)
     else:
         raise ValueError(f"fused_pe runs on cuda or cpu, not {dev}")
+    spikes, vld_next = outs[:2]
     m0, n0, packing = args[6], args[7], args[-1]
     if packing.out:
-        return PackedSpikes(spikes, vld_next, (m0, n0), TILE, TILE), vld_next
-    return spikes[:m0, :n0], vld_next
+        spikes = PackedSpikes(spikes, vld_next, (m0, n0), TILE, TILE)
+    else:
+        spikes = spikes[:m0, :n0]
+    return (spikes, vld_next, *outs[2:])

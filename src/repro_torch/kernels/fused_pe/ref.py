@@ -54,12 +54,15 @@ def fused_pe_ref(x: torch.Tensor, w: torch.Tensor, *,
 
 
 class Packing(NamedTuple):
-    """Which spike operands of one launch are int32 words of 32 spikes
-    (the reference's packed_in / packed_q / packed_residual / packed_out)."""
+    """The variant of one launch: which spike operands are int32 words of
+    32 spikes (the reference's packed_in / packed_q / packed_residual /
+    packed_out), and whether the f32 current leaves too (``current``, the
+    reference's emit_current)."""
     x: bool = False
     q: bool = False
     residual: bool = False
     out: bool = False
+    current: bool = False
 
     @property
     def flags(self) -> int:
@@ -72,14 +75,14 @@ def fused_pe_block_ref(xp: torch.Tensor, wp: torch.Tensor, vld: torch.Tensor,
                        bp: Optional[torch.Tensor], rp: Optional[torch.Tensor],
                        qp: Optional[torch.Tensor], m_valid: int, n_valid: int,
                        v_th: float, qk_threshold: float,
-                       packing: Packing = Packing()
-                       ) -> tuple[torch.Tensor, torch.Tensor]:
+                       packing: Packing = Packing()) -> tuple:
     """The kernel's function on block-aligned operands (128x128 tiles):
     x [Mp, Kp] int8, w [Kp, Np] f32, vld [Mp/128, Kp/128], bias [Np],
     residual [Mp, Np] f32, q [Mp, Dq] int8; each spike operand that
     ``packing`` marks comes as its int32 words instead. Returns (spikes
     [Mp, Np] int8, or [Mp, Np/32] words with ``packing.out``, and vld_next
-    [Mp/128, Np/128] int32)."""
+    [Mp/128, Np/128] int32), and with ``packing.current`` also the f32
+    current [m_valid, n_valid] the spikes were thresholded from."""
     x = unpack_words(xp) if packing.x else xp
     r = unpack_words(rp, torch.float32) if packing.residual else rp
     q = unpack_words(qp) if packing.q else qp
@@ -89,4 +92,13 @@ def fused_pe_block_ref(xp: torch.Tensor, wp: torch.Tensor, vld: torch.Tensor,
     spk[m_valid:, :] = 0
     spk[:, n_valid:] = 0
     vld_next = block_count_map_2d(spk, 128, 128)
-    return (pack_words(spk) if packing.out else spk), vld_next
+    out = (pack_words(spk) if packing.out else spk), vld_next
+    if not packing.current:
+        return out
+    # the same sums in the same order as fused_pe_ref's
+    cur = spike_matmul_ref(xs, wp)
+    if bp is not None:
+        cur = cur + bp.reshape(1, -1).to(torch.float32)
+    if r is not None:
+        cur = cur + r.to(torch.float32)
+    return (*out, cur[:m_valid, :n_valid].contiguous())

@@ -1,0 +1,162 @@
+"""Wrappers for the backward kernels of the spike matmul family
+(``csrc/spike_matmul_dx.cu`` and ``csrc/spike_matmul_dw.cu``), the twins of
+the reference's ``kernels/spike_matmul/backward.py`` entry points:
+
+  * ``spike_matmul_dx``: ``dv = g ⊙ surr'(v - v_th)`` and ``dx = dv @ wᵀ``
+    in one pass, the surrogate factor formed in the kernel;
+  * ``spike_matmul_dw``: ``dw = xᵀ @ g`` over the int8 spike operand,
+    skipping every 128x128 block of x whose forward ``vld_cnt`` is zero.
+
+Both take unpadded operands (the kernels check their bounds). The kernels
+run on CUDA tensors, the plain versions (``ref.py``) on CPU tensors.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from ...core.events import block_count_map_2d, pad_to_blocks
+from ...core.surrogate import available_surrogates
+from .. import _build
+from .ref import spike_matmul_dw_ref, spike_matmul_dx_ref
+
+TILE = 128
+# the surrogate argument of repro_spike_matmul_dx (0: dv = g)
+SURROGATE_IDS = {"atan": 1, "sigmoid": 2, "triangle": 3, "rect": 4}
+# dw cuts M into runs so that about this many CTAs are in flight (4 on
+# each of the H100's 132 SMs); a constant, so the cut, and with it the
+# order of the f32 sums, depends on the shape alone
+DW_TARGET_CTAS = 4 * 132
+
+
+def _check_dx_args(g, w, v, surrogate):
+    if surrogate not in SURROGATE_IDS:
+        raise ValueError(f"unknown surrogate {surrogate!r}; expected one of "
+                         f"{available_surrogates()}")
+    if g.ndim != 2 or w.ndim != 2 or w.shape[1] != g.shape[1]:
+        raise ValueError(f"g {tuple(g.shape)} and w {tuple(w.shape)} do not "
+                         f"chain: g is [M, N] and w is [K, N]")
+    if v is not None and v.shape != g.shape:
+        raise ValueError(f"v {tuple(v.shape)} is not g's {tuple(g.shape)}")
+
+
+def spike_matmul_dx_cuda(g: torch.Tensor, w: torch.Tensor,
+                         v: Optional[torch.Tensor], surrogate: str = "atan",
+                         alpha: float = 2.0, v_th: float = 1.0
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the dx kernel on contiguous f32 CUDA tensors; returns
+    (dx [M, K], dv [M, N]), dv being g itself without v. Does not count."""
+    _check_dx_args(g, w, v, surrogate)
+    dev = g.device
+    if dev.type != "cuda":
+        raise ValueError(f"spike_matmul_dx_cuda needs CUDA tensors, got {dev}")
+    m, n = g.shape
+    k = w.shape[0]
+    _build.require(g, "g", torch.float32, (m, n), dev, align=4)
+    _build.require(w, "w", torch.float32, (k, n), dev, align=4)
+    if v is not None:
+        _build.require(v, "v", torch.float32, (m, n), dev, align=4)
+    dx = torch.empty((m, k), dtype=torch.float32, device=dev)
+    dv = (torch.empty((m, n), dtype=torch.float32, device=dev)
+          if v is not None else None)
+    # the constants the reference forms in double; ctypes rounds each to
+    # f32 once, as JAX rounds a Python float meeting an f32 array
+    err = _build.library().repro_spike_matmul_dx(
+        _build.ptr(g), _build.ptr(v), _build.ptr(w), _build.ptr(dx),
+        _build.ptr(dv), m, n, k, SURROGATE_IDS[surrogate] if v is not None
+        else 0, alpha, math.pi / 2.0 * alpha, alpha * alpha, 0.5 / alpha,
+        v_th, _build.stream(g))
+    _build.check(err, "repro_spike_matmul_dx")
+    return dx, (g if v is None else dv)
+
+
+def spike_matmul_dx(g: torch.Tensor, w: torch.Tensor,
+                    v: Optional[torch.Tensor] = None, *,
+                    surrogate: str = "atan", alpha: float = 2.0,
+                    v_th: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Backward data-gradient ``dx = (g ⊙ surr'(v - v_th)) @ wᵀ``.
+
+    g [M, N] cotangent; w [K, N]; v optional [M, N] membrane current cached
+    by the fused forward: with it the surrogate factor is formed in the
+    kernel and ``dv`` (the operand the weight, bias and residual gradients
+    share) comes out as a by-product; without it ``dv = g``. Returns
+    (dx [M, K], dv [M, N])."""
+    args = (g.to(torch.float32).contiguous(), w.to(torch.float32).contiguous(),
+            None if v is None else v.to(torch.float32).contiguous())
+    dev = g.device
+    if dev.type == "cpu":
+        _check_dx_args(*args, surrogate)
+        return spike_matmul_dx_ref(*args, surrogate=surrogate, alpha=alpha,
+                                   v_th=v_th)
+    if dev.type != "cuda":
+        raise ValueError(f"spike_matmul_dx runs on cuda or cpu, not {dev}")
+    args = args + (surrogate, alpha, v_th)
+    _build.count_launch("spike_matmul_dx", args, (g, w, v))
+    return spike_matmul_dx_cuda(*args)
+
+
+def vld_map(x: torch.Tensor) -> torch.Tensor:
+    """int32 [ceil(M/128), ceil(K/128)] spike count per 128x128 block of an
+    unpadded [M, K] map."""
+    return block_count_map_2d(pad_to_blocks(x, TILE, TILE), TILE, TILE)
+
+
+def dw_splits(m: int, k: int, n: int) -> tuple[int, int]:
+    """(splits, 128-row blocks per split) of the dw kernel's cut of M."""
+    mblocks = max(1, -(-m // TILE))
+    tiles = -(-k // TILE) * -(-n // TILE)
+    want = max(1, min(mblocks, -(-DW_TARGET_CTAS // max(tiles, 1))))
+    per = -(-mblocks // want)
+    return -(-mblocks // per), per
+
+
+def spike_matmul_dw_cuda(x: torch.Tensor, g: torch.Tensor,
+                         vld: torch.Tensor) -> torch.Tensor:
+    """Launch the dw kernel: x [M, K] int8, g [M, N] f32, vld [ceil(M/128),
+    ceil(K/128)] int32, all contiguous on one CUDA device. Returns dw
+    [K, N] f32. Does not count."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"spike_matmul_dw_cuda needs CUDA tensors, got {dev}")
+    m, k = x.shape
+    n = g.shape[1]
+    _build.require(x, "x", torch.int8, (m, k), dev, align=1)
+    _build.require(g, "g", torch.float32, (m, n), dev, align=4)
+    _build.require(vld, "vld_cnt", torch.int32, (-(-m // TILE), -(-k // TILE)),
+                   dev, align=4)
+    splits, per = dw_splits(m, k, n)
+    kp, np_ = -(-k // TILE) * TILE, -(-n // TILE) * TILE
+    partial = torch.empty((splits, kp, np_), dtype=torch.float32, device=dev)
+    dw = torch.empty((k, n), dtype=torch.float32, device=dev)
+    err = _build.library().repro_spike_matmul_dw(
+        _build.ptr(x), _build.ptr(g), _build.ptr(vld), _build.ptr(partial),
+        _build.ptr(dw), m, k, n, splits, per, _build.stream(x))
+    _build.check(err, "repro_spike_matmul_dw")
+    return dw
+
+
+def spike_matmul_dw(x: torch.Tensor, g: torch.Tensor, *,
+                    vld_cnt: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Backward weight-gradient ``dw = xᵀ @ g``, event-skipped on x.
+
+    x [M, K] binary spikes (any dtype; cast to int8, exact), the forward's
+    operand; g [M, N] cotangent; ``vld_cnt`` x's [ceil(M/128),
+    ceil(K/128)] count map from the forward (computed here when not
+    given). Silent blocks were silent on the way forward and contribute
+    nothing here. Returns dw [K, N] f32."""
+    if x.ndim != 2 or g.ndim != 2 or g.shape[0] != x.shape[0]:
+        raise ValueError(f"x {tuple(x.shape)} and g {tuple(g.shape)} do not "
+                         f"chain: x is [M, K] and g is [M, N]")
+    x8 = x.to(torch.int8).contiguous()
+    vld = (vld_map(x8) if vld_cnt is None
+           else vld_cnt.to(torch.int32).contiguous())
+    args = (x8, g.to(torch.float32).contiguous(), vld)
+    dev = x.device
+    if dev.type == "cpu":
+        return spike_matmul_dw_ref(*args)
+    if dev.type != "cuda":
+        raise ValueError(f"spike_matmul_dw runs on cuda or cpu, not {dev}")
+    _build.count_launch("spike_matmul_dw", args, (x, g))
+    return spike_matmul_dw_cuda(*args)

@@ -60,13 +60,18 @@ def conv_apply(p: dict, x: torch.Tensor, stride: int = 1,
     ``padding="same"`` rejects stride 2."""
     w = p["w"].to(x.dtype)
     kh, kw = w.shape[:2]
+    if padding not in ("SAME", "VALID"):
+        raise ValueError(f"unknown padding {padding!r}")
     xc = x.permute(0, 3, 1, 2)
-    if padding == "SAME":
+    if kh == kw == 1:
+        # a 1x1 conv needs no padding at any stride: it is the stride-1
+        # conv of the strided pixels, which also stays clear of a crash in
+        # oneDNN's CPU conv backward at some 1x1 strided shapes
+        xc, stride = xc[:, :, ::stride, ::stride], 1
+    elif padding == "SAME":
         _, _, top, bottom, left, right = _same_pads(x.shape[1], x.shape[2],
                                                     kh, kw, stride)
         xc = F.pad(xc, (left, right, top, bottom))
-    elif padding != "VALID":
-        raise ValueError(f"unknown padding {padding!r}")
     # IEEE f32: cuDNN would otherwise run an f32 conv in TF32, which keeps
     # about three decimal digits and flips spikes near v_th
     cudnn = torch.backends.cudnn
@@ -139,6 +144,38 @@ def bn_init(c: int, dtype: torch.dtype = torch.float32,
     return params, state
 
 
+def _rsqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """1/sqrt(x) rounded once to ``x``'s dtype (taken in f64). Neither
+    ``torch.rsqrt`` nor XLA's CPU rsqrt is correctly rounded; this one is
+    the same on every device."""
+    return torch.rsqrt(x.to(torch.float64)).to(x.dtype)
+
+
+def bn_apply(p: dict, s: dict, x: torch.Tensor, train: bool,
+             momentum: float = 0.9, eps: float = 1e-5
+             ) -> tuple[torch.Tensor, dict]:
+    """Batch norm over every axis but the last (channels). With ``train``
+    it normalises by the batch statistics (biased variance) and returns
+    the running statistics moved by the reference's rule
+    ``momentum * old + (1 - momentum) * batch`` (``F.batch_norm`` would
+    move the variance by the unbiased estimate instead); the new state is
+    detached, as it is never differentiated. Without ``train`` it uses the
+    running statistics and returns ``s`` unchanged."""
+    if train:
+        dims = tuple(range(x.ndim - 1))
+        mean = x.mean(dim=dims)
+        var = x.var(dim=dims, correction=0)
+        new_s = {"mean": (momentum * s["mean"]
+                          + (1 - momentum) * mean).detach(),
+                 "var": (momentum * s["var"]
+                         + (1 - momentum) * var).detach()}
+    else:
+        mean, var = s["mean"], s["var"]
+        new_s = s
+    inv = _rsqrt_rn(var + eps) * p["scale"]
+    return (x - mean) * inv + p["bias"], new_s
+
+
 # -------------------------------------------------------------------- linear
 def linear_init(gen: torch.Generator, din: int, dout: int, bias: bool = True,
                 dtype: torch.dtype = torch.float32,
@@ -149,12 +186,28 @@ def linear_init(gen: torch.Generator, din: int, dout: int, bias: bool = True,
     return p
 
 
+def linear_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
 # ------------------------------------------------------------------- pooling
 def max_pool(x: torch.Tensor, window: int = 2,
              stride: Optional[int] = None) -> torch.Tensor:
     """NHWC max pool over ``window`` x ``window``, VALID padding."""
     stride = stride or window
     y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def avg_pool(x: torch.Tensor, window: int = 2,
+             stride: Optional[int] = None) -> torch.Tensor:
+    """NHWC average pool over ``window`` x ``window``, VALID padding: the
+    window sum divided by ``window * window``."""
+    stride = stride or window
+    y = F.avg_pool2d(x.permute(0, 3, 1, 2), window, stride)
     return y.permute(0, 2, 3, 1).contiguous()
 
 

@@ -3,14 +3,16 @@
 
   * ``SpikeTensor`` — the spike-map currency (dense or bit-packed),
     carrying its ``vld_cnt`` block metadata from one kernel to the next;
-  * ``ExecutionPolicy`` — "reference" | "fused_dense" | "fused_packed" (|
-    "auto", parsed but still to port);
+  * ``ExecutionPolicy`` — "reference" | "fused_dense" | "fused_packed",
+    each with its ``"+grad"`` training form (| "auto", parsed but still
+    to port);
   * entry points that look their implementation up in the ``(op, mode)``
     registry.
 """
 from ..core.events import DEFAULT_BLOCKS, Blocks
-from .dispatch import (FusedOut, conv_matmul_weights, fused_pe_layer, im2col,
-                       lif, matmul, pack, pool, qk_mask, unpack, w2ttfs_head)
+from .dispatch import (FusedOut, conv_matmul_weights, fused_pe,
+                       fused_pe_layer, im2col, lif, matmul, pack, pool,
+                       qk_mask, unpack, w2ttfs_head)
 from .policy import (AUTO, AUTO_PACKED, FUSED_DENSE, FUSED_PACKED, POLICIES,
                      REFERENCE, ExecutionPolicy, as_policy)
 from .registry import implementations, lookup, register
@@ -21,6 +23,7 @@ __all__ = [
     "ExecutionPolicy", "POLICIES", "REFERENCE", "FUSED_DENSE",
     "FUSED_PACKED", "AUTO", "AUTO_PACKED", "as_policy",
     "register", "lookup", "implementations",
-    "FusedOut", "matmul", "lif", "fused_pe_layer", "pool", "im2col",
+    "FusedOut", "matmul", "lif", "fused_pe", "fused_pe_layer", "pool",
+    "im2col",
     "conv_matmul_weights", "qk_mask", "pack", "unpack", "w2ttfs_head",
 ]

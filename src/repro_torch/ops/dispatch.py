@@ -9,6 +9,12 @@ format end to end. ``policy=None`` means the fused kernels, with the format
 of the first spike operand. The ``"auto"`` policies need the autotuner,
 which is not ported yet: the matmul-sweep ops raise on them, the others run
 them as ``"fused"``, as the reference does.
+
+A ``"+grad"`` policy (``policy.for_training()``) resolves the same registry
+to the surrogate-gradient implementations of ``repro_torch.ops.grad``: the
+forward still runs the policy's kernels, the backward puts the registered
+pseudo-derivative in place of every Heaviside. Differentiable spike outputs
+are dense f32 (autograd connectivity) and carry no metadata maps.
 """
 from __future__ import annotations
 
@@ -80,10 +86,40 @@ def matmul(x: Spikes, w: torch.Tensor, *, policy: PolicyLike = None,
 def lif(current: torch.Tensor, v_prev: torch.Tensor, s_prev: torch.Tensor,
         *, lif_cfg: LIFConfig = LIFConfig(),
         policy: PolicyLike = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """One LIF membrane step over any-shaped current. Returns (spikes int8,
-    v_next f32)."""
+    """One LIF membrane step over any-shaped current. Returns (spikes,
+    v_next f32); spikes are int8, or f32 under a ``+grad`` policy."""
     pol = _non_tuned(policy)
     return lookup("lif", pol.mode)(current, v_prev, s_prev, lif_cfg)
+
+
+def fused_pe(x: Spikes, w: torch.Tensor, *,
+             bias: Optional[torch.Tensor] = None,
+             residual: Optional[Spikes] = None,
+             q: Optional[Spikes] = None,
+             v_prev: Optional[torch.Tensor] = None,
+             s_prev: Optional[torch.Tensor] = None,
+             qk_threshold: float = 1.0,
+             lif_cfg: LIFConfig = LIFConfig(),
+             policy: PolicyLike = None,
+             skip: str = "dense",
+             heads: Optional[tuple[int, int]] = None,
+             block_m: int = DEFAULT_BLOCKS.m,
+             block_n: int = DEFAULT_BLOCKS.n,
+             block_k: int = DEFAULT_BLOCKS.k) -> FusedOut:
+    """One fused PE layer over a 2-D [M, K] spike operand: event-skipped
+    matmul + bias / residual + LIF threshold + optional whole-row QK mask.
+    Only the stateless ``+grad`` forms are ported (KD training);
+    LIF state (``v_prev``), head-blocked masks and the inference modes of
+    this 2-D entry raise (``fused_pe_layer`` is the inference entry)."""
+    st = SpikeTensor.wrap(x)
+    res = SpikeTensor.wrap(residual) if residual is not None else None
+    qs = SpikeTensor.wrap(q) if q is not None else None
+    pol = _tuned(policy, st)
+    return lookup("fused_pe", pol.mode)(
+        st, w, bias=bias, residual=res, q=qs, v_prev=v_prev, s_prev=s_prev,
+        qk_threshold=qk_threshold, lif_cfg=lif_cfg, fmt=pol.format,
+        block_m=block_m, block_n=block_n, block_k=block_k, skip=skip,
+        heads=heads)
 
 
 def fused_pe_layer(x: Spikes, w: torch.Tensor, *,
@@ -150,13 +186,23 @@ def qk_mask(q: Spikes, k: Spikes, *, threshold: float = 1.0,
             mode: str = "threshold", surrogate: str = "atan",
             alpha: float = 2.0, policy: PolicyLike = None) -> SpikeTensor:
     """QKFormer token attention: mask K's spike rows by Q's per-token
-    row-sum threshold. ``mode``/``surrogate``/``alpha`` shape only the
-    gradient, which comes with the training slice."""
+    row-sum threshold. Inputs [..., N, D]; the output keeps the policy's
+    format. ``mode``/``surrogate``/``alpha`` shape the gradient under a
+    ``+grad`` policy: ``"threshold"`` passes the surrogate pseudo-derivative
+    of the row-sum Heaviside into Q; ``"or"`` (the hardware atten_reg, the
+    same forward on integer spike counts at threshold 1) passes none.
+    Inference policies ignore them."""
     qs = SpikeTensor.wrap(q)
     ks = SpikeTensor.wrap(k)
     pol = _non_tuned(policy, ks)
-    masked = lookup("qk_mask", pol.mode)(qs.to_dense(), ks.to_dense(),
-                                         threshold)
+    if pol.differentiable:
+        masked = lookup("qk_mask", pol.mode)(
+            qs.to_dense(torch.float32) if qs.is_packed else qs.data,
+            ks.to_dense(torch.float32) if ks.is_packed else ks.data,
+            threshold, mode=mode, surrogate=surrogate, alpha=alpha)
+        return SpikeTensor.dense(masked)
+    masked = lookup("qk_mask", pol.kernels)(qs.to_dense(), ks.to_dense(),
+                                            threshold)
     out = SpikeTensor.dense(masked)
     return pack(out, policy=pol) if pol.packed else out
 

@@ -11,7 +11,8 @@ for, so neither the kernels nor the call sites fork on the format. A
 packed operand goes to the kernel's packed variant; it is never unpacked
 to run the dense kernel. A fused variant whose kernel is still to port
 (``skip="gated"``/``"two_level"``, head-blocked masks, T>1 state) raises;
-it never runs the reference instead. Head-blocked masks raise in the
+it never runs the reference instead. The ``+grad`` modes are registered
+by ``repro_torch.ops.grad``. Head-blocked masks raise in the
 reference mode too, until they are ported and held against the reference
 together.
 """
@@ -35,7 +36,7 @@ from ..kernels.lif_update import lif_update, lif_update_ref
 # neurallint: disable=NL-REGISTRY-BYPASS
 from ..kernels.packed import pack_spikes, unpack_spikes
 # neurallint: disable=NL-REGISTRY-BYPASS
-from ..kernels.qk_attention import qk_attention_ref
+from ..kernels.qk_attention import qk_attention_fused, qk_attention_ref
 # neurallint: disable=NL-REGISTRY-BYPASS
 from ..kernels.spike_matmul import spike_matmul, spike_matmul_ref
 # neurallint: disable=NL-REGISTRY-BYPASS
@@ -218,9 +219,14 @@ def _unpack_ref(st: SpikeTensor, dtype):
 
 
 # =============================================================== qk_attention
-# Only the reference is registered: the fused QK-mask kernel (K8) is still
-# to port, so the fused lookup raises. The deployed QKFormer masks inside
-# the fused PE kernel instead.
+# The deployed QKFormer masks inside the fused PE kernel; this op is the
+# stand-alone QK token mask (the unfused training graph reaches it through
+# its "+grad" form).
+@register("qk_mask", "fused")
+def _qk_mask_fused(q: torch.Tensor, k: torch.Tensor, threshold: float):
+    return qk_attention_fused(q, k, threshold=threshold)
+
+
 @register("qk_mask", "reference")
 def _qk_mask_ref(q: torch.Tensor, k: torch.Tensor, threshold: float):
     return qk_attention_ref(q, k, threshold=threshold)

@@ -10,8 +10,8 @@
                          queue 1 item 5).
 
 The ``differentiable`` axis (``for_training()`` / ``"<preset>+grad"``)
-parses as in the reference; its implementations come with the training
-slice (ROADMAP queue 1 item 4), and until then looking one up raises.
+selects the surrogate-gradient implementations of ``ops.grad``: the
+forward runs the preset's kernels, the backward the pseudo-derivative.
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
 """Implementation registry (twin of ``repro.ops.registry``): ``(op, mode)``
--> callable, filled by ``repro_torch.ops.impls`` on first lookup.
+-> callable, filled by ``repro_torch.ops.impls`` (the inference modes) and
+``repro_torch.ops.grad`` (the ``+grad`` modes) on first lookup.
 
 Unlike the reference there is no graceful-degradation guard around the
 fused entries: a fused mode either runs its kernel or raises. A mode whose
@@ -13,11 +14,11 @@ from typing import Callable, Optional
 _REGISTRY: dict[tuple[str, str], Callable] = {}
 _LOADED = False
 
-# ops whose fused kernel is still to port -> its ROADMAP queue 2 item
+# ops whose kernel is still to port -> its ROADMAP queue 2 item
 _FUSED_TODO = {
-    "qk_mask": "K8",
     "attention": "K9",
     "dense_lif": "K2 (dense-activation and head-blocked variants)",
+    "fused_pe": "K2 (the 2-D inference entry; ops.fused_pe_layer has it)",
 }
 
 
@@ -35,7 +36,7 @@ def _ensure_loaded() -> None:
     global _LOADED
     if not _LOADED:
         _LOADED = True
-        from . import impls  # noqa: F401  (registers the kernel families)
+        from . import grad, impls  # noqa: F401  (register the families)
 
 
 def lookup(op: str, mode: str) -> Callable:
@@ -45,12 +46,12 @@ def lookup(op: str, mode: str) -> Callable:
     except KeyError:
         pass
     have = sorted(m for o, m in _REGISTRY if o == op)
-    if mode.endswith("+grad"):
-        hint = (" — the differentiable modes come with the training slice "
-                "(ROADMAP queue 1 item 4)")
-    elif mode == "fused" and op in _FUSED_TODO:
+    if mode.startswith("fused") and op in _FUSED_TODO:
         hint = (f" — its kernel is still to port (ROADMAP queue 2, "
                 f"{_FUSED_TODO[op]})")
+    elif mode.endswith("+grad"):
+        hint = (" — its differentiable form is still to port (ROADMAP "
+                "queue 1 item 6 for the LM ops)")
     else:
         hint = ""
     raise NotImplementedError(

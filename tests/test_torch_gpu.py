@@ -1,7 +1,9 @@
 """Card-only checks of the port: each hand-written kernel, and each packed
-variant, against its plain version on the GPU, and the deployed forward's
-launch counts under ``fused_dense`` and ``fused_packed``. Marked ``gpu``;
-without a CUDA device every test skips. On a machine with one:
+variant, against its plain version on the GPU, the deployed forward's
+launch counts under ``fused_dense`` and ``fused_packed``, and the KD
+training step on the card against the same step on the plain versions.
+Marked ``gpu``; without a CUDA device every test skips. On a machine with
+one:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
@@ -11,6 +13,9 @@ import pytest
 import torch
 
 pytestmark = pytest.mark.gpu
+
+# the KD training kernels, which an inference forward never launches
+NO_BACKWARD = {"spike_matmul_dx": 0, "spike_matmul_dw": 0, "qk_attention": 0}
 
 
 @pytest.fixture
@@ -105,7 +110,8 @@ def test_fused_forward_launches_every_kernel(cuda):
     torch.cuda.synchronize()
     assert dict(_build.LAUNCHES) == {"lif_update": 1, "fused_pe": 13,
                                      "spike_matmul": 3, "w2ttfs_pool": 1,
-                                     "pack_spikes": 0, "unpack_spikes": 0}
+                                     "pack_spikes": 0, "unpack_spikes": 0,
+                                     **NO_BACKWARD}
     ref, _, _ = snn_cnn.forward(fused, img, cfg, policy="reference")
     assert logits.device.type == "cuda"
     torch.testing.assert_close(logits, ref, rtol=1e-5, atol=1e-5)
@@ -131,7 +137,8 @@ def test_packed_forward_launches_every_kernel(cuda):
         torch.cuda.synchronize()
     assert dict(_build.LAUNCHES) == {"lif_update": 1, "fused_pe": 13,
                                      "spike_matmul": 3, "w2ttfs_pool": 1,
-                                     "pack_spikes": 1, "unpack_spikes": 1}
+                                     "pack_spikes": 1, "unpack_spikes": 1,
+                                     **NO_BACKWARD}
     for name, args, _ in captured:
         if name == "fused_pe":
             assert args[-1].x and args[-1].out
@@ -247,3 +254,154 @@ def test_spike_matmul_packed_matches_plain(cuda, density):
                                rtol=1e-5, atol=1e-4)
     dense = K.spike_matmul_cuda(*K.spike_matmul_operands(x, w))
     assert torch.equal(out[:300, :150], dense[:300, :150])
+
+
+# ---------------------------------------------------------- KD training
+@pytest.mark.parametrize("surrogate", ["atan", "sigmoid", "triangle", "rect",
+                                       None])
+@pytest.mark.parametrize("m,n,k", [(300, 150, 200), (1024, 64, 576)])
+def test_spike_matmul_dx_kernel_matches_plain(cuda, surrogate, m, n, k):
+    from repro_torch.kernels import spike_matmul as K
+
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    g = torch.randn((m, n), generator=gen, device=cuda)
+    w = torch.randn((k, n), generator=gen, device=cuda)
+    v = None if surrogate is None else \
+        1.0 + 0.5 * torch.randn((m, n), generator=gen, device=cuda)
+    surr = surrogate or "atan"
+    dx, dv = K.spike_matmul_dx_cuda(g, w, v, surr, 2.0, 1.0)
+    rdx, rdv = K.spike_matmul_dx_ref(g, w, v, surrogate=surr, alpha=2.0,
+                                     v_th=1.0)
+    torch.testing.assert_close(dx, rdx, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(dv, rdv, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("density", [0.0, 0.1, 0.5])
+@pytest.mark.parametrize("m,n,k", [(300, 150, 200), (8192, 64, 576)])
+def test_spike_matmul_dw_kernel_matches_plain(cuda, density, m, n, k):
+    """Within tolerance of the plain version, the same bits on a second
+    launch, and exactly 0 where x is silent."""
+    from repro_torch.kernels import spike_matmul as K
+
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x = _spikes(gen, m, k, density, cuda)
+    x[:, :128] = 0                           # a silent k block: dw rows 0
+    g = torch.randn((m, n), generator=gen, device=cuda)
+    vld = K.vld_map(x)
+    dw = K.spike_matmul_dw_cuda(x, g, vld)
+    torch.testing.assert_close(dw, K.spike_matmul_dw_ref(x, g, vld),
+                               rtol=1e-5, atol=1e-4)
+    assert torch.equal(dw, K.spike_matmul_dw_cuda(x, g, vld))
+    assert not bool(dw[:128].any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
+@pytest.mark.parametrize("threshold", [1.0, 3.0])
+def test_qk_attention_kernel_bit_equal(cuda, dtype, threshold):
+    from repro_torch.kernels import qk_attention as K
+
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    q = (torch.rand((3, 300, 200), generator=gen, device=cuda) < 0.01)
+    k = (torch.rand((3, 300, 200), generator=gen, device=cuda) < 0.3)
+    q, k = q.to(dtype), k.to(dtype)
+    out = K.qk_attention_cuda(q.reshape(-1, 200), k.reshape(-1, 200),
+                              threshold)
+    assert torch.equal(out.reshape(q.shape),
+                       K.qk_attention_ref(q, k, threshold=threshold))
+
+
+@pytest.mark.parametrize("packed_out", [False, True])
+def test_fused_pe_emit_current_matches_plain(cuda, packed_out):
+    """The current within tolerance of the plain version's, and the
+    kernel's spikes exactly its own current thresholded, then masked."""
+    from repro_torch.core.events import unpack_words
+    from repro_torch.kernels import fused_pe as K
+
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    m, k, n = 300, 200, 150
+    x = _spikes(gen, m, k, 0.3, cuda)
+    w = torch.randn((k, n), generator=gen, device=cuda) * 0.15
+    b = 0.6 + 0.4 * torch.randn((n,), generator=gen, device=cuda)
+    r = 0.5 * torch.randn((m, n), generator=gen, device=cuda)
+    q = _spikes(gen, m, n, 0.005, cuda)
+    args = K.fused_pe_operands(x, w, bias=b, residual=r, q=q,
+                               out_format="packed" if packed_out
+                               else "dense", emit_current=True)
+    spk, _, cur = K.fused_pe_cuda(*args)
+    _, _, ref_cur = K.fused_pe_block_ref(*args)
+    torch.testing.assert_close(cur, ref_cur, rtol=1e-5, atol=1e-4)
+    spk = (unpack_words(spk) if packed_out else spk)[:m, :n]
+    own = (cur >= 1.0) & (q.float().sum(dim=1, keepdim=True) >= 1.0)
+    assert torch.equal(spk, own.to(torch.int8))
+
+
+@pytest.mark.parametrize("bn_fold", [True, False])
+def test_train_step_on_card_matches_plain_versions(cuda, bn_fold):
+    """Two fused_dense+grad KD steps of QKFResNet-11 at width 0.25 on the
+    card (the kernels) against the same steps on the CPU (the plain
+    versions): per-layer spike totals within 0.1 %, the loss within rtol
+    1e-4, every gradient leaf within a relative L2 error of 1e-3."""
+    from repro_torch.core.kd import KDConfig
+    from repro_torch.data.synthetic import SyntheticImageDataset
+    from repro_torch.kernels import _build
+    from repro_torch.models import ann_cnn, snn_cnn
+    from repro_torch.optim import cosine_lr, sgd_init
+    from repro_torch.train import trainer
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = snn_cnn.SNNCNNConfig(arch="qkfresnet11", width_mult=0.25,
+                               bn_fold=bn_fold)
+    tcfg = ann_cnn.ANNCNNConfig(arch="resnet18", width_mult=0.25)
+    var = snn_cnn.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    for p in var["params"]:
+        for key, sub in p.items():
+            if key.startswith("bn"):
+                sub["bias"].fill_(0.5)
+    tvar = ann_cnn.init(torch.Generator().manual_seed(1), tcfg,
+                        device="cpu")
+    ds = SyntheticImageDataset(seed=0)
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        record = {"aux": [], "grads": [], "metrics": []}
+
+        def student(p, s, x, policy=None, record=record):
+            out = snn_cnn.forward({"params": p, "state": s}, x, cfg,
+                                  train=True, policy=policy)
+            record["aux"].append(out[2])
+            return out
+
+        grad_fn = trainer.make_kd_grad_fn(
+            student, lambda tp, x: ann_cnn.apply(tp, x, tcfg)[0],
+            tree_map(lambda a: a.to(dev), tvar), kd=KDConfig(alpha=0.7),
+            policy="fused_dense+grad")
+        v = tree_map(lambda a: a.to(dev), var)
+        params, opt, state = v["params"], sgd_init(v["params"]), v["state"]
+        _build.reset_launches()
+        for i in range(2):
+            x, y = ds.batch(i, 16)
+            batch = {"images": torch.tensor(x, device=dev),
+                     "labels": torch.tensor(y, device=dev)}
+            loss, metrics, state, grads = grad_fn(params, state, batch)
+            record["grads"].append([g.cpu() for g in tree_leaves(grads)])
+            record["metrics"].append(float(loss))
+            params, opt = trainer.sgd_update(
+                grads, opt, params, lr=cosine_lr(0.1, 10)(opt.step),
+                momentum=0.9, weight_decay=5e-4)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            launches = dict(_build.LAUNCHES)
+            assert launches["spike_matmul_dx"] == 32
+            assert launches["spike_matmul_dw"] == 32
+            assert launches["fused_pe"] == (26 if bn_fold else 0)
+            assert launches["qk_attention"] == (0 if bn_fold else 2)
+        runs[dev.type] = record
+    card, plain = runs["cuda"], runs["cpu"]
+    for i in range(2):
+        assert card["metrics"][i] == pytest.approx(plain["metrics"][i],
+                                                   rel=1e-4)
+        for key, val in plain["aux"][i]["spikes"].items():
+            a, b = float(card["aux"][i]["spikes"][key]), float(val)
+            assert abs(a - b) <= 1e-3 * max(b, 1.0), (i, key, a, b)
+        for a, b in zip(card["grads"][i], plain["grads"][i]):
+            assert float((a - b).norm()) <= 1e-3 * max(float(b.norm()),
+                                                       1e-12)

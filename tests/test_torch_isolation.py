@@ -55,7 +55,14 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import repro_torch.kernels.spike_matmul\n"
         "import repro_torch.kernels.packed\n"
         "import repro_torch.kernels.w2ttfs_pool\n"
+        "import repro_torch.kernels.qk_attention\n"
+        "import repro_torch.core.surrogate, repro_torch.core.kd\n"
+        "import repro_torch.core.qk_attention, repro_torch.tree\n"
+        "import repro_torch.models.ann_cnn, repro_torch.optim\n"
+        "import repro_torch.train.trainer, repro_torch.data.synthetic\n"
+        "import repro_torch.ops.grad\n"
         "repro_torch.ops.lookup('matmul', 'reference')\n"
+        "repro_torch.ops.lookup('matmul', 'fused+grad')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
@@ -130,9 +137,8 @@ def _unported():
     fused = snn_cnn.fuse_model(
         snn_cnn.init(torch.Generator(), cfg, device="cpu"), cfg)
     img = torch.zeros((1, 16, 16, 3))
+    variables = snn_cnn.init(torch.Generator(), cfg, device="cpu")
     return {
-        "qk_mask fused (K8)": lambda: ops.qk_mask(
-            torch.ones((4, 8)), torch.ones((4, 8)), policy="fused_dense"),
         "matmul skip=gated": lambda: ops.matmul(
             torch.ones((8, 8), dtype=torch.int8), w, skip="gated",
             policy="fused_dense"),
@@ -160,20 +166,40 @@ def _unported():
             _packed()[0], w, skip="two_level", policy="fused_packed"),
         "matmul auto policy": lambda: ops.matmul(
             torch.ones((8, 8), dtype=torch.int8), w, policy="auto"),
-        "matmul +grad policy": lambda: ops.matmul(
-            torch.ones((8, 8), dtype=torch.int8), w,
+        "matmul +grad skip=gated": lambda: ops.matmul(
+            torch.ones((8, 8)), w, skip="gated", policy="fused_dense+grad"),
+        "matmul auto+grad policy": lambda: ops.matmul(
+            torch.ones((8, 8)), w, policy="auto+grad"),
+        "fused_pe_layer +grad T=2": lambda: ops.fused_pe_layer(
+            ops.SpikeTensor.dense(torch.ones((2, 8, 8))), w,
             policy="fused_dense+grad"),
+        "fused_pe_layer reference+grad T=2": lambda: ops.fused_pe_layer(
+            ops.SpikeTensor.dense(torch.ones((2, 8, 8))), w,
+            policy="reference+grad"),
+        "fused_pe +grad LIF state": lambda: ops.fused_pe(
+            torch.ones((8, 8)), w, v_prev=torch.zeros((8, 8)),
+            policy="fused_dense+grad"),
+        "fused_pe +grad heads": lambda: ops.fused_pe(
+            torch.ones((8, 8)), w, q=torch.ones((8, 8)), heads=(2, 4),
+            policy="fused_dense+grad"),
+        "fused_pe inference": lambda: ops.fused_pe(
+            torch.ones((8, 8), dtype=torch.int8), w, policy="fused_dense"),
+        "dense_lif fused+grad lookup": lambda: ops.lookup(
+            "dense_lif", "fused+grad"),
+        "dense_lif reference+grad lookup": lambda: ops.lookup(
+            "dense_lif", "reference+grad"),
+        "fake_quant fp8": lambda: snn_cnn.fake_quant(
+            w, snn_cnn.QuantConfig(enabled=True, mode="fp8_e4m3")),
         "forward fused_packed T=2": lambda: snn_cnn.forward(
             fused, img, dataclasses.replace(cfg, timesteps=2),
             policy="fused_packed"),
-        "forward +grad": lambda: snn_cnn.forward(
-            fused, img, cfg, policy="reference+grad"),
         "forward fused T=2": lambda: snn_cnn.forward(
             fused, img, dataclasses.replace(cfg, timesteps=2),
             policy="fused_dense"),
-        "forward unfused graph": lambda: snn_cnn.forward(
-            snn_cnn.init(torch.Generator(), cfg, device="cpu"), img, cfg),
-        "fold_train_params": lambda: snn_cnn.fold_train_params([], [], cfg),
+        "forward +grad bn_fold T=2": lambda: snn_cnn.forward(
+            variables, img, dataclasses.replace(cfg, timesteps=2,
+                                                bn_fold=True),
+            policy="fused_dense"),
     }
 
 
@@ -184,17 +210,55 @@ def test_unported_variants_raise(case):
     assert "ROADMAP" in str(err.value)
 
 
+def _ported_with_kd_training():
+    """Variants that raised until KD training was ported: they now
+    run on the CPU (the plain versions) and give spikes or currents of the
+    expected shape."""
+    w = torch.ones((8, 8))
+    cfg = snn_cnn.SNNCNNConfig(arch="resnet11", width_mult=0.125,
+                               image_size=16)
+    variables = snn_cnn.init(torch.Generator(), cfg, device="cpu")
+    fused = snn_cnn.fuse_model(variables, cfg)
+    img = torch.zeros((1, 16, 16, 3))
+    return {
+        "qk_mask fused (K8)": lambda: ops.qk_mask(
+            torch.ones((4, 8)), torch.ones((4, 8)),
+            policy="fused_dense").data,
+        "matmul +grad policy": lambda: ops.matmul(
+            torch.ones((8, 8), dtype=torch.int8), w,
+            policy="fused_dense+grad"),
+        "forward +grad": lambda: snn_cnn.forward(
+            fused, img, cfg, policy="reference+grad")[0],
+        "forward unfused graph": lambda: snn_cnn.forward(
+            variables, img, cfg)[0],
+        "fold_train_params": lambda: snn_cnn.fold_train_params(
+            variables["params"], variables["state"], cfg)[0]["conv"]["w"],
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_ported_with_kd_training()))
+def test_variants_ported_with_kd_training_run(case):
+    out = _ported_with_kd_training()[case]()
+    assert isinstance(out, torch.Tensor) and out.numel() > 0
+    assert bool(torch.isfinite(out.to(torch.float32)).all())
+
+
 def test_reference_twins_stay_registered():
     """Every op of the slice has a reference mode, and a fused mode where
-    its kernel is ported."""
+    its kernel is ported; every op of the training walk has both "+grad"
+    modes."""
     table = ops.implementations()
     for op in ("matmul", "lif", "fused_pe_layer", "im2col", "pool",
                "qk_mask", "w2ttfs_head", "pack", "unpack"):
         assert (op, "reference") in table, op
     for op in ("matmul", "lif", "fused_pe_layer", "im2col", "pool",
-               "w2ttfs_head", "pack", "unpack"):
+               "qk_mask", "w2ttfs_head", "pack", "unpack"):
         assert (op, "fused") in table, op
-    assert ("qk_mask", "fused") not in table
+    for op in ("matmul", "lif", "fused_pe", "fused_pe_layer", "qk_mask",
+               "w2ttfs_head", "im2col", "pool"):
+        for mode in ("reference+grad", "fused+grad"):
+            assert (op, mode) in table, (op, mode)
+    assert not any(op == "dense_lif" for op, _ in table)
 
 
 # ---------------------------------------------------------------- convert
