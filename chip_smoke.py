@@ -8,7 +8,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. setup   — the card's name and power limit; TF32 off for matmul and cuDNN;
              cuDNN deterministic (the stem conv's backward), so two kernel
              paths with the same sums give the same gradient bits.
-2. build   — nvcc builds the nine kernels from ``src/repro_torch/csrc`` (one
+2. build   — nvcc builds the kernels from ``src/repro_torch/csrc`` (one
              process per source, all started together); prints the build
              seconds and each kernel's registers, shared memory and spills.
 3. parity  — each kernel's launcher against its plain PyTorch version on
@@ -21,7 +21,18 @@ Phases, in order; any failure raises and the script exits non-zero:
              current for all four surrogates, the dw kernel (bit-equal on a
              second launch, silent tiles contributing exactly 0), the QK
              mask kernel (bit-equal) and the fused PE's emitted current
-             (its spikes exactly its own current thresholded).
+             (its spikes exactly its own current thresholded); then the
+             gated and two-level routes of the spike matmul (int8 and
+             packed x), the fused PE (int8 in/out with residual, q and
+             emitted current; packed in/out with packed residual and q)
+             and dw, at silent-block fractions {0, 0.5, 0.9, 1.0} with a
+             fully silent row block and clustered silent stripes, on 128-
+             and 256-wide blocks: each against its plain version and bit
+             for bit against the dense skip on the same operands.
+   constants — the cost model's constants measured on the card (the values
+             ``launch/roofline.py`` carries): the f32 FMA rate of the
+             dense-skip spike matmul, a 1 GiB copy's rate, one launch,
+             ``compact_kmap``, and a stripe-skipped step's efficiency.
 4. end to end — QKFResNet-11 at full width (64/128/256/512 channels,
              QKFormer d=512, CIFAR-10 32x32x3 inputs), random weights from
              ``torch.Generator`` seed 0 with every BN beta = 0.5, folded by
@@ -31,7 +42,15 @@ Phases, in order; any failure raises and the script exits non-zero:
              reset just before each kernel path's forward and read just
              after it. Then VGG-11 at full width, batch 64, under
              ``"fused_packed"`` against ``"reference"`` (parity only: it is
-             the arch that reaches the packed max-pool).
+             the arch that reaches the packed max-pool). Then the auto
+             policies: the same net under ``"auto"`` and ``"auto_packed"``
+             at this busy regime and at a quiet one (each resblock's first
+             BN beta lowered until an operand is at most half active), per
+             layer the tuner's plan, the measured sparsity and the
+             launches, held to the same gates against ``"reference"`` and
+             bit-equal to the fixed fused policy where every plan is fused;
+             and the plan the card's cost model gives each layer at every
+             sparsity bucket.
 5. training — the paper's KD step (``train.trainer.make_kd_train_step``):
              the same QKFResNet-11 unfused, the ANN ResNet-18 teacher at
              full width in eval mode, SGD momentum 0.9, weight decay 5e-4,
@@ -50,15 +69,23 @@ Phases, in order; any failure raises and the script exits non-zero:
              for its plain version on the card: there train-mode BN carries
              a one-ulp change of any conv current to every later layer, so
              ``reference+grad``, whose cuDNN convs sum in another order,
-             is printed beside it for information only.
-6. timing  — CUDA events: median forward time of each policy, the
-             profiler's device breakdown of both kernel paths, and each
-             kernel's time at the operands its main path gave it, beside
-             its bound, its plain version and, where one PyTorch call does
-             the same product, that call; the median step time of each
-             training path with its forward/backward split and peak memory,
-             and the profiler's top kernels of one ``fused_dense+grad``
-             step.
+             is printed beside it for information only. Then three folded
+             steps at the quiet regime under ``auto+grad`` (the tuner fed
+             by ``observe_train_sparsity``) against ``fused_dense+grad``:
+             equal spike totals and the same gates. Then the three gated
+             kernels launched through the ops entry points with an
+             explicit ``skip=`` on operands the model's layers produced,
+             bit-equal to the dense skip: their rows report the first auto
+             path that launched them, else these launches.
+6. timing  — CUDA events: median forward time of each policy at both
+             regimes, the host time the tuner's metadata reads add to an
+             auto forward, the profiler's device breakdown of both kernel
+             paths, and each kernel's time at the operands its path gave
+             it, beside its bound, its plain version, its dense-skip twin
+             (a gated route) and, where one PyTorch call does the same
+             product, that call; the median step time of each training
+             path with its forward/backward split and peak memory, and the
+             profiler's top kernels of one ``fused_dense+grad`` step.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Without a
@@ -97,20 +124,23 @@ TRAIN_STEPS = 3          # steps of each training path from one state
 TRAIN_ITERS = 5          # timed steps per training path
 # the KD training kernels, which an inference forward never launches
 NO_BACKWARD = {"spike_matmul_dx": 0, "spike_matmul_dw": 0, "qk_attention": 0}
+# the gated routes, which only the auto policies (or an explicit skip) launch
+NO_GATED = {"fused_pe_gated": 0, "spike_matmul_gated": 0,
+            "spike_matmul_dw_gated": 0}
 # launches per forward of each kernel path, every count read after a reset
 EXPECTED_LAUNCHES = {
     "fused_dense": {"lif_update": 1, "fused_pe": 13, "spike_matmul": 3,
                     "w2ttfs_pool": 1, "pack_spikes": 0, "unpack_spikes": 0,
-                    **NO_BACKWARD},
+                    **NO_BACKWARD, **NO_GATED},
     "fused_packed": {"lif_update": 1, "fused_pe": 13, "spike_matmul": 3,
                      "w2ttfs_pool": 1, "pack_spikes": 1, "unpack_spikes": 1,
-                     **NO_BACKWARD},
+                     **NO_BACKWARD, **NO_GATED},
 }
 # launches per step of the BN-folded training graph under the kernels
 FOLD_STEP_LAUNCHES = {"lif_update": 1, "fused_pe": 13, "spike_matmul": 3,
                       "w2ttfs_pool": 1, "pack_spikes": 0, "unpack_spikes": 0,
                       "spike_matmul_dx": 16, "spike_matmul_dw": 16,
-                      "qk_attention": 0}
+                      "qk_attention": 0, **NO_GATED}
 # row of the kernels line -> (kernel, path whose launches it reports,
 # source, the TPU kernel's pallas_call it replaces)
 ROWS = {
@@ -150,7 +180,24 @@ ROWS = {
     "qk_attention": ("qk_attention", "train unfused fused_dense+grad",
                      "src/repro_torch/csrc/qk_attention.cu",
                      "src/repro/kernels/qk_attention/qk_attention.py:52"),
+    # the gated routes: their path is the first of GATED_PATHS that
+    # launched them (resolved at run time)
+    "fused_pe_gated": ("fused_pe_gated", None,
+                       "src/repro_torch/csrc/fused_pe.cu",
+                       "src/repro/kernels/fused_pe/fused_pe.py:362"),
+    "spike_matmul_gated": ("spike_matmul_gated", None,
+                           "src/repro_torch/csrc/spike_matmul.cu",
+                           "src/repro/kernels/spike_matmul/"
+                           "spike_matmul.py:171"),
+    "spike_matmul_dw_gated": ("spike_matmul_dw_gated", None,
+                              "src/repro_torch/csrc/spike_matmul_dw.cu",
+                              "src/repro/kernels/spike_matmul/"
+                              "backward.py:249"),
 }
+# where a gated kernel's row reads its launches, in order of preference:
+# the auto paths, then the explicit-skip launches on the model's operands
+GATED_PATHS = ("auto_packed quiet", "auto quiet", "auto_packed busy",
+               "auto busy", "train fold auto+grad quiet", "explicit skip")
 
 
 def say(*parts) -> None:
@@ -225,19 +272,21 @@ def rand_spikes(torch, gen, m: int, k: int, density: float, dev):
 def check_fused_pe(torch, K, args, parity: Parity, label: str) -> None:
     """Kernel vs plain version on one set of block-aligned operands (dense
     or packed; the row is ``fused_pe_packed`` when x is packed)."""
-    xp, wp, vld, bp, rp, qp, m0, n0, v_th, _, packing = args
-    row = ("fused_pe_emit" if packing.current else
+    xp, wp, vld, bp, rp, qp, m0, n0, v_th, qk, packing, block_n, gate = args
+    row = ("fused_pe_gated" if gate is not None else
+           "fused_pe_emit" if packing.current else
            "fused_pe_packed" if packing.x else "fused_pe")
     k_out, k_vld, *k_cur = K.fused_pe_cuda(*args)
     p_out, p_vld, *p_cur = K.fused_pe_block_ref(*args)
     if packing.out:
         k_spk, p_spk = K.unpack_words(k_out), K.unpack_words(p_out)
         inv = K.check_packed_invariants(K.PackedSpikes(k_out, k_vld,
-                                                       (m0, n0)))
+                                                       (m0, n0), 128, block_n))
         require(inv["ok"], f"{row} {label}: packed output {inv}")
     else:
         k_spk, p_spk = k_out, p_out
-    cur = K.spike_matmul_block_ref(xp, wp, vld, packing.x)
+    cur = (K.spike_matmul_block_ref(xp, wp, vld, packing.x) if gate is None
+           else K.spike_matmul_gated_block_ref(xp, wp, gate, packing.x))
     if bp is not None:
         cur = cur + bp.reshape(1, -1)
     if rp is not None:
@@ -250,7 +299,7 @@ def check_fused_pe(torch, K, args, parity: Parity, label: str) -> None:
     bad = int((diff & ~near).sum())
     flips = int((diff & near).sum())
     require(bad == 0, f"{row} {label}: {bad} spikes differ away from v_th")
-    require(bool((k_vld == K.block_count_map_2d(k_spk, 128, 128)).all()),
+    require(bool((k_vld == K.block_count_map_2d(k_spk, 128, block_n)).all()),
             f"{row} {label}: vld_next is not the block count of the "
             f"kernel's own spikes")
     require(not bool(k_spk[m0:].any()) and not bool(k_spk[:, n0:].any()),
@@ -266,7 +315,7 @@ def check_fused_pe(torch, K, args, parity: Parity, label: str) -> None:
         if qp is not None:
             qd = K.unpack_words(qp) if packing.q else qp
             own &= (qd[:m0].to(torch.float32).sum(dim=1, keepdim=True)
-                    >= args[9])
+                    >= qk)
         require(torch.equal(k_spk[:m0, :n0], own.to(torch.int8)),
                 f"{row} {label}: spikes are not its current thresholded")
     parity.note(row, err, int(near.sum()))
@@ -274,7 +323,9 @@ def check_fused_pe(torch, K, args, parity: Parity, label: str) -> None:
         f"{int(near.sum())} positions within {NEAR_VTH} of v_th, {flips} of "
         f"them flipped; rate {float(k_spk[:m0, :n0].float().mean()):.4f}; "
         f"silent x blocks {int((vld == 0).sum())}/{vld.numel()}; "
-        f"packing {tuple(packing)}")
+        f"packing {tuple(packing)}; blocks 128x{block_n}x"
+        f"{xp.shape[1] * (32 if packing.x else 1) // vld.shape[1]}"
+        + ("" if gate is None else f"; skip {gate.skip}"))
 
 
 def check_spike_matmul(torch, K, args, parity: Parity, label: str) -> None:
@@ -411,7 +462,35 @@ def check_qk(torch, K, args, parity: Parity, label: str) -> None:
     say(f"[parity] qk_attention {label}: bit-equal; rows kept {rows_on:.4f}")
 
 
+def check_spike_matmul_gated(torch, K, args, parity: Parity, label: str
+                             ) -> None:
+    """A main-path gated launch: against its plain version."""
+    out = K.spike_matmul_gated_cuda(*args)
+    ref = K.spike_matmul_gated_block_ref(*args)
+    err = float((out - ref).abs().max()) if out.numel() else 0.0
+    require(torch.allclose(out, ref, rtol=RTOL, atol=ATOL),
+            f"spike_matmul_gated {label}: max abs err {err}")
+    parity.note("spike_matmul_gated", err)
+    say(f"[parity] spike_matmul_gated {label}: max abs err {err:.3e}")
+
+
+def check_dw_gated(torch, K, args, parity: Parity, label: str) -> None:
+    """A main-path gated dw launch: bit-equal to the dense-skip dw."""
+    x, g, gate = args
+    dw = K.spike_matmul_dw_gated_cuda(*args)
+    require(torch.equal(dw, K.spike_matmul_dw_cuda(x, g, K.vld_map(x))),
+            f"spike_matmul_dw_gated {label}: not the dense skip's bits")
+    err = float((dw - K.spike_matmul_dw_gated_ref(*args)).abs().max()) \
+        if dw.numel() else 0.0
+    parity.note("spike_matmul_dw_gated", err)
+    say(f"[parity] spike_matmul_dw_gated {label}: bit-equal to the dense "
+        f"skip; max abs err vs plain {err:.3e}")
+
+
 CHECKS = {"fused_pe": check_fused_pe, "spike_matmul": check_spike_matmul,
+          "fused_pe_gated": check_fused_pe,
+          "spike_matmul_gated": check_spike_matmul_gated,
+          "spike_matmul_dw_gated": check_dw_gated,
           "lif_update": check_lif, "w2ttfs_pool": check_w2ttfs,
           "pack_spikes": check_pack, "unpack_spikes": check_unpack,
           "spike_matmul_dx": check_dx, "spike_matmul_dw": check_dw,
@@ -547,6 +626,153 @@ def parity_training(torch, K, gen, dev, parity: Parity) -> None:
                                f"{out_format} out")
 
 
+# the gated routes (skip="gated" and "two_level") at silent-block fractions
+# 0, 0.5, 0.9 and 1.0: (label, M, K, N, block_k, block_n) at main-path
+# shapes with both block widths the autotuner can plan, and a ragged one
+GATED_SILENT = (0.0, 0.5, 0.9, 1.0)
+GATED_SHAPES = [
+    ("res2.conv2", 65536, 1152, 128, 128, 128),
+    ("res3.conv1 wide", 16384, 1152, 256, 128, 256),
+    ("res4.conv1 k256", 4096, 2304, 512, 256, 256),
+    ("qkf.k k256", 4096, 512, 512, 256, 128),
+    ("ragged", 4059, 500, 300, 128, 128),
+]
+GATED_DW_SHAPES = [("res1.conv1", 262144, 576, 64),
+                   ("res3.conv2", 16384, 2304, 256),
+                   ("qkf.k", 4096, 512, 512), ("ragged", 4059, 500, 300)]
+GATED_SKIPS = ("gated", "two_level")
+
+
+def gated_spikes(torch, gen, m: int, k: int, silent: float, block_k: int,
+                 dev, density: float = 0.3):
+    """Seeded 0/1 int8 map whose (128, block_k) blocks are silent with
+    probability ``silent``: row block 0 wholly silent when ``silent`` > 0
+    (nact = 0 there), and inside every block the 32-column stripes
+    (s + row block) % 3 == 0 silent, clustered, the two-level skip's
+    target."""
+    x = torch.rand((m, k), generator=gen, device=dev) < density
+    gm, gk = -(-m // 128), -(-k // block_k)
+    keep = torch.rand((gm, gk), generator=gen, device=dev) >= silent
+    if silent > 0:
+        keep[0] = False
+    rb = torch.arange(gm, device=dev)
+    stripe_on = ((torch.arange(-(-k // 32), device=dev)[None, :]
+                  + rb[:, None]) % 3) != 0
+    rows = torch.arange(m, device=dev) // 128
+    cols = torch.arange(k, device=dev)
+    x &= keep[rows][:, cols // block_k]
+    x &= stripe_on[rows][:, cols // 32]
+    return x.to(torch.int8)
+
+
+def check_gated_matmul(torch, K, x, w, block_n: int, block_k: int, skip: str,
+                       parity: Parity, label: str) -> None:
+    """The gated route against its plain version, and bit-equal to the
+    dense-skip route on the same operands."""
+    args = K.spike_matmul_operands(x, w, block_n=block_n, block_k=block_k,
+                                   skip=skip)
+    dense = K.spike_matmul_operands(x, w, block_n=block_n, block_k=block_k)
+    out = K.spike_matmul_gated_cuda(*args)
+    ref = K.spike_matmul_gated_block_ref(*args)
+    err = float((out - ref).abs().max()) if out.numel() else 0.0
+    require(torch.allclose(out, ref, rtol=RTOL, atol=ATOL),
+            f"spike_matmul_gated {label}: max abs err {err}")
+    require(torch.equal(out, K.spike_matmul_cuda(*dense)),
+            f"spike_matmul_gated {label}: not bit-equal to the dense skip")
+    parity.note("spike_matmul_gated", err)
+    gate = args[2]
+    say(f"[parity] spike_matmul_gated {label}: max abs err {err:.3e}; "
+        f"bit-equal to the dense skip; active blocks "
+        f"{int(gate.nact.sum())}/{gate.kmap.numel()}, rows with nact = 0 "
+        f"{int((gate.nact == 0).sum())}")
+
+
+def check_gated_fused_pe(torch, K, fused_kw: dict, parity: Parity,
+                         label: str) -> None:
+    """The gated fused PE against its plain version (``check_fused_pe``),
+    and its spikes, vld_next and current bit-equal to the dense skip's."""
+    args = K.fused_pe_operands(**fused_kw)
+    dense = K.fused_pe_operands(**dict(fused_kw, skip="dense"))
+    check_fused_pe(torch, K, args, parity, label)
+    k_out = K.fused_pe_cuda(*args)
+    d_out = K.fused_pe_cuda(*dense)
+    require(all(torch.equal(a, b) for a, b in zip(k_out, d_out)),
+            f"fused_pe_gated {label}: not bit-equal to the dense skip")
+    say(f"[parity] fused_pe_gated {label}: spikes, vld_next"
+        + (" and current" if len(k_out) > 2 else "")
+        + " bit-equal to the dense skip")
+
+
+def check_gated_dw(torch, K, x, g, skip: str, parity: Parity,
+                   label: str) -> None:
+    """The gated dw bit-equal to the dense-skip dw (and so within
+    ``check_dw``'s limit of the exact product), against its plain
+    version, and blind to NaN in the g rows of wholly silent row blocks."""
+    vld = K.vld_map(x)
+    gate = K.dw_gate(x, vld, skip)
+    dw = K.spike_matmul_dw_gated_cuda(x, g, gate)
+    ref = K.spike_matmul_dw_gated_ref(x, g, gate)
+    err = float((dw - ref).abs().max()) if dw.numel() else 0.0
+    require(torch.equal(dw, K.spike_matmul_dw_cuda(x, g, vld)),
+            f"spike_matmul_dw_gated {label}: not bit-equal to the dense skip")
+    splits, per = K.dw_splits(x.shape[0], x.shape[1], g.shape[1])
+    x64, g64 = x.to(torch.float64), g.to(torch.float64)
+    limit = DW_C * math.sqrt(per * 128 + splits) * 2.0 ** -24 * (
+        x64.abs().T @ g64.abs())
+    require(not bool(((dw.to(torch.float64) - x64.T @ g64).abs()
+                      > limit).any()),
+            f"spike_matmul_dw_gated {label}: beyond its limit (max abs err "
+            f"vs plain {err})")
+    silent = (vld == 0).all(dim=1).repeat_interleave(128)[:x.shape[0]]
+    g_nan = g.clone()
+    g_nan[silent] = float("nan")
+    require(torch.equal(dw, K.spike_matmul_dw_gated_cuda(x, g_nan, gate)),
+            f"spike_matmul_dw_gated {label}: a silent tile contributed")
+    parity.note("spike_matmul_dw_gated", err)
+    say(f"[parity] spike_matmul_dw_gated {label}: max abs err vs plain "
+        f"{err:.3e}; bit-equal to the dense skip; NaN in {int(silent.sum())}"
+        f" silent g rows changes no bit; active blocks "
+        f"{int(gate.nact.sum())}/{gate.kmap.numel()}")
+
+
+def parity_gated(torch, K, gen, dev, parity: Parity) -> None:
+    for label, m, k, n, block_k, block_n in GATED_SHAPES:
+        w = torch.randn((k, n), generator=gen, device=dev) \
+            * (2.0 / math.sqrt(k))
+        b = 0.6 + 0.4 * torch.randn((n,), generator=gen, device=dev)
+        for silent in GATED_SILENT:
+            x = gated_spikes(torch, gen, m, k, silent, block_k, dev)
+            xpk = K.pack_spikes_ref(x, block_k=block_k)
+            r = 0.5 * torch.randn((m, n), generator=gen, device=dev)
+            rs = K.pack_spikes_ref(rand_spikes(torch, gen, m, n, 0.3, dev),
+                                   block_k=block_n)
+            q = rand_spikes(torch, gen, m, n, 0.002, dev)
+            for skip in GATED_SKIPS:
+                tag = (f"{label} [{m}x{k}x{n}] blocks 128x{block_n}x{block_k}"
+                       f" silent {silent} {skip}")
+                for packed, xx in (("int8", x), ("packed", xpk)):
+                    check_gated_matmul(torch, K, xx, w, block_n, block_k,
+                                       skip, parity, f"{tag} {packed} x")
+                base = dict(w=w, bias=b, v_th=V_TH, qk_threshold=1.0,
+                            block_n=block_n, block_k=block_k, skip=skip)
+                check_gated_fused_pe(torch, K, dict(
+                    base, x=x, residual=r, q=q, out_format="dense",
+                    emit_current=True), parity, f"{tag} int8 in/out, f32 "
+                    f"residual, q, emit_current")
+                check_gated_fused_pe(torch, K, dict(
+                    base, x=xpk, residual=rs, q=K.pack_spikes_ref(q),
+                    out_format="packed"), parity, f"{tag} packed in/out, "
+                    f"packed residual and q")
+    for label, m, k, n in GATED_DW_SHAPES:
+        g = torch.randn((m, n), generator=gen, device=dev)
+        for silent in GATED_SILENT:
+            x = gated_spikes(torch, gen, m, k, silent, 128, dev)
+            for skip in GATED_SKIPS:
+                check_gated_dw(torch, K, x, g, skip, parity,
+                               f"{label} [{m}x{k}]^T @ [{m}x{n}] silent "
+                               f"{silent} {skip}")
+
+
 def phase_parity(torch, K, dev) -> Parity:
     parity = Parity()
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -592,28 +818,100 @@ def phase_parity(torch, K, dev) -> Parity:
             check_w2ttfs(torch, K, (spikes, fc_w, fc_b, window), parity,
                          f"[{b},{h},{h},{c}] window {window} density {p}")
     parity_training(torch, K, gen, dev, parity)
+    parity_gated(torch, K, gen, dev, parity)
     torch.cuda.synchronize()
     return parity
 
 
+# ------------------------------------------------------------ phase 3b
+def phase_constants(torch, K, dev) -> dict:
+    """The cost model's constants, measured on the card (the values
+    ``launch/roofline.py`` carries come from this phase):
+
+      peak_flops        2 M K N over the dense-skip spike matmul's time on
+                        an all-active 4096 x 4608 x 512 operand (res4.conv2)
+      hbm_bw            a 1 GiB device-to-device copy: 2 GiB over its time
+      launch_overhead_s one back-to-back launch of the dense-skip spike
+                        matmul on a silent 128 x 128 x 128 tile (the
+                        wrapper's ctypes call included)
+      gating_overhead_s compact_kmap of resblock 1's [2048, 9] vld map
+      subtile_eff       the two-level route with half its stripes clear
+                        against the gated route on the same operand:
+                        (time gated / 2) / time two-level, at most 1
+    """
+    gen = torch.Generator(device=dev).manual_seed(77)
+    m, k, n = 4096, 4608, 512
+    x = (torch.rand((m, k), generator=gen, device=dev) < 0.3).to(torch.int8)
+    w = torch.randn((k, n), generator=gen, device=dev)
+    args = K.spike_matmul_operands(x, w)
+    require(bool((args[2] > 0).all()), "peak operand has a silent block")
+    ms = time_cuda(torch, lambda: K.spike_matmul_cuda(*args), reps=20)
+    peak = 2.0 * m * k * n / (ms * 1e-3)
+    a = torch.empty(2 ** 28, dtype=torch.float32, device=dev)
+    b = torch.empty_like(a)
+    copy_ms = time_cuda(torch, lambda: b.copy_(a), reps=20)
+    hbm = 2.0 * a.numel() * 4 / (copy_ms * 1e-3)
+    del a, b
+    tiny = K.spike_matmul_operands(
+        torch.zeros((128, 128), dtype=torch.int8, device=dev),
+        torch.zeros((128, 128), device=dev))
+    launch_ms = time_cuda(torch, lambda: K.spike_matmul_cuda(*tiny),
+                          reps=500, warmup=20)
+    vld = K.vld_map(rand_spikes(torch, gen, 262144, 1152, 0.1, dev))
+    gate_ms = time_cuda(torch, lambda: K.compact_kmap(vld), reps=500,
+                        warmup=20)
+    m2, k2, n2 = 16384, 2304, 256
+    x2 = (torch.rand((m2, k2), generator=gen, device=dev) < 0.3)
+    x2 &= (torch.arange(k2, device=dev) // 32 % 2 == 0)[None, :]
+    x2 = x2.to(torch.int8)
+    w2 = torch.randn((k2, n2), generator=gen, device=dev)
+    g_args = K.spike_matmul_operands(x2, w2, skip="gated")
+    t_args = K.spike_matmul_operands(x2, w2, skip="two_level")
+    g_ms = time_cuda(torch, lambda: K.spike_matmul_gated_cuda(*g_args),
+                     reps=20)
+    t_ms = time_cuda(torch, lambda: K.spike_matmul_gated_cuda(*t_args),
+                     reps=20)
+    out = {"peak_flops": peak, "hbm_bw": hbm,
+           "launch_overhead_s": launch_ms * 1e-3,
+           "gating_overhead_s": gate_ms * 1e-3,
+           "subtile_eff": min(1.0, 0.5 * g_ms / t_ms)}
+    say(f"[constants] dense-skip spike matmul {m}x{k}x{n} all active: "
+        f"{ms:.4f} ms, {peak / 1e12:.3f} TFLOP/s; 1 GiB copy {copy_ms:.4f} "
+        f"ms, {hbm / 1e12:.3f} TB/s; launch {launch_ms * 1e3:.3f} us; "
+        f"compact_kmap [{vld.shape[0]}, {vld.shape[1]}] {gate_ms * 1e3:.3f} "
+        f"us; {m2}x{k2}x{n2} half stripes clear: gated {g_ms:.4f} ms, "
+        f"two_level {t_ms:.4f} ms, stripe-step efficiency "
+        f"{0.5 * g_ms / t_ms:.4f}")
+    say(f"[constants] measured {json.dumps(out)}")
+    return out
+
+
 # ------------------------------------------------------------------ phase 4
-def init_model(torch, snn_cnn, dev, arch: str = "qkfresnet11"):
-    """The full-width config and its training variables, seed 0."""
+def init_model(torch, snn_cnn, dev, arch: str = "qkfresnet11",
+               quiet_beta=None):
+    """The full-width config and its training variables, seed 0, every BN
+    beta 0.5, or, with ``quiet_beta``, that beta in the first BN of every
+    resblock (the quiet regime)."""
     cfg = snn_cnn.SNNCNNConfig(arch=arch, width_mult=1.0, image_size=32,
                                in_channels=3, num_classes=10)
     gen = torch.Generator(device="cpu").manual_seed(0)
     variables = snn_cnn.init(gen, cfg, device=dev)
     # a random net at full width goes silent by the third resblock; a BN
-    # beta of 0.5 keeps every layer firing (per-layer rates 0.24-0.52)
+    # beta of 0.5 keeps every layer firing (per-layer rates 0.24-0.52). A
+    # lower beta in each resblock's first BN quiets its s1 map, the operand
+    # of its second conv, while the bias and the shortcut keep the block's
+    # output firing: the quiet regime of the auto phase
     for p in variables["params"]:
         for key, sub in p.items():
             if key.startswith("bn"):
-                sub["bias"].fill_(0.5)
+                sub["bias"].fill_(0.5 if quiet_beta is None or key != "bn1"
+                                  else quiet_beta)
     return cfg, variables
 
 
-def build_model(torch, snn_cnn, dev, arch: str = "qkfresnet11"):
-    cfg, variables = init_model(torch, snn_cnn, dev, arch)
+def build_model(torch, snn_cnn, dev, arch: str = "qkfresnet11",
+                quiet_beta=None):
+    cfg, variables = init_model(torch, snn_cnn, dev, arch, quiet_beta)
     return cfg, snn_cnn.fuse_model(variables, cfg)
 
 
@@ -689,8 +987,11 @@ def phase_end_to_end(torch, snn_cnn, build_mod, dev, batch: int):
     say(f"[e2e] fused_packed logits equal fused_dense's: "
         f"{bool(torch.equal(p_logits, d_logits))}")
     for name, args, _ in paths["fused_packed"][3]:
-        if name in ("fused_pe", "spike_matmul"):
-            require(args[-1] is True or (args[-1].x and args[-1].out),
+        if name == "spike_matmul":
+            require(args[3] is True,
+                    f"a fused_packed {name} launch took int8 operands")
+        if name == "fused_pe":
+            require(args[10].x and args[10].out,
                     f"a fused_packed {name} launch took int8 operands")
     say(f"[e2e] spike bytes between kernels: fused_dense "
         f"{d_aux['spike_hbm_bytes']}, fused_packed "
@@ -727,6 +1028,230 @@ def phase_vgg(torch, snn_cnn, build_mod, dev, batch: int) -> None:
                  "VGG-11 fused_packed vs reference")
 
 
+# ------------------------------------------------------------- phase 4b
+# the quiet regime: each resblock's first BN beta lowered to the first of
+# these values at which some tuned layer's operand has at most half its
+# blocks active and the last layer still fires
+QUIET_BETAS = (0.25, 0.0, -0.25, -0.5, -0.75, -1.0, -1.5, -2.0, -3.0, -4.0)
+AUTO_POLICIES = ("auto", "auto_packed")
+
+
+def tuned_layer_names(cfg, snn_cnn) -> list:
+    """The matmul sweeps an auto forward plans, in the walk's order."""
+    names, conv = [], 0
+    for i, layer in enumerate(snn_cnn.build_layers(cfg)):
+        kind = layer[0]
+        if kind == "conv_bn_lif":
+            conv += 1
+            if conv > 1:                       # the stem is a cuDNN conv
+                names.append(f"layer{i}.conv")
+        elif kind == "resblock":
+            _, cin, cout, stride = layer
+            names.append(f"res{i}.conv1")
+            if stride != 1 or cin != cout:
+                names.append(f"res{i}.sc")
+            names.append(f"res{i}.conv2")
+        elif kind == "qkformer":
+            names += [f"qkf{i}.{p}" for p in ("q", "k", "proj", "mlp1",
+                                               "mlp2")]
+    return names
+
+
+def active_fracs(captured) -> list:
+    """Active-block fraction of x in each fused PE / spike matmul launch."""
+    return [float((args[2] > 0).float().mean()) for name, args, _ in captured
+            if name in ("fused_pe", "spike_matmul")]
+
+
+def pick_quiet_beta(torch, snn_cnn, build_mod, dev, images) -> float:
+    """The first of QUIET_BETAS at which some tuned operand is at most half
+    active and the net's last layer still fires (fused_packed forwards)."""
+    for beta in QUIET_BETAS:
+        cfg, fused = build_model(torch, snn_cnn, dev, quiet_beta=beta)
+        with build_mod.capture_launches() as cap:
+            _, _, aux = snn_cnn.forward(fused, images, cfg,
+                                        policy="fused_packed")
+            torch.cuda.synchronize()
+        fracs = active_fracs(cap)
+        last = float(list(aux["rates"].values())[-1])
+        say(f"[auto] resblock BN1 beta {beta}: active-block fractions "
+            f"{[round(f, 4) for f in fracs]}; last layer rate {last:.4f}")
+        if min(fracs) <= 0.5 and last > 0.0:
+            return beta
+    raise AssertionError(f"no BN beta of {QUIET_BETAS} gives a quiet, "
+                         f"firing net")
+
+
+def print_plans(names, trace, label: str) -> None:
+    require(len(trace) == len(names),
+            f"{label}: {len(trace)} plans for {len(names)} tuned layers")
+    for name, (m, k, n, fmt, active, occ, plan) in zip(names, trace):
+        say(f"[auto] {label} {name} [{m}x{k}x{n}] {fmt}: active_frac "
+            f"{active:.4f} occ_frac {occ:.4f} -> {plan.kernels} {plan.skip} "
+            f"blocks {plan.block_m}x{plan.block_n}x{plan.block_k} est "
+            f"{plan.est_time_s * 1e6:.1f} us")
+
+
+def run_auto(torch, snn_cnn, build_mod, tuner, fused, images, cfg,
+             policy: str, label: str):
+    """One auto forward, its launch counts set to 0 just before it and
+    read just after it, the tuner's plans traced."""
+    tuner.reset()
+    tuner.trace = []
+    build_mod.reset_launches()
+    with build_mod.capture_launches() as captured:
+        logits, _, aux = snn_cnn.forward(fused, images, cfg, policy=policy)
+        torch.cuda.synchronize()
+    launches = dict(build_mod.LAUNCHES)
+    trace, tuner.trace = tuner.trace, None
+    print_plans(tuned_layer_names(cfg, snn_cnn), trace, label)
+    say(f"[auto] {label}: launches {launches}; {tuner.reads} metadata reads "
+        f"on the host, {tuner.read_s * 1e3:.3f} ms")
+    return logits, aux, launches, captured, trace
+
+
+def phase_auto(torch, snn_cnn, build_mod, ops, dev, images, paths) -> dict:
+    """QKFResNet-11 at full width under auto and auto_packed at the busy
+    regime (every BN beta 0.5) and a quiet one; per layer the plan, the
+    measured sparsity and the launches; logits and spikes held to the
+    inference gates against reference, and bit-equal to the fixed fused
+    policy of the same format where every layer planned a fused kernel.
+    Adds each forward to ``paths``; returns regime -> (beta, cfg, fused)
+    and each auto forward's plan trace."""
+    tuner = ops.get_tuner()
+    regimes = {"busy": None,
+               "quiet": pick_quiet_beta(torch, snn_cnn, build_mod, dev,
+                                        images)}
+    say(f"[auto] quiet regime: every resblock's first BN beta "
+        f"{regimes['quiet']}, every other BN beta 0.5")
+    models, traces = {}, {}
+    for regime, beta in regimes.items():
+        cfg, fused = build_model(torch, snn_cnn, dev, quiet_beta=beta)
+        models[regime] = (beta, cfg, fused)
+        ref_logits, _, ref_aux = snn_cnn.forward(fused, images, cfg,
+                                                 policy="reference")
+        for fixed in ("fused_dense", "fused_packed"):
+            if f"{fixed} {regime}" not in paths:
+                logits, aux, launches, cap = run_path(
+                    torch, snn_cnn, build_mod, fused, images, cfg, fixed)
+                paths[f"{fixed} {regime}"] = (logits, aux, launches, cap)
+        for policy in AUTO_POLICIES:
+            label = f"{policy} {regime}"
+            logits, aux, launches, cap, trace = run_auto(
+                torch, snn_cnn, build_mod, tuner, fused, images, cfg, policy,
+                label)
+            paths[label] = (logits, aux, launches, cap)
+            traces[label] = trace
+            compare_spikes(aux, ref_aux, f"{label} vs reference", 1e-3)
+            check_logits(torch, logits, ref_logits, images.shape[0],
+                         f"{label} vs reference")
+            fixed = "fused_packed" if policy == "auto_packed" \
+                else "fused_dense"
+            f_logits, f_aux = paths[f"{fixed} {regime}"][:2]
+            if all(p.kernels == "fused" for *_, p in trace):
+                require(torch.equal(logits, f_logits),
+                        f"{label}: every plan fused, logits not {fixed}'s")
+                compare_spikes(aux, f_aux, f"{label} vs {fixed}", 0.0)
+                say(f"[auto] {label}: every layer planned a fused kernel; "
+                    f"logits and spikes bit-equal to {fixed}")
+            else:
+                say(f"[auto] {label}: "
+                    f"{sum(p.kernels == 'reference' for *_, p in trace)} of "
+                    f"{len(trace)} layers planned the reference")
+    return models, traces
+
+
+def stack1(t):
+    """A kernel-level operand as the [1, ...] one-step train of the ops
+    layer (PackedSpikes keep their words and maps)."""
+    from repro_torch.core.events import PackedSpikes
+
+    if t is None or not isinstance(t, PackedSpikes):
+        return None if t is None else t[None]
+    return PackedSpikes(t.words[None], t.vld_cnt[None], (1, *t.shape),
+                        t.block_m, t.block_k,
+                        None if t.occ is None else t.occ[None])
+
+
+def phase_explicit(torch, K, build_mod, ops, paths, train_captured):
+    """The three gated kernels launched through the ops entry points with
+    an explicit ``skip``, on operands the model's own layers produced: the
+    most silent fused PE and shortcut launches of the quiet regime's
+    fused_packed and fused_dense forwards, and the most silent dw launch of
+    a quiet fused_dense+grad step; each output bit-equal to the dense
+    skip's. Returns the path tuple of these launches."""
+    from repro_torch.kernels.spike_matmul import spike_matmul_dw
+
+    def most_silent(captured, name):
+        cands = [(float((a[2] > 0).float().mean()), i, a, inp)
+                 for i, (n_, a, inp) in enumerate(captured) if n_ == name]
+        return min(cands, key=lambda c: (c[0], c[1]))
+
+    picks = []
+    for fixed in ("fused_packed", "fused_dense"):
+        cap = paths[f"{fixed} quiet"][3]
+        picks.append((fixed, most_silent(cap, "fused_pe"),
+                      most_silent(cap, "spike_matmul")))
+    dw_pick = most_silent(train_captured, "spike_matmul_dw")
+    build_mod.reset_launches()
+    with build_mod.capture_launches() as captured:
+        for fixed, (fa, fi, _, finp), (ma, mi, _, minp) in picks:
+            x, w, bias, residual, q = finp
+            for skip in GATED_SKIPS:
+                outs = [ops.fused_pe_layer(
+                    ops.SpikeTensor.wrap(stack1(x)), w, bias=bias,
+                    residual=None if residual is None
+                    else ops.SpikeTensor.wrap(stack1(residual)),
+                    q=None if q is None else ops.SpikeTensor.wrap(stack1(q)),
+                    policy=fixed, skip=sk) for sk in (skip, "dense")]
+                require(torch.equal(outs[0].spikes.data, outs[1].spikes.data)
+                        and torch.equal(outs[0].vld_next, outs[1].vld_next),
+                        f"explicit fused_pe {skip} ({fixed} launch {fi}) is "
+                        f"not the dense skip's")
+                mx, mw = minp
+                mm = [ops.matmul(ops.SpikeTensor.wrap(mx), mw, policy=fixed,
+                                 skip=sk) for sk in (skip, "dense")]
+                require(torch.equal(mm[0], mm[1]),
+                        f"explicit matmul {skip} ({fixed} launch {mi}) is not "
+                        f"the dense skip's")
+                say(f"[explicit] {fixed} fused_pe launch {fi} (active blocks "
+                    f"{fa:.4f}) and spike_matmul launch {mi} ({ma:.4f}) under "
+                    f"skip={skip}: bit-equal to the dense skip")
+        da, di, dargs, _ = dw_pick
+        x8, g, vld = dargs
+        for skip in GATED_SKIPS:
+            dws = [spike_matmul_dw(x8, g, vld_cnt=vld, skip=sk)
+                   for sk in (skip, "dense")]
+            require(torch.equal(dws[0], dws[1]),
+                    f"explicit dw {skip} (launch {di}) is not the dense "
+                    f"skip's")
+            say(f"[explicit] fused_dense+grad dw launch {di} (active blocks "
+                f"{da:.4f}) under skip={skip}: bit-equal to the dense skip")
+        torch.cuda.synchronize()
+    launches = dict(build_mod.LAUNCHES)
+    say(f"[explicit] launches {launches}")
+    return None, None, launches, captured
+
+
+def phase_plans(tuned, names) -> None:
+    """The plan the card's cost model gives each full-width layer at every
+    sparsity bucket (pure arithmetic; occ_frac 1, as the patch operands
+    carry no occ map), forward and backward."""
+    from repro_torch.ops.autotune import _BUCKETS, AutoTuner
+
+    tuner = AutoTuner()
+    for (m, k, n, fmt, *_), name in zip(tuned, names):
+        fwd = []
+        for b in _BUCKETS:
+            p = tuner.plan_matmul(m, k, n, fmt=fmt, active_frac=b)
+            fwd.append(f"{b}:{p.kernels[0]}/{p.skip}/{p.block_n}")
+        grad = [f"{b}:{p.kernels[0]}/{p.skip}" for b in _BUCKETS
+                for p in [tuner.plan_grad_matmul(m, k, n, fmt=fmt,
+                                                 active_frac=b)]]
+        say(f"[plans] {name} [{m}x{k}x{n}] {fmt}: forward {' '.join(fwd)}; "
+            f"backward {' '.join(grad)}")
+
+
 # ------------------------------------------------------------------ phase 5
 TRAIN_PATHS = [("fold", "reference+grad"), ("fold", "fused_dense+grad"),
                ("fold", "fused_packed+grad"), ("unfused", "reference+grad"),
@@ -756,7 +1281,7 @@ def unfused_step_launches(cfg, snn_cnn) -> dict:
     return {"lif_update": lif, "fused_pe": 0, "spike_matmul": matmul,
             "w2ttfs_pool": 1, "pack_spikes": 0, "unpack_spikes": 0,
             "spike_matmul_dx": matmul, "spike_matmul_dw": matmul,
-            "qk_attention": qk}
+            "qk_attention": qk, **NO_GATED}
 
 
 def expected_step_launches(graph: str, policy: str, cfg, snn_cnn) -> dict:
@@ -837,7 +1362,9 @@ class TrainPath:
                                                  kd=kd, policy=policy)
         self.name = f"train {graph} {policy}{suffix}"
 
-    def run(self, batches, build_mod) -> None:
+    def run(self, batches, build_mod, observe: bool = False) -> None:
+        """The steps from the initial state; with ``observe`` each step's
+        metrics feed the autotuner (``observe_train_sparsity``)."""
         torch, M = self.torch, self.M
         v = self.variables
         self.batch0 = batches[0]
@@ -858,6 +1385,8 @@ class TrainPath:
             self.peak.append(torch.cuda.max_memory_allocated())
             if i == 0:
                 self.captured = captured
+            if observe:
+                M.trainer.observe_train_sparsity(metrics)
             self.losses.append(float(metrics["loss"]))
             spikes = " ".join(f"{k}={float(val):.0f}"
                               for k, val in self.aux["spikes"].items())
@@ -869,8 +1398,8 @@ class TrainPath:
         self.carry = carry
 
 
-def phase_training(torch, M, build_mod, dev, batch: int):
-    cfg, variables = init_model(torch, M.snn_cnn, dev)
+def kd_setup(torch, M, dev, batch: int):
+    """The ResNet-18 teacher (seed 1) and the KD batches of every path."""
     tcfg = M.ann_cnn.ANNCNNConfig(arch="resnet18", width_mult=1.0)
     tvar = M.ann_cnn.init(torch.Generator(device="cpu").manual_seed(1), tcfg,
                           device=dev)
@@ -880,6 +1409,12 @@ def phase_training(torch, M, build_mod, dev, batch: int):
         imgs, labels = ds.batch(i, batch)
         batches.append({"images": torch.tensor(imgs, device=dev),
                         "labels": torch.tensor(labels, device=dev)})
+    return tcfg, tvar, batches
+
+
+def phase_training(torch, M, build_mod, dev, batch: int):
+    cfg, variables = init_model(torch, M.snn_cnn, dev)
+    tcfg, tvar, batches = kd_setup(torch, M, dev, batch)
     say(f"[train] QKFResNet-11 width 1.0 student "
         f"({sum(p.numel() for p in M.tree_leaves(variables['params']))} "
         f"parameters), ANN ResNet-18 width 1.0 teacher in eval mode, batch "
@@ -928,6 +1463,51 @@ def phase_training(torch, M, build_mod, dev, batch: int):
     return paths
 
 
+def phase_auto_training(torch, M, build_mod, dev, batch: int, beta: float,
+                        names: list):
+    """Three KD steps on the folded graph at the quiet regime under
+    auto+grad (``observe_train_sparsity`` after each step) and under
+    fused_dense+grad from the same weights. Prints the backward plans and
+    the launches; holds auto+grad's step 1 to the training gates against
+    fused_dense+grad with equal spike totals, bit-equal where every plan
+    is fused. Returns both paths by name."""
+    tuner = M.get_tuner()
+    cfg, variables = init_model(torch, M.snn_cnn, dev, quiet_beta=beta)
+    tcfg, tvar, batches = kd_setup(torch, M, dev, batch)
+    paths = {}
+    for policy in ("fused_dense+grad", "auto+grad"):
+        path = TrainPath(torch, M, cfg, variables, tcfg, tvar, "fold",
+                         policy, suffix=" quiet")
+        tuner.reset()
+        tuner.trace = []
+        path.run(batches, build_mod, observe=policy == "auto+grad")
+        trace, tuner.trace = tuner.trace, None
+        if policy == "auto+grad":
+            per = len(names)
+            require(len(trace) == per * (1 + len(batches)),
+                    f"auto+grad traced {len(trace)} plans")
+            print_plans(names, trace[:per], f"{path.name} step 1")
+            print_plans(names, trace[-per:], f"{path.name} step "
+                        f"{len(batches)}")
+            say(f"[auto] {path.name}: tuner hint after the steps "
+                f"{tuner.snapshot()['observed_active_frac']}")
+            path.trace = trace
+        paths[path.name] = path
+    dense = paths["train fold fused_dense+grad quiet"]
+    auto = paths["train fold auto+grad quiet"]
+    compare_training(auto, dense)
+    require(auto.spikes == dense.spikes,
+            f"{auto.name}: step-1 spike totals differ from {dense.name}")
+    if all(p.kernels == "fused" for *_, p in auto.trace):
+        require(auto.losses == dense.losses and all(
+            torch.equal(a, b) for a, b in zip(auto.grads, dense.grads)),
+            f"{auto.name}: every plan fused, but not bit-equal to "
+            f"{dense.name}")
+        say(f"[auto] {auto.name}: every plan fused; losses and step-1 "
+            f"gradients bit-equal to {dense.name}")
+    return paths
+
+
 def training_distance(path, ref) -> tuple[float, list, float]:
     """Step 1 of ``path`` against ``ref``: (loss relative difference, each
     gradient leaf's relative L2 error, the worst spike total's relative
@@ -963,7 +1543,8 @@ def compare_training(path, ref) -> None:
                                  f"relative L2 error {errs[worst]} past 1e-3")
 
 
-def time_training(torch, M, paths, batch: int, iters: int) -> None:
+def time_training(torch, M, paths, batch: int, iters: int,
+                  profile: bool = True) -> None:
     """Median step time of each training path (host clock around a
     synchronised step), its forward (the student alone, no autograd) and
     the rest (backward and update), images/s and peak memory; then the
@@ -996,8 +1577,9 @@ def time_training(torch, M, paths, batch: int, iters: int) -> None:
             f"{batch / med * 1e3:.1f} images/s; forward {fwd:.3f} ms, "
             f"backward and update {max(med - fwd, 0.0):.3f} ms; peak memory "
             f"{max(path.peak) / 2**30:.3f} GiB")
-    path = paths["fold", "fused_dense+grad"]
-    profile_step(torch, path, medians["fold", "fused_dense+grad"])
+    if profile:
+        path = paths["fold", "fused_dense+grad"]
+        profile_step(torch, path, medians["fold", "fused_dense+grad"])
 
 
 def profile_step(torch, path, step_ms: float, reps: int = 2) -> None:
@@ -1050,10 +1632,10 @@ def time_cuda(torch, fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def valid_extent(torch, n: int, blocks: int):
-    """How many of each 128-wide block's indices lie below ``n``."""
-    starts = torch.arange(blocks, dtype=torch.float64) * 128
-    return (n - starts).clamp(0, 128)
+def valid_extent(torch, n: int, blocks: int, width: int = 128):
+    """How many of each ``width``-wide block's indices lie below ``n``."""
+    starts = torch.arange(blocks, dtype=torch.float64) * width
+    return (n - starts).clamp(0, width)
 
 
 def spike_bytes(K, t) -> float:
@@ -1113,6 +1695,16 @@ def bound(torch, K, name: str, args, inputs) -> tuple[float, float, float]:
         ops = 2.0 * m * n * k + (6.0 * m * n if v is not None else 0.0)
         tiles = -(-m // 128) * 128 * -(-k // 128) * 128
         return nbytes, ops, 2.0 * tiles * n + ops - 2.0 * m * n * k
+    if name == "spike_matmul_dw_gated":
+        x, g, _ = args
+        return bound(torch, K, "spike_matmul_dw", (x, g, K.vld_map(x)),
+                     inputs)
+    if name == "spike_matmul_gated":
+        xp, wp, gate, packed = args
+        walked = K.gated_mask(gate.nact, gate.kmap, None,
+                              gate.kmap.shape)
+        return bound(torch, K, "spike_matmul", (xp, wp, walked.to(
+            torch.int32), packed), inputs)
     if name == "spike_matmul_dw":
         x, g, vld = args
         (m, k), n = x.shape, g.shape[1]
@@ -1140,19 +1732,20 @@ def bound(torch, K, name: str, args, inputs) -> tuple[float, float, float]:
     np_ = wp.shape[1]
     nnz = int(K.popcount32(xp).sum()) if packed_x else int((xp != 0).sum())
     active = (vld > 0).to(torch.float64).cpu()
+    bk = wp.shape[0] // active.shape[1]          # 128, or 256 when planned
     rows = valid_extent(torch, m0, active.shape[0])
-    cols = valid_extent(torch, k0, active.shape[1])
+    cols = valid_extent(torch, k0, active.shape[1], bk)
     x_bytes = float((active * rows[:, None] * cols[None, :]).sum())
     if packed_x:
         x_bytes /= 8.0
     w_rows = float((cols * (active.sum(dim=0) > 0)).sum())
     nbytes = x_bytes + 4.0 * w_rows * n0 + 4.0 * vld.numel()
-    block_ops = 2.0 * float(active.sum()) * 128 * 128 * np_
+    block_ops = 2.0 * float(active.sum()) * 128 * bk * np_
     if name == "spike_matmul":
         return nbytes + 4.0 * m0 * n0, 2.0 * nnz * n0, block_ops
     bias, residual, q = inputs[2:]
-    packing = args[-1]
-    tiles_out = -(-m0 // 128) * -(-n0 // 128)
+    packing = args[10]
+    tiles_out = -(-m0 // 128) * -(-n0 // args[11])     # vld_next entries
     nbytes += m0 * n0 / (8.0 if packing.out else 1.0) + 4.0 * tiles_out
     if bias is not None:
         nbytes += 4.0 * n0
@@ -1217,12 +1810,13 @@ def library_call(torch, K, name: str, args, inputs):
         _, dv = K.spike_matmul_dx_ref(g, w, v, surrogate=surrogate,
                                       alpha=alpha, v_th=v_th)
         return lambda: torch.matmul(dv, w.T)
-    if name == "spike_matmul_dw":
+    if name in ("spike_matmul_dw", "spike_matmul_dw_gated"):
         x, g, _ = args
         xf = x.to(torch.float32)
         return lambda: torch.matmul(xf.T, g)
-    if name not in ("fused_pe", "spike_matmul") or (
-            name == "fused_pe" and args[-1].current):
+    if name not in ("fused_pe", "spike_matmul", "fused_pe_gated",
+                    "spike_matmul_gated") or (
+            name.startswith("fused_pe") and args[10].current):
         return None
     x, w = inputs[:2]
     xf = (K.unpack_spikes_ref(x, torch.float32)
@@ -1230,30 +1824,62 @@ def library_call(torch, K, name: str, args, inputs):
     return lambda: torch.matmul(xf, w)
 
 
-def phase_timing(torch, K, snn_cnn, cfg, fused, images, paths,
-                 parity: Parity, iters: int) -> list[dict]:
+def dense_twin(torch, K, name: str, args):
+    """The dense-skip launch of a gated launch's operands (the same x,
+    weights and vld map), or None for another kernel."""
+    if name == "fused_pe_gated":
+        return lambda: K.fused_pe_cuda(*args[:12], None)
+    if name == "spike_matmul_gated":
+        xp, wp, gate, packed = args
+        vld = K.gated_mask(gate.nact, gate.kmap, None,
+                           gate.kmap.shape).to(torch.int32)
+        return lambda: K.spike_matmul_cuda(xp, wp, vld, packed)
+    if name == "spike_matmul_dw_gated":
+        x, g, _ = args
+        vld = K.vld_map(x)
+        return lambda: K.spike_matmul_dw_cuda(x, g, vld)
+    return None
+
+
+def phase_timing(torch, K, snn_cnn, models, images, paths, parity: Parity,
+                 iters: int, tuner) -> list[dict]:
     batch = images.shape[0]
     medians = {}
-    for policy in ("fused_dense", "fused_packed", "reference"):
-        times = []
-        for i in range(iters + 2):
+    for regime, (beta, cfg, fused) in models.items():
+        for policy in ("fused_dense", "fused_packed", "reference",
+                       *AUTO_POLICIES):
+            times = []
+            for i in range(iters + 2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                snn_cnn.forward(fused, images, cfg, policy=policy)
+                torch.cuda.synchronize()
+                if i >= 2:
+                    times.append((time.perf_counter() - t0) * 1e3)
+            med = medians[policy, regime] = statistics.median(times)
+            say(f"[timing] forward {policy} {regime} (resblock BN1 beta "
+                f"{0.5 if beta is None else beta}): "
+                f"median {med:.3f} ms over {iters} (min {min(times):.3f}, "
+                f"max {max(times):.3f}); {batch / med * 1e3:.1f} images/s")
+        for policy in AUTO_POLICIES:
+            tuner.read_s, tuner.reads = 0.0, 0
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
             snn_cnn.forward(fused, images, cfg, policy=policy)
             torch.cuda.synchronize()
-            if i >= 2:
-                times.append((time.perf_counter() - t0) * 1e3)
-        med = medians[policy] = statistics.median(times)
-        say(f"[timing] forward {policy}: median {med:.3f} ms over {iters} "
-            f"(min {min(times):.3f}, max {max(times):.3f}); "
-            f"{batch / med * 1e3:.1f} images/s")
+            say(f"[timing] tuner metadata reads in one {policy} {regime} "
+                f"forward: {tuner.reads} device-to-host reads, "
+                f"{tuner.read_s * 1e3:.3f} ms on the host")
+    _, cfg, fused = models["busy"]
     for policy in ("fused_dense", "fused_packed"):
         phase_profile(torch, snn_cnn, cfg, fused, images, policy,
-                      medians[policy])
+                      medians[policy, "busy"])
 
     launch_fn = {"lif_update": K.lif_update_cuda,
                  "fused_pe": K.fused_pe_cuda,
+                 "fused_pe_gated": K.fused_pe_cuda,
                  "spike_matmul": K.spike_matmul_cuda,
+                 "spike_matmul_gated": K.spike_matmul_gated_cuda,
+                 "spike_matmul_dw_gated": K.spike_matmul_dw_gated_cuda,
                  "w2ttfs_pool": K.w2ttfs_pool_cuda,
                  "pack_spikes": K.pack_spikes_cuda,
                  "unpack_spikes": K.unpack_spikes_cuda,
@@ -1262,7 +1888,10 @@ def phase_timing(torch, K, snn_cnn, cfg, fused, images, paths,
                  "qk_attention": K.qk_attention_cuda}
     plain_fn = {"lif_update": K.lif_update_ref,
                 "fused_pe": K.fused_pe_block_ref,
+                "fused_pe_gated": K.fused_pe_block_ref,
                 "spike_matmul": K.spike_matmul_block_ref,
+                "spike_matmul_gated": K.spike_matmul_gated_block_ref,
+                "spike_matmul_dw_gated": K.spike_matmul_dw_gated_ref,
                 "w2ttfs_pool": K.w2ttfs_pool_fc_ref,
                 "pack_spikes": lambda x: K.pack_spikes_ref(x, with_occ=True),
                 "unpack_spikes": K.unpack_words,
@@ -1272,12 +1901,19 @@ def phase_timing(torch, K, snn_cnn, cfg, fused, images, paths,
                 "spike_matmul_dw": K.spike_matmul_dw_ref,
                 "qk_attention": lambda q, k, t: K.qk_attention_ref(
                     q, k, threshold=t)}
+    rows_map = {}
+    for row, (kernel, policy, source, replaces) in ROWS.items():
+        if policy is None:        # a gated route: the first path that ran it
+            policy = next((p for p in GATED_PATHS if p in paths
+                           and paths[p][2][kernel] > 0), None)
+            require(policy is not None, f"{kernel} launched on no path")
+        rows_map[row] = (kernel, policy, source, replaces)
     totals = {row: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                     "library_ms": None, "bytes_s": 0.0, "ops_s": 0.0,
-                    "block_ms": 0.0}
+                    "block_ms": 0.0, "twin_ms": 0.0}
               for row in ROWS}
     row_of = {(kernel, policy): row
-              for row, (kernel, policy, _, _) in ROWS.items()}
+              for row, (kernel, policy, _, _) in rows_map.items()}
     i = 0
     for policy, (_, _, _, captured) in paths.items():
         for name, args, inputs in captured:
@@ -1295,6 +1931,10 @@ def phase_timing(torch, K, snn_cnn, cfg, fused, images, paths,
             lib = library_call(torch, K, name, args, inputs)
             lib_ms = None if lib is None else time_cuda(torch, lib, reps=10)
             del lib
+            twin = dense_twin(torch, K, name, args)
+            twin_ms = None if twin is None else time_cuda(torch, twin, reps=20)
+            if twin_ms is not None:
+                totals[row]["twin_ms"] += twin_ms
             tot = totals[row]
             tot["ms"] += ms
             tot["plain_ms"] += plain_ms
@@ -1306,20 +1946,23 @@ def phase_timing(torch, K, snn_cnn, cfg, fused, images, paths,
                 tot["library_ms"] = (tot["library_ms"] or 0.0) + lib_ms
             shape = "x".join(str(d) for d in args[0].shape)
             if name in ("fused_pe", "spike_matmul", "spike_matmul_dx",
-                        "spike_matmul_dw"):
+                        "spike_matmul_dw", "fused_pe_gated",
+                        "spike_matmul_gated", "spike_matmul_dw_gated"):
                 shape += f" @ {args[1].shape[0]}x{args[1].shape[1]}"
             say(f"[timing] launch {i} {row} [{shape}]: {ms:.4f} ms, bound "
                 f"{max(t_bytes, t_ops):.4f} ms "
                 f"({'bytes' if t_bytes >= t_ops else 'operations'}), its "
                 f"unskipped blocks at the f32 peak {t_block:.4f} ms, plain "
                 f"{plain_ms:.4f} ms"
-                + ("" if lib_ms is None else f", torch.matmul {lib_ms:.4f} ms"))
+                + ("" if lib_ms is None else f", torch.matmul {lib_ms:.4f} ms")
+                + ("" if twin_ms is None
+                   else f", its dense-skip twin {twin_ms:.4f} ms"))
             i += 1
     torch.cuda.synchronize()
 
     rows = []
     for row, tot in totals.items():
-        kernel, policy, source, replaces = ROWS[row]
+        kernel, policy, source, replaces = rows_map[row]
         out = {"name": row, "route": "cuda", "source": source,
                "replaces": replaces,
                "launches": paths[policy][2][kernel],
@@ -1334,7 +1977,9 @@ def phase_timing(torch, K, snn_cnn, cfg, fused, images, paths,
             f"({out['bound_by']}); unskipped blocks at the f32 peak "
             f"{tot['block_ms']:.4f} ms; plain {out['plain_ms']:.4f} ms; "
             f"library {out['library_ms']}; positions near v_th "
-            f"{parity.near_vth.get(row, 0)}")
+            f"{parity.near_vth.get(row, 0)}"
+            + (f"; dense-skip twin {tot['twin_ms']:.4f} ms"
+               if tot["twin_ms"] else ""))
         rows.append(out)
     return rows
 
@@ -1357,6 +2002,12 @@ def kernels_namespace(torch):
         spike_matmul_cuda=spike_matmul.spike_matmul_cuda,
         spike_matmul_block_ref=spike_matmul.spike_matmul_block_ref,
         spike_matmul_operands=spike_matmul.spike_matmul_operands,
+        spike_matmul_gated_cuda=spike_matmul.spike_matmul_gated_cuda,
+        spike_matmul_gated_block_ref=spike_matmul.spike_matmul_gated_block_ref,
+        spike_matmul_dw_gated_cuda=spike_matmul.spike_matmul_dw_gated_cuda,
+        spike_matmul_dw_gated_ref=spike_matmul.spike_matmul_dw_gated_ref,
+        dw_gate=spike_matmul.dw_gate,
+        compact_kmap=events.compact_kmap,
         spike_matmul_dx_cuda=spike_matmul.spike_matmul_dx_cuda,
         spike_matmul_dx_ref=spike_matmul.spike_matmul_dx_ref,
         spike_matmul_dw_cuda=spike_matmul.spike_matmul_dw_cuda,
@@ -1377,7 +2028,8 @@ def kernels_namespace(torch):
         popcount32=events.popcount32,
         PackedSpikes=events.PackedSpikes,
         check_packed_invariants=events.check_packed_invariants,
-        block_count_map_2d=events.block_count_map_2d)
+        block_count_map_2d=events.block_count_map_2d,
+        gated_mask=spike_matmul.gated_mask)
 
 
 def training_namespace():
@@ -1387,6 +2039,7 @@ def training_namespace():
     from repro_torch.data.synthetic import SyntheticImageDataset
     from repro_torch.models import ann_cnn, snn_cnn
     from repro_torch.ops import as_policy
+    from repro_torch.ops import get_tuner
     from repro_torch.optim import cosine_lr, sgd_init
     from repro_torch.train import trainer
     from repro_torch.tree import tree_leaves
@@ -1394,6 +2047,7 @@ def training_namespace():
     return types.SimpleNamespace(
         KDConfig=KDConfig, SyntheticImageDataset=SyntheticImageDataset,
         ann_cnn=ann_cnn, snn_cnn=snn_cnn, as_policy=as_policy,
+        get_tuner=get_tuner,
         cosine_lr=cosine_lr, sgd_init=sgd_init, trainer=trainer,
         tree_leaves=tree_leaves)
 
@@ -1409,6 +2063,7 @@ def main() -> int:
               "the GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
+    from repro_torch import ops
     from repro_torch.kernels import _build
     from repro_torch.models import snn_cnn
 
@@ -1422,18 +2077,45 @@ def main() -> int:
     parity = phase_parity(torch, K, dev)
     say(f"[parity] all kernels agree with their plain versions "
         f"({time.perf_counter() - t_start:.1f} s so far)")
+    phase_constants(torch, K, dev)
     cfg, fused, images, paths = phase_end_to_end(torch, snn_cnn, _build, dev,
                                                  BATCH)
+    for policy in ("fused_dense", "fused_packed"):
+        paths[f"{policy} busy"] = paths[policy]
     phase_vgg(torch, snn_cnn, _build, dev, VGG_BATCH)
     say(f"[e2e] done ({time.perf_counter() - t_start:.1f} s so far)")
+    models, traces = phase_auto(torch, snn_cnn, _build, ops, dev, images,
+                                paths)
+    names = tuned_layer_names(cfg, snn_cnn)
+    for label in ("auto busy", "auto_packed busy"):
+        say(f"[plans] {label}: the card's plan of each layer per sparsity "
+            f"bucket (kernels r/f, skip, block_n)")
+        phase_plans(traces[label], names)
+    say(f"[auto] done ({time.perf_counter() - t_start:.1f} s so far)")
     train_paths = phase_training(torch, M, _build, dev, TRAIN_BATCH)
-    for key in (("fold", "fused_dense+grad"), ("unfused", "fused_dense+grad")):
-        tp = train_paths[key]
+    auto_train = phase_auto_training(torch, M, _build, dev, TRAIN_BATCH,
+                                     models["quiet"][0], names)
+    for tp in (train_paths["fold", "fused_dense+grad"],
+               train_paths["unfused", "fused_dense+grad"],
+               *auto_train.values()):
         paths[tp.name] = (None, None, tp.launches[0], tp.captured)
     say(f"[train] done ({time.perf_counter() - t_start:.1f} s so far)")
-    rows = phase_timing(torch, K, snn_cnn, cfg, fused, images, paths,
-                        parity, ITERS)
+    paths["explicit skip"] = phase_explicit(
+        torch, K, _build, ops, paths,
+        auto_train["train fold fused_dense+grad quiet"].captured)
+    for kernel in NO_GATED:
+        ran = [p for p in GATED_PATHS[:-1] if paths[p][2][kernel] > 0]
+        say(f"[auto] {kernel}: "
+            + (f"launched by the tuner's plans on {ran}" if ran else
+               "the card's cost model planned it on no auto path; "
+               "launched with an explicit skip on the model's operands "
+               f"({paths['explicit skip'][2][kernel]} launches)"))
+    rows = phase_timing(torch, K, snn_cnn, models, images, paths, parity,
+                        ITERS, ops.get_tuner())
     time_training(torch, M, train_paths, TRAIN_BATCH, TRAIN_ITERS)
+    time_training(torch, M, {("fold quiet", p.policy): p
+                             for p in auto_train.values()},
+                  TRAIN_BATCH, TRAIN_ITERS, profile=False)
     say(f"[done] {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": rows}))
     say(smi)

@@ -67,6 +67,27 @@ def vld_or_compute(x: torch.Tensor, vld_cnt: Optional[torch.Tensor],
     return vld_cnt.to(torch.int32)
 
 
+def compact_kmap(vld_cnt: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The routing of the gated kernels: for each row of blocks of an int32
+    [Gm, Gk] count map, the non-silent k blocks compacted to the front.
+
+    Returns ``nact`` int32 [Gm], the number of non-silent blocks of each
+    row, and ``kmap`` int32 [Gm, Gk], their indices in ascending order
+    followed by repeats of the last one (a fully silent row maps to block
+    0). A gated kernel walks ``kmap[i, s]`` for ``s < nact[i]``. Stays on
+    ``vld_cnt``'s device, so a kernel reads it without a host round trip."""
+    gk = vld_cnt.shape[1]
+    active = vld_cnt > 0
+    nact = active.sum(dim=1, dtype=torch.int32)
+    # a stable sort of (inactive last) keeps the active indices ascending
+    kmap = torch.argsort((~active).to(torch.int8), dim=1, stable=True)
+    last_s = (nact.to(torch.int64) - 1).clamp_min(0)[:, None]
+    last = torch.gather(kmap, 1, last_s)
+    s_idx = torch.arange(gk, device=vld_cnt.device)[None, :]
+    kmap = torch.where(s_idx < nact[:, None], kmap, last)
+    return nact, kmap.to(torch.int32).contiguous()
+
+
 def pad_to_blocks(x: torch.Tensor, block_m: int,
                   block_k: int) -> torch.Tensor:
     """Zero-pad the last two dims up to multiples of the block sizes."""
@@ -191,6 +212,14 @@ class PackedSpikes:
     block_m: int = 128
     block_k: int = 128
     occ: Optional[torch.Tensor] = None
+
+    def with_occ(self) -> "PackedSpikes":
+        """Self with the word-occupancy bitmap filled in (self when the
+        pack pass already emitted it)."""
+        if self.occ is not None:
+            return self
+        occ = word_occupancy_map(self.words, self.block_m, self.block_k)
+        return dataclasses.replace(self, occ=occ)
 
     @property
     def m(self) -> int:

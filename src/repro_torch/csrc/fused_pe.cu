@@ -1,8 +1,10 @@
 // Fused PE layer, stateless variant — replaces the Pallas kernel
-// repro/kernels/fused_pe/fused_pe.py::fused_pe_pallas (skip="dense", bias,
-// residual, whole-row Q mask, emit_vld; T=1, no state), with every spike
-// operand and the output dense (int8) or bit-packed (int32 words of 32
-// spikes, the packed_in / packed_q / packed_residual / packed_out flags).
+// repro/kernels/fused_pe/fused_pe.py::fused_pe_pallas (bias, residual,
+// whole-row Q mask, emit_vld, emit_current; T=1, no state) under its three
+// byte-skip strategies, skip="dense", "gated" and "two_level" (the routes
+// of event_gemm.cuh, which give the same bits), with every spike operand
+// and the output dense (int8) or bit-packed (int32 words of 32 spikes, the
+// packed_in / packed_q / packed_residual / packed_out flags).
 //
 // Per 128x128 output tile, in one pass: the event-gated f32 product
 // x @ w (event_gemm.cuh), then in registers
@@ -11,10 +13,13 @@
 //   spike &= rowsum(q[row]) >= qk_threshold  (QKFormer write-back mask)
 //   spike &= row < m_valid && col < n_valid  (padding never fires)
 // and the tile's spike count is written as the next layer's vld_cnt. The
-// f32 pre-activation never reaches device memory, except in the
-// emit_current variant (EmitCurrent, the training forward): there each
-// thread also writes the f32 current of its outputs inside the valid
-// extent to a [m_valid, n_valid] buffer, the residual the backward
+// count map tiles the output on (128, bn): bn = 128 is one CTA's tile; the
+// autotuner may ask for bn = 256, and then the two CTAs of a 128x256 tile
+// add their counts into one zeroed entry with an integer atomicAdd (exact
+// in any order). The f32 pre-activation never reaches device memory,
+// except in the emit_current variant (EmitCurrent, the training forward):
+// there each thread also writes the f32 current of its outputs inside the
+// valid extent to a [m_valid, n_valid] buffer, the residual the backward
 // differentiates from; the spikes are the same compare on that same value.
 //
 // The packed forms read and write 1/8 of the int8 bytes and never widen a
@@ -27,14 +32,15 @@
 // the int8 path's, so both give the same spikes.
 //
 // Bound on the H100: the kernel runs the dense f32 product over every
-// 128x128 block the vld map does not skip, 2*128*128*Np operations per
+// 128x128 block the route does not skip, 2*128*128*Np operations per
 // block, so the 67 TFLOP/s f32 rate outside the tensor cores bounds it
 // (parity with the reference rules out TF32). The data needs less: one add
 // per spike and output column, a quarter to a half of that at the main
 // path's spike rates, and a layer with N < 128 (resblock 1, N = 64)
 // computes a half-empty tile. A packed patch matrix pads each 3x3 tap's
 // channels to whole 128-wide blocks, so at C = 64 its K is twice the int8
-// one (1152, not 576): the padding is zeros the block skip cannot see. The
+// one (1152, not 576): the padding is zeros the block skip cannot see, and
+// the stripe skip (two_level) can, where an occ map comes with x. The
 // design keeps 64 accumulators per thread in registers and stages x and w
 // through 32 KB of shared memory so each loaded value feeds 8 FMAs; the
 // skip removes both the loads and the FMAs of a silent block. wgmma, TMA,
@@ -49,14 +55,14 @@ using namespace repro;
 // the flags argument of repro_fused_pe, one bit per packed operand
 constexpr int kPackedX = 1, kPackedQ = 2, kPackedResidual = 4, kPackedOut = 8;
 
-template <bool PackedX, bool EmitCurrent>
+template <bool PackedX, bool EmitCurrent, int Skip>
 __global__ void __launch_bounds__(kThreads)
 fused_pe_kernel(const void* __restrict__ x, const float* __restrict__ w,
-                const int* __restrict__ vld, const float* __restrict__ bias,
+                Route route, const float* __restrict__ bias,
                 const void* __restrict__ residual, const void* __restrict__ q,
                 int dq, void* __restrict__ spikes, int* __restrict__ vld_next,
                 float* __restrict__ current,
-                int kp, int np, int m_valid, int n_valid, float v_th,
+                int kp, int np, int bn, int m_valid, int n_valid, float v_th,
                 float qk_threshold, int flags) {
   __shared__ GemmSmem sm;
   __shared__ float row_gate[kTile];
@@ -72,7 +78,7 @@ fused_pe_kernel(const void* __restrict__ x, const float* __restrict__ w,
   for (int i = 0; i < kSub; ++i)
 #pragma unroll
     for (int j = 0; j < kSub; ++j) acc[i][j] = 0.f;
-  event_gemm_tile<PackedX>(x, w, vld, kp, np, row_blk, col0, sm, acc);
+  event_gemm_tile<PackedX, Skip>(x, w, route, kp, np, row_blk, col0, sm, acc);
 
   if (q != nullptr) {  // one warp per row: integer row sum of Q spikes
     for (int r = warp; r < kTile; r += kThreads / 32) {
@@ -167,42 +173,64 @@ fused_pe_kernel(const void* __restrict__ x, const float* __restrict__ w,
     int total = 0;
 #pragma unroll
     for (int i = 0; i < kThreads / 32; ++i) total += warp_count[i];
-    vld_next[row_blk * (np / kTile) + blockIdx.x] = total;
+    int* dst = vld_next + row_blk * (np / bn) + col0 / bn;
+    if (bn == kTile)
+      *dst = total;
+    else
+      atomicAdd(dst, total);  // the CTAs of a wide tile; integer, exact
   }
 }
 
-template <bool PackedX, bool EmitCurrent>
-void launch(const void* x, const float* w, const int* vld, const float* bias,
+namespace {
+
+template <bool PackedX, bool EmitCurrent, int Skip>
+void launch(const void* x, const float* w, const Route& route, const float* bias,
             const void* residual, const void* q, int dq, void* spikes,
-            int* vld_next, float* current, int mp, int kp, int np, int m_valid,
-            int n_valid, float v_th, float qk_threshold, int flags,
+            int* vld_next, float* current, int mp, int kp, int np, int bn,
+            int m_valid, int n_valid, float v_th, float qk_threshold, int flags,
             cudaStream_t stream) {
   const dim3 grid(np / kTile, mp / kTile);
-  fused_pe_kernel<PackedX, EmitCurrent><<<grid, kThreads, 0, stream>>>(
-      x, w, vld, bias, residual, q, dq, spikes, vld_next, current, kp, np,
+  fused_pe_kernel<PackedX, EmitCurrent, Skip><<<grid, kThreads, 0, stream>>>(
+      x, w, route, bias, residual, q, dq, spikes, vld_next, current, kp, np, bn,
       m_valid, n_valid, v_th, qk_threshold, flags);
 }
 
+using Launch = decltype(&launch<false, false, kDense>);
+
+template <bool PackedX, bool EmitCurrent>
+constexpr Launch pick(int skip) {
+  return skip == kDense ? &launch<PackedX, EmitCurrent, kDense>
+         : skip == kGated ? &launch<PackedX, EmitCurrent, kGated>
+                          : &launch<PackedX, EmitCurrent, kTwoLevel>;
+}
+
+}  // namespace
+
 // x [mp, kp] int8 or [mp, kp/32] int32 words (flags & kPackedX), w [kp, np]
-// f32, vld [mp/128, kp/128] int32. May be null: bias [np] f32; residual
-// [mp, np] f32 or [mp, np/32] words (kPackedResidual); q [mp, dq] int8 (dq
-// a multiple of 128) or [mp, dq] words (kPackedQ, dq words per row);
-// current [m_valid, n_valid] f32 (the emit_current variant). Writes spikes
-// [mp, np] int8 or [mp, np/32] words (kPackedOut), vld_next [mp/128,
-// np/128] int32 and, when current is not null, the current.
+// f32. The route (skip, see event_gemm.cuh): kDense reads vld [mp/128,
+// kp/bk]; kGated nact [mp/128] and kmap [mp/128, kp/bk]; kTwoLevel also
+// occ [mp/128, kp/bk]. May be null: bias [np] f32; residual [mp, np] f32 or
+// [mp, np/32] words (kPackedResidual); q [mp, dq] int8 (dq a multiple of
+// 128) or [mp, dq] words (kPackedQ, dq words per row); current [m_valid,
+// n_valid] f32 (the emit_current variant). Writes spikes [mp, np] int8 or
+// [mp, np/32] words (kPackedOut), vld_next [mp/128, np/bn] int32 (zeroed
+// by the caller when bn > 128) and, when current is not null, the current.
 extern "C" int repro_fused_pe(const void* x, const float* w, const int* vld,
+                              const int* nact, const int* kmap, const int* occ,
                               const float* bias, const void* residual,
                               const void* q, int dq, void* spikes,
                               int* vld_next, float* current, int mp, int kp,
-                              int np, int m_valid, int n_valid, float v_th,
-                              float qk_threshold, int flags,
+                              int np, int bk, int bn, int m_valid, int n_valid,
+                              float v_th, float qk_threshold, int flags, int skip,
                               cudaStream_t stream) {
+  if (skip < kDense || skip > kTwoLevel || (bn != kTile && bn != 2 * kTile))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (mp > 0 && np > 0) {
     const bool packed_x = flags & kPackedX, emit = current != nullptr;
-    using Launch = decltype(&launch<false, false>);
-    const Launch fn = packed_x ? (emit ? &launch<true, true> : &launch<true, false>)
-                               : (emit ? &launch<false, true> : &launch<false, false>);
-    fn(x, w, vld, bias, residual, q, dq, spikes, vld_next, current, mp, kp, np,
+    const Launch fn = packed_x ? (emit ? pick<true, true>(skip) : pick<true, false>(skip))
+                               : (emit ? pick<false, true>(skip) : pick<false, false>(skip));
+    const Route route{vld, nact, kmap, occ, bk};
+    fn(x, w, route, bias, residual, q, dq, spikes, vld_next, current, mp, kp, np, bn,
        m_valid, n_valid, v_th, qk_threshold, flags, stream);
   }
   return static_cast<int>(cudaGetLastError());

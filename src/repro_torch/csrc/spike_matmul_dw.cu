@@ -1,11 +1,16 @@
-// Backward weight-gradient of a spiking linear layer, dense skip — replaces
-// the Pallas kernel repro/kernels/spike_matmul/backward.py::
-// spike_matmul_dw_pallas (int8 x): dw[K, N] = x^T @ g over M, where every
-// 128 x 128 (m, k) block of x whose forward vld_cnt is zero is neither
-// loaded nor multiplied (its spikes are all zero, so the skip is exact).
-// x is [M, K] int8 spikes, g is [M, N] f32, both row-major and unpadded
-// (loads check their bounds); vld is the [ceil(M/128), ceil(K/128)] count
-// map of x.
+// Backward weight-gradient of a spiking linear layer — replaces two Pallas
+// kernels of repro/kernels/spike_matmul/backward.py, spike_matmul_dw_pallas
+// (skip="dense") and spike_matmul_dw_gated_pallas (skip="gated" and
+// "two_level", with gating.py::accum_tile_t), for int8 x: dw[K, N] = x^T @ g
+// over M. The dense skip leaves out every 128 x 128 (m, k) block of x whose
+// forward vld_cnt is zero; the gated walk visits, for each k block, only
+// the compacted list mmap[kb, 0 .. nact_t[kb]) of its non-silent m blocks
+// (core/events.py::compact_kmap of the transposed vld map); the two-level
+// walk also leaves out, inside a visited block, the 32 output rows of dw
+// that a silent 32-column stripe of x (a clear occ bit) never feeds. A
+// silent block's spikes are all zero, so every skip is exact. x is [M, K]
+// int8 spikes, g is [M, N] f32, both row-major and unpadded (loads check
+// their bounds); vld and occ are x's [ceil(M/128), ceil(K/128)] maps.
 //
 // The TPU grid reduces over M inside one output tile. On the card that
 // gives far too few CTAs (at resblock 1, K x N = 576 x 64 is 5 tiles of
@@ -14,7 +19,13 @@
 // partial [S, Kp, Np], and a second kernel of this source adds the S
 // partials of each output in the order s = 0 .. S-1. S depends only on the
 // shape (the wrapper picks it), and no float atomics are used, so dw is
-// the same bits on every run.
+// the same bits on every run. The gated walk keeps the runs: mmap is
+// ascending, so a CTA visits the non-silent blocks of its run in the order
+// the dense skip does, and a run with none writes a zero partial, as the
+// dense skip does: the partials and dw are the same bits under every skip.
+// The two-level skip leaves out FMAs whose x is 0, exact zeros wherever g
+// is finite; a stripe is 32 rows of the CTA's tile, the rows of two warps,
+// so the skip is warp-uniform.
 //
 // Bound on the H100: the data needs 2 * nnz(x) * N operations over the
 // blocks it keeps, against reading x and g once and writing dw; at the
@@ -32,43 +43,31 @@ using namespace repro;
 
 namespace {
 
-__global__ void __launch_bounds__(kThreads)
-spike_matmul_dw_kernel(const int8_t* __restrict__ x, const float* __restrict__ g,
-                       const int* __restrict__ vld, float* __restrict__ partial,
-                       int m, int k, int n, int blocks_per_split) {
-  __shared__ __align__(16) float a[kStep][kTile];  // x tile: a[m][k]
-  __shared__ __align__(16) float b[kStep][kTile];  // g tile: b[m][n]
+// one m block of the CTA's run: acc += x[mb, kb tile]^T @ g[mb, nb tile],
+// leaving out the output rows of the stripes whose bit of `bits` is clear
+__device__ __forceinline__ void dw_block(
+    const int8_t* __restrict__ x, const float* __restrict__ g, int m, int k, int n,
+    int mb, int col_k, int col_n, unsigned bits, float (&a)[kStep][kTile],
+    float (&b)[kStep][kTile], float (&acc)[kSub][kSub]) {
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int nb = blockIdx.x, kb = blockIdx.y, s = blockIdx.z;
-  const int gk = (k + kTile - 1) / kTile, gm = (m + kTile - 1) / kTile;
-  const int kp = gk * kTile, np = gridDim.x * kTile;
-  const int col_k = kb * kTile, col_n = nb * kTile;
-  const int mb_begin = s * blocks_per_split;
-  const int mb_end = min(gm, mb_begin + blocks_per_split);
-
-  float acc[kSub][kSub];
-#pragma unroll
-  for (int i = 0; i < kSub; ++i)
-#pragma unroll
-    for (int j = 0; j < kSub; ++j) acc[i][j] = 0.f;
-
-  for (int mb = mb_begin; mb < mb_end; ++mb) {
-    if (vld[mb * gk + kb] == 0) continue;  // event skip (uniform)
-    for (int ms = 0; ms < kTile; ms += kStep) {
-      const int m0 = mb * kTile + ms;
+  // thread rows ty*8 .. ty*8+7 of the k tile lie in stripe ty / 4
+  const bool rows_on = (bits >> (ty / 4)) & 1u;
+  for (int ms = 0; ms < kTile; ms += kStep) {
+    const int m0 = mb * kTile + ms;
 #pragma unroll 4
-      for (int i = 0; i < kTile * kStep / kThreads; ++i) {
-        const int idx = tid + i * kThreads;
-        const int r = idx / kTile, c = idx % kTile;  // a warp reads one row
-        const int row = m0 + r;
-        const bool row_ok = row < m;
-        a[r][c] = (row_ok && col_k + c < k)
-                      ? static_cast<float>(x[static_cast<size_t>(row) * k + col_k + c])
-                      : 0.f;
-        b[r][c] = (row_ok && col_n + c < n) ? g[static_cast<size_t>(row) * n + col_n + c]
-                                            : 0.f;
-      }
-      __syncthreads();
+    for (int i = 0; i < kTile * kStep / kThreads; ++i) {
+      const int idx = tid + i * kThreads;
+      const int r = idx / kTile, c = idx % kTile;  // a warp reads one row
+      const int row = m0 + r;
+      const bool row_ok = row < m;
+      a[r][c] = (row_ok && col_k + c < k)
+                    ? static_cast<float>(x[static_cast<size_t>(row) * k + col_k + c])
+                    : 0.f;
+      b[r][c] = (row_ok && col_n + c < n) ? g[static_cast<size_t>(row) * n + col_n + c]
+                                          : 0.f;
+    }
+    __syncthreads();
+    if (rows_on) {
 #pragma unroll
       for (int mm = 0; mm < kStep; ++mm) {
         const float4 a0 = *reinterpret_cast<const float4*>(&a[mm][ty * kSub]);
@@ -82,7 +81,49 @@ spike_matmul_dw_kernel(const int8_t* __restrict__ x, const float* __restrict__ g
 #pragma unroll
           for (int j = 0; j < kSub; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
       }
-      __syncthreads();
+    }
+    __syncthreads();
+  }
+}
+
+template <int Skip>
+__global__ void __launch_bounds__(kThreads)
+spike_matmul_dw_kernel(const int8_t* __restrict__ x, const float* __restrict__ g,
+                       const int* __restrict__ vld, const int* __restrict__ nact_t,
+                       const int* __restrict__ mmap, const int* __restrict__ occ,
+                       float* __restrict__ partial, int m, int k, int n,
+                       int blocks_per_split) {
+  __shared__ __align__(16) float a[kStep][kTile];  // x tile: a[m][k]
+  __shared__ __align__(16) float b[kStep][kTile];  // g tile: b[m][n]
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int nb = blockIdx.x, kb = blockIdx.y, s = blockIdx.z;
+  const int gk = (k + kTile - 1) / kTile, gm = (m + kTile - 1) / kTile;
+  const int kp = gk * kTile, np = gridDim.x * kTile;
+  const int col_k = kb * kTile, col_n = nb * kTile;
+  const int mb_begin = s * blocks_per_split;
+  const int mb_end = min(gm, mb_begin + blocks_per_split);
+
+  float acc[kSub][kSub];
+#pragma unroll
+  for (int i = 0; i < kSub; ++i)
+#pragma unroll
+    for (int j = 0; j < kSub; ++j) acc[i][j] = 0.f;
+
+  if constexpr (Skip == kDense) {
+    for (int mb = mb_begin; mb < mb_end; ++mb) {
+      if (vld[mb * gk + kb] == 0) continue;  // event skip (uniform)
+      dw_block(x, g, m, k, n, mb, col_k, col_n, 0xffffffffu, a, b, acc);
+    }
+  } else {
+    // the non-silent m blocks of k block kb, ascending: those of this run
+    const int* list = mmap + static_cast<size_t>(kb) * gm;
+    for (int t = 0; t < nact_t[kb]; ++t) {
+      const int mb = list[t];
+      if (mb < mb_begin) continue;
+      if (mb >= mb_end) break;
+      unsigned bits = 0xffffffffu;
+      if constexpr (Skip == kTwoLevel) bits = static_cast<unsigned>(occ[mb * gk + kb]);
+      dw_block(x, g, m, k, n, mb, col_k, col_n, bits, a, b, acc);
     }
   }
 
@@ -110,19 +151,30 @@ __global__ void dw_sum_kernel(const float* __restrict__ partial, float* __restri
 
 }  // namespace
 
-// x [m, k] int8, g [m, n] f32, vld [ceil(m/128), ceil(k/128)] int32,
-// partial [splits, kp, np] f32 scratch (kp, np: k, n rounded up to 128),
-// -> dw [k, n] f32. CTA s covers the 128-row blocks
-// [s * blocks_per_split, (s + 1) * blocks_per_split).
+// x [m, k] int8, g [m, n] f32, partial [splits, kp, np] f32 scratch (kp,
+// np: k, n rounded up to 128) -> dw [k, n] f32. CTA s covers the 128-row
+// blocks [s * blocks_per_split, (s + 1) * blocks_per_split). The route
+// (skip, see event_gemm.cuh): kDense reads vld [gm, gk] (gm, gk: m, k
+// over 128, rounded up); kGated nact_t [gk] and mmap [gk, gm], the
+// compacted transposed vld map; kTwoLevel also occ [gm, gk].
 extern "C" int repro_spike_matmul_dw(const int8_t* x, const float* g, const int* vld,
+                                     const int* nact_t, const int* mmap, const int* occ,
                                      float* partial, float* dw, int m, int k, int n,
-                                     int splits, int blocks_per_split,
+                                     int splits, int blocks_per_split, int skip,
                                      cudaStream_t stream) {
+  if (skip < kDense || skip > kTwoLevel) return static_cast<int>(cudaErrorInvalidValue);
   if (k > 0 && n > 0) {
     const int kp = (k + kTile - 1) / kTile * kTile, np = (n + kTile - 1) / kTile * kTile;
     const dim3 grid(np / kTile, kp / kTile, splits);
-    spike_matmul_dw_kernel<<<grid, kThreads, 0, stream>>>(x, g, vld, partial, m, k, n,
-                                                          blocks_per_split);
+    if (skip == kDense)
+      spike_matmul_dw_kernel<kDense><<<grid, kThreads, 0, stream>>>(
+          x, g, vld, nact_t, mmap, occ, partial, m, k, n, blocks_per_split);
+    else if (skip == kGated)
+      spike_matmul_dw_kernel<kGated><<<grid, kThreads, 0, stream>>>(
+          x, g, vld, nact_t, mmap, occ, partial, m, k, n, blocks_per_split);
+    else
+      spike_matmul_dw_kernel<kTwoLevel><<<grid, kThreads, 0, stream>>>(
+          x, g, vld, nact_t, mmap, occ, partial, m, k, n, blocks_per_split);
     const size_t total = static_cast<size_t>(k) * n;
     dw_sum_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(
         partial, dw, k, n, kp, np, splits);

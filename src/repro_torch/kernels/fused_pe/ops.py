@@ -4,11 +4,15 @@ variant: padding, metadata plumbing, checks, and the device split.
 Spike operands (x, q, residual) may be int8 maps or ``PackedSpikes``, and
 ``out_format="packed"`` makes the emitted map leave as a PackedSpikes whose
 ``vld_cnt`` is the kernel's ``vld_next``; each packed operand selects the
-kernel's packed variant for it (``Packing``). The variants still to port
-(ROADMAP queue 2, K2) — ``skip="gated"``/``"two_level"``, LIF state for
-T>1 and head-blocked QK masks — are not accepted here; the ops layer
-raises before it gets this far. ``emit_current=True`` (the training
-forward) also returns the f32 current the spikes were thresholded from.
+kernel's packed variant for it (``Packing``). ``skip`` is the byte-skip
+strategy of ``spike_matmul`` (``"dense"``, or the gated walks, launched
+with a ``Gate``), and the blocks are the autotuner's: x's metadata grid
+is 128 x ``block_k`` and the emitted ``vld_next`` tiles the output on 128 x
+``block_n`` (each 128 or 256). The variants still to port (ROADMAP queue
+2, K2) — LIF state for T>1 and head-blocked QK masks — are not accepted
+here; the ops layer raises before it gets this far. ``emit_current=True``
+(the training forward) also returns the f32 current the spikes were
+thresholded from.
 """
 from __future__ import annotations
 
@@ -20,8 +24,9 @@ import torch.nn.functional as F
 from ...core.events import (LANE_BITS, PackedSpikes, pad_to_blocks,
                             vld_or_compute)
 from .. import _build
-from ..spike_matmul.ops import (TILE, check_block_contract, packed_operand,
-                                weight_operand)
+from ..spike_matmul.ops import (SKIP_IDS, TILE, Gate, check_block_contract,
+                                check_width, make_gate, packed_operand,
+                                weight_operand, x_occupancy)
 from .ref import Packing, fused_pe_block_ref
 
 Spikes = Union[torch.Tensor, PackedSpikes]
@@ -44,18 +49,22 @@ def fused_pe_cuda(xp: torch.Tensor, wp: torch.Tensor, vld: torch.Tensor,
                   bp: Optional[torch.Tensor], rp: Optional[torch.Tensor],
                   qp: Optional[torch.Tensor], m_valid: int, n_valid: int,
                   v_th: float, qk_threshold: float,
-                  packing: Packing = Packing()) -> tuple:
+                  packing: Packing = Packing(), block_n: int = TILE,
+                  gate: Optional[Gate] = None) -> tuple:
     """Launch the kernel on block-aligned CUDA operands (see
-    ``fused_pe_block_ref`` for the contract and the outputs). Does not
-    count."""
+    ``fused_pe_block_ref`` for the contract and the outputs): the dense
+    skip on ``vld``, or the gated walk of ``gate``. Does not count."""
     dev = xp.device
     if dev.type != "cuda":
         raise ValueError(f"fused_pe_cuda needs CUDA tensors, got {dev}")
     mp = xp.shape[0]
     kp, np_ = wp.shape
-    if mp % TILE or kp % TILE or np_ % TILE:
+    check_width("block_n", block_n)
+    if mp % TILE or kp % TILE or np_ % block_n or kp % vld.shape[1]:
         raise ValueError(f"operands must be {TILE}-aligned: x {tuple(xp.shape)}"
-                         f", w {tuple(wp.shape)}")
+                         f", w {tuple(wp.shape)}, block_n {block_n}")
+    bk = kp // vld.shape[1]
+    check_width("block_k", bk)
     if not (0 <= m_valid <= mp and 0 <= n_valid <= np_):
         raise ValueError(f"valid extent ({m_valid}, {n_valid}) outside the "
                          f"padded [{mp}, {np_}]")
@@ -64,8 +73,13 @@ def fused_pe_cuda(xp: torch.Tensor, wp: torch.Tensor, vld: torch.Tensor,
     else:
         _build.require(xp, "x", torch.int8, (mp, kp), dev)
     _build.require(wp, "w", torch.float32, (kp, np_), dev)
-    _build.require(vld, "vld_cnt", torch.int32, (mp // TILE, kp // TILE), dev,
-                   align=4)
+    grid = (mp // TILE, kp // bk)
+    _build.require(vld, "vld_cnt", torch.int32, grid, dev, align=4)
+    if gate is not None:
+        _build.require(gate.nact, "nact", torch.int32, grid[:1], dev, align=4)
+        _build.require(gate.kmap, "kmap", torch.int32, grid, dev, align=4)
+        if gate.occ is not None:
+            _build.require(gate.occ, "occ", torch.int32, grid, dev, align=4)
     if bp is not None:
         _build.require(bp, "bias", torch.float32, (np_,), dev)
     if rp is not None:
@@ -88,15 +102,19 @@ def fused_pe_cuda(xp: torch.Tensor, wp: torch.Tensor, vld: torch.Tensor,
                              device=dev)
     else:
         spikes = torch.empty((mp, np_), dtype=torch.int8, device=dev)
-    vld_next = torch.empty((mp // TILE, np_ // TILE), dtype=torch.int32,
-                           device=dev)
+    # a wide tile's count is the sum of its two CTAs' (integer atomics)
+    vld_next = (torch.empty if block_n == TILE else torch.zeros)(
+        (mp // TILE, np_ // block_n), dtype=torch.int32, device=dev)
     current = (torch.empty((m_valid, n_valid), dtype=torch.float32,
                            device=dev) if packing.current else None)
+    nact, kmap, occ = gate if gate is not None else (None, None, None)
     err = _build.library().repro_fused_pe(
-        _build.ptr(xp), _build.ptr(wp), _build.ptr(vld), _build.ptr(bp),
-        _build.ptr(rp), _build.ptr(qp), dq, _build.ptr(spikes),
-        _build.ptr(vld_next), _build.ptr(current), mp, kp, np_, m_valid,
-        n_valid, v_th, qk_threshold, packing.flags, _build.stream(xp))
+        _build.ptr(xp), _build.ptr(wp), _build.ptr(vld), _build.ptr(nact),
+        _build.ptr(kmap), _build.ptr(occ), _build.ptr(bp), _build.ptr(rp),
+        _build.ptr(qp), dq, _build.ptr(spikes), _build.ptr(vld_next),
+        _build.ptr(current), mp, kp, np_, bk, block_n, m_valid, n_valid, v_th,
+        qk_threshold, packing.flags,
+        SKIP_IDS["dense" if gate is None else gate.skip], _build.stream(xp))
     _build.check(err, "repro_fused_pe")
     if packing.current:
         return spikes, vld_next, current
@@ -110,35 +128,41 @@ def fused_pe_operands(x: Spikes, w: torch.Tensor, *,
                       vld_cnt: Optional[torch.Tensor] = None,
                       v_th: float = 1.0, qk_threshold: float = 1.0,
                       out_format: str = "dense",
-                      emit_current: bool = False) -> tuple:
+                      emit_current: bool = False, block_n: int = TILE,
+                      block_k: int = TILE, skip: str = "dense") -> tuple:
     """The block-aligned operands of one launch, in the order
     ``fused_pe_cuda`` and ``fused_pe_block_ref`` take them: x (int8, or a
-    packed x's words), w padded to x's padded K, the vld map, bias padded
-    to Np, the residual (f32, an int8 binary shortcut cast as the reference
-    wrapper casts it, or a packed one's words), q (int8 or words), then the
-    valid extent, the thresholds and the ``Packing``."""
+    packed x's words), w padded to x's padded K and to ``block_n``, the
+    vld map, bias padded to Np, the residual (f32, an int8 binary shortcut
+    cast as the reference wrapper casts it, or a packed one's words), q
+    (int8 or words), then the valid extent, the thresholds, the
+    ``Packing``, ``block_n`` and the ``Gate`` (None for the dense skip)."""
     if out_format not in ("dense", "packed"):
         raise ValueError(f"out_format={out_format!r} not in "
                          f"('dense', 'packed')")
+    check_width("block_n", block_n)
+    check_width("block_k", block_k)
     m0, k0 = x.shape
     n0 = w.shape[1]
     if w.shape[0] != k0:
         raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.shape)} do not "
                          f"chain")
     if isinstance(x, PackedSpikes):
-        xp, vld = packed_operand(x, vld_cnt, "fused_pe x")
+        xp, vld = packed_operand(x, vld_cnt, "fused_pe x", block_k)
         kp = xp.shape[1] * LANE_BITS
     else:
-        xp = pad_to_blocks(spike_operand(x), TILE, TILE).contiguous()
-        vld = vld_or_compute(xp, vld_cnt, TILE, TILE).contiguous()
+        xp = pad_to_blocks(spike_operand(x), TILE, block_k).contiguous()
+        vld = vld_or_compute(xp, vld_cnt, TILE, block_k).contiguous()
         kp = xp.shape[1]
-    wp = weight_operand(w, kp)
+    gate = make_gate(vld, skip, x_occupancy(x, xp, block_k)
+                     if skip == "two_level" else None)
+    wp = weight_operand(w, kp, block_k, block_n)
     np_ = wp.shape[1]
     bp = rp = qp = None
     if bias is not None:
         bp = F.pad(bias.reshape(n0).to(torch.float32), (0, np_ - n0))
     if isinstance(residual, PackedSpikes):
-        check_block_contract(residual, TILE, TILE, "fused_pe residual")
+        check_block_contract(residual, TILE, block_n, "fused_pe residual")
         if tuple(residual.shape) != (m0, n0):
             raise ValueError(f"packed residual {tuple(residual.shape)} is not "
                              f"[{m0}, {n0}]")
@@ -148,7 +172,7 @@ def fused_pe_operands(x: Spikes, w: torch.Tensor, *,
             raise ValueError(f"residual {tuple(residual.shape)} is not "
                              f"[{m0}, {n0}]")
         rp = pad_to_blocks(residual.to(torch.float32), TILE,
-                           TILE).contiguous()
+                           block_n).contiguous()
     if isinstance(q, PackedSpikes):
         if q.block_m != TILE:
             raise ValueError(f"fused_pe q was packed on block_m={q.block_m} "
@@ -165,7 +189,8 @@ def fused_pe_operands(x: Spikes, w: torch.Tensor, *,
     packing = Packing(isinstance(x, PackedSpikes), isinstance(q, PackedSpikes),
                       isinstance(residual, PackedSpikes),
                       out_format == "packed", emit_current)
-    return (xp, wp, vld, bp, rp, qp, m0, n0, v_th, qk_threshold, packing)
+    return (xp, wp, vld, bp, rp, qp, m0, n0, v_th, qk_threshold, packing,
+            block_n, gate)
 
 
 def fused_pe(x: Spikes, w: torch.Tensor, *,
@@ -174,37 +199,43 @@ def fused_pe(x: Spikes, w: torch.Tensor, *,
              q: Optional[Spikes] = None,
              vld_cnt: Optional[torch.Tensor] = None,
              v_th: float = 1.0, qk_threshold: float = 1.0,
-             out_format: str = "dense", emit_current: bool = False) -> tuple:
-    """One stateless fused PE layer (the deployed T=1 form), tiled on
-    128x128 blocks.
+             out_format: str = "dense", emit_current: bool = False,
+             block_n: int = TILE, block_k: int = TILE,
+             skip: str = "dense") -> tuple:
+    """One stateless fused PE layer (the deployed T=1 form).
 
     x [M, K] int8 spikes or a 2-D PackedSpikes, w [K, N]; optional bias
     [N], residual [M, N] (f32 current, an int8 binary shortcut, or a
-    PackedSpikes shortcut), q [M, Dq] spikes or PackedSpikes for the
-    whole-row QK write-back mask, and ``vld_cnt`` — x's [Mp/128, Kp/128]
-    count map from the producing layer (computed here for a dense x
-    without one; a packed x carries its own). Returns (spikes, vld_next
-    [Mp/128, Np/128] int32): spikes are int8 [M, N], or with
-    ``out_format="packed"`` a PackedSpikes of the logical shape [M, N].
-    With ``emit_current`` a third output is the f32 [M, N] current
-    (post-bias, post-residual) the spikes were thresholded from. The
-    kernel on CUDA tensors, the plain version on CPU tensors."""
+    PackedSpikes shortcut on the output's grid), q [M, Dq] spikes or
+    PackedSpikes for the whole-row QK write-back mask, and ``vld_cnt`` —
+    x's [Mp/128, Kp/block_k] count map from the producing layer (computed
+    here for a dense x without one; a packed x carries its own). ``skip``
+    as in ``spike_matmul.SKIP_MODES``. Returns (spikes, vld_next
+    [Mp/128, Np/block_n] int32): spikes are int8 [M, N], or with
+    ``out_format="packed"`` a PackedSpikes of the logical shape [M, N] on
+    the (128, block_n) grid. With ``emit_current`` a third output is the
+    f32 [M, N] current (post-bias, post-residual) the spikes were
+    thresholded from. The kernel on CUDA tensors, the plain version on CPU
+    tensors."""
     args = fused_pe_operands(x, w, bias=bias, residual=residual, q=q,
                              vld_cnt=vld_cnt, v_th=v_th,
                              qk_threshold=qk_threshold, out_format=out_format,
-                             emit_current=emit_current)
+                             emit_current=emit_current, block_n=block_n,
+                             block_k=block_k, skip=skip)
     dev = args[0].device
     if dev.type == "cpu":
         outs = fused_pe_block_ref(*args)
     elif dev.type == "cuda":
-        _build.count_launch("fused_pe", args, (x, w, bias, residual, q))
+        _build.count_launch("fused_pe" if skip == "dense" else
+                            "fused_pe_gated", args,
+                            (x, w, bias, residual, q))
         outs = fused_pe_cuda(*args)
     else:
         raise ValueError(f"fused_pe runs on cuda or cpu, not {dev}")
     spikes, vld_next = outs[:2]
-    m0, n0, packing = args[6], args[7], args[-1]
+    m0, n0, packing = args[6], args[7], args[10]
     if packing.out:
-        spikes = PackedSpikes(spikes, vld_next, (m0, n0), TILE, TILE)
+        spikes = PackedSpikes(spikes, vld_next, (m0, n0), TILE, block_n)
     else:
         spikes = spikes[:m0, :n0]
     return (spikes, vld_next, *outs[2:])

@@ -19,7 +19,7 @@ from ...core.events import (block_count_map_2d, pack_words, pad_to_blocks,
                             unpack_words)
 from ..lif_update.ref import lif_update_ref
 from ..qk_attention.ref import qk_attention_ref
-from ..spike_matmul.ref import block_skip_mask, spike_matmul_ref
+from ..spike_matmul.ref import block_skip_mask, gated_mask, spike_matmul_ref
 
 
 def fused_pe_ref(x: torch.Tensor, w: torch.Tensor, *,
@@ -75,23 +75,28 @@ def fused_pe_block_ref(xp: torch.Tensor, wp: torch.Tensor, vld: torch.Tensor,
                        bp: Optional[torch.Tensor], rp: Optional[torch.Tensor],
                        qp: Optional[torch.Tensor], m_valid: int, n_valid: int,
                        v_th: float, qk_threshold: float,
-                       packing: Packing = Packing()) -> tuple:
-    """The kernel's function on block-aligned operands (128x128 tiles):
-    x [Mp, Kp] int8, w [Kp, Np] f32, vld [Mp/128, Kp/128], bias [Np],
-    residual [Mp, Np] f32, q [Mp, Dq] int8; each spike operand that
-    ``packing`` marks comes as its int32 words instead. Returns (spikes
+                       packing: Packing = Packing(), block_n: int = 128,
+                       gate=None) -> tuple:
+    """The kernel's function on block-aligned operands: x [Mp, Kp] int8,
+    w [Kp, Np] f32, vld [Mp/128, Kp/bk] (bk the k width of x's metadata
+    blocks), bias [Np], residual [Mp, Np] f32, q [Mp, Dq] int8; each spike
+    operand that ``packing`` marks comes as its int32 words instead. x is
+    read where the dense skip of ``vld`` reads it or, with a ``gate``
+    (nact, kmap, occ), where that gated walk reads it. Returns (spikes
     [Mp, Np] int8, or [Mp, Np/32] words with ``packing.out``, and vld_next
-    [Mp/128, Np/128] int32), and with ``packing.current`` also the f32
+    [Mp/128, Np/block_n] int32), and with ``packing.current`` also the f32
     current [m_valid, n_valid] the spikes were thresholded from."""
     x = unpack_words(xp) if packing.x else xp
     r = unpack_words(rp, torch.float32) if packing.residual else rp
     q = unpack_words(qp) if packing.q else qp
-    xs = x * block_skip_mask(vld, x.shape)
+    mask = (block_skip_mask(vld, x.shape) if gate is None
+            else gated_mask(*gate, x.shape))
+    xs = x * mask
     spk, _, _ = fused_pe_ref(xs, wp, bias=bp, residual=r, q=q, v_th=v_th,
                              qk_threshold=qk_threshold)
     spk[m_valid:, :] = 0
     spk[:, n_valid:] = 0
-    vld_next = block_count_map_2d(spk, 128, 128)
+    vld_next = block_count_map_2d(spk, 128, block_n)
     out = (pack_words(spk) if packing.out else spk), vld_next
     if not packing.current:
         return out

@@ -5,7 +5,9 @@ the reference's ``kernels/spike_matmul/backward.py`` entry points:
   * ``spike_matmul_dx``: ``dv = g ⊙ surr'(v - v_th)`` and ``dx = dv @ wᵀ``
     in one pass, the surrogate factor formed in the kernel;
   * ``spike_matmul_dw``: ``dw = xᵀ @ g`` over the int8 spike operand,
-    skipping every 128x128 block of x whose forward ``vld_cnt`` is zero.
+    skipping every 128x128 block of x whose forward ``vld_cnt`` is zero,
+    by the dense skip or, with ``skip="gated"``/``"two_level"``, by a walk
+    of the compacted transposed vld map (and the occ stripe skip).
 
 Both take unpadded operands (the kernels check their bounds). The kernels
 run on CUDA tensors, the plain versions (``ref.py``) on CPU tensors.
@@ -17,10 +19,13 @@ from typing import Optional
 
 import torch
 
-from ...core.events import block_count_map_2d, pad_to_blocks
+from ...core.events import (block_count_map_2d, compact_kmap, pad_to_blocks,
+                            word_occupancy_map_dense)
 from ...core.surrogate import available_surrogates
 from .. import _build
-from .ref import spike_matmul_dw_ref, spike_matmul_dx_ref
+from .ops import SKIP_IDS, Gate, check_skip
+from .ref import (spike_matmul_dw_gated_ref, spike_matmul_dw_ref,
+                  spike_matmul_dx_ref)
 
 TILE = 128
 # the surrogate argument of repro_spike_matmul_dx (0: dv = g)
@@ -112,51 +117,98 @@ def dw_splits(m: int, k: int, n: int) -> tuple[int, int]:
     return -(-mblocks // per), per
 
 
-def spike_matmul_dw_cuda(x: torch.Tensor, g: torch.Tensor,
-                         vld: torch.Tensor) -> torch.Tensor:
-    """Launch the dw kernel: x [M, K] int8, g [M, N] f32, vld [ceil(M/128),
-    ceil(K/128)] int32, all contiguous on one CUDA device. Returns dw
-    [K, N] f32. Does not count."""
+def dw_gate(x: torch.Tensor, vld: torch.Tensor, skip: str
+            ) -> Optional[Gate]:
+    """None for ``"dense"``; else the walk of the gated dw: ``compact_kmap``
+    of the transposed vld map (for each k block, its non-silent m blocks)
+    and, for ``"two_level"``, x's occ bitmap on the 128x128 grid."""
+    check_skip(skip)
+    if skip == "dense":
+        return None
+    nact_t, mmap = compact_kmap(vld.T.contiguous())
+    occ = (word_occupancy_map_dense(pad_to_blocks(x, TILE, TILE), TILE, TILE)
+           .contiguous() if skip == "two_level" else None)
+    return Gate(nact_t, mmap, occ)
+
+
+def _dw_launch(x: torch.Tensor, g: torch.Tensor, vld: Optional[torch.Tensor],
+               gate: Optional[Gate]) -> torch.Tensor:
     dev = x.device
     if dev.type != "cuda":
-        raise ValueError(f"spike_matmul_dw_cuda needs CUDA tensors, got {dev}")
+        raise ValueError(f"spike_matmul_dw needs CUDA tensors, got {dev}")
     m, k = x.shape
     n = g.shape[1]
+    gm, gk = -(-m // TILE), -(-k // TILE)
     _build.require(x, "x", torch.int8, (m, k), dev, align=1)
     _build.require(g, "g", torch.float32, (m, n), dev, align=4)
-    _build.require(vld, "vld_cnt", torch.int32, (-(-m // TILE), -(-k // TILE)),
-                   dev, align=4)
+    if gate is None:
+        _build.require(vld, "vld_cnt", torch.int32, (gm, gk), dev, align=4)
+        skip = "dense"
+    else:
+        _build.require(gate.nact, "nact_t", torch.int32, (gk,), dev, align=4)
+        _build.require(gate.kmap, "mmap", torch.int32, (gk, gm), dev, align=4)
+        if gate.occ is not None:
+            _build.require(gate.occ, "occ", torch.int32, (gm, gk), dev,
+                           align=4)
+        skip = gate.skip
     splits, per = dw_splits(m, k, n)
-    kp, np_ = -(-k // TILE) * TILE, -(-n // TILE) * TILE
+    kp, np_ = gk * TILE, -(-n // TILE) * TILE
     partial = torch.empty((splits, kp, np_), dtype=torch.float32, device=dev)
     dw = torch.empty((k, n), dtype=torch.float32, device=dev)
+    nact_t, mmap, occ = gate if gate is not None else (None, None, None)
     err = _build.library().repro_spike_matmul_dw(
-        _build.ptr(x), _build.ptr(g), _build.ptr(vld), _build.ptr(partial),
-        _build.ptr(dw), m, k, n, splits, per, _build.stream(x))
+        _build.ptr(x), _build.ptr(g), _build.ptr(vld), _build.ptr(nact_t),
+        _build.ptr(mmap), _build.ptr(occ), _build.ptr(partial), _build.ptr(dw),
+        m, k, n, splits, per, SKIP_IDS[skip], _build.stream(x))
     _build.check(err, "repro_spike_matmul_dw")
     return dw
 
 
+def spike_matmul_dw_cuda(x: torch.Tensor, g: torch.Tensor,
+                         vld: torch.Tensor) -> torch.Tensor:
+    """Launch the dense-skip dw kernel: x [M, K] int8, g [M, N] f32, vld
+    [ceil(M/128), ceil(K/128)] int32, all contiguous on one CUDA device.
+    Returns dw [K, N] f32. Does not count."""
+    return _dw_launch(x, g, vld, None)
+
+
+def spike_matmul_dw_gated_cuda(x: torch.Tensor, g: torch.Tensor,
+                               gate: Gate) -> torch.Tensor:
+    """Launch the gated (with ``gate.occ``, two-level) dw kernel on the
+    walk of ``dw_gate``. Returns dw [K, N] f32. Does not count."""
+    return _dw_launch(x, g, None, gate)
+
+
 def spike_matmul_dw(x: torch.Tensor, g: torch.Tensor, *,
-                    vld_cnt: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    vld_cnt: Optional[torch.Tensor] = None,
+                    skip: str = "dense") -> torch.Tensor:
     """Backward weight-gradient ``dw = xᵀ @ g``, event-skipped on x.
 
     x [M, K] binary spikes (any dtype; cast to int8, exact), the forward's
     operand; g [M, N] cotangent; ``vld_cnt`` x's [ceil(M/128),
     ceil(K/128)] count map from the forward (computed here when not
     given). Silent blocks were silent on the way forward and contribute
-    nothing here. Returns dw [K, N] f32."""
+    nothing here; ``skip`` (``SKIP_MODES``) picks how they are left out,
+    along the transposed axis. Returns dw [K, N] f32."""
     if x.ndim != 2 or g.ndim != 2 or g.shape[0] != x.shape[0]:
         raise ValueError(f"x {tuple(x.shape)} and g {tuple(g.shape)} do not "
                          f"chain: x is [M, K] and g is [M, N]")
     x8 = x.to(torch.int8).contiguous()
     vld = (vld_map(x8) if vld_cnt is None
            else vld_cnt.to(torch.int32).contiguous())
-    args = (x8, g.to(torch.float32).contiguous(), vld)
+    gf = g.to(torch.float32).contiguous()
+    gate = dw_gate(x8, vld, skip)
     dev = x.device
-    if dev.type == "cpu":
-        return spike_matmul_dw_ref(*args)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"spike_matmul_dw runs on cuda or cpu, not {dev}")
-    _build.count_launch("spike_matmul_dw", args, (x, g))
-    return spike_matmul_dw_cuda(*args)
+    if gate is None:
+        args = (x8, gf, vld)
+        if dev.type == "cpu":
+            return spike_matmul_dw_ref(*args)
+        _build.count_launch("spike_matmul_dw", args, (x, g))
+        return spike_matmul_dw_cuda(*args)
+    args = (x8, gf, gate)
+    if dev.type == "cpu":
+        return spike_matmul_dw_gated_ref(*args)
+    _build.count_launch("spike_matmul_dw_gated", args, (x, g))
+    return spike_matmul_dw_gated_cuda(*args)

@@ -6,7 +6,7 @@ from typing import Optional
 
 import torch
 
-from ...core.events import unpack_words
+from ...core.events import LANE_BITS, unpack_words
 from ...core.surrogate import surrogate_grad
 
 
@@ -23,6 +23,28 @@ def block_skip_mask(vld: torch.Tensor, shape: tuple) -> torch.Tensor:
     return (vld > 0).repeat_interleave(bm, 0).repeat_interleave(bk, 1)
 
 
+def gated_mask(nact: torch.Tensor, kmap: torch.Tensor,
+               occ: Optional[torch.Tensor], shape: tuple) -> torch.Tensor:
+    """[Mp, Kp] bool: True where a gated walk reads x. It walks ``kmap[i,
+    s]`` for ``s < nact[i]`` (``core.events.compact_kmap``) and, with
+    ``occ`` (``"two_level"``), only the occupied 32-column stripes of each
+    block it visits."""
+    gm, gk = kmap.shape
+    bm, bk = shape[0] // gm, shape[1] // gk
+    walk = (torch.arange(gk, device=kmap.device)[None, :]
+            < nact.to(torch.int64)[:, None])
+    rows, steps = walk.nonzero(as_tuple=True)
+    on = torch.zeros((gm, gk), dtype=torch.bool, device=kmap.device)
+    on[rows, kmap[rows, steps].to(torch.int64)] = True
+    if occ is None:
+        return on.repeat_interleave(bm, 0).repeat_interleave(bk, 1)
+    wpb = bk // LANE_BITS
+    shifts = torch.arange(wpb, dtype=torch.int32, device=occ.device)
+    stripes = on[..., None] & (((occ[..., None] >> shifts) & 1) != 0)
+    return (stripes.reshape(gm, gk * wpb).repeat_interleave(bm, 0)
+            .repeat_interleave(LANE_BITS, 1))
+
+
 def spike_matmul_block_ref(xp: torch.Tensor, wp: torch.Tensor,
                            vld: torch.Tensor, packed_x: bool = False
                            ) -> torch.Tensor:
@@ -32,6 +54,16 @@ def spike_matmul_block_ref(xp: torch.Tensor, wp: torch.Tensor,
     contribute nothing. Returns out [Mp, Np] f32."""
     x = unpack_words(xp) if packed_x else xp
     return spike_matmul_ref(x * block_skip_mask(vld, x.shape), wp)
+
+
+def spike_matmul_gated_block_ref(xp: torch.Tensor, wp: torch.Tensor, gate,
+                                 packed_x: bool = False) -> torch.Tensor:
+    """The gated kernel's function on block-aligned operands: as
+    ``spike_matmul_block_ref``, with x read only where the ``gate``
+    (nact, kmap and, for ``"two_level"``, occ) walk reads it."""
+    x = unpack_words(xp) if packed_x else xp
+    nact, kmap, occ = gate
+    return spike_matmul_ref(x * gated_mask(nact, kmap, occ, x.shape), wp)
 
 
 def spike_matmul_dx_ref(g: torch.Tensor, w: torch.Tensor,
@@ -60,3 +92,24 @@ def spike_matmul_dw_ref(x: torch.Tensor, g: torch.Tensor,
         mask = block_skip_mask(vld, (vld.shape[0] * 128, vld.shape[1] * 128))
         xf = xf * mask[:m, :k]
     return xf.T @ g.to(torch.float32)
+
+
+def spike_matmul_dw_gated_ref(x: torch.Tensor, g: torch.Tensor,
+                              gate) -> torch.Tensor:
+    """The gated dw kernel's function: ``dw = xᵀ @ g`` with x read only
+    where the walk of ``gate`` reads it. ``gate`` routes the transposed
+    vld map (nact_t [Gk], mmap [Gk, Gm]: for each k block its non-silent
+    m blocks) and, for ``"two_level"``, carries x's occ [Gm, Gk] on the
+    128x128 grid: a clear bit leaves out the 32 rows of dw the stripe
+    feeds."""
+    m, k = x.shape
+    nact_t, mmap, occ = gate
+    gk, gm = mmap.shape
+    mask = gated_mask(nact_t, mmap, None, (gk * 128, gm * 128)).T
+    if occ is not None:
+        mask = mask & gated_mask(torch.full((gm,), gk, dtype=torch.int32,
+                                            device=occ.device),
+                                 torch.arange(gk, dtype=torch.int32,
+                                              device=occ.device)
+                                 .expand(gm, gk), occ, (gm * 128, gk * 128))
+    return (x.to(torch.float32) * mask[:m, :k]).T @ g.to(torch.float32)

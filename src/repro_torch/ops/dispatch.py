@@ -6,9 +6,11 @@ instance, or None — and looks its implementation up in the ``(op, mode)``
 registry. ``policy.format`` is the format of the emitted spike maps
 (operands are converted as needed), so a chain of ``ops.*`` calls keeps its
 format end to end. ``policy=None`` means the fused kernels, with the format
-of the first spike operand. The ``"auto"`` policies need the autotuner,
-which is not ported yet: the matmul-sweep ops raise on them, the others run
-them as ``"fused"``, as the reference does.
+of the first spike operand. Under an ``"auto"`` policy the matmul-sweep
+ops (``matmul``, ``fused_pe``, ``fused_pe_layer``) ask the roofline
+autotuner (``ops.autotune``) for the kernel, the byte-skip strategy and
+the block shape of each call from the operand's measured sparsity; the
+other ops run ``"auto"`` as ``"fused"``, as the reference does.
 
 A ``"+grad"`` policy (``policy.for_training()``) resolves the same registry
 to the surrogate-gradient implementations of ``repro_torch.ops.grad``: the
@@ -40,16 +42,44 @@ def _policy_for(policy: PolicyLike, *sts: Optional[SpikeTensor]
     return ExecutionPolicy("fused", "packed" if packed else "dense")
 
 
-def _tuned(policy: PolicyLike, *sts: Optional[SpikeTensor]
-           ) -> ExecutionPolicy:
-    """The matmul-sweep ops: an ``"auto"`` policy needs the roofline
-    autotuner, which is not ported yet, so it raises."""
-    pol = _policy_for(policy, *sts)
-    if pol.auto:
-        raise NotImplementedError(
-            f"policy {pol.name!r} needs the roofline autotuner, which is not "
-            f"ported yet (ROADMAP queue 1 item 5)")
-    return pol
+def _auto_matmul(op: str, pol: ExecutionPolicy, st: SpikeTensor, n: int,
+                 block_m: int, block_n: int, block_k: int,
+                 allow_wide_n: bool = True
+                 ) -> tuple[ExecutionPolicy, str, int, int, int]:
+    """Resolve an ``"auto"`` policy for a matmul-sweep op: the tuner's
+    plan (kernel, skip strategy, block shape) for this operand's shape and
+    measured sparsity. Returns the concrete policy and (skip, block_m,
+    block_n, block_k). A demoted op plans to reference. Under ``+grad`` the
+    plan prices the backward (the dw sweep's skip) and keeps the blocks."""
+    from .autotune import get_tuner
+
+    tuner = get_tuner()
+    if tuner.is_demoted(op):
+        return (dataclasses.replace(pol, kernels="reference"),
+                "dense", block_m, block_n, block_k)
+    if pol.differentiable:
+        plan = tuner.plan_grad_for(st, n)
+        return (dataclasses.replace(pol, kernels=plan.kernels),
+                plan.skip, block_m, block_n, block_k)
+    plan = tuner.plan_for(st, n, block_m=block_m, block_n=block_n,
+                          block_k=block_k, allow_wide_n=allow_wide_n)
+    pol = dataclasses.replace(pol, kernels=plan.kernels)
+    return pol, plan.skip, plan.block_m, plan.block_n, plan.block_k
+
+
+def _auto_fused_pe(op: str, pol: ExecutionPolicy, st: SpikeTensor,
+                   res: Optional[SpikeTensor], qs: Optional[SpikeTensor],
+                   n: int, block_m: int, block_n: int, block_k: int):
+    """``_auto_matmul`` for a fused PE pass. A packed residual or q ties
+    the output's tiling, so the tuner may not widen block_n; a packed
+    residual's grid is the output's (the reference requests the default
+    block_n and then rejects a residual emitted on a 256-wide grid)."""
+    pinned = ((res is not None and res.is_packed)
+              or (qs is not None and qs.is_packed))
+    if res is not None and res.is_packed:
+        block_n = res.block_k
+    return _auto_matmul(op, pol, st, n, block_m, block_n, block_k,
+                        allow_wide_n=not pinned)
 
 
 def _non_tuned(policy: PolicyLike, *sts: Optional[SpikeTensor]
@@ -75,9 +105,15 @@ def matmul(x: Spikes, w: torch.Tensor, *, policy: PolicyLike = None,
     """Event-driven spike matmul: [M, K] spikes @ [K, N] -> f32 current
     (the reference mode takes any leading dims). The fused mode skips
     silent blocks on the operand's ``vld_cnt`` (computed here when a dense
-    SpikeTensor carries none) and takes a packed operand as it is."""
+    SpikeTensor carries none) and takes a packed operand as it is.
+    ``skip`` selects the byte-skip strategy ("dense" | "gated" |
+    "two_level"); an ``"auto"`` policy overrides it and the blocks with
+    the autotuner's plan."""
     st = SpikeTensor.wrap(x)
-    pol = _tuned(policy, st)
+    pol = _policy_for(policy, st)
+    if pol.auto:
+        pol, skip, block_m, block_n, block_k = _auto_matmul(
+            "matmul", pol, st, w.shape[1], block_m, block_n, block_k)
     return lookup("matmul", pol.mode)(st, w, block_m=block_m,
                                       block_n=block_n, block_k=block_k,
                                       skip=skip)
@@ -114,7 +150,11 @@ def fused_pe(x: Spikes, w: torch.Tensor, *,
     st = SpikeTensor.wrap(x)
     res = SpikeTensor.wrap(residual) if residual is not None else None
     qs = SpikeTensor.wrap(q) if q is not None else None
-    pol = _tuned(policy, st)
+    pol = _policy_for(policy, st)
+    if pol.auto:
+        pol, skip, block_m, block_n, block_k = _auto_fused_pe(
+            "fused_pe", pol, st, res, qs, w.shape[1], block_m, block_n,
+            block_k)
     return lookup("fused_pe", pol.mode)(
         st, w, bias=bias, residual=res, q=qs, v_prev=v_prev, s_prev=s_prev,
         qk_threshold=qk_threshold, lif_cfg=lif_cfg, fmt=pol.format,
@@ -143,7 +183,11 @@ def fused_pe_layer(x: Spikes, w: torch.Tensor, *,
     st = SpikeTensor.wrap(x)
     res = SpikeTensor.wrap(residual) if residual is not None else None
     qs = SpikeTensor.wrap(q) if q is not None else None
-    pol = _tuned(policy, st)
+    pol = _policy_for(policy, st)
+    if pol.auto:
+        pol, skip, block_m, block_n, block_k = _auto_fused_pe(
+            "fused_pe_layer", pol, st, res, qs, w.shape[1], block_m, block_n,
+            block_k)
     return lookup("fused_pe_layer", pol.mode)(
         st, w, bias=bias, residual=res, q=qs, qk_threshold=qk_threshold,
         lif_cfg=lif_cfg, fmt=pol.format, block_m=block_m, block_n=block_n,

@@ -37,6 +37,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..core.events import DEFAULT_BLOCKS
 from ..core.lif import LIFConfig
 from ..core.qk_attention import qk_token_mask
 from ..core.surrogate import spike
@@ -57,7 +58,7 @@ from ..kernels.spike_matmul import (spike_matmul, spike_matmul_dw,
 from ..kernels.w2ttfs_pool import w2ttfs_pool_fc
 from ..models import nn
 from .dispatch import FusedOut
-from .impls import _check_blocks, _check_dense_skip, _check_no_heads
+from .impls import _check_blocks
 from .registry import register
 from .spike_tensor import SpikeTensor
 
@@ -145,25 +146,30 @@ def _pe_reference(x, w, bias, residual, q, cfg: LIFConfig,
     return s
 
 
-def _check_fused_variant(skip: str, blocks: tuple, heads) -> None:
-    _check_dense_skip(skip)
-    _check_blocks(*blocks)
-    _check_no_heads(heads)
+def _forward_vld(vld: torch.Tensor, block_k: int) -> Optional[torch.Tensor]:
+    """The forward kernel's vld map: the saved 128x128 one (the grid the
+    backward kernels read) when x's blocks are 128 wide, else recounted by
+    the wrapper on its own grid."""
+    return vld if block_k == DEFAULT_BLOCKS.k else None
 
 
 # ------------------------------------------------------------------- matmul
 class _SpikeMatmul(torch.autograd.Function):
     """``x @ w`` on the spike matmul kernel; backward dx = g @ wᵀ (the dx
     kernel without a surrogate) and dw = xᵀ @ g (the dw kernel, skipping
-    the blocks the forward skipped). Takes leading batch dims."""
+    the blocks the forward skipped). ``skip`` is the byte-skip strategy of
+    both directions. Takes leading batch dims."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, w: torch.Tensor):
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor, skip: str,
+                blocks: tuple):
         x8 = x.reshape(-1, x.shape[-1]).to(torch.int8)     # exact on {0,1}
         vld = vld_map(x8)
-        out = spike_matmul(x8, w, vld_cnt=vld)
+        _, block_n, block_k = blocks
+        out = spike_matmul(x8, w, vld_cnt=_forward_vld(vld, block_k),
+                           block_n=block_n, block_k=block_k, skip=skip)
         ctx.save_for_backward(x8, vld, w)
-        ctx.x_shape = x.shape
+        ctx.x_shape, ctx.skip = x.shape, skip
         return out.reshape(*x.shape[:-1], w.shape[-1])
 
     @staticmethod
@@ -175,8 +181,9 @@ class _SpikeMatmul(torch.autograd.Function):
             dx, _ = spike_matmul_dx(g2, w)
             dx = dx.reshape(ctx.x_shape)
         if ctx.needs_input_grad[1]:
-            dw = spike_matmul_dw(x8, g2, vld_cnt=vld).to(w.dtype)
-        return dx, dw
+            dw = spike_matmul_dw(x8, g2, vld_cnt=vld,
+                                 skip=ctx.skip).to(w.dtype)
+        return dx, dw, None, None
 
 
 def _matmul_impl(kernels: str):
@@ -184,8 +191,8 @@ def _matmul_impl(kernels: str):
         x, w_ = _dense_operand(st), _f32(w)
         if kernels == "reference":
             return x @ w_
-        _check_fused_variant(skip, (block_m, block_n, block_k), None)
-        return _SpikeMatmul.apply(x, w_)
+        _check_blocks(block_m, block_n, block_k)
+        return _SpikeMatmul.apply(x, w_, skip, (block_m, block_n, block_k))
     return impl
 
 
@@ -222,21 +229,24 @@ class _FusedPE(torch.autograd.Function):
     the cotangent gated by the (constant) QK row mask; the gradient into q
     is the vjp of the mask on the spikes reconstructed as ``cur >= v_th``;
     ``dw`` on the dw kernel; the bias gradient is the column sum of dv and
-    the residual's is dv."""
+    the residual's is dv. ``skip`` is the byte-skip strategy of the
+    forward pass and of dw."""
 
     @staticmethod
     def forward(ctx, x, w, bias, residual, q, cfg: LIFConfig,
-                qk_threshold: float, fmt: str):
+                qk_threshold: float, fmt: str, skip: str, blocks: tuple):
         x8 = x.to(torch.int8)                               # exact on {0,1}
         vld = vld_map(x8)
+        _, block_n, block_k = blocks
         spikes, _, cur = fused_pe(
-            x8, w, bias=bias, residual=residual, q=q, vld_cnt=vld,
-            v_th=cfg.v_th, qk_threshold=qk_threshold, out_format=fmt,
-            emit_current=True)
+            x8, w, bias=bias, residual=residual, q=q,
+            vld_cnt=_forward_vld(vld, block_k), v_th=cfg.v_th,
+            qk_threshold=qk_threshold, out_format=fmt, emit_current=True,
+            block_n=block_n, block_k=block_k, skip=skip)
         if fmt == "packed":
             spikes = unpack_spikes(spikes)
         ctx.save_for_backward(x8, vld, w, q, cur)
-        ctx.cfg, ctx.qk_threshold = cfg, qk_threshold
+        ctx.cfg, ctx.qk_threshold, ctx.skip = cfg, qk_threshold, skip
         ctx.has_bias, ctx.has_residual = bias is not None, residual is not None
         return spikes.to(torch.float32)
 
@@ -264,11 +274,11 @@ class _FusedPE(torch.autograd.Function):
             g_eff = gs
         dx, dcur = spike_matmul_dx(g_eff, w, cur, surrogate=cfg.surrogate,
                                    alpha=cfg.alpha, v_th=cfg.v_th)
-        dw = spike_matmul_dw(x8, dcur, vld_cnt=vld) \
+        dw = spike_matmul_dw(x8, dcur, vld_cnt=vld, skip=ctx.skip) \
             if ctx.needs_input_grad[1] else None
         dbias = dcur.sum(dim=0) if ctx.has_bias else None
         dres = dcur if ctx.has_residual else None
-        return dx, dw, dbias, dres, dq, None, None, None
+        return dx, dw, dbias, dres, dq, None, None, None, None, None
 
 
 def _fused_pe_impl(kernels: str):
@@ -289,9 +299,9 @@ def _fused_pe_impl(kernels: str):
         if kernels == "reference":
             spk = _pe_reference(x, w_, b, res, q_, lif_cfg, qk_threshold)
         else:
-            _check_fused_variant(skip, (block_m, block_n, block_k), heads)
+            _check_blocks(block_m, block_n, block_k)
             spk = _FusedPE.apply(x, w_, b, res, q_, lif_cfg, qk_threshold,
-                                 fmt)
+                                 fmt, skip, (block_m, block_n, block_k))
         return FusedOut(SpikeTensor.dense(spk, block_m=block_m,
                                           block_k=block_n), None, None)
     return impl

@@ -10,11 +10,13 @@ tensors it runs the wrapper's plain version. Implementations take wrapped
 for, so neither the kernels nor the call sites fork on the format. A
 packed operand goes to the kernel's packed variant; it is never unpacked
 to run the dense kernel. A fused variant whose kernel is still to port
-(``skip="gated"``/``"two_level"``, head-blocked masks, T>1 state) raises;
-it never runs the reference instead. The ``+grad`` modes are registered
-by ``repro_torch.ops.grad``. Head-blocked masks raise in the
-reference mode too, until they are ported and held against the reference
-together.
+(head-blocked masks, T>1 state) raises; it never runs the reference
+instead. The fused matmul-sweep registrations take the byte-skip strategy
+(``skip``) and every block shape the autotuner can plan: block_m 128,
+block_k on the operand's grid and block_n 128 or 256. The ``+grad`` modes
+are registered by ``repro_torch.ops.grad``. Head-blocked masks raise in
+the reference mode too, until they are ported and held against the
+reference together.
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ from ..kernels.packed import pack_spikes, unpack_spikes
 # neurallint: disable=NL-REGISTRY-BYPASS
 from ..kernels.qk_attention import qk_attention_fused, qk_attention_ref
 # neurallint: disable=NL-REGISTRY-BYPASS
-from ..kernels.spike_matmul import spike_matmul, spike_matmul_ref
+from ..kernels.spike_matmul import check_width, spike_matmul, spike_matmul_ref
 # neurallint: disable=NL-REGISTRY-BYPASS
 from ..kernels.w2ttfs_pool import w2ttfs_pool_fc, w2ttfs_pool_fc_ref
 from ..models import nn
@@ -47,19 +49,15 @@ from .registry import register
 from .spike_tensor import SpikeTensor
 
 
-def _check_dense_skip(skip: str) -> None:
-    if skip != "dense":
-        raise NotImplementedError(
-            f"skip={skip!r} is still to port (ROADMAP queue 2, K3 and K2 "
-            f"gated/two_level); the fused kernels take skip='dense'")
-
-
 def _check_blocks(block_m: int, block_n: int, block_k: int) -> None:
-    """The CUDA kernels' CTA tile is the metadata block, 128x128x128."""
-    if (block_m, block_n, block_k) != tuple(DEFAULT_BLOCKS):
-        raise ValueError(
-            f"the CUDA kernels tile on {tuple(DEFAULT_BLOCKS)}; got "
-            f"(block_m={block_m}, block_n={block_n}, block_k={block_k})")
+    """The CUDA kernels' CTA tile is 128x128; the metadata grid is 128
+    rows by block_k (or, for an emitted map, block_n) columns, each 128
+    or 256 (the widths the autotuner can plan)."""
+    check_width("block_n", block_n)
+    check_width("block_k", block_k)
+    if block_m != DEFAULT_BLOCKS.m:
+        raise ValueError(f"the CUDA kernels tile M on {DEFAULT_BLOCKS.m} rows;"
+                         f" got block_m={block_m}")
 
 
 def _check_no_heads(heads) -> None:
@@ -87,13 +85,13 @@ def _stack_packed(ps: PackedSpikes) -> PackedSpikes:
 @register("matmul", "fused")
 def _matmul_fused(st: SpikeTensor, w: torch.Tensor, *, block_m, block_n,
                   block_k, skip="dense"):
-    _check_dense_skip(skip)
     _check_blocks(block_m, block_n, block_k)
     if len(st.shape) != 2:
         raise ValueError(f"the fused matmul takes a 2-D [M, K] operand, got "
                          f"{tuple(st.shape)}")
     return spike_matmul(_operand(st), w,
-                        vld_cnt=None if st.is_packed else st.vld_cnt)
+                        vld_cnt=None if st.is_packed else st.vld_cnt,
+                        block_n=block_n, block_k=block_k, skip=skip)
 
 
 @register("matmul", "reference")
@@ -121,7 +119,6 @@ def _fused_pe_layer_fused(st: SpikeTensor, w: torch.Tensor, *, bias,
                           residual, q, qk_threshold, lif_cfg: LIFConfig,
                           fmt, block_m, block_n, block_k, skip="dense",
                           heads=None):
-    _check_dense_skip(skip)
     _check_blocks(block_m, block_n, block_k)
     t = st.shape[0]
     if t != 1:
@@ -135,7 +132,8 @@ def _fused_pe_layer_fused(st: SpikeTensor, w: torch.Tensor, *, bias,
         residual=None if residual is None else _operand(residual[0]),
         q=None if q is None else _operand(q[0]),
         vld_cnt=None if st.is_packed or st.vld_cnt is None else st.vld_cnt[0],
-        v_th=lif_cfg.v_th, qk_threshold=qk_threshold, out_format=fmt)
+        v_th=lif_cfg.v_th, qk_threshold=qk_threshold, out_format=fmt,
+        block_n=block_n, block_k=block_k, skip=skip)
     if fmt == "packed":
         out = SpikeTensor.from_packed(_stack_packed(spikes))
     else:

@@ -6,8 +6,9 @@
                          between layers.
   * ``"fused_packed"`` — the fused kernels with bit-packed spike maps (32
                          spikes per int32 word) between layers.
-  * ``"auto"`` / ``"auto_packed"`` — autotuned (not ported yet: ROADMAP
-                         queue 1 item 5).
+  * ``"auto"`` / ``"auto_packed"`` — the roofline autotuner
+                         (``ops.autotune``) picks the kernel, skip strategy
+                         and block shape of each matmul sweep.
 
 The ``differentiable`` axis (``for_training()`` / ``"<preset>+grad"``)
 selects the surrogate-gradient implementations of ``ops.grad``: the

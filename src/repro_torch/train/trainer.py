@@ -105,3 +105,20 @@ def make_kd_train_step(student_apply: Callable, teacher_apply: Callable,
 
     return step
 
+
+def observe_train_sparsity(metrics: dict) -> None:
+    """Feed one training step's measured spike sparsity into the roofline
+    autotuner: the host half of the ``"auto+grad"`` loop.
+
+    Call it on the metrics dict a ``make_kd_train_step`` step returned.
+    When the student surfaced an ``active_frac`` (snn_cnn's mean firing
+    rate), it EWMA-feeds ``AutoTuner.observe``, the hint the tuner prices
+    an operand with when it has no maps to measure. The rate is a
+    neuron-level proxy for the active-block fraction the cost model wants;
+    the tuner's buckets absorb the gap. No-op when the metric is absent."""
+    frac = metrics.get("active_frac")
+    if frac is None:
+        return
+    from ..ops.autotune import get_tuner
+
+    get_tuner().observe(float(frac))

@@ -14,8 +14,11 @@ import torch
 
 pytestmark = pytest.mark.gpu
 
-# the KD training kernels, which an inference forward never launches
-NO_BACKWARD = {"spike_matmul_dx": 0, "spike_matmul_dw": 0, "qk_attention": 0}
+# the KD training kernels, which an inference forward never launches, and
+# the gated routes, which only the auto policies or an explicit skip launch
+NO_BACKWARD = {"spike_matmul_dx": 0, "spike_matmul_dw": 0, "qk_attention": 0,
+               "fused_pe_gated": 0, "spike_matmul_gated": 0,
+               "spike_matmul_dw_gated": 0}
 
 
 @pytest.fixture
@@ -141,9 +144,9 @@ def test_packed_forward_launches_every_kernel(cuda):
                                      **NO_BACKWARD}
     for name, args, _ in captured:
         if name == "fused_pe":
-            assert args[-1].x and args[-1].out
+            assert args[10].x and args[10].out
         elif name == "spike_matmul":
-            assert args[-1] is True
+            assert args[3] is True
     assert torch.equal(logits, dense)
     for key in d_aux["spikes"]:
         assert float(aux["spikes"][key]) == float(d_aux["spikes"][key]), key
@@ -220,7 +223,7 @@ def test_fused_pe_packed_variants_match_plain(cuda, px, pq, pr, pout,
                                out_format="packed" if pout else "dense")
     spk, vld = K.fused_pe_cuda(*args)
     ref_spk, ref_vld = K.fused_pe_block_ref(*args)
-    packing = args[-1]
+    packing = args[10]
     dense_of = (lambda t: unpack_words(t)) if pout else (lambda t: t)
     xp = unpack_words(args[0]) if px else args[0]
     res = 0.0
@@ -405,3 +408,163 @@ def test_train_step_on_card_matches_plain_versions(cuda, bn_fold):
         for a, b in zip(card["grads"][i], plain["grads"][i]):
             assert float((a - b).norm()) <= 1e-3 * max(float(b.norm()),
                                                        1e-12)
+
+
+# ------------------------------------------------- gated and two-level skips
+def _gated_spikes(gen, m, k, silent, block_k, dev):
+    """0/1 int8 spikes whose (128, block_k) blocks are silent with
+    probability ``silent`` (row block 0 wholly, so nact = 0 there), with
+    every third 32-column stripe of each block silent, clustered."""
+    x = torch.rand((m, k), generator=gen, device=dev) < 0.3
+    gm, gk = -(-m // 128), -(-k // block_k)
+    keep = torch.rand((gm, gk), generator=gen, device=dev) >= silent
+    keep[0] = False
+    stripe_on = ((torch.arange(-(-k // 32), device=dev)[None, :]
+                  + torch.arange(gm, device=dev)[:, None]) % 3) != 0
+    rows = torch.arange(m, device=dev) // 128
+    cols = torch.arange(k, device=dev)
+    x &= keep[rows][:, cols // block_k] & stripe_on[rows][:, cols // 32]
+    return x.to(torch.int8)
+
+
+GATED_BLOCKS = [(128, 128), (256, 256), (256, 128)]
+
+
+@pytest.mark.parametrize("skip", ["gated", "two_level"])
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("block_n,block_k", GATED_BLOCKS)
+@pytest.mark.parametrize("silent", [0.5, 1.0])
+def test_gated_spike_matmul_matches_plain_and_dense_skip(
+        cuda, skip, packed, block_n, block_k, silent):
+    from repro_torch.core.events import pack_spikes_ref
+    from repro_torch.kernels import spike_matmul as K
+
+    gen = torch.Generator(device=cuda).manual_seed(20)
+    x = _gated_spikes(gen, 1000, 1200, silent, block_k, cuda)
+    if packed:
+        x = pack_spikes_ref(x, block_k=block_k)
+    w = torch.randn((1200, 512), generator=gen, device=cuda)
+    blocks = dict(block_n=block_n, block_k=block_k)
+    args = K.spike_matmul_operands(x, w, skip=skip, **blocks)
+    out = K.spike_matmul_gated_cuda(*args)
+    torch.testing.assert_close(out, K.spike_matmul_gated_block_ref(*args),
+                               rtol=1e-5, atol=1e-4)
+    dense = K.spike_matmul_cuda(*K.spike_matmul_operands(x, w, **blocks))
+    assert torch.equal(out, dense)
+    assert int(args[2].nact[0]) == 0
+
+
+@pytest.mark.parametrize("skip", ["gated", "two_level"])
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("block_n,block_k", GATED_BLOCKS)
+def test_gated_fused_pe_matches_plain_and_dense_skip(cuda, skip, packed,
+                                                     block_n, block_k):
+    """Residual and q (int8, with the emitted current; or packed in and
+    out, with a packed shortcut), a 256-wide output tile's vld_next summed
+    over its two CTAs."""
+    from repro_torch.core.events import (block_count_map_2d, pack_spikes_ref,
+                                         unpack_words)
+    from repro_torch.kernels import fused_pe as K
+    from repro_torch.kernels.spike_matmul import spike_matmul_gated_block_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    m, k, n = 1000, 1200, 512
+    x = _gated_spikes(gen, m, k, 0.5, block_k, cuda)
+    w = torch.randn((k, n), generator=gen, device=cuda) * 0.12
+    b = 0.6 + 0.4 * torch.randn((n,), generator=gen, device=cuda)
+    q = _spikes(gen, m, n, 0.005, cuda)
+    if packed:
+        r = pack_spikes_ref(_spikes(gen, m, n, 0.3, cuda), block_k=block_n)
+        kw = dict(x=pack_spikes_ref(x, block_k=block_k), residual=r,
+                  q=pack_spikes_ref(q), out_format="packed")
+    else:
+        r = 0.5 * torch.randn((m, n), generator=gen, device=cuda)
+        kw = dict(x=x, residual=r, q=q, emit_current=True)
+    kw.update(w=w, bias=b, block_n=block_n, block_k=block_k)
+    args = K.fused_pe_operands(skip=skip, **kw)
+    out = K.fused_pe_cuda(*args)
+    dense = K.fused_pe_cuda(*K.fused_pe_operands(**kw))
+    assert all(torch.equal(a, c) for a, c in zip(out, dense))
+    ref = K.fused_pe_block_ref(*args)
+    spk, ref_spk = out[0], ref[0]
+    if packed:
+        spk, ref_spk = unpack_words(spk), unpack_words(ref_spk)
+        res = unpack_words(args[4], torch.float32)
+    else:
+        res = args[4]
+        torch.testing.assert_close(out[2], ref[2], rtol=1e-5, atol=1e-4)
+    xs = unpack_words(args[0]) if packed else args[0]
+    cur = spike_matmul_gated_block_ref(xs, args[1], args[12]) + args[3] + res
+    near = (cur - 1.0).abs() < 1e-4
+    assert not bool(((spk != ref_spk) & ~near).any())
+    assert torch.equal(out[1], block_count_map_2d(spk, 128, block_n))
+
+
+@pytest.mark.parametrize("skip", ["gated", "two_level"])
+@pytest.mark.parametrize("silent", [0.0, 0.5, 0.9, 1.0])
+def test_gated_dw_bit_equal_to_dense_skip(cuda, skip, silent):
+    """The gated dw is the dense-skip dw's bits (same runs, same order);
+    NaN in the g rows of wholly silent row blocks changes no bit."""
+    from repro_torch.kernels import spike_matmul as K
+
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    m, k, n = 8192, 576, 64
+    x = _gated_spikes(gen, m, k, silent, 128, cuda)
+    g = torch.randn((m, n), generator=gen, device=cuda)
+    vld = K.vld_map(x)
+    gate = K.dw_gate(x, vld, skip)
+    dw = K.spike_matmul_dw_gated_cuda(x, g, gate)
+    assert torch.equal(dw, K.spike_matmul_dw_cuda(x, g, vld))
+    torch.testing.assert_close(dw, K.spike_matmul_dw_gated_ref(x, g, gate),
+                               rtol=1e-4, atol=1e-3)
+    silent_rows = (vld == 0).all(dim=1).repeat_interleave(128)[:m]
+    assert bool(silent_rows.any())
+    g_nan = g.clone()
+    g_nan[silent_rows] = float("nan")
+    assert torch.equal(dw, K.spike_matmul_dw_gated_cuda(x, g_nan, gate))
+
+
+@pytest.mark.parametrize("policy", ["auto", "auto_packed"])
+@pytest.mark.parametrize("wide", [False, True])
+def test_auto_forward_launches_the_gated_kernels_it_plans(cuda, policy, wide,
+                                                          monkeypatch):
+    """With every plan forced to the fused kernels under skip="gated" (and,
+    ``wide``, 256-wide N tiles wherever N allows: width 0.5, so resblock 4
+    and the QKFormer tile 256 wide and pass that grid on), an auto forward
+    launches the gated fused PE and spike matmul routes only, and its
+    logits are the fixed policy's bits."""
+    from repro_torch import ops
+    from repro_torch.kernels import _build
+    from repro_torch.models import snn_cnn
+    from repro_torch.ops import autotune
+
+    def gated(self, m, k, n, *, fmt, active_frac, occ_frac, block_m,
+              block_n, block_k, allow_reference, allow_wide_n=True):
+        bn = 2 * block_n if wide and allow_wide_n and n % (2 * block_n) == 0 \
+            else block_n
+        return autotune.KernelPlan("fused", "gated", block_m, bn, block_k,
+                                   0.0, 0.0, active_frac, occ_frac)
+
+    cfg = snn_cnn.SNNCNNConfig(arch="qkfresnet11",
+                               width_mult=0.5 if wide else 0.125,
+                               image_size=16)
+    fused = snn_cnn.fuse_model(
+        snn_cnn.init(torch.Generator().manual_seed(0), cfg), cfg)
+    img = torch.rand((2, 16, 16, 3), device=cuda)
+    fixed = "fused_packed" if policy == "auto_packed" else "fused_dense"
+    want, _, _ = snn_cnn.forward(fused, img, cfg, policy=fixed)
+    ops.get_tuner().reset()
+    monkeypatch.setattr(autotune.AutoTuner, "_enumerate", gated)
+    _build.reset_launches()
+    with _build.capture_launches() as captured:
+        logits, _, _ = snn_cnn.forward(fused, img, cfg, policy=policy)
+        torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    assert launches["fused_pe_gated"] == 13 and launches["fused_pe"] == 0
+    assert launches["spike_matmul_gated"] == 3
+    assert launches["spike_matmul"] == 0
+    widths = {args[11] for name, args, _ in captured
+              if name == "fused_pe_gated"}
+    assert widths == ({128, 256} if wide else {128})
+    assert torch.equal(logits, want)
+    ops.get_tuner().reset()

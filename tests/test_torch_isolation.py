@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package, its
 entry points never drop to the CPU on their own, and every fused variant
-whose kernel is still to port raises instead of running a plain version.
+whose kernel is still to port raises instead of running a plain version;
+the variants ported since run.
 """
 import ast
 import dataclasses
@@ -60,7 +61,8 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import repro_torch.core.qk_attention, repro_torch.tree\n"
         "import repro_torch.models.ann_cnn, repro_torch.optim\n"
         "import repro_torch.train.trainer, repro_torch.data.synthetic\n"
-        "import repro_torch.ops.grad\n"
+        "import repro_torch.ops.grad, repro_torch.ops.autotune\n"
+        "import repro_torch.launch.roofline\n"
         "repro_torch.ops.lookup('matmul', 'reference')\n"
         "repro_torch.ops.lookup('matmul', 'fused+grad')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -139,12 +141,6 @@ def _unported():
     img = torch.zeros((1, 16, 16, 3))
     variables = snn_cnn.init(torch.Generator(), cfg, device="cpu")
     return {
-        "matmul skip=gated": lambda: ops.matmul(
-            torch.ones((8, 8), dtype=torch.int8), w, skip="gated",
-            policy="fused_dense"),
-        "matmul skip=two_level": lambda: ops.matmul(
-            torch.ones((8, 8), dtype=torch.int8), w, skip="two_level",
-            policy="fused_dense"),
         "fused_pe_layer T=2": lambda: ops.fused_pe_layer(
             _spikes(t=2), w, policy="fused_dense"),
         "fused_pe_layer heads": lambda: ops.fused_pe_layer(
@@ -158,18 +154,6 @@ def _unported():
             _packed(t=2), w, policy="fused_packed"),
         "fused_pe_layer packed heads": lambda: ops.fused_pe_layer(
             _packed(), w, q=_packed(), heads=(2, 4), policy="fused_packed"),
-        "fused_pe_layer packed skip=gated": lambda: ops.fused_pe_layer(
-            _packed(), w, skip="gated", policy="fused_packed"),
-        "matmul packed skip=gated": lambda: ops.matmul(
-            _packed()[0], w, skip="gated", policy="fused_packed"),
-        "matmul packed skip=two_level": lambda: ops.matmul(
-            _packed()[0], w, skip="two_level", policy="fused_packed"),
-        "matmul auto policy": lambda: ops.matmul(
-            torch.ones((8, 8), dtype=torch.int8), w, policy="auto"),
-        "matmul +grad skip=gated": lambda: ops.matmul(
-            torch.ones((8, 8)), w, skip="gated", policy="fused_dense+grad"),
-        "matmul auto+grad policy": lambda: ops.matmul(
-            torch.ones((8, 8)), w, policy="auto+grad"),
         "fused_pe_layer +grad T=2": lambda: ops.fused_pe_layer(
             ops.SpikeTensor.dense(torch.ones((2, 8, 8))), w,
             policy="fused_dense+grad"),
@@ -241,6 +225,44 @@ def test_variants_ported_with_kd_training_run(case):
     out = _ported_with_kd_training()[case]()
     assert isinstance(out, torch.Tensor) and out.numel() > 0
     assert bool(torch.isfinite(out.to(torch.float32)).all())
+
+
+def _ported_with_the_autotuner():
+    """Variants that raised until the byte-skip ladder and the autotuner
+    were ported: the gated and two-level skips and the auto policies now
+    run on the CPU (the plain versions) and give the product of the
+    dense skip."""
+    w = torch.arange(64, dtype=torch.float32).reshape(8, 8) / 64.0
+    ones = torch.ones((8, 8), dtype=torch.int8)
+    return {
+        "matmul skip=gated": lambda: ops.matmul(
+            ones, w, skip="gated", policy="fused_dense"),
+        "matmul skip=two_level": lambda: ops.matmul(
+            ones, w, skip="two_level", policy="fused_dense"),
+        "fused_pe_layer packed skip=gated": lambda: ops.fused_pe_layer(
+            _packed(), w * 8.0, skip="gated",
+            policy="fused_packed").spikes.to_dense(torch.float32)[0],
+        "matmul packed skip=gated": lambda: ops.matmul(
+            _packed()[0], w, skip="gated", policy="fused_packed"),
+        "matmul packed skip=two_level": lambda: ops.matmul(
+            _packed()[0], w, skip="two_level", policy="fused_packed"),
+        "matmul auto policy": lambda: ops.matmul(ones, w, policy="auto"),
+        "matmul +grad skip=gated": lambda: ops.matmul(
+            torch.ones((8, 8)), w, skip="gated", policy="fused_dense+grad"),
+        "matmul auto+grad policy": lambda: ops.matmul(
+            torch.ones((8, 8)), w, policy="auto+grad"),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_ported_with_the_autotuner()))
+def test_variants_ported_with_the_autotuner_run(case):
+    out = _ported_with_the_autotuner()[case]()
+    w = torch.arange(64, dtype=torch.float32).reshape(8, 8) / 64.0
+    if case.startswith("fused_pe_layer"):
+        want = (w.sum(dim=0) * 8.0 >= 1.0).to(torch.float32).expand(8, 8)
+    else:
+        want = torch.ones((8, 8)) @ w
+    torch.testing.assert_close(out.detach(), want, rtol=0, atol=0)
 
 
 def test_reference_twins_stay_registered():
