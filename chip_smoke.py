@@ -86,6 +86,27 @@ Phases, in order; any failure raises and the script exits non-zero:
              product, that call; the median step time of each training
              path with its forward/backward split and peak memory, and the
              profiler's top kernels of one ``fused_dense+grad`` step.
+7. serve   — (run before the timing phase, whose kernel rows it feeds)
+             the spiking QKFormer LM at qwen3-1.7b's published width
+             (28 layers, d_model 2048, 16 heads over 8 KV heads of 128,
+             d_ff 6144, vocab 151936; bf16 activations, f32 parameters
+             from a CUDA ``torch.Generator`` seed 0) through the
+             continuous-batching engine (16 slots, 64-token prefill
+             chunks) on a 32-request greedy trace from
+             ``numpy.random.default_rng(0)`` under ``"fused_dense"``,
+             ``"fused_packed"`` and ``"reference"``: the launches of one
+             decode tick and one prefill chunk (``fused_pe`` 56,
+             ``spike_matmul`` 28, counts reset just before and read just
+             after), the engine's tokens against a direct
+             ``prefill_chunk`` / ``decode_step`` loop, ``fused_packed``
+             tokens and per-layer spike totals against ``fused_dense``'s,
+             the fused path against ``"reference"`` on a 4-layer f32
+             variant (spike totals 0.1 %, top-1 >= 99 %; at bf16 the two
+             compute different functions, so that agreement is printed
+             only), each policy's tick, chunk, TTFT, wall time and memory,
+             and a profiled decode tick. The parity phase also holds the
+             LM's head-blocked, dense-activation fused PE pass against its
+             plain version at K = 2048.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Without a
@@ -194,6 +215,27 @@ ROWS = {
                               "src/repro/kernels/spike_matmul/"
                               "backward.py:249"),
 }
+# the spiking LM's serving path (phase 7): one decode tick at 16 slots and
+# one 64-token prefill chunk of qwen3-1.7b, 2 fused PE passes (wq; wk with
+# the head-blocked mask) and one spike matmul (wo) a layer
+ROWS.update({
+    "fused_pe_heads": ("fused_pe", "serve fused_dense decode",
+                       "src/repro_torch/csrc/fused_pe.cu",
+                       "src/repro/kernels/fused_pe/fused_pe.py:362"),
+    "fused_pe_heads_prefill": ("fused_pe", "serve fused_dense prefill chunk",
+                               "src/repro_torch/csrc/fused_pe.cu",
+                               "src/repro/kernels/fused_pe/fused_pe.py:362"),
+    "fused_pe_heads_packed": ("fused_pe", "serve fused_packed decode",
+                              "src/repro_torch/csrc/fused_pe.cu",
+                              "src/repro/kernels/fused_pe/fused_pe.py:362"),
+    "spike_matmul_lm": ("spike_matmul", "serve fused_dense decode",
+                        "src/repro_torch/csrc/spike_matmul.cu",
+                        "src/repro/kernels/spike_matmul/spike_matmul.py:83"),
+    "spike_matmul_lm_packed": ("spike_matmul", "serve fused_packed decode",
+                               "src/repro_torch/csrc/spike_matmul.cu",
+                               "src/repro/kernels/spike_matmul/"
+                               "spike_matmul.py:83"),
+})
 # where a gated kernel's row reads its launches, in order of preference:
 # the auto paths, then the explicit-skip launches on the model's operands
 GATED_PATHS = ("auto_packed quiet", "auto quiet", "auto_packed busy",
@@ -272,10 +314,12 @@ def rand_spikes(torch, gen, m: int, k: int, density: float, dev):
 def check_fused_pe(torch, K, args, parity: Parity, label: str) -> None:
     """Kernel vs plain version on one set of block-aligned operands (dense
     or packed; the row is ``fused_pe_packed`` when x is packed)."""
-    xp, wp, vld, bp, rp, qp, m0, n0, v_th, qk, packing, block_n, gate = args
+    (xp, wp, vld, bp, rp, qp, m0, n0, v_th, qk, packing, block_n, gate,
+     heads) = args
     row = ("fused_pe_gated" if gate is not None else
            "fused_pe_emit" if packing.current else
-           "fused_pe_packed" if packing.x else "fused_pe")
+           "fused_pe_heads" if heads is not None or xp.is_floating_point()
+           else "fused_pe_packed" if packing.x else "fused_pe")
     k_out, k_vld, *k_cur = K.fused_pe_cuda(*args)
     p_out, p_vld, *p_cur = K.fused_pe_block_ref(*args)
     if packing.out:
@@ -325,7 +369,9 @@ def check_fused_pe(torch, K, args, parity: Parity, label: str) -> None:
         f"silent x blocks {int((vld == 0).sum())}/{vld.numel()}; "
         f"packing {tuple(packing)}; blocks 128x{block_n}x"
         f"{xp.shape[1] * (32 if packing.x else 1) // vld.shape[1]}"
-        + ("" if gate is None else f"; skip {gate.skip}"))
+        + ("" if gate is None else f"; skip {gate.skip}")
+        + ("" if heads is None else f"; heads {heads}"))
+    return k_spk
 
 
 def check_spike_matmul(torch, K, args, parity: Parity, label: str) -> None:
@@ -773,6 +819,51 @@ def parity_gated(torch, K, gen, dev, parity: Parity) -> None:
                                f"{silent} {skip}")
 
 
+# the spiking LM's fused PE pass at qwen3-1.7b's width (K = d_model 2048):
+# (h, dh) of the head-blocked mask, None for the wq pass (no q); dh 128,
+# 64 and 16 divide the 128-wide tile, 48 does not (a head straddles two
+# tiles, N = 2016 leaves a ragged column tile); decode's 16 rows and a
+# ragged 2000-row prefill
+LM_PE_HEADS = (None, (16, 128), (32, 64), (128, 16), (42, 48))
+LM_PE_ROWS = (16, 2000)
+LM_PE_K = 2048
+
+
+def parity_lm_pe(torch, K, gen, dev, parity: Parity) -> None:
+    """The head-blocked, dense-activation fused PE pass against its plain
+    version: f32 and bf16 x, dense and packed q, int8 and packed out; the
+    packed output's map must be the int8 output's, bit for bit."""
+    for m in LM_PE_ROWS:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((m, LM_PE_K), generator=gen, device=dev).to(dtype)
+            for heads in LM_PE_HEADS:
+                n = 2048 if heads is None else heads[0] * heads[1]
+                w = torch.randn((LM_PE_K, n), generator=gen, device=dev) \
+                    / math.sqrt(LM_PE_K)
+                qs = (None,)
+                thr = 1.0
+                if heads is not None:
+                    q = (torch.rand((m, n), generator=gen, device=dev)
+                         < 0.05).to(torch.int8)
+                    qs = (q, K.pack_spikes_ref(q))
+                    thr = float(1 + heads[1] // 32)
+                for q in qs:
+                    maps = []
+                    for fmt in ("dense", "packed"):
+                        args = K.fused_pe_operands(
+                            x, w, q=q, v_th=V_TH, qk_threshold=thr,
+                            out_format=fmt, heads=heads)
+                        qk = ("no q" if q is None else "packed q"
+                              if isinstance(q, K.PackedSpikes) else "int8 q")
+                        maps.append(check_fused_pe(
+                            torch, K, args, parity,
+                            f"[{m}x{LM_PE_K}x{n}] {str(dtype)[6:]} x, {qk}, "
+                            f"{fmt} out"))
+                    require(torch.equal(maps[0], maps[1]),
+                            f"fused_pe_heads [{m}x{n}] heads {heads}: the "
+                            f"packed output is not the int8 output")
+
+
 def phase_parity(torch, K, dev) -> Parity:
     parity = Parity()
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -819,6 +910,7 @@ def phase_parity(torch, K, dev) -> Parity:
                          f"[{b},{h},{h},{c}] window {window} density {p}")
     parity_training(torch, K, gen, dev, parity)
     parity_gated(torch, K, gen, dev, parity)
+    parity_lm_pe(torch, K, gen, dev, parity)
     torch.cuda.synchronize()
     return parity
 
@@ -1651,7 +1743,10 @@ def spike_bytes(K, t) -> float:
 def bound(torch, K, name: str, args, inputs) -> tuple[float, float, float]:
     """(bytes, operations, block operations) of one launch, from the
     kernel's operands ``args`` and the tensors its caller gave the wrapper
-    (``inputs``, before padding and casts).
+    (``inputs``, before padding and casts). A fused PE launch's ``inputs``
+    may end with the number of weight columns its product needs, where
+    that is fewer than the weight holds: a grouped wk's columns are
+    repeated once per query head before the launch (``grouped_kv``).
 
     Bytes: each input read once and each output written once, at the
     caller's extent (never the 128-padded one); spike maps as
@@ -1729,8 +1824,13 @@ def bound(torch, K, name: str, args, inputs) -> tuple[float, float, float]:
     x, w = inputs[:2]
     packed_x = isinstance(x, K.PackedSpikes)
     (m0, k0), n0 = x.shape, w.shape[1]
+    # the product needs only the kv heads' columns of a grouped wk; the
+    # spikes it writes (and masks) span every query head
+    n_prod = inputs[5] if len(inputs) > 5 else n0
     np_ = wp.shape[1]
     nnz = int(K.popcount32(xp).sum()) if packed_x else int((xp != 0).sum())
+    if xp.is_floating_point():   # a dense activation: the full product
+        nnz = m0 * k0
     active = (vld > 0).to(torch.float64).cpu()
     bk = wp.shape[0] // active.shape[1]          # 128, or 256 when planned
     rows = valid_extent(torch, m0, active.shape[0])
@@ -1738,17 +1838,19 @@ def bound(torch, K, name: str, args, inputs) -> tuple[float, float, float]:
     x_bytes = float((active * rows[:, None] * cols[None, :]).sum())
     if packed_x:
         x_bytes /= 8.0
+    elif xp.is_floating_point():
+        x_bytes *= xp.element_size()
     w_rows = float((cols * (active.sum(dim=0) > 0)).sum())
-    nbytes = x_bytes + 4.0 * w_rows * n0 + 4.0 * vld.numel()
+    nbytes = x_bytes + 4.0 * w_rows * n_prod + 4.0 * vld.numel()
     block_ops = 2.0 * float(active.sum()) * 128 * bk * np_
     if name == "spike_matmul":
         return nbytes + 4.0 * m0 * n0, 2.0 * nnz * n0, block_ops
-    bias, residual, q = inputs[2:]
+    bias, residual, q = inputs[2:5]
     packing = args[10]
     tiles_out = -(-m0 // 128) * -(-n0 // args[11])     # vld_next entries
     nbytes += m0 * n0 / (8.0 if packing.out else 1.0) + 4.0 * tiles_out
     if bias is not None:
-        nbytes += 4.0 * n0
+        nbytes += 4.0 * n_prod
     if residual is not None:                       # f32 current or spikes
         nbytes += (4.0 * residual.numel()
                    if isinstance(residual, torch.Tensor)
@@ -1759,7 +1861,7 @@ def bound(torch, K, name: str, args, inputs) -> tuple[float, float, float]:
     if packing.current:                            # the f32 current out
         nbytes += 4.0 * m0 * n0
     epilogue = 3.0 * m0 * n0
-    return nbytes, 2.0 * nnz * n0 + epilogue, block_ops + epilogue
+    return nbytes, 2.0 * nnz * n_prod + epilogue, block_ops + epilogue
 
 
 def phase_profile(torch, snn_cnn, cfg, fused, images, policy: str,
@@ -1819,6 +1921,7 @@ def library_call(torch, K, name: str, args, inputs):
             name.startswith("fused_pe") and args[10].current):
         return None
     x, w = inputs[:2]
+    # (a dense activation x: torch.matmul(x.float(), w) on the same data)
     xf = (K.unpack_spikes_ref(x, torch.float32)
           if isinstance(x, K.PackedSpikes) else x.to(torch.float32))
     return lambda: torch.matmul(xf, w)
@@ -1984,6 +2087,387 @@ def phase_timing(torch, K, snn_cnn, models, images, paths, parity: Parity,
     return rows
 
 
+# ------------------------------------------------------------------ phase 7
+LM_ARCH = "qwen3-1.7b"
+SERVE_POLICIES = ("fused_dense", "fused_packed", "reference")
+SERVE_ENGINE = dict(max_slots=16, max_len=512, prefill_pad=64,
+                    prefill_chunk=64, max_queue=32)
+SERVE_REQUESTS = 32
+SERVE_PROMPT = (16, 256)      # prompt lengths, inclusive
+SERVE_MAX_NEW = (16, 32)      # tokens to generate, inclusive
+PARITY_LAYERS = 4             # depth of the f32 parity variant
+TICK_ITERS = 10               # timed decode ticks at 16 live slots
+
+
+def serve_namespace():
+    """The LM, engine and config entry points the serve phase drives."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+    from repro_torch.models.lm import LM, spike_totals
+    from repro_torch.ops import with_policy
+    from repro_torch.serve import Engine, EngineConfig
+    from repro_torch.tree import tree_leaves
+
+    return types.SimpleNamespace(
+        get_config=get_config, LM=LM, spike_totals=spike_totals,
+        spike_log=layers.spike_log, with_policy=with_policy, Engine=Engine,
+        EngineConfig=EngineConfig, tree_leaves=tree_leaves)
+
+
+def lm_trace(vocab: int) -> list:
+    """The serving trace: (prompt, max_new) per request, all greedy."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    out = []
+    for _ in range(SERVE_REQUESTS):
+        n = int(rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1))
+        prompt = rng.integers(0, vocab, n).astype(np.int32)
+        out.append((prompt, int(rng.integers(SERVE_MAX_NEW[0],
+                                             SERVE_MAX_NEW[1] + 1))))
+    return out
+
+
+def tick_launches(build_mod, n_layers: int) -> dict:
+    """Launches of one decode tick (or prefill chunk) of a fused policy."""
+    want = dict.fromkeys(build_mod.KERNELS, 0)
+    want.update(fused_pe=2 * n_layers, spike_matmul=n_layers)
+    return want
+
+
+def run_engine(torch, S, build_mod, model, params, policy: str,
+               trace) -> dict:
+    """The trace through one engine; its tokens, stats, wall time, peak
+    device memory and kernel launches (the counts set to 0 just before
+    the engine is built and read just after it drains)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    build_mod.reset_launches()
+    t0 = time.perf_counter()
+    eng = S.Engine(model, params, S.EngineConfig(**SERVE_ENGINE,
+                                                 policy=policy))
+    uids = [eng.submit(p, max_new=n) for p, n in trace]
+    fin = {r.uid: r for r in eng.run_until_drained()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build_mod.LAUNCHES)
+    require(all(fin[u].status == "done" for u in uids),
+            f"{policy}: a request did not finish")
+    tokens = [fin[u].out for u in uids]
+    for (_, n), out in zip(trace, tokens):
+        require(len(out) == n, f"{policy}: {len(out)} tokens, asked {n}")
+    ttft = sorted(fin[u].first_token_t - fin[u].enqueued_t for u in uids)
+    return {"tokens": tokens, "stats": eng.stats(), "wall_s": wall,
+            "launches": launches,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "base_gib": base / 2 ** 30,
+            "ttft_p50_s": statistics.median(ttft)}
+
+
+def direct_loop(torch, S, model, params, trace) -> tuple[list, dict]:
+    """The engine's work without the engine: each prompt through
+    ``prefill_chunk`` in the engine's chunks of its padded bucket, then
+    ``decode_step`` over groups of ``max_slots`` requests (rows are
+    independent and every call has the engine's shapes). Returns the
+    greedy tokens and the per-layer spike totals of the whole loop."""
+    chunk, slots = SERVE_ENGINE["prefill_chunk"], SERVE_ENGINE["max_slots"]
+    pad, max_len = SERVE_ENGINE["prefill_pad"], SERVE_ENGINE["max_len"]
+    dev = params["embed"]["emb"].device
+    firsts = []
+    with S.spike_log() as log:
+        for prompt, _ in trace:
+            s = len(prompt)
+            bucket = min(max_len, -(-s // pad) * pad)
+            cache = model.init_cache(1, bucket, device=dev)
+            cache["len"] = torch.zeros((), dtype=torch.int32, device=dev)
+            toks = torch.zeros((1, bucket), dtype=torch.int64, device=dev)
+            toks[0, :s] = torch.tensor(prompt, device=dev)
+            for lo in range(0, bucket, chunk):
+                logits, cache = model.prefill_chunk(
+                    params, toks[:, lo:lo + chunk], cache)
+                if lo <= s - 1 < lo + chunk:
+                    first = logits[0, s - 1 - lo].argmax()
+            firsts.append(int(first))
+        outs = []
+        for g in range(0, len(trace), slots):
+            group = trace[g:g + slots]
+            out = [[firsts[g + i]] for i in range(len(group))]
+            cache = model.init_cache(slots, max_len, device=dev)
+            steps = max(n for _, n in group) - 1
+            for _ in range(steps):
+                toks = torch.zeros((slots, 1), dtype=torch.int64, device=dev)
+                toks[:len(group), 0] = torch.tensor([o[-1] for o in out],
+                                                    device=dev)
+                logits, cache = model.decode_step(params, toks, cache)
+                nxt = logits.argmax(-1).tolist()
+                for i, (_, n) in enumerate(group):
+                    if len(out[i]) < n:
+                        out[i].append(nxt[i])
+            outs += out
+    return outs, S.spike_totals(log, model.cfg.n_layers)
+
+
+def capture_tick(torch, S, build_mod, model, params, what: str) -> tuple:
+    """One decode tick at 16 slots, or one 64-token prefill chunk, its
+    launch counts set to 0 just before it and read just after it."""
+    dev = params["embed"]["emb"].device
+    slots = SERVE_ENGINE["max_slots"]
+    gen = torch.Generator(device=dev).manual_seed(2)
+    if what == "decode":
+        cache = model.init_cache(slots, SERVE_ENGINE["max_len"], device=dev)
+        toks = torch.randint(0, model.cfg.vocab_size, (slots, 1),
+                             generator=gen, device=dev)
+        fn = model.decode_step
+    else:
+        chunk = SERVE_ENGINE["prefill_chunk"]
+        cache = model.init_cache(1, chunk, device=dev)
+        cache["len"] = torch.zeros((), dtype=torch.int32, device=dev)
+        toks = torch.randint(0, model.cfg.vocab_size, (1, chunk),
+                             generator=gen, device=dev)
+        fn = model.prefill_chunk
+    torch.cuda.synchronize()
+    build_mod.reset_launches()
+    with build_mod.capture_launches() as captured:
+        fn(params, toks, cache)
+        torch.cuda.synchronize()
+    return dict(build_mod.LAUNCHES), captured, (fn, toks, cache)
+
+
+def grouped_kv(cfg, captured) -> list:
+    """A tick's captured launches, each grouped wk pass's inputs extended
+    by the weight columns its product needs (``bound``): the kv heads'
+    ``n_kv_heads * head_dim``, where the weight the kernel is handed
+    repeats them for every query head."""
+    dh = cfg.resolved_head_dim
+    if cfg.n_kv_heads == cfg.n_heads:
+        return captured
+    out = []
+    for name, args, inputs in captured:
+        if name == "fused_pe" and inputs[4] is not None:    # wk, q-masked
+            require(inputs[1].shape[1] == cfg.n_heads * dh,
+                    f"a wk launch of {inputs[1].shape[1]} columns")
+            inputs = inputs + (cfg.n_kv_heads * dh,)
+        out.append((name, args, inputs))
+    return out
+
+
+def teacher_forced(torch, S, model, params, seqs) -> tuple:
+    """Every trace sequence through ``prefill``: the argmax at each
+    position and the per-layer spike totals."""
+    dev = params["embed"]["emb"].device
+    preds = []
+    with S.spike_log() as log:
+        for seq in seqs:
+            toks = torch.tensor(seq, dtype=torch.int64, device=dev)[None]
+            logits, _ = model.prefill(params, {"tokens": toks},
+                                      return_all_logits=True)
+            require(bool(torch.isfinite(logits).all()), "non-finite logits")
+            preds.append(logits[0].argmax(-1))
+    return torch.cat(preds), S.spike_totals(log, model.cfg.n_layers)
+
+
+def agreement(torch, label: str, got, ref, rel_tol=None) -> tuple:
+    """Top-1 agreement and the worst per-layer spike-total difference of
+    two teacher-forced runs; gated when ``rel_tol`` is given."""
+    (p, tot), (p_ref, tot_ref) = got, ref
+    agree = float((p == p_ref).float().mean())
+    worst = 0.0
+    for kind, t in tot_ref.items():
+        a = tot[kind].double()
+        rel = ((a - t.double()).abs() / t.double().clamp_min(1.0))
+        worst = max(worst, float(rel.max()))
+        say(f"[serve] {label} spikes {kind} per layer: "
+            f"{tot[kind].tolist()} vs {t.tolist()}")
+    say(f"[serve] {label}: top-1 agreement {agree:.4f} over {p.numel()} "
+        f"positions; worst per-layer spike-total rel diff {worst:.2e}")
+    if rel_tol is not None:
+        require(worst <= rel_tol, f"{label}: spike totals differ by {worst}")
+        require(agree >= 0.99, f"{label}: top-1 agreement {agree} < 0.99")
+    return agree, worst
+
+
+def profile_tick(torch, S, build_mod, model, params, policy: str) -> None:
+    """Decode ticks at 16 live slots: median ms and the tokens/s it
+    implies, then ``torch.profiler`` over 3 ticks: busy and idle share,
+    the top device ops, the kernels' time against the glue's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _, _, (fn, toks, cache) = capture_tick(torch, S, build_mod, model,
+                                           params, "decode")
+    times = []
+    for i in range(TICK_ITERS + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(params, toks, cache)
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append((time.perf_counter() - t0) * 1e3)
+    med = statistics.median(times)
+    slots = SERVE_ENGINE["max_slots"]
+    say(f"[timing] serve {policy} decode tick at {slots} live slots: median "
+        f"{med:.3f} ms (min {min(times):.3f}, max {max(times):.3f}) over "
+        f"{TICK_ITERS}; {slots / med * 1e3:.1f} tokens/s")
+    reps = 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn(params, toks, cache)
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            rows.append((dev_us / 1e3 / reps, ev.count // reps, ev.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    if busy == 0:
+        say(f"[profile] serve {policy}: the profiler reported no device "
+            f"time; breakdown not measured")
+        return
+    ours = sum(r[0] for r in rows if "fused_pe_kernel" in r[2]
+               or "spike_matmul_kernel" in r[2])
+    say(f"[profile] serve {policy} decode tick: device busy {busy:.3f} ms "
+        f"of median {med:.3f} ms: idle share {max(0.0, 1 - busy / med):.3f};"
+        f" hand-written kernels {ours:.3f} ms, everything else "
+        f"{busy - ours:.3f} ms")
+    for ms, count, key in rows[:12]:
+        say(f"[profile]   serve {policy} {ms:8.4f} ms  x{count:<4d} "
+            f"{key[:100]}")
+
+
+def phase_serve(torch, S, build_mod, dev) -> dict:
+    """The spiking QKFormer LM served at qwen3-1.7b's published width:
+    the trace through the engine under each policy, the launches of a tick,
+    the engine against a direct loop, packed against dense, the fused
+    path against the reference on an f32 variant, and the timings."""
+    cfg = S.get_config(LM_ARCH, spiking=True, attention_kind="qk_spiking")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = S.LM(cfg).init(gen, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in S.tree_leaves(params))
+    say(f"[serve] {LM_ARCH} spiking qk_spiking: {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv "
+        f"of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {str(cfg.dtype)[6:]} activations, "
+        f"{n_params} f32 parameters ({n_params * 4 / 1e9:.2f} GB), init "
+        f"{time.perf_counter() - t0:.1f} s")
+    trace = lm_trace(cfg.vocab_size)
+    say(f"[serve] trace: {len(trace)} requests, prompts "
+        f"{min(len(p) for p, _ in trace)}-{max(len(p) for p, _ in trace)} "
+        f"tokens ({sum(len(p) for p, _ in trace)} in all), max_new "
+        f"{min(n for _, n in trace)}-{max(n for _, n in trace)}, greedy; "
+        f"engine {SERVE_ENGINE}")
+    want = tick_launches(build_mod, cfg.n_layers)
+    paths, results, direct = {}, {}, {}
+    for policy in SERVE_POLICIES:
+        model = S.LM(S.with_policy(cfg, policy))
+        results[policy] = res = run_engine(torch, S, build_mod, model,
+                                           params, policy, trace)
+        st = res["stats"]
+        say(f"[serve] {policy}: engine stats "
+            + json.dumps({k: v for k, v in st.items() if k != "autotune"}))
+        # every decode tick and prefill call of the engine's own run is
+        # one pass over the layers; a reference run launches nothing
+        calls = 0 if policy == "reference" else (st["decode_ticks"]
+                                                 + st["prefill_calls"])
+        want_run = {k: v * calls for k, v in want.items()}
+        say(f"[serve] {policy} launches in the engine's run "
+            f"({st['decode_ticks']} decode ticks, {st['prefill_calls']} "
+            f"prefill calls): "
+            f"{ {k: v for k, v in res['launches'].items() if v} }")
+        require(res["launches"] == want_run, f"{policy} engine launches "
+                                             f"{res['launches']} != "
+                                             f"{want_run}")
+        tokens, totals = direct_loop(torch, S, model, params, trace)
+        direct[policy] = totals
+        same = sum(a == b for a, b in zip(tokens, res["tokens"]))
+        say(f"[serve] {policy}: engine tokens equal to the direct "
+            f"prefill_chunk / decode_step loop for {same} of "
+            f"{len(trace)} requests")
+        require(same == len(trace),
+                f"{policy}: engine tokens differ from the direct loop")
+        if policy == "reference":
+            continue
+        for what in ("decode", "prefill chunk"):
+            launches, captured, _ = capture_tick(torch, S, build_mod, model,
+                                                 params, what.split()[0])
+            say(f"[serve] {policy} launches in one {what}: "
+                f"{ {k: v for k, v in launches.items() if v} }")
+            require(launches == want, f"{policy} {what} launches "
+                                      f"{launches} != {want}")
+            paths[f"serve {policy} {what}"] = (
+                None, None, launches, grouped_kv(model.cfg, captured))
+        for name, args, _ in paths[f"serve {policy} decode"][3]:
+            packed = policy == "fused_packed"
+            if name == "fused_pe":
+                require(args[0].is_floating_point() and args[10].out == packed
+                        and (args[5] is None or args[10].q == packed),
+                        f"a {policy} fused_pe launch took the wrong operands")
+            if name == "spike_matmul":
+                require(args[3] is packed,
+                        f"a {policy} spike_matmul launch took the wrong x")
+    d, p = results["fused_dense"], results["fused_packed"]
+    require(p["tokens"] == d["tokens"], "fused_packed tokens differ from "
+                                        "fused_dense's")
+    for kind, t in direct["fused_dense"].items():
+        require(torch.equal(direct["fused_packed"][kind], t),
+                f"fused_packed spike totals {kind} differ from fused_dense's")
+    say(f"[serve] fused_packed tokens and per-layer spike totals equal "
+        f"fused_dense's ({sum(len(t) for t in d['tokens'])} tokens)")
+    same_ref = sum(a == b for a, b in zip(d["tokens"],
+                                          results["reference"]["tokens"]))
+    say(f"[serve] reference (bf16 products) tokens equal fused_dense's for "
+        f"{same_ref} of {len(trace)} requests (information only)")
+    for policy, res in results.items():
+        st = res["stats"]
+        say(f"[timing] serve {policy}: decode tick p50 "
+            f"{st['decode_tick_p50_s'] * 1e3:.3f} ms, p99 "
+            f"{st['decode_tick_p99_s'] * 1e3:.3f} ms over "
+            f"{st['decode_ticks']} ticks; prefill chunk p50 "
+            f"{st['prefill_call_p50_s'] * 1e3:.3f} ms over "
+            f"{st['prefill_calls']}; TTFT mean {st['ttft_mean_s']:.3f} s, "
+            f"p50 {res['ttft_p50_s']:.3f} s; {st['tokens']} tokens in "
+            f"{res['wall_s']:.3f} s wall ({st['tok_per_s']:.1f} tokens/s); "
+            f"peak device memory {res['peak_gib']:.3f} GiB, "
+            f"{res['peak_gib'] - res['base_gib']:.3f} GiB above the "
+            f"{res['base_gib']:.3f} GiB allocated before the engine (the "
+            f"parameters and what earlier phases keep)")
+    for policy in SERVE_POLICIES:
+        profile_tick(torch, S, build_mod, S.LM(S.with_policy(cfg, policy)),
+                     params, policy)
+    seqs = [list(prompt) + out for (prompt, _), out in zip(trace,
+                                                           d["tokens"])]
+    info = {policy: teacher_forced(torch, S, S.LM(S.with_policy(cfg, policy)),
+                                   params, seqs)
+            for policy in ("fused_dense", "reference")}
+    agreement(torch, f"{LM_ARCH} bf16 fused_dense vs reference "
+              f"(information only)", info["fused_dense"], info["reference"])
+    del params, info
+    torch.cuda.empty_cache()
+    cfg4 = dataclasses.replace(cfg, n_layers=PARITY_LAYERS,
+                               dtype=torch.float32)
+    params4 = S.LM(cfg4).init(torch.Generator(device=dev).manual_seed(0),
+                              device=dev)
+    runs = {policy: teacher_forced(torch, S,
+                                   S.LM(S.with_policy(cfg4, policy)),
+                                   params4, seqs)
+            for policy in SERVE_POLICIES}
+    agreement(torch, f"{LM_ARCH} {PARITY_LAYERS}-layer f32 fused_dense vs "
+              f"reference", runs["fused_dense"], runs["reference"], 1e-3)
+    agreement(torch, f"{LM_ARCH} {PARITY_LAYERS}-layer f32 fused_packed vs "
+              f"reference", runs["fused_packed"], runs["reference"], 1e-3)
+    del params4, runs
+    torch.cuda.empty_cache()
+    return paths
+
+
 # --------------------------------------------------------------------- main
 def kernels_namespace(torch):
     """The launchers, plain versions and helpers the phases call."""
@@ -2110,6 +2594,8 @@ def main() -> int:
                "the card's cost model planned it on no auto path; "
                "launched with an explicit skip on the model's operands "
                f"({paths['explicit skip'][2][kernel]} launches)"))
+    paths.update(phase_serve(torch, serve_namespace(), _build, dev))
+    say(f"[serve] done ({time.perf_counter() - t_start:.1f} s so far)")
     rows = phase_timing(torch, K, snn_cnn, models, images, paths, parity,
                         ITERS, ops.get_tuner())
     time_training(torch, M, train_paths, TRAIN_BATCH, TRAIN_ITERS)

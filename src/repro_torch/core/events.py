@@ -145,6 +145,25 @@ def unpack_words(words: torch.Tensor,
     return bits.reshape(*lead, w * LANE_BITS).to(dtype)
 
 
+def head_lane_masks(n_heads: int, head_dim: int,
+                    total_cols: int) -> torch.Tensor:
+    """Per-head word masks for head-blocked popcount row sums: int32
+    [n_heads, total_cols // 32], bit b of word w in row h set iff packed
+    column 32w + b belongs to head h (``column // head_dim == h``).
+    Columns at or past ``n_heads * head_dim`` (lane padding) belong to no
+    head. ANDing a packed spike row with row h and popcounting gives that
+    head's row sum; the fused PE kernel forms the same masks from the
+    column arithmetic."""
+    if total_cols % LANE_BITS:
+        raise ValueError(f"{total_cols} columns are not whole words")
+    if n_heads * head_dim > total_cols:
+        raise ValueError(f"{n_heads} heads of {head_dim} do not fit in "
+                         f"{total_cols} columns")
+    cols = torch.arange(total_cols, dtype=torch.int64)
+    sel = cols[None, :] // head_dim == torch.arange(n_heads)[:, None]
+    return pack_words(sel.to(torch.int32))
+
+
 def _block_words(words: torch.Tensor, block_m: int, block_k: int
                  ) -> tuple[tuple, int, int, int, int]:
     *lead, m, w = words.shape

@@ -19,12 +19,17 @@
 // threads, each accumulating an 8x8 sub-tile in registers in IEEE f32 (no
 // tensor cores: parity with the plain version rules out TF32). K is walked
 // in 32-deep steps through shared memory: w arrives as f32 (four float4
-// per thread), x as int8 (16 bytes per thread, converted to f32 on the
-// store) or, with PackedX, as int32 words of 32 spikes: a 32-deep step
-// needs exactly one word per tile row, so threads 0..127 each load their
-// row's word and store its 32 bits as 0.f/1.f. Either way the shared tile
-// and the order of the FMAs over k are the same, so a packed operand gives
-// the same f32 sums as the int8 one (its zero pad columns add exact zeros).
+// per thread); x (the XKind) as int8 spikes (16 bytes per thread,
+// converted to f32 on the store), as int32 words of 32 spikes (kXPacked: a
+// 32-deep step needs exactly one word per tile row, so threads 0..127 each
+// load their row's word and store its 32 bits as 0.f/1.f), or as dense
+// activations, f32 (kXF32, four float4 per thread) or bf16 (kXBF16, two
+// 16-byte loads of 8 values per thread; a bf16 value is the top half of
+// its f32, so the widening is a 16-bit shift and exact). Every kind lands
+// in the same f32 shared tile and the FMAs run over k in the same order,
+// so a packed operand gives the same f32 sums as the int8 one (its zero
+// pad columns add exact zeros), and a bf16 operand the same sums as its
+// f32 widening (the reference's x.astype(f32) @ w).
 //
 // The three strategies give the same bits. kmap lists the non-silent
 // blocks in ascending order, so kGated meets the same k values in the same
@@ -37,8 +42,8 @@
 // and the stripe skip saves a quarter or an eighth of a block's loads and
 // FMAs per clear bit.
 //
-// The caller guarantees: x is [Mp, Kp] int8 or [Mp, Kp/32] int32
-// row-major, w is [Kp, Np] f32 row-major, the maps are [Mp/128, Kp/bk]
+// The caller guarantees: x is [Mp, Kp] int8, f32 or bf16, or [Mp, Kp/32]
+// int32 row-major, w is [Kp, Np] f32 row-major, the maps are [Mp/128, Kp/bk]
 // int32 (nact [Mp/128]), Mp/Kp/Np are multiples of 128 and Kp of bk, and
 // the base pointers are 16-byte aligned.
 #pragma once
@@ -55,6 +60,8 @@ constexpr int kSub = 8;        // 8 x 8 outputs per thread
 
 // the skip strategies (the skip argument of the C entries)
 constexpr int kDense = 0, kGated = 1, kTwoLevel = 2;
+// the x operand kinds: spikes (int8, packed words) or dense activations
+constexpr int kXInt8 = 0, kXPacked = 1, kXF32 = 2, kXBF16 = 3;
 
 struct GemmSmem {
   float a[kStep][kTile];  // x tile, transposed: a[k][m]
@@ -72,21 +79,43 @@ struct Route {
 };
 
 // acc += x[row_blk tile, k0 : k0 + 32] @ w[k0 : k0 + 32, col0 : col0 + 128]
-template <bool PackedX>
+template <int XKind>
 __device__ __forceinline__ void gemm_step(
     const void* __restrict__ x, const float* __restrict__ w, int kp, int np,
     size_t row0, int col0, int k0, GemmSmem& sm, float (&acc)[kSub][kSub]) {
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
-  if constexpr (PackedX) {
+  const int a_row = tid >> 1, a_col = (tid & 1) * 16;  // 16 values a thread
+  if constexpr (XKind == kXPacked) {
     if (tid < kTile) {  // one word per row: bit b is column k0 + b
       const int* xw = static_cast<const int*>(x);
       const unsigned word = static_cast<unsigned>(xw[(row0 + tid) * (kp / 32) + k0 / 32]);
 #pragma unroll
       for (int b = 0; b < kStep; ++b) sm.a[b][tid] = ((word >> b) & 1u) ? 1.f : 0.f;
     }
+  } else if constexpr (XKind == kXF32) {
+    const float* xr = static_cast<const float*>(x) + (row0 + a_row) * kp + k0 + a_col;
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const float4 f = *reinterpret_cast<const float4*>(xr + 4 * v);
+      sm.a[a_col + 4 * v][a_row] = f.x;
+      sm.a[a_col + 4 * v + 1][a_row] = f.y;
+      sm.a[a_col + 4 * v + 2][a_row] = f.z;
+      sm.a[a_col + 4 * v + 3][a_row] = f.w;
+    }
+  } else if constexpr (XKind == kXBF16) {
+    const uint16_t* xr = static_cast<const uint16_t*>(x) + (row0 + a_row) * kp + k0 + a_col;
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      const uint4 u = *reinterpret_cast<const uint4*>(xr + 8 * v);
+      const unsigned h[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {  // two bf16 a word, the low one first
+        sm.a[a_col + 8 * v + 2 * i][a_row] = __uint_as_float(h[i] << 16);
+        sm.a[a_col + 8 * v + 2 * i + 1][a_row] = __uint_as_float(h[i] & 0xffff0000u);
+      }
+    }
   } else {
-    const int a_row = tid >> 1, a_col = (tid & 1) * 16;
     const int8_t* xt = static_cast<const int8_t*>(x);
     const int4 v = *reinterpret_cast<const int4*>(xt + (row0 + a_row) * kp + k0 + a_col);
     const int8_t* e = reinterpret_cast<const int8_t*>(&v);
@@ -121,7 +150,7 @@ __device__ __forceinline__ void gemm_step(
 // (and, for kTwoLevel, the 32-column stripes) the route keeps. A skipped
 // block or stripe is neither loaded nor multiplied: its x entries are all
 // zero, so skipping it is exact.
-template <bool PackedX, int Skip>
+template <int XKind, int Skip>
 __device__ __forceinline__ void event_gemm_tile(
     const void* __restrict__ x, const float* __restrict__ w, const Route& route,
     int kp, int np, int row_blk, int col0, GemmSmem& sm, float (&acc)[kSub][kSub]) {
@@ -132,7 +161,7 @@ __device__ __forceinline__ void event_gemm_tile(
     for (int kb = 0; kb < gk; ++kb) {
       if (route.vld[row_blk * gk + kb] == 0) continue;  // event skip (uniform)
       for (int ks = 0; ks < bk; ks += kStep)
-        gemm_step<PackedX>(x, w, kp, np, row0, col0, kb * bk + ks, sm, acc);
+        gemm_step<XKind>(x, w, kp, np, row0, col0, kb * bk + ks, sm, acc);
     }
   } else {
     const int nact = route.nact[row_blk];
@@ -142,7 +171,7 @@ __device__ __forceinline__ void event_gemm_tile(
       if constexpr (Skip == kTwoLevel) bits = static_cast<unsigned>(route.occ[row_blk * gk + kb]);
       for (int ks = 0; ks < bk; ks += kStep) {
         if (!((bits >> (ks / kStep)) & 1u)) continue;  // silent stripe (uniform)
-        gemm_step<PackedX>(x, w, kp, np, row0, col0, kb * bk + ks, sm, acc);
+        gemm_step<XKind>(x, w, kp, np, row0, col0, kb * bk + ks, sm, acc);
       }
     }
   }

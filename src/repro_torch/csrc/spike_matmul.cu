@@ -25,7 +25,7 @@
 
 using namespace repro;
 
-template <bool PackedX, int Skip>
+template <int XKind, int Skip>
 __global__ void __launch_bounds__(kThreads)
 spike_matmul_kernel(const void* __restrict__ x, const float* __restrict__ w, Route route,
                     float* __restrict__ out, int kp, int np) {
@@ -38,7 +38,7 @@ spike_matmul_kernel(const void* __restrict__ x, const float* __restrict__ w, Rou
   for (int i = 0; i < kSub; ++i)
 #pragma unroll
     for (int j = 0; j < kSub; ++j) acc[i][j] = 0.f;
-  event_gemm_tile<PackedX, Skip>(x, w, route, kp, np, row_blk, col0, sm, acc);
+  event_gemm_tile<XKind, Skip>(x, w, route, kp, np, row_blk, col0, sm, acc);
 
 #pragma unroll
   for (int i = 0; i < kSub; ++i) {
@@ -51,11 +51,11 @@ spike_matmul_kernel(const void* __restrict__ x, const float* __restrict__ w, Rou
 
 namespace {
 
-template <bool PackedX, int Skip>
+template <int XKind, int Skip>
 void launch(const void* x, const float* w, const Route& route, float* out, int mp,
             int kp, int np, cudaStream_t stream) {
   const dim3 grid(np / kTile, mp / kTile);
-  spike_matmul_kernel<PackedX, Skip><<<grid, kThreads, 0, stream>>>(x, w, route, out, kp, np);
+  spike_matmul_kernel<XKind, Skip><<<grid, kThreads, 0, stream>>>(x, w, route, out, kp, np);
 }
 
 }  // namespace
@@ -71,10 +71,10 @@ extern "C" int repro_spike_matmul(const void* x, const float* w, const int* vld,
                                   int packed_x, int skip, cudaStream_t stream) {
   if (mp > 0 && np > 0) {
     const Route route{vld, nact, kmap, occ, bk};
-    using Launch = decltype(&launch<false, kDense>);
+    using Launch = decltype(&launch<kXInt8, kDense>);
     static const Launch table[2][3] = {
-        {&launch<false, kDense>, &launch<false, kGated>, &launch<false, kTwoLevel>},
-        {&launch<true, kDense>, &launch<true, kGated>, &launch<true, kTwoLevel>}};
+        {&launch<kXInt8, kDense>, &launch<kXInt8, kGated>, &launch<kXInt8, kTwoLevel>},
+        {&launch<kXPacked, kDense>, &launch<kXPacked, kGated>, &launch<kXPacked, kTwoLevel>}};
     if (skip < kDense || skip > kTwoLevel) return static_cast<int>(cudaErrorInvalidValue);
     table[packed_x ? 1 : 0][skip](x, w, route, out, mp, kp, np, stream);
   }

@@ -50,7 +50,7 @@ _I, _LL, _F = ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "repro_lif_update": [_VOID_P] * 5 + [_LL, _F, _F, _I, _VOID_P],
     "repro_fused_pe": [_VOID_P] * 9 + [_I] + [_VOID_P] * 3
-    + [_I] * 7 + [_F, _F, _I, _I, _VOID_P],
+    + [_I] * 7 + [_F, _F, _I, _I, _I, _VOID_P],
     "repro_spike_matmul": [_VOID_P] * 7 + [_I] * 6 + [_VOID_P],
     "repro_w2ttfs_pool": [_VOID_P] * 4 + [_I] * 6 + [_F, _VOID_P],
     "repro_pack_spikes": [_VOID_P] * 4 + [_I] * 5 + [_VOID_P],

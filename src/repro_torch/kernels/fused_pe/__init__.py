@@ -1,5 +1,5 @@
 from .ops import fused_pe, fused_pe_cuda, fused_pe_operands
-from .ref import Packing, fused_pe_block_ref, fused_pe_ref
+from .ref import Packing, fused_pe_block_ref, fused_pe_ref, head_gate
 
 __all__ = ["Packing", "fused_pe", "fused_pe_cuda", "fused_pe_operands",
-           "fused_pe_block_ref", "fused_pe_ref"]
+           "fused_pe_block_ref", "fused_pe_ref", "head_gate"]

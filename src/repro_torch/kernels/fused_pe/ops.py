@@ -4,15 +4,19 @@ variant: padding, metadata plumbing, checks, and the device split.
 Spike operands (x, q, residual) may be int8 maps or ``PackedSpikes``, and
 ``out_format="packed"`` makes the emitted map leave as a PackedSpikes whose
 ``vld_cnt`` is the kernel's ``vld_next``; each packed operand selects the
-kernel's packed variant for it (``Packing``). ``skip`` is the byte-skip
+kernel's packed variant for it (``Packing``). x may also be a dense f32 or
+bf16 activation (``ops.dense_lif``, the LM's projections of its residual
+stream): it takes the dense route on an all-ones vld map, since a float
+operand is not recounted for silent blocks. ``skip`` is the byte-skip
 strategy of ``spike_matmul`` (``"dense"``, or the gated walks, launched
 with a ``Gate``), and the blocks are the autotuner's: x's metadata grid
 is 128 x ``block_k`` and the emitted ``vld_next`` tiles the output on 128 x
-``block_n`` (each 128 or 256). The variants still to port (ROADMAP queue
-2, K2) — LIF state for T>1 and head-blocked QK masks — are not accepted
-here; the ops layer raises before it gets this far. ``emit_current=True``
-(the training forward) also returns the f32 current the spikes were
-thresholded from.
+``block_n`` (each 128 or 256). ``heads=(h, dh)`` makes the QK mask
+head-blocked: each head's row sum of q gates only its own dh output
+columns. The variant still to port (ROADMAP queue 2, K2) — LIF state for
+T>1 — is not accepted here; the ops layer raises before it gets this far.
+``emit_current=True`` (the training forward) also returns the f32 current
+the spikes were thresholded from.
 """
 from __future__ import annotations
 
@@ -32,17 +36,36 @@ from .ref import Packing, fused_pe_block_ref
 Spikes = Union[torch.Tensor, PackedSpikes]
 
 
+# a dense activation x: its dtype -> the kernel's flag for it
+FLOAT_X_FLAGS = {torch.float32: 16, torch.bfloat16: 32}
+
+
 def spike_operand(x: torch.Tensor) -> torch.Tensor:
-    """The kernel takes int8 spikes (bool is cast). A float x is the
-    dense-activation variant (``ops.dense_lif``), which is still to port,
-    so other dtypes raise."""
+    """The kernel takes int8 spikes (bool is cast) or a dense f32 / bf16
+    activation; other dtypes raise."""
     if x.dtype == torch.bool:
         return x.to(torch.int8)
-    if x.dtype != torch.int8:
-        raise TypeError(f"fused_pe x must hold int8 spikes, got {x.dtype}; "
-                        f"the dense-activation variant is still to port "
-                        f"(ROADMAP queue 2, K2)")
+    if x.dtype != torch.int8 and x.dtype not in FLOAT_X_FLAGS:
+        raise TypeError(f"fused_pe x must hold int8 spikes or an f32 / bf16 "
+                        f"activation, got {x.dtype}")
     return x
+
+
+def check_heads(heads: Optional[tuple[int, int]], n_valid: int,
+                q_cols: Optional[int]) -> None:
+    """The head-blocked mask's contract: q is given and covers the output,
+    which is exactly the h head blocks of dh columns."""
+    if heads is None:
+        return
+    h, dh = heads
+    if q_cols is None:
+        raise ValueError("heads=(h, dh) needs the q operand")
+    if h < 1 or dh < 1 or h * dh != n_valid:
+        raise ValueError(f"heads {heads} must tile the output width "
+                         f"{n_valid} (h * dh == n)")
+    if q_cols < h * dh:
+        raise ValueError(f"q has {q_cols} columns, heads {heads} need "
+                         f"{h * dh}")
 
 
 def fused_pe_cuda(xp: torch.Tensor, wp: torch.Tensor, vld: torch.Tensor,
@@ -50,10 +73,12 @@ def fused_pe_cuda(xp: torch.Tensor, wp: torch.Tensor, vld: torch.Tensor,
                   qp: Optional[torch.Tensor], m_valid: int, n_valid: int,
                   v_th: float, qk_threshold: float,
                   packing: Packing = Packing(), block_n: int = TILE,
-                  gate: Optional[Gate] = None) -> tuple:
+                  gate: Optional[Gate] = None,
+                  heads: Optional[tuple[int, int]] = None) -> tuple:
     """Launch the kernel on block-aligned CUDA operands (see
     ``fused_pe_block_ref`` for the contract and the outputs): the dense
-    skip on ``vld``, or the gated walk of ``gate``. Does not count."""
+    skip on ``vld``, or the gated walk of ``gate`` (spike x only). Does
+    not count."""
     dev = xp.device
     if dev.type != "cuda":
         raise ValueError(f"fused_pe_cuda needs CUDA tensors, got {dev}")
@@ -68,8 +93,15 @@ def fused_pe_cuda(xp: torch.Tensor, wp: torch.Tensor, vld: torch.Tensor,
     if not (0 <= m_valid <= mp and 0 <= n_valid <= np_):
         raise ValueError(f"valid extent ({m_valid}, {n_valid}) outside the "
                          f"padded [{mp}, {np_}]")
+    flags = packing.flags
     if packing.x:
         _build.require(xp, "x", torch.int32, (mp, kp // LANE_BITS), dev)
+    elif xp.dtype in FLOAT_X_FLAGS:
+        if gate is not None:
+            raise ValueError("a dense activation x takes the dense skip "
+                             "only")
+        _build.require(xp, "x", xp.dtype, (mp, kp), dev)
+        flags |= FLOAT_X_FLAGS[xp.dtype]
     else:
         _build.require(xp, "x", torch.int8, (mp, kp), dev)
     _build.require(wp, "w", torch.float32, (kp, np_), dev)
@@ -97,6 +129,8 @@ def fused_pe_cuda(xp: torch.Tensor, wp: torch.Tensor, vld: torch.Tensor,
             if dq % TILE:
                 raise ValueError(f"q width {dq} must be padded to {TILE}")
             _build.require(qp, "q", torch.int8, (mp, dq), dev)
+    check_heads(heads, n_valid,
+                None if qp is None else dq * (LANE_BITS if packing.q else 1))
     if packing.out:
         spikes = torch.empty((mp, np_ // LANE_BITS), dtype=torch.int32,
                              device=dev)
@@ -113,7 +147,7 @@ def fused_pe_cuda(xp: torch.Tensor, wp: torch.Tensor, vld: torch.Tensor,
         _build.ptr(kmap), _build.ptr(occ), _build.ptr(bp), _build.ptr(rp),
         _build.ptr(qp), dq, _build.ptr(spikes), _build.ptr(vld_next),
         _build.ptr(current), mp, kp, np_, bk, block_n, m_valid, n_valid, v_th,
-        qk_threshold, packing.flags,
+        qk_threshold, 0 if heads is None else heads[1], flags,
         SKIP_IDS["dense" if gate is None else gate.skip], _build.stream(xp))
     _build.check(err, "repro_fused_pe")
     if packing.current:
@@ -129,14 +163,17 @@ def fused_pe_operands(x: Spikes, w: torch.Tensor, *,
                       v_th: float = 1.0, qk_threshold: float = 1.0,
                       out_format: str = "dense",
                       emit_current: bool = False, block_n: int = TILE,
-                      block_k: int = TILE, skip: str = "dense") -> tuple:
+                      block_k: int = TILE, skip: str = "dense",
+                      heads: Optional[tuple[int, int]] = None) -> tuple:
     """The block-aligned operands of one launch, in the order
-    ``fused_pe_cuda`` and ``fused_pe_block_ref`` take them: x (int8, or a
-    packed x's words), w padded to x's padded K and to ``block_n``, the
-    vld map, bias padded to Np, the residual (f32, an int8 binary shortcut
-    cast as the reference wrapper casts it, or a packed one's words), q
-    (int8 or words), then the valid extent, the thresholds, the
-    ``Packing``, ``block_n`` and the ``Gate`` (None for the dense skip)."""
+    ``fused_pe_cuda`` and ``fused_pe_block_ref`` take them: x (int8, f32 or
+    bf16, or a packed x's words), w padded to x's padded K and to
+    ``block_n``, the vld map (all ones for a float x without one), bias
+    padded to Np, the residual (f32, an int8 binary shortcut cast as the
+    reference wrapper casts it, or a packed one's words), q (int8 padded to
+    128 columns, or words), then the valid extent, the thresholds, the
+    ``Packing``, ``block_n``, the ``Gate`` (None for the dense skip) and
+    ``heads`` (None for the whole-row mask)."""
     if out_format not in ("dense", "packed"):
         raise ValueError(f"out_format={out_format!r} not in "
                          f"('dense', 'packed')")
@@ -152,6 +189,14 @@ def fused_pe_operands(x: Spikes, w: torch.Tensor, *,
         kp = xp.shape[1] * LANE_BITS
     else:
         xp = pad_to_blocks(spike_operand(x), TILE, block_k).contiguous()
+        if xp.dtype in FLOAT_X_FLAGS:
+            if skip != "dense":
+                raise ValueError(f"a dense activation x takes skip='dense', "
+                                 f"not {skip!r}")
+            if vld_cnt is None:   # no silent blocks to find: never recount
+                vld_cnt = torch.ones((xp.shape[0] // TILE,
+                                      xp.shape[1] // block_k),
+                                     dtype=torch.int32, device=xp.device)
         vld = vld_or_compute(xp, vld_cnt, TILE, block_k).contiguous()
         kp = xp.shape[1]
     gate = make_gate(vld, skip, x_occupancy(x, xp, block_k)
@@ -189,8 +234,10 @@ def fused_pe_operands(x: Spikes, w: torch.Tensor, *,
     packing = Packing(isinstance(x, PackedSpikes), isinstance(q, PackedSpikes),
                       isinstance(residual, PackedSpikes),
                       out_format == "packed", emit_current)
+    if heads is not None:
+        check_heads(heads, n0, None if q is None else q.shape[-1])
     return (xp, wp, vld, bp, rp, qp, m0, n0, v_th, qk_threshold, packing,
-            block_n, gate)
+            block_n, gate, heads)
 
 
 def fused_pe(x: Spikes, w: torch.Tensor, *,
@@ -201,16 +248,19 @@ def fused_pe(x: Spikes, w: torch.Tensor, *,
              v_th: float = 1.0, qk_threshold: float = 1.0,
              out_format: str = "dense", emit_current: bool = False,
              block_n: int = TILE, block_k: int = TILE,
-             skip: str = "dense") -> tuple:
+             skip: str = "dense",
+             heads: Optional[tuple[int, int]] = None) -> tuple:
     """One stateless fused PE layer (the deployed T=1 form).
 
-    x [M, K] int8 spikes or a 2-D PackedSpikes, w [K, N]; optional bias
-    [N], residual [M, N] (f32 current, an int8 binary shortcut, or a
-    PackedSpikes shortcut on the output's grid), q [M, Dq] spikes or
-    PackedSpikes for the whole-row QK write-back mask, and ``vld_cnt`` —
-    x's [Mp/128, Kp/block_k] count map from the producing layer (computed
-    here for a dense x without one; a packed x carries its own). ``skip``
-    as in ``spike_matmul.SKIP_MODES``. Returns (spikes, vld_next
+    x [M, K] int8 spikes, a 2-D PackedSpikes or a dense f32 / bf16
+    activation, w [K, N]; optional bias [N], residual [M, N] (f32 current,
+    an int8 binary shortcut, or a PackedSpikes shortcut on the output's
+    grid), q [M, Dq] spikes or PackedSpikes for the QK write-back mask
+    (whole-row, or per head with ``heads=(h, dh)``, ``h*dh == N``), and
+    ``vld_cnt`` — x's [Mp/128, Kp/block_k] count map from the producing
+    layer (computed here for a dense spike x without one, all ones for an
+    activation; a packed x carries its own). ``skip`` as in
+    ``spike_matmul.SKIP_MODES`` (``"dense"`` for an activation). Returns (spikes, vld_next
     [Mp/128, Np/block_n] int32): spikes are int8 [M, N], or with
     ``out_format="packed"`` a PackedSpikes of the logical shape [M, N] on
     the (128, block_n) grid. With ``emit_current`` a third output is the
@@ -221,7 +271,7 @@ def fused_pe(x: Spikes, w: torch.Tensor, *,
                              vld_cnt=vld_cnt, v_th=v_th,
                              qk_threshold=qk_threshold, out_format=out_format,
                              emit_current=emit_current, block_n=block_n,
-                             block_k=block_k, skip=skip)
+                             block_k=block_k, skip=skip, heads=heads)
     dev = args[0].device
     if dev.type == "cpu":
         outs = fused_pe_block_ref(*args)

@@ -22,6 +22,18 @@ from ..qk_attention.ref import qk_attention_ref
 from ..spike_matmul.ref import block_skip_mask, gated_mask, spike_matmul_ref
 
 
+def head_gate(q: torch.Tensor, heads: tuple[int, int],
+              qk_threshold: float) -> torch.Tensor:
+    """The head-blocked QK mask: int8 [M, h*dh], column c gated by the row
+    sum of q over its head's slice ``q[:, (c // dh)*dh : (c // dh + 1)*dh]``
+    (the reference's per-head ``rs >= qk_threshold``)."""
+    h, dh = heads
+    rs = q[..., :h * dh].to(torch.float32).reshape(
+        *q.shape[:-1], h, dh).sum(dim=-1)
+    mask = (rs >= qk_threshold).to(torch.int8)
+    return mask.repeat_interleave(dh, dim=-1)
+
+
 def fused_pe_ref(x: torch.Tensor, w: torch.Tensor, *,
                  bias: Optional[torch.Tensor] = None,
                  residual: Optional[torch.Tensor] = None,
@@ -30,12 +42,16 @@ def fused_pe_ref(x: torch.Tensor, w: torch.Tensor, *,
                  q: Optional[torch.Tensor] = None,
                  tau: float = 0.5, v_th: float = 1.0,
                  soft_reset: bool = False, qk_threshold: float = 1.0,
-                 block_m: int = 128, block_n: int = 128
+                 block_m: int = 128, block_n: int = 128,
+                 heads: Optional[tuple[int, int]] = None
                  ) -> tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
     """Returns (spikes int8, v_next f32 | None, vld_next int32); v_next is
-    None in the stateless (T=1) form. The QK mask is whole-row: one row
-    sum of q gates the whole output row (the head-blocked form is still to
-    port, ROADMAP queue 2, K2 heads)."""
+    None in the stateless (T=1) form. x is spikes or a dense f32 / bf16
+    activation (taken in f32, as the reference takes it). The QK mask is
+    whole-row (one row sum of q gates the whole output row) or, with
+    ``heads=(h, dh)``, head-blocked: one row sum per head over q's head
+    slice gates only that head's dh output columns (``h*dh`` must be the
+    output width)."""
     cur = spike_matmul_ref(x, w)
     if bias is not None:
         cur = cur + bias.reshape(1, -1).to(torch.float32)
@@ -46,7 +62,12 @@ def fused_pe_ref(x: torch.Tensor, w: torch.Tensor, *,
     sp = torch.zeros_like(cur) if s_prev is None else s_prev
     spk, v_next = lif_update_ref(cur, vp, sp, tau=tau, v_th=v_th,
                                  soft_reset=soft_reset)
-    if q is not None:
+    if q is not None and heads is not None:
+        if spk.shape[-1] != heads[0] * heads[1]:
+            raise ValueError(f"heads {heads} do not tile the output width "
+                             f"{spk.shape[-1]}")
+        spk = spk * head_gate(q, heads, qk_threshold)
+    elif q is not None:
         spk = qk_attention_ref(q, spk, threshold=qk_threshold)
     vld_next = block_count_map_2d(pad_to_blocks(spk, block_m, block_n),
                                   block_m, block_n)
@@ -76,24 +97,31 @@ def fused_pe_block_ref(xp: torch.Tensor, wp: torch.Tensor, vld: torch.Tensor,
                        qp: Optional[torch.Tensor], m_valid: int, n_valid: int,
                        v_th: float, qk_threshold: float,
                        packing: Packing = Packing(), block_n: int = 128,
-                       gate=None) -> tuple:
-    """The kernel's function on block-aligned operands: x [Mp, Kp] int8,
-    w [Kp, Np] f32, vld [Mp/128, Kp/bk] (bk the k width of x's metadata
-    blocks), bias [Np], residual [Mp, Np] f32, q [Mp, Dq] int8; each spike
-    operand that ``packing`` marks comes as its int32 words instead. x is
-    read where the dense skip of ``vld`` reads it or, with a ``gate``
-    (nact, kmap, occ), where that gated walk reads it. Returns (spikes
-    [Mp, Np] int8, or [Mp, Np/32] words with ``packing.out``, and vld_next
-    [Mp/128, Np/block_n] int32), and with ``packing.current`` also the f32
-    current [m_valid, n_valid] the spikes were thresholded from."""
+                       gate=None, heads: Optional[tuple[int, int]] = None
+                       ) -> tuple:
+    """The kernel's function on block-aligned operands: x [Mp, Kp] int8
+    spikes or a dense f32 / bf16 activation, w [Kp, Np] f32, vld [Mp/128,
+    Kp/bk] (bk the k width of x's metadata blocks), bias [Np], residual
+    [Mp, Np] f32, q [Mp, Dq] int8; each spike operand that ``packing``
+    marks comes as its int32 words instead. x is read where the dense skip
+    of ``vld`` reads it or, with a ``gate`` (nact, kmap, occ), where that
+    gated walk reads it. ``heads=(h, dh)`` (``h*dh == n_valid``) makes the
+    q mask head-blocked. Returns (spikes [Mp, Np] int8, or [Mp, Np/32]
+    words with ``packing.out``, and vld_next [Mp/128, Np/block_n] int32),
+    and with ``packing.current`` also the f32 current [m_valid, n_valid]
+    the spikes were thresholded from."""
     x = unpack_words(xp) if packing.x else xp
     r = unpack_words(rp, torch.float32) if packing.residual else rp
     q = unpack_words(qp) if packing.q else qp
     mask = (block_skip_mask(vld, x.shape) if gate is None
             else gated_mask(*gate, x.shape))
     xs = x * mask
-    spk, _, _ = fused_pe_ref(xs, wp, bias=bp, residual=r, q=q, v_th=v_th,
+    spk, _, _ = fused_pe_ref(xs, wp, bias=bp, residual=r,
+                             q=None if heads is not None else q, v_th=v_th,
                              qk_threshold=qk_threshold)
+    if heads is not None and q is not None:
+        hd = heads[0] * heads[1]
+        spk[:, :hd] *= head_gate(q, heads, qk_threshold)
     spk[m_valid:, :] = 0
     spk[:, n_valid:] = 0
     vld_next = block_count_map_2d(spk, 128, block_n)

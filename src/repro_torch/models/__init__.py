@@ -1,1 +1,2 @@
-"""Models of the port: the layer library and the deployed SNN CNNs."""
+"""Models of the port: the layer library, the deployed SNN CNNs and the
+spiking LM of the dense family."""

@@ -12,11 +12,12 @@
 """
 from ..core.events import DEFAULT_BLOCKS, Blocks
 from .autotune import AutoTuner, KernelPlan, get_tuner
-from .dispatch import (FusedOut, conv_matmul_weights, fused_pe,
+from .dispatch import (FusedOut, conv_matmul_weights, dense_lif, fused_pe,
                        fused_pe_layer, im2col, lif, matmul, pack, pool,
                        qk_mask, unpack, w2ttfs_head)
 from .policy import (AUTO, AUTO_PACKED, FUSED_DENSE, FUSED_PACKED, POLICIES,
-                     REFERENCE, ExecutionPolicy, as_policy)
+                     REFERENCE, ExecutionPolicy, as_policy,
+                     merge_engine_policy, with_policy)
 from .registry import implementations, lookup, register
 from .spike_tensor import SpikeTensor, Spikes
 
@@ -25,8 +26,10 @@ __all__ = [
     "AutoTuner", "KernelPlan", "get_tuner",
     "ExecutionPolicy", "POLICIES", "REFERENCE", "FUSED_DENSE",
     "FUSED_PACKED", "AUTO", "AUTO_PACKED", "as_policy",
+    "merge_engine_policy", "with_policy",
     "register", "lookup", "implementations",
-    "FusedOut", "matmul", "lif", "fused_pe", "fused_pe_layer", "pool",
+    "FusedOut", "matmul", "lif", "fused_pe", "fused_pe_layer", "dense_lif",
+    "pool",
     "im2col",
     "conv_matmul_weights", "qk_mask", "pack", "unpack", "w2ttfs_head",
 ]

@@ -178,8 +178,9 @@ def fused_pe_layer(x: Spikes, w: torch.Tensor, *,
     / residual + LIF threshold + optional QK write-back mask, emitting the
     next layer's ``vld_cnt`` on the fly, in ``policy.format``.
     ``residual`` is a spike map (dense or packed) or an f32 membrane
-    current. ``heads=(h, dh)`` (the head-blocked QK mask) is still to port
-    and raises in every mode."""
+    current. ``heads=(h, dh)`` makes the QK mask head-blocked: each head's
+    row sum of q gates only its own dh output columns (inference modes;
+    the ``+grad`` modes raise)."""
     st = SpikeTensor.wrap(x)
     res = SpikeTensor.wrap(residual) if residual is not None else None
     qs = SpikeTensor.wrap(q) if q is not None else None
@@ -272,6 +273,36 @@ def unpack(x: Spikes, *, dtype: torch.dtype = torch.int8,
         return st.data.to(dtype)
     pol = _non_tuned(as_policy(policy, ExecutionPolicy("fused", "packed")))
     return lookup("unpack", pol.kernels)(st, dtype)
+
+
+def dense_lif(p: dict, x: torch.Tensor, lif_cfg: LIFConfig, *,
+              q: Optional[Spikes] = None, qk_threshold: float = 1.0,
+              heads: Optional[tuple[int, int]] = None,
+              kv_heads: Optional[int] = None,
+              policy: PolicyLike = None) -> SpikeTensor:
+    """dense(x) + LIF threshold as one fused PE pass (the LM projections):
+    ``x`` is the dense residual stream (f32 or bf16, any leading dims),
+    ``p`` holds ``w`` [D, Dout] (and ``b``); the f32 pre-activation never
+    reaches device memory, and the spikes leave in the policy's format as
+    a 2-D SpikeTensor over [tokens, Dout]. ``q`` applies the QK write-back
+    mask: whole-row, or with ``heads=(h, dh)`` one row-sum threshold per
+    head over q's head slice, gating only that head's dh columns.
+    ``kv_heads < h`` declares a grouped-KV projection (``w`` maps to
+    ``kv_heads`` head blocks): the emitted map is the group-expanded
+    [tokens, h*dh]; the fused mode repeats the weight's columns (once per
+    weight, memoised), the reference broadcasts at the mask multiply. Only
+    the inference modes are ported; ``"+grad"`` raises."""
+    flat = x.reshape(-1, x.shape[-1])
+    qs = SpikeTensor.wrap(q) if q is not None else None
+    pol = _non_tuned(policy)
+    if pol.differentiable:
+        raise NotImplementedError(
+            "dense_lif under a '+grad' policy (LM training through the "
+            "fused PE) is still to port (ROADMAP queue 1 item 6)")
+    return lookup("dense_lif", pol.mode)(p, flat, lif_cfg, q=qs,
+                                         qk_threshold=qk_threshold,
+                                         fmt=pol.format, heads=heads,
+                                         kv_heads=kv_heads)
 
 
 def w2ttfs_head(spikes: torch.Tensor, fc_w: torch.Tensor,

@@ -27,9 +27,9 @@ Executor: every fused entry calls the kernel wrappers, which launch the
 hand-written kernels on CUDA tensors and run their plain versions on CPU
 tensors. Spike operands arrive dense f32 (autograd connectivity) and spike
 outputs leave dense f32; a packed-format forward packs and unpacks inside
-the primal only. T > 1 state, head-blocked masks and ``dense_lif`` are
-still to port and have no entry (ROADMAP queue 2, K2 ``with_state`` and
-``heads``).
+the primal only. T > 1 state (ROADMAP queue 2, K2 ``with_state``), and
+the head-blocked masks and ``dense_lif`` of LM training (queue 1 item 6)
+are still to port and have no entry.
 """
 from __future__ import annotations
 
@@ -291,8 +291,8 @@ def _fused_pe_impl(kernels: str):
                 "(ROADMAP queue 2, K2 with_state)")
         if heads is not None:
             raise NotImplementedError(
-                "the head-blocked QK mask is still to port (ROADMAP queue 2, "
-                "K2 heads)")
+                "the differentiable head-blocked QK mask is still to port, "
+                "with LM training (ROADMAP queue 1 item 6)")
         x, w_, b = _dense_operand(st), _f32(w), _f32(bias)
         res = None if residual is None else _dense_operand(residual)
         q_ = None if q is None else _dense_operand(q)

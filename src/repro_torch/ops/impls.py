@@ -10,13 +10,10 @@ tensors it runs the wrapper's plain version. Implementations take wrapped
 for, so neither the kernels nor the call sites fork on the format. A
 packed operand goes to the kernel's packed variant; it is never unpacked
 to run the dense kernel. A fused variant whose kernel is still to port
-(head-blocked masks, T>1 state) raises; it never runs the reference
-instead. The fused matmul-sweep registrations take the byte-skip strategy
+(T>1 state) raises; it never runs the reference instead. The fused matmul-sweep registrations take the byte-skip strategy
 (``skip``) and every block shape the autotuner can plan: block_m 128,
 block_k on the operand's grid and block_n 128 or 256. The ``+grad`` modes
-are registered by ``repro_torch.ops.grad``. Head-blocked masks raise in
-the reference mode too, until they are ported and held against the
-reference together.
+are registered by ``repro_torch.ops.grad``.
 """
 from __future__ import annotations
 
@@ -29,10 +26,10 @@ from ..core.events import (DEFAULT_BLOCKS, LANE_BITS, PackedSpikes,
                            block_count_map_2d, pack_spikes_ref,
                            packed_from_words, pad_to_blocks,
                            unpack_spikes_ref)
-from ..core.lif import LIFConfig
+from ..core.lif import LIFConfig, lif_forward
 # the registry is where the kernel wrappers are bound, so it imports them
 # neurallint: disable=NL-REGISTRY-BYPASS
-from ..kernels.fused_pe import fused_pe, fused_pe_ref
+from ..kernels.fused_pe import fused_pe, fused_pe_ref, head_gate
 # neurallint: disable=NL-REGISTRY-BYPASS
 from ..kernels.lif_update import lif_update, lif_update_ref
 # neurallint: disable=NL-REGISTRY-BYPASS
@@ -44,6 +41,7 @@ from ..kernels.spike_matmul import check_width, spike_matmul, spike_matmul_ref
 # neurallint: disable=NL-REGISTRY-BYPASS
 from ..kernels.w2ttfs_pool import w2ttfs_pool_fc, w2ttfs_pool_fc_ref
 from ..models import nn
+from ..tree import derived
 from .dispatch import FusedOut
 from .registry import register
 from .spike_tensor import SpikeTensor
@@ -58,13 +56,6 @@ def _check_blocks(block_m: int, block_n: int, block_k: int) -> None:
     if block_m != DEFAULT_BLOCKS.m:
         raise ValueError(f"the CUDA kernels tile M on {DEFAULT_BLOCKS.m} rows;"
                          f" got block_m={block_m}")
-
-
-def _check_no_heads(heads) -> None:
-    if heads is not None:
-        raise NotImplementedError(
-            "the head-blocked QK mask is still to port (ROADMAP queue 2, "
-            "K2 heads)")
 
 
 def _operand(st: Optional[SpikeTensor]):
@@ -126,14 +117,13 @@ def _fused_pe_layer_fused(st: SpikeTensor, w: torch.Tensor, *, bias,
             f"the fused PE layer with T={t} needs the kernel's LIF-state "
             f"variant, which is still to port (ROADMAP queue 2, K2 "
             f"with_state)")
-    _check_no_heads(heads)
     spikes, vld = fused_pe(
         _operand(st[0]), w, bias=bias,
         residual=None if residual is None else _operand(residual[0]),
         q=None if q is None else _operand(q[0]),
         vld_cnt=None if st.is_packed or st.vld_cnt is None else st.vld_cnt[0],
         v_th=lif_cfg.v_th, qk_threshold=qk_threshold, out_format=fmt,
-        block_n=block_n, block_k=block_k, skip=skip)
+        block_n=block_n, block_k=block_k, skip=skip, heads=heads)
     if fmt == "packed":
         out = SpikeTensor.from_packed(_stack_packed(spikes))
     else:
@@ -147,9 +137,6 @@ def _fused_pe_layer_reference(st: SpikeTensor, w: torch.Tensor, *, bias,
                               residual, q, qk_threshold, lif_cfg: LIFConfig,
                               fmt, block_m, block_n, block_k, skip="dense",
                               heads=None):
-    # the head-blocked mask is ported with its kernel variant, reference
-    # and fused together, so that both are held against the reference
-    _check_no_heads(heads)
     x = st.to_dense() if st.is_packed else st.data
     t, m, _ = x.shape
     n = w.shape[1]
@@ -166,7 +153,7 @@ def _fused_pe_layer_reference(st: SpikeTensor, w: torch.Tensor, *, bias,
                 residual=None if res is None else res[ti], q=q_t,
                 tau=lif_cfg.tau, v_th=lif_cfg.v_th,
                 soft_reset=lif_cfg.soft_reset, qk_threshold=qk_threshold,
-                block_m=block_m, block_n=block_n)
+                block_m=block_m, block_n=block_n, heads=heads)
         else:
             # stateful form: the LIF state carries the PRE-mask spikes and
             # the QK mask gates outside, as the reference's T>1 path does
@@ -177,7 +164,11 @@ def _fused_pe_layer_reference(st: SpikeTensor, w: torch.Tensor, *, bias,
                 soft_reset=lif_cfg.soft_reset, block_m=block_m,
                 block_n=block_n)
             s = spk
-            if q_t is not None:
+            if q_t is not None and heads is not None:
+                spk = spk * head_gate(q_t, heads, qk_threshold)
+                vld = block_count_map_2d(
+                    pad_to_blocks(spk, block_m, block_n), block_m, block_n)
+            elif q_t is not None:
                 spk = qk_attention_ref(q_t, spk, threshold=qk_threshold)
                 vld = block_count_map_2d(
                     pad_to_blocks(spk, block_m, block_n), block_m, block_n)
@@ -191,6 +182,89 @@ def _fused_pe_layer_reference(st: SpikeTensor, w: torch.Tensor, *, bias,
     else:
         out = SpikeTensor.dense(spk3, vld3, block_m=block_m, block_k=block_n)
     return FusedOut(out, None, vld3)
+
+
+# ============================================================ dense -> LIF map
+def expand_group_weights(p: dict, heads: tuple[int, int],
+                         kv_heads: int) -> dict:
+    """Grouped-KV projection -> per-query-head projection, in weight space:
+    ``p["w"]`` maps to ``kv_heads`` head blocks of dh columns, and each kv
+    head's columns are repeated h // kv_heads times (query head qh reads kv
+    head qh // g), so the fused kernel emits the group-expanded [tokens,
+    h*dh] map directly. A stateless LIF of repeated columns is the repeated
+    LIF spikes, so this equals masking grouped KV and broadcasting."""
+    h, dh = heads
+    g = h // kv_heads
+    w = p["w"]
+    d = w.shape[0]
+    if w.shape[1] != kv_heads * dh:
+        raise ValueError(f"w {tuple(w.shape)} is not {kv_heads} kv heads of "
+                         f"{dh}")
+    out = {"w": w.reshape(d, kv_heads, 1, dh).expand(d, kv_heads, g, dh)
+           .reshape(d, h * dh).contiguous()}
+    if "b" in p:
+        out["b"] = (p["b"].reshape(kv_heads, 1, dh).expand(kv_heads, g, dh)
+                    .reshape(h * dh).contiguous())
+    return out
+
+
+@register("dense_lif", "fused")
+def _dense_lif_fused(p: dict, flat: torch.Tensor, lif_cfg: LIFConfig, *, q,
+                     qk_threshold, fmt, heads=None, kv_heads=None):
+    if heads is not None and kv_heads is not None and kv_heads != heads[0]:
+        # once per weight: a serving model expands each layer's grouped wk
+        # once, not once a token
+        p = derived(p["w"], ("expand_group_weights", heads, kv_heads),
+                    lambda: expand_group_weights(p, heads, kv_heads),
+                    p.get("b"))
+    if q is not None and not q.is_packed:   # the [tokens, Dq] core
+        q = SpikeTensor.dense(q.data.reshape(-1, q.data.shape[-1]))
+    spikes, vld = fused_pe(
+        flat, p["w"], bias=p.get("b"), q=_operand(q),
+        v_th=lif_cfg.v_th, qk_threshold=qk_threshold, out_format=fmt,
+        # heads drives only the head-blocked mask: grouped KV without q is
+        # the weight expansion alone
+        heads=None if q is None else heads)
+    if fmt == "packed":
+        return SpikeTensor.from_packed(spikes)
+    return SpikeTensor.dense(spikes, vld, block_m=DEFAULT_BLOCKS.m,
+                             block_k=DEFAULT_BLOCKS.n)
+
+
+@register("dense_lif", "reference")
+def _dense_lif_ref(p: dict, flat: torch.Tensor, lif_cfg: LIFConfig, *, q,
+                   qk_threshold, fmt, heads=None, kv_heads=None):
+    cur = flat.to(torch.float32) @ p["w"].to(torch.float32)
+    if "b" in p:
+        cur = cur + p["b"].to(torch.float32)
+    spk = lif_forward(cur, lif_cfg).to(torch.int8)
+    m = flat.shape[0]
+    if q is not None and heads is not None:
+        # grouped KV (kv_heads < h) is masked by a broadcast over the group
+        # axis: the expansion exists only as the multiply's output
+        h, dh = heads
+        hkv = h if kv_heads is None else kv_heads
+        g = h // hkv
+        rs = q.to_dense(torch.float32).reshape(m, -1)[:, :h * dh].reshape(
+            m, h, dh).sum(dim=-1)
+        mask = (rs >= qk_threshold).to(torch.int8)
+        spk = (spk.reshape(m, hkv, 1, dh)
+               * mask.reshape(m, hkv, g, 1)).reshape(m, h * dh)
+    elif q is not None:
+        rowsum = q.to_dense(torch.float32).reshape(m, -1).sum(
+            dim=-1, keepdim=True)
+        spk = spk * (rowsum >= qk_threshold).to(torch.int8)
+    elif heads is not None and kv_heads is not None and kv_heads != heads[0]:
+        h, dh = heads
+        g = h // kv_heads
+        spk = spk.reshape(m, kv_heads, 1, dh).expand(
+            m, kv_heads, g, dh).reshape(m, h * dh)
+    bm, bn = DEFAULT_BLOCKS.m, DEFAULT_BLOCKS.n
+    if fmt == "packed":
+        return SpikeTensor.from_packed(
+            pack_spikes_ref(spk, block_m=bm, block_k=bn))
+    vld = block_count_map_2d(pad_to_blocks(spk, bm, bn), bm, bn)
+    return SpikeTensor.dense(spk, vld, block_m=bm, block_k=bn)
 
 
 # ======================================================== packed (pack/unpack)

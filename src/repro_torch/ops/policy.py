@@ -115,3 +115,17 @@ def as_policy(policy: PolicyLike,
         return pol.for_training() if grad else pol
     raise TypeError(f"policy must be an ExecutionPolicy, a preset name, or "
                     f"None — got {type(policy).__name__}")
+
+
+def merge_engine_policy(model_policy: ExecutionPolicy,
+                        engine_policy: PolicyLike) -> ExecutionPolicy:
+    """Engine-over-model policy resolution: an engine's ``policy``
+    replaces the model's wholesale; None keeps the model's."""
+    if engine_policy is None:
+        return model_policy
+    return as_policy(engine_policy)
+
+
+def with_policy(cfg, policy: PolicyLike):
+    """Config copy with ``policy`` set (a preset name or an instance)."""
+    return dataclasses.replace(cfg, policy=as_policy(policy))

@@ -17,7 +17,6 @@ _LOADED = False
 # ops whose kernel is still to port -> its ROADMAP queue 2 item
 _FUSED_TODO = {
     "attention": "K9",
-    "dense_lif": "K2 (dense-activation and head-blocked variants)",
     "fused_pe": "K2 (the 2-D inference entry; ops.fused_pe_layer has it)",
 }
 

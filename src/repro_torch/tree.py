@@ -2,10 +2,13 @@
 tensors), walked in one fixed order: the port's stand-in for the few
 ``jax.tree_util`` functions the training code needs. As there, a dict is
 walked in sorted key order, so a tree flattens to the reference's leaf
-order."""
+order. ``derived`` memoises a value made from parameter tensors."""
 from __future__ import annotations
 
-from typing import Any, Callable
+import weakref
+from typing import Any, Callable, Hashable, Optional
+
+import torch
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
@@ -41,4 +44,35 @@ def tree_unflatten_like(tree: Any, leaves: list) -> Any:
     out = tree_map(lambda _: next(it), tree)
     if next(it, None) is not None:
         raise ValueError("more leaves than the tree has")
+    return out
+
+
+# (ids of the sources, tag) -> (weak refs of the sources, their versions,
+# the value)
+_DERIVED: dict = {}
+
+
+def derived(base: torch.Tensor, tag: Hashable, make: Callable[[], Any],
+            *also: Optional[torch.Tensor]) -> Any:
+    """``make()``, memoised on the tensor ``base`` (and ``also``): made once
+    while each of them lives and none is modified in place (their
+    ``_version``), so a value derived from parameters (a weight cast to
+    the activation dtype, grouped-KV columns repeated) is made once per
+    parameter set, not once per call. A source is matched by identity,
+    never by its id alone, which a new tensor may reuse. The entry goes
+    with ``base``."""
+    srcs = (base, *also)
+    key = (tuple(id(t) for t in srcs), tag)
+    versions = tuple(None if t is None else t._version for t in srcs)
+    hit = _DERIVED.get(key)
+    if (hit is not None and hit[1] == versions
+            and all(r() is t for r, t in zip(hit[0], srcs) if t is not None)):
+        return hit[2]
+    out = make()
+    refs = tuple(
+        None if t is None
+        else weakref.ref(t, (lambda _, k=key: _DERIVED.pop(k, None))
+                         if t is base else None)
+        for t in srcs)
+    _DERIVED[key] = (refs, versions, out)
     return out

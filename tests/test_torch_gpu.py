@@ -568,3 +568,94 @@ def test_auto_forward_launches_the_gated_kernels_it_plans(cuda, policy, wide,
     assert widths == ({128, 256} if wide else {128})
     assert torch.equal(logits, want)
     ops.get_tuner().reset()
+
+
+# ------------------------------------------- the spiking LM's fused PE pass
+# (dh, h, x dtype, packed q, packed out, M): dh 128 / 64 / 16 divide the
+# tile, 48 does not (a head straddles two tiles); decode's 16 rows and a
+# ragged prefill
+HEAD_VARIANTS = [
+    (128, 4, torch.bfloat16, False, False, 16),
+    (128, 4, torch.float32, True, True, 2000),
+    (64, 4, torch.bfloat16, True, False, 300),
+    (16, 16, torch.float32, False, True, 16),
+    (16, 16, torch.bfloat16, True, True, 700),
+    (48, 6, torch.float32, True, False, 200),
+    (48, 6, torch.bfloat16, False, True, 16),
+]
+
+
+@pytest.mark.parametrize("dh,h,dtype,pq,pout,m", HEAD_VARIANTS)
+def test_fused_pe_heads_dense_x_matches_plain(cuda, dh, h, dtype, pq, pout,
+                                              m):
+    """The head-blocked, dense-activation variant against its plain
+    version: spikes equal away from v_th, vld_next the count of the
+    kernel's own spikes, the packed output the int8 output's words."""
+    from repro_torch.core.events import (block_count_map_2d, pack_spikes_ref,
+                                         unpack_words)
+    from repro_torch.kernels import fused_pe as K
+
+    gen = torch.Generator(device=cuda).manual_seed(m + dh)
+    k, n = 512, h * dh
+    x = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+    w = torch.randn((k, n), generator=gen, device=cuda) / k ** 0.5
+    q = (torch.rand((m, n), generator=gen, device=cuda) < 0.05).to(
+        torch.int8)
+    thr = float(1 + dh // 32)
+    q_op = pack_spikes_ref(q) if pq else q
+    outs = {}
+    for fmt in ("dense", "packed"):
+        args = K.fused_pe_operands(x, w, q=q_op, qk_threshold=thr,
+                                   out_format=fmt, heads=(h, dh))
+        spk, vld = K.fused_pe_cuda(*args)
+        ref_spk, ref_vld = K.fused_pe_block_ref(*args)
+        if fmt == "packed":
+            spk, ref_spk = unpack_words(spk), unpack_words(ref_spk)
+        cur = x.float() @ w
+        near = torch.zeros_like(spk, dtype=torch.bool)
+        near[:m, :n] = (cur - 1.0).abs() < 1e-4
+        assert not bool(((spk != ref_spk) & ~near).any())
+        assert torch.equal(vld, block_count_map_2d(spk, 128, 128))
+        assert not bool(spk[m:].any()) and not bool(spk[:, n:].any())
+        outs[fmt] = spk
+    assert torch.equal(outs["dense"], outs["packed"])
+    gate = (q.float().reshape(m, h, dh).sum(-1) >= thr)
+    assert 0.0 < float(gate.float().mean()) < 1.0
+
+
+def test_spiking_lm_decode_launches_the_kernels(cuda):
+    """A decode tick of the reduced spiking LM under the fused policies
+    launches two fused PE passes and one spike matmul a layer, and gives
+    the reference's tokens and spike totals (f32 activations)."""
+    from repro_torch.configs import build_model, get_config, reduced
+    from repro_torch.kernels import _build
+    from repro_torch.models import layers
+    from repro_torch.models.lm import LM, spike_totals
+    from repro_torch.ops import with_policy
+
+    cfg = reduced(get_config("qwen3-1.7b", spiking=True,
+                             attention_kind="qk_spiking"), n_layers=3)
+    params = build_model(cfg).init(
+        torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (5, 1), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    got = {}
+    for policy in ("reference", "fused_dense", "fused_packed"):
+        model = LM(with_policy(cfg, policy))
+        cache = model.init_cache(5, 16, device=cuda)
+        _build.reset_launches()
+        with layers.spike_log() as log:
+            logits, _ = model.decode_step(params, toks, cache)
+        torch.cuda.synchronize()
+        got[policy] = (logits.argmax(-1), spike_totals(log, cfg.n_layers))
+        if policy != "reference":
+            assert _build.LAUNCHES["fused_pe"] == 2 * cfg.n_layers
+            assert _build.LAUNCHES["spike_matmul"] == cfg.n_layers
+            assert _build.LAUNCHES["pack_spikes"] == 0
+    for policy in ("fused_dense", "fused_packed"):
+        assert torch.equal(got[policy][0], got["reference"][0])
+        for kind, tot in got["reference"][1].items():
+            # f32 sums in another order may flip a spike at v_th
+            diff = (got[policy][1][kind] - tot).abs()
+            assert bool((diff <= (tot // 1000).clamp_min(1)).all()), (
+                policy, kind)

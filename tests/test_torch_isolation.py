@@ -1,7 +1,8 @@
 """The port stands alone: it imports neither JAX nor the JAX package, its
 entry points never drop to the CPU on their own, and every fused variant
-whose kernel is still to port raises instead of running a plain version;
-the variants ported since run.
+whose kernel is still to port, and every part of the LM and serving path
+still to port, raises instead of running a plain version; the variants
+ported since run.
 """
 import ast
 import dataclasses
@@ -18,7 +19,11 @@ import torch
 
 import repro_torch
 from repro_torch import convert, ops
+from repro_torch.configs import build_model, get_config, reduced
+from repro_torch.core.lif import LIFConfig
+from repro_torch.launch.serve import main as serve_main
 from repro_torch.models import snn_cnn
+from repro_torch.serve import Engine, EngineConfig
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -63,7 +68,12 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import repro_torch.train.trainer, repro_torch.data.synthetic\n"
         "import repro_torch.ops.grad, repro_torch.ops.autotune\n"
         "import repro_torch.launch.roofline\n"
+        "import repro_torch.configs, repro_torch.models.lm\n"
+        "import repro_torch.models.layers, repro_torch.models.attention\n"
+        "import repro_torch.models.ffn, repro_torch.serve\n"
+        "import repro_torch.launch.serve\n"
         "repro_torch.ops.lookup('matmul', 'reference')\n"
+        "repro_torch.ops.lookup('dense_lif', 'fused')\n"
         "repro_torch.ops.lookup('matmul', 'fused+grad')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
@@ -79,7 +89,16 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
 def _entry_points():
     cfg = snn_cnn.SNNCNNConfig(arch="resnet11", width_mult=0.125,
                                image_size=16)
+    lm_cfg = reduced(get_config("qwen3-1.7b", spiking=True,
+                                attention_kind="qk_spiking"))
     return {
+        "lm init": lambda: build_model(lm_cfg).init(torch.Generator()),
+        "lm init_cache": lambda: build_model(lm_cfg).init_cache(2, 8),
+        "lm_params_from_jax": lambda: convert.lm_params_from_jax(
+            {"embed": {"emb": np.ones((4, 2), np.float32)},
+             "blocks": {"ln1": {"scale": np.ones((2, 2), np.float32)}}}),
+        "launch.serve": lambda: serve_main(
+            ["--reduced", "--spiking", "--qk-attention", "--requests", "1"]),
         "resolve_device": lambda: repro_torch.resolve_device(),
         "init": lambda: snn_cnn.init(torch.Generator(), cfg),
         "variables_from_jax": lambda: convert.variables_from_jax(
@@ -140,20 +159,16 @@ def _unported():
         snn_cnn.init(torch.Generator(), cfg, device="cpu"), cfg)
     img = torch.zeros((1, 16, 16, 3))
     variables = snn_cnn.init(torch.Generator(), cfg, device="cpu")
+    lm_softmax = build_model(reduced(get_config("qwen3-1.7b")))
+    lm_softmax_params = lm_softmax.init(torch.Generator(), device="cpu")
+    lm_spiking = build_model(reduced(get_config(
+        "qwen3-1.7b", spiking=True, attention_kind="qk_spiking")))
+    lm_spiking_params = lm_spiking.init(torch.Generator(), device="cpu")
     return {
         "fused_pe_layer T=2": lambda: ops.fused_pe_layer(
             _spikes(t=2), w, policy="fused_dense"),
-        "fused_pe_layer heads": lambda: ops.fused_pe_layer(
-            _spikes(), w, q=_spikes(), heads=(2, 4), policy="fused_dense"),
-        "fused_pe_layer heads reference": lambda: ops.fused_pe_layer(
-            _spikes(), w, q=_spikes(), heads=(2, 4), policy="reference"),
-        "fused_pe_layer dense activations": lambda: ops.fused_pe_layer(
-            ops.SpikeTensor.dense(torch.ones((1, 8, 8))), w,
-            policy="fused_dense"),
         "fused_pe_layer packed T=2": lambda: ops.fused_pe_layer(
             _packed(t=2), w, policy="fused_packed"),
-        "fused_pe_layer packed heads": lambda: ops.fused_pe_layer(
-            _packed(), w, q=_packed(), heads=(2, 4), policy="fused_packed"),
         "fused_pe_layer +grad T=2": lambda: ops.fused_pe_layer(
             ops.SpikeTensor.dense(torch.ones((2, 8, 8))), w,
             policy="fused_dense+grad"),
@@ -184,6 +199,36 @@ def _unported():
             variables, img, dataclasses.replace(cfg, timesteps=2,
                                                 bn_fold=True),
             policy="fused_dense"),
+        "dense_lif fused_dense+grad": lambda: ops.dense_lif(
+            {"w": w}, torch.ones((4, 8)), LIFConfig(),
+            policy="fused_dense+grad"),
+        "dense_lif reference+grad": lambda: ops.dense_lif(
+            {"w": w}, torch.ones((4, 8)), LIFConfig(),
+            policy="reference+grad"),
+        "lm family moe": lambda: build_model(
+            reduced(get_config("olmoe-1b-7b"))),
+        "lm family ssm": lambda: build_model(
+            reduced(get_config("mamba2-130m"))),
+        "lm family hybrid": lambda: build_model(
+            reduced(get_config("zamba2-7b"))),
+        "lm family vlm": lambda: build_model(
+            reduced(get_config("phi-3-vision-4.2b"))),
+        "lm family encdec": lambda: build_model(
+            reduced(get_config("seamless-m4t-large-v2"))),
+        "lm softmax attention prefill": lambda: lm_softmax.prefill(
+            lm_softmax_params, {"tokens": torch.zeros((1, 4),
+                                                      dtype=torch.int64)}),
+        "lm softmax attention cache": lambda: lm_softmax.init_cache(
+            1, 8, device="cpu"),
+        "engine fault plan": lambda: Engine(
+            lm_spiking, lm_spiking_params, EngineConfig(), faults=object()),
+        "engine integrity guard": lambda: EngineConfig(integrity_every=1),
+        "serve replica router": lambda: serve_main(
+            ["--reduced", "--spiking", "--qk-attention", "--replicas", "2",
+             "--device", "cpu"]),
+        "serve chaos plan": lambda: serve_main(
+            ["--reduced", "--spiking", "--qk-attention", "--chaos",
+             "--device", "cpu"]),
     }
 
 
@@ -265,6 +310,34 @@ def test_variants_ported_with_the_autotuner_run(case):
     torch.testing.assert_close(out.detach(), want, rtol=0, atol=0)
 
 
+def _ported_with_the_lm():
+    """Variants that raised until the spiking LM was ported: the
+    head-blocked QK mask (int8 and packed, fused and reference) and the
+    dense-activation x of the fused PE now run on the CPU (the plain
+    versions). All-ones operands: every head's row sum passes, so each
+    gives the all-ones spike map of the whole-row mask."""
+    w = torch.ones((8, 8))
+    return {
+        "fused_pe_layer heads": lambda: ops.fused_pe_layer(
+            _spikes(), w, q=_spikes(), heads=(2, 4), policy="fused_dense"),
+        "fused_pe_layer heads reference": lambda: ops.fused_pe_layer(
+            _spikes(), w, q=_spikes(), heads=(2, 4), policy="reference"),
+        "fused_pe_layer dense activations": lambda: ops.fused_pe_layer(
+            ops.SpikeTensor.dense(torch.ones((1, 8, 8))), w,
+            policy="fused_dense"),
+        "fused_pe_layer packed heads": lambda: ops.fused_pe_layer(
+            _packed(), w, q=_packed(), heads=(2, 4), policy="fused_packed"),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_ported_with_the_lm()))
+def test_variants_ported_with_the_lm_run(case):
+    out = _ported_with_the_lm()[case]()
+    spikes = out.spikes.to_dense(torch.float32)
+    torch.testing.assert_close(spikes, torch.ones((1, 8, 8)), rtol=0, atol=0)
+    assert int(out.vld_next.sum()) == 64
+
+
 def test_reference_twins_stay_registered():
     """Every op of the slice has a reference mode, and a fused mode where
     its kernel is ported; every op of the training walk has both "+grad"
@@ -280,7 +353,9 @@ def test_reference_twins_stay_registered():
                "w2ttfs_head", "im2col", "pool"):
         for mode in ("reference+grad", "fused+grad"):
             assert (op, mode) in table, (op, mode)
-    assert not any(op == "dense_lif" for op, _ in table)
+    # the LM's projection: its inference modes only (LM training waits)
+    assert {m for op, m in table if op == "dense_lif"} == {"reference",
+                                                          "fused"}
 
 
 # ---------------------------------------------------------------- convert
