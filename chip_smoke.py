@@ -129,10 +129,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth and the f32 rate outside the
-# tensor cores (IEEE f32 is what parity with the reference needs).
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth, the f32 rate outside the
+# tensor cores (IEEE f32 is what parity with the reference needs) and the
+# bf16 tensor-core rate (f32 accumulation), which K9's QK^T at bf16 operands
+# is held to (``flash_ops_ms``)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+PEAK_BF16_TC_OPS_PER_S = 989e12
 BATCH = 256              # images in the end-to-end forward
 ITERS = 10               # timed forwards per policy
 V_TH = 1.0
@@ -145,6 +148,8 @@ TRAIN_STEPS = 3          # steps of each training path from one state
 TRAIN_ITERS = 5          # timed steps per training path
 # the KD training kernels, which an inference forward never launches
 NO_BACKWARD = {"spike_matmul_dx": 0, "spike_matmul_dw": 0, "qk_attention": 0}
+# the softmax attention kernel, which only ops.attention launches
+NO_ATTENTION = {"flash_attention": 0}
 # the gated routes, which only the auto policies (or an explicit skip) launch
 NO_GATED = {"fused_pe_gated": 0, "spike_matmul_gated": 0,
             "spike_matmul_dw_gated": 0}
@@ -152,16 +157,16 @@ NO_GATED = {"fused_pe_gated": 0, "spike_matmul_gated": 0,
 EXPECTED_LAUNCHES = {
     "fused_dense": {"lif_update": 1, "fused_pe": 13, "spike_matmul": 3,
                     "w2ttfs_pool": 1, "pack_spikes": 0, "unpack_spikes": 0,
-                    **NO_BACKWARD, **NO_GATED},
+                    **NO_BACKWARD, **NO_GATED, **NO_ATTENTION},
     "fused_packed": {"lif_update": 1, "fused_pe": 13, "spike_matmul": 3,
                      "w2ttfs_pool": 1, "pack_spikes": 1, "unpack_spikes": 1,
-                     **NO_BACKWARD, **NO_GATED},
+                     **NO_BACKWARD, **NO_GATED, **NO_ATTENTION},
 }
 # launches per step of the BN-folded training graph under the kernels
 FOLD_STEP_LAUNCHES = {"lif_update": 1, "fused_pe": 13, "spike_matmul": 3,
                       "w2ttfs_pool": 1, "pack_spikes": 0, "unpack_spikes": 0,
                       "spike_matmul_dx": 16, "spike_matmul_dw": 16,
-                      "qk_attention": 0, **NO_GATED}
+                      "qk_attention": 0, **NO_GATED, **NO_ATTENTION}
 # row of the kernels line -> (kernel, path whose launches it reports,
 # source, the TPU kernel's pallas_call it replaces)
 ROWS = {
@@ -236,6 +241,12 @@ ROWS.update({
                                "src/repro/kernels/spike_matmul/"
                                "spike_matmul.py:83"),
 })
+# the softmax LM's K9: one ops.attention launch on layer 0's q, k and v of
+# a full-width prefill of the trace's longest prompt (phase 8)
+K9_PATH = "ops.attention at qwen3-1.7b prefill"
+ROWS["flash_attention"] = (
+    "flash_attention", K9_PATH, "src/repro_torch/csrc/flash_attention.cu",
+    "src/repro/kernels/flash_attention/flash_attention.py:80")
 # where a gated kernel's row reads its launches, in order of preference:
 # the auto paths, then the explicit-skip launches on the model's operands
 GATED_PATHS = ("auto_packed quiet", "auto quiet", "auto_packed busy",
@@ -533,6 +544,31 @@ def check_dw_gated(torch, K, args, parity: Parity, label: str) -> None:
         f"skip; max abs err vs plain {err:.3e}")
 
 
+def flash_gate(torch, K, out, q, k, v, causal) -> tuple[bool, float, float]:
+    """K9's output ``out`` against its plain version's f32 result on the
+    same operands (taken before the plain version rounds it to q's dtype):
+    within rtol = atol = 1e-5, for IEEE f32 sums in another order, and for
+    a bf16 output within half a bf16 ulp more (2**-8 of the value), for its
+    one rounding to nearest; a truncating rounding, or a lost tile, does
+    not fit. Returns (ok, max abs err, rtol)."""
+    ref = K.attention_ref(q.float(), k.float(), v.float(), causal=causal)
+    rtol = 1e-5 if out.dtype == torch.float32 else 2.0 ** -8 + 1e-5
+    err = float((out.float() - ref).abs().max())
+    ok = (bool(torch.isfinite(out).all())
+          and torch.allclose(out.float(), ref, rtol=rtol, atol=1e-5))
+    return ok, err, rtol
+
+
+def check_flash(torch, K, args, parity: Parity, label: str) -> None:
+    """K9 against its plain version on the same operands."""
+    out = K.flash_attention_cuda(*args)
+    ok, err, rtol = flash_gate(torch, K, out, *args)
+    require(ok, f"flash_attention {label}: max abs err {err}")
+    parity.note("flash_attention", err)
+    say(f"[parity] flash_attention {label}: max abs err {err:.3e} against "
+        f"the plain f32 result (rtol {rtol:.3e}, atol 1e-05)")
+
+
 CHECKS = {"fused_pe": check_fused_pe, "spike_matmul": check_spike_matmul,
           "fused_pe_gated": check_fused_pe,
           "spike_matmul_gated": check_spike_matmul_gated,
@@ -540,7 +576,7 @@ CHECKS = {"fused_pe": check_fused_pe, "spike_matmul": check_spike_matmul,
           "lif_update": check_lif, "w2ttfs_pool": check_w2ttfs,
           "pack_spikes": check_pack, "unpack_spikes": check_unpack,
           "spike_matmul_dx": check_dx, "spike_matmul_dw": check_dw,
-          "qk_attention": check_qk}
+          "qk_attention": check_qk, "flash_attention": check_flash}
 
 # (label, M, K, N, residual, q mask) of every fused PE pass on the int8 main
 # path (batch 256), plus a ragged one
@@ -1373,7 +1409,7 @@ def unfused_step_launches(cfg, snn_cnn) -> dict:
     return {"lif_update": lif, "fused_pe": 0, "spike_matmul": matmul,
             "w2ttfs_pool": 1, "pack_spikes": 0, "unpack_spikes": 0,
             "spike_matmul_dx": matmul, "spike_matmul_dw": matmul,
-            "qk_attention": qk, **NO_GATED}
+            "qk_attention": qk, **NO_GATED, **NO_ATTENTION}
 
 
 def expected_step_launches(graph: str, policy: str, cfg, snn_cnn) -> dict:
@@ -1814,6 +1850,8 @@ def bound(torch, K, name: str, args, inputs) -> tuple[float, float, float]:
         nnz = int((x != 0).sum())
         block_ops = 2.0 * float(active.sum()) * 128 * 128 * (-(-n // 128) * 128)
         return nbytes, 2.0 * nnz * n, block_ops
+    if name == "flash_attention":
+        return flash_bound(*args[:4])
     if name == "qk_attention":
         q, k, _ = args
         n = float(q.numel())
@@ -1864,6 +1902,29 @@ def bound(torch, K, name: str, args, inputs) -> tuple[float, float, float]:
     return nbytes, 2.0 * nnz * n_prod + epilogue, block_ops + epilogue
 
 
+def flash_bound(q, k, v, causal) -> tuple[float, float, float]:
+    """(bytes, operations, operations) of one K9 call: q, k, v read and
+    out written once at their dtype (K and V at their Hkv heads); 2 D
+    multiply-adds a (query, key) pair for the scores and again for PV, over
+    the S (S + 1) / 2 causal pairs (about half of S^2) or all S^2."""
+    b, s, h, d = q.shape
+    nbytes = float(2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    pairs = s * (s + 1) / 2 if causal else float(s * s)
+    ops = 4.0 * b * h * d * pairs
+    return nbytes, ops, ops
+
+
+def flash_ops_ms(q, ops: float) -> float:
+    """The least time, in ms, of K9's ``ops`` operations at the card's peak
+    for their types: half are QK^T, half PV. With bf16 q and k, QK^T runs at
+    the bf16 tensor-core rate (a product of two bf16 values is exact in f32,
+    and the tensor cores sum in f32); PV, whose weights p are f32, and all
+    of an f32 call run at the f32 rate outside the tensor cores."""
+    score_rate = (PEAK_BF16_TC_OPS_PER_S if q.element_size() == 2
+                  else PEAK_F32_OPS_PER_S)
+    return (ops / 2 / score_rate + ops / 2 / PEAK_F32_OPS_PER_S) * 1e3
+
+
 def phase_profile(torch, snn_cnn, cfg, fused, images, policy: str,
                   forward_ms: float, reps: int = 3) -> None:
     """Where the time of one forward of a kernel path goes on the device:
@@ -1912,6 +1973,8 @@ def library_call(torch, K, name: str, args, inputs):
         _, dv = K.spike_matmul_dx_ref(g, w, v, surrogate=surrogate,
                                       alpha=alpha, v_th=v_th)
         return lambda: torch.matmul(dv, w.T)
+    if name == "flash_attention":
+        return sdpa_call(torch, *args[:4])
     if name in ("spike_matmul_dw", "spike_matmul_dw_gated"):
         x, g, _ = args
         xf = x.to(torch.float32)
@@ -1925,6 +1988,39 @@ def library_call(torch, K, name: str, args, inputs):
     xf = (K.unpack_spikes_ref(x, torch.float32)
           if isinstance(x, K.PackedSpikes) else x.to(torch.float32))
     return lambda: torch.matmul(xf, w)
+
+
+def sdpa_call(torch, q, k, v, causal):
+    """``scaled_dot_product_attention`` on the same operands ([B, H, S, D]
+    views made once, grouped KV through ``enable_gqa``): the library's
+    yardstick, never called by the port."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=kt.shape[1] != qt.shape[1])
+
+
+def sdpa_backend(torch, q, k, v, causal) -> str:
+    """The backend SDPA picks for these operands (PyTorch's own choice,
+    ``torch._fused_sdp_choice``), and a device kernel it launched, read
+    off the profiler where it saw one."""
+    from torch.autograd import DeviceType
+    from torch.nn.attention import SDPBackend
+    from torch.profiler import ProfilerActivity, profile
+
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    gqa = kt.shape[1] != qt.shape[1]
+    choice = SDPBackend(torch._fused_sdp_choice(
+        qt, kt, vt, None, 0.0, causal, scale=None, enable_gqa=gqa)).name
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sdpa_call(torch, q, k, v, causal)()
+        torch.cuda.synchronize()
+    names = [ev.key for ev in prof.key_averages()
+             if ev.device_type == DeviceType.CUDA]
+    kernel = max(names, key=len, default="none seen by the profiler")
+    return f"{choice} (kernel {kernel[:60]})"
 
 
 def dense_twin(torch, K, name: str, args):
@@ -1988,7 +2084,8 @@ def phase_timing(torch, K, snn_cnn, models, images, paths, parity: Parity,
                  "unpack_spikes": K.unpack_spikes_cuda,
                  "spike_matmul_dx": K.spike_matmul_dx_cuda,
                  "spike_matmul_dw": K.spike_matmul_dw_cuda,
-                 "qk_attention": K.qk_attention_cuda}
+                 "qk_attention": K.qk_attention_cuda,
+                 "flash_attention": K.flash_attention_cuda}
     plain_fn = {"lif_update": K.lif_update_ref,
                 "fused_pe": K.fused_pe_block_ref,
                 "fused_pe_gated": K.fused_pe_block_ref,
@@ -2003,7 +2100,9 @@ def phase_timing(torch, K, snn_cnn, models, images, paths, parity: Parity,
                                           v_th=t)),
                 "spike_matmul_dw": K.spike_matmul_dw_ref,
                 "qk_attention": lambda q, k, t: K.qk_attention_ref(
-                    q, k, threshold=t)}
+                    q, k, threshold=t),
+                "flash_attention": lambda q, k, v, c: K.attention_ref(
+                    q, k, v, causal=c)}
     rows_map = {}
     for row, (kernel, policy, source, replaces) in ROWS.items():
         if policy is None:        # a gated route: the first path that ran it
@@ -2029,10 +2128,12 @@ def phase_timing(torch, K, snn_cnn, models, images, paths, parity: Parity,
             plain_ms = time_cuda(torch, lambda: plain_fn[name](*args), reps=5)
             nbytes, ops, block_ops = bound(torch, K, name, args, inputs)
             t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-            t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+            t_ops = (flash_ops_ms(args[0], ops) if name == "flash_attention"
+                     else ops / PEAK_F32_OPS_PER_S * 1e3)
             t_block = block_ops / PEAK_F32_OPS_PER_S * 1e3
             lib = library_call(torch, K, name, args, inputs)
             lib_ms = None if lib is None else time_cuda(torch, lib, reps=10)
+            lib_name = "SDPA" if name == "flash_attention" else "torch.matmul"
             del lib
             twin = dense_twin(torch, K, name, args)
             twin_ms = None if twin is None else time_cuda(torch, twin, reps=20)
@@ -2057,7 +2158,7 @@ def phase_timing(torch, K, snn_cnn, models, images, paths, parity: Parity,
                 f"({'bytes' if t_bytes >= t_ops else 'operations'}), its "
                 f"unskipped blocks at the f32 peak {t_block:.4f} ms, plain "
                 f"{plain_ms:.4f} ms"
-                + ("" if lib_ms is None else f", torch.matmul {lib_ms:.4f} ms")
+                + ("" if lib_ms is None else f", {lib_name} {lib_ms:.4f} ms")
                 + ("" if twin_ms is None
                    else f", its dense-skip twin {twin_ms:.4f} ms"))
             i += 1
@@ -2100,10 +2201,12 @@ TICK_ITERS = 10               # timed decode ticks at 16 live slots
 
 
 def serve_namespace():
-    """The LM, engine and config entry points the serve phase drives."""
+    """The LM, engine and config entry points the serve and softmax phases
+    drive."""
     from repro_torch.configs import get_config
-    from repro_torch.models import layers
+    from repro_torch.models import attention, layers
     from repro_torch.models.lm import LM, spike_totals
+    from repro_torch.ops import attention as ops_attention
     from repro_torch.ops import with_policy
     from repro_torch.serve import Engine, EngineConfig
     from repro_torch.tree import tree_leaves
@@ -2111,7 +2214,9 @@ def serve_namespace():
     return types.SimpleNamespace(
         get_config=get_config, LM=LM, spike_totals=spike_totals,
         spike_log=layers.spike_log, with_policy=with_policy, Engine=Engine,
-        EngineConfig=EngineConfig, tree_leaves=tree_leaves)
+        EngineConfig=EngineConfig, tree_leaves=tree_leaves,
+        project_qkv=attention._project_qkv, attn_full=attention._attn_full,
+        rmsnorm_apply=layers.rmsnorm_apply, attention=ops_attention)
 
 
 def lm_trace(vocab: int) -> list:
@@ -2136,17 +2241,18 @@ def tick_launches(build_mod, n_layers: int) -> dict:
 
 
 def run_engine(torch, S, build_mod, model, params, policy: str,
-               trace) -> dict:
-    """The trace through one engine; its tokens, stats, wall time, peak
-    device memory and kernel launches (the counts set to 0 just before
-    the engine is built and read just after it drains)."""
+               trace, **engine_kw) -> dict:
+    """The trace through one engine (``SERVE_ENGINE`` with ``engine_kw``
+    over it); its tokens, stats, wall time, peak device memory and kernel
+    launches (the counts set to 0 just before the engine is built and read
+    just after it drains)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     build_mod.reset_launches()
     t0 = time.perf_counter()
-    eng = S.Engine(model, params, S.EngineConfig(**SERVE_ENGINE,
-                                                 policy=policy))
+    eng = S.Engine(model, params, S.EngineConfig(
+        **{**SERVE_ENGINE, **engine_kw}, policy=policy))
     uids = [eng.submit(p, max_new=n) for p, n in trace]
     fin = {r.uid: r for r in eng.run_until_drained()}
     torch.cuda.synchronize()
@@ -2332,10 +2438,11 @@ def profile_tick(torch, S, build_mod, model, params, policy: str) -> None:
         return
     ours = sum(r[0] for r in rows if "fused_pe_kernel" in r[2]
                or "spike_matmul_kernel" in r[2])
+    launched = sum(r[1] for r in rows)
     say(f"[profile] serve {policy} decode tick: device busy {busy:.3f} ms "
-        f"of median {med:.3f} ms: idle share {max(0.0, 1 - busy / med):.3f};"
-        f" hand-written kernels {ours:.3f} ms, everything else "
-        f"{busy - ours:.3f} ms")
+        f"of median {med:.3f} ms in {launched} device kernels: idle share "
+        f"{max(0.0, 1 - busy / med):.3f}; hand-written kernels {ours:.3f} "
+        f"ms, everything else {busy - ours:.3f} ms")
     for ms, count, key in rows[:12]:
         say(f"[profile]   serve {policy} {ms:8.4f} ms  x{count:<4d} "
             f"{key[:100]}")
@@ -2468,10 +2575,346 @@ def phase_serve(torch, S, build_mod, dev) -> dict:
     return paths
 
 
+# ------------------------------------------------------------------ phase 8
+F8_REQUESTS = 8               # requests of the f8-KV engine gate
+INFO_PROMPTS = 8              # prompts of the bf16 chunked-vs-blocking print
+# K9 parity sweep: (H, Hkv), D, and S with the causal flags it is run at
+K9_HEADS = ((16, 8), (16, 16), (16, 1))
+K9_DIMS = (128, 64, 32)
+K9_SEQS = ((64, (True, False)), (300, (True,)), (2048, (True, False)))
+K9_TIMING_S = (512, 2048, 8192)   # B 1, H 16 over Hkv 8, D 128, causal
+
+
+def softmax_direct_loop(torch, S, model, params, trace, chunked: bool
+                        ) -> list:
+    """The engine's work without the engine, at its shapes: each prompt
+    padded to its bucket and prefilled whole or in the engine's chunks, its
+    K/V rows written into a slot of a ``max_slots`` pool of ``max_len``
+    rows, then ``decode_step`` over the pool, ``max_slots`` requests at a
+    time, with a per-slot length vector (rows past a slot's length are
+    masked, so the slots do not see each other). Returns greedy tokens."""
+    chunk, slots = SERVE_ENGINE["prefill_chunk"], SERVE_ENGINE["max_slots"]
+    pad, max_len = SERVE_ENGINE["prefill_pad"], SERVE_ENGINE["max_len"]
+    dev = params["embed"]["emb"].device
+    outs = []
+    for g in range(0, len(trace), slots):
+        group = trace[g:g + slots]
+        pool = model.init_cache(slots, max_len, device=dev)
+        out, lens = [], []
+        for i, (prompt, _) in enumerate(group):
+            s = len(prompt)
+            bucket = min(max_len, -(-s // pad) * pad)
+            toks = torch.zeros((1, bucket), dtype=torch.int64, device=dev)
+            toks[0, :s] = torch.tensor(prompt, device=dev)
+            if chunked:
+                cache = model.init_cache(1, bucket, device=dev)
+                cache["len"] = torch.zeros((), dtype=torch.int32, device=dev)
+                for lo in range(0, bucket, chunk):
+                    logits, cache = model.prefill_chunk(
+                        params, toks[:, lo:lo + chunk], cache)
+                    if lo <= s - 1 < lo + chunk:
+                        first = logits[0, s - 1 - lo].argmax()
+            else:
+                logits, cache = model.prefill(params, {"tokens": toks},
+                                              return_all_logits=True)
+                first = logits[0, s - 1].argmax()
+            for dst, src in zip(pool["layers"], cache["layers"]):
+                dst[:, i:i + 1, :bucket] = src.to(dst.dtype)
+            out.append([int(first)])
+            lens.append(s)
+        lens += [0] * (slots - len(group))
+        for t in range(max(n for _, n in group) - 1):
+            toks = torch.zeros((slots, 1), dtype=torch.int64, device=dev)
+            toks[:len(group), 0] = torch.tensor([o[-1] for o in out],
+                                                device=dev)
+            pool["len"] = torch.tensor(
+                [n + t if i < len(group) else 0 for i, n in enumerate(lens)],
+                dtype=torch.int32, device=dev)
+            logits, pool = model.decode_step(params, toks, pool)
+            nxt = logits.argmax(-1).tolist()
+            for i, (_, n) in enumerate(group):
+                if len(out[i]) < n:
+                    out[i].append(nxt[i])
+        outs += out
+    return outs
+
+
+def chunked_logits(torch, model, params, toks):
+    """All-position logits of ``toks`` [1, S] fed through
+    ``prefill_chunk`` in the engine's chunks."""
+    chunk = SERVE_ENGINE["prefill_chunk"]
+    dev = toks.device
+    cache = model.init_cache(1, toks.shape[1], device=dev)
+    cache["len"] = torch.zeros((), dtype=torch.int32, device=dev)
+    parts = []
+    for lo in range(0, toks.shape[1], chunk):
+        logits, cache = model.prefill_chunk(params, toks[:, lo:lo + chunk],
+                                            cache)
+        parts.append(logits)
+    return torch.cat(parts, dim=1)
+
+
+def chunked_vs_blocking(torch, model, params, prompts, label: str,
+                        tol=None) -> None:
+    """Each prompt's blocking-prefill logits against its chunked ones: the
+    largest difference and the greedy agreement; gated at ``tol``."""
+    worst, same, n = 0.0, 0, 0
+    for prompt in prompts:
+        toks = torch.tensor(prompt, dtype=torch.int64,
+                            device=params["embed"]["emb"].device)[None]
+        full, _ = model.prefill(params, {"tokens": toks},
+                                return_all_logits=True)
+        got = chunked_logits(torch, model, params, toks)
+        require(bool(torch.isfinite(got).all()), f"{label}: non-finite")
+        worst = max(worst, float((got - full).abs().max()))
+        same += int((got.argmax(-1) == full.argmax(-1)).sum())
+        n += toks.shape[1]
+        if tol is not None:
+            require(torch.allclose(got, full, rtol=tol, atol=tol),
+                    f"{label}: chunked logits differ from blocking by "
+                    f"{worst}")
+    say(f"[softmax] {label}: chunked against blocking prefill over "
+        f"{len(prompts)} prompts: largest logit difference {worst:.3e}, "
+        f"greedy agreement {same / n:.4f} ({n} positions)"
+        + ("" if tol is None else f"; gate rtol = atol = {tol}")
+        + ("" if tol is not None else " (information only)"))
+    if tol is not None:
+        require(same == n, f"{label}: greedy tokens differ")
+
+
+def k9_on_lm_operands(torch, S, K, build_mod, model, params, prompt,
+                      parity: Parity, label: str):
+    """Layer 0's q, k and v (after RoPE, before any KV expansion) of a
+    prefill of ``prompt`` through ``ops.attention(policy="fused_dense")``,
+    its launch counts set to 0 just before and read just after. Returns
+    (launches, captured, out, q, k, v)."""
+    cfg = model.cfg
+    dev = params["embed"]["emb"].device
+    toks = torch.tensor(prompt, dtype=torch.int64, device=dev)[None]
+    x, positions = model._embed(params, {"tokens": toks})
+    p0 = params["blocks"][0]
+    y = S.rmsnorm_apply(p0["ln1"], x, cfg.rms_eps)
+    q, k, v = S.project_qkv(p0["attn"], cfg, y, positions, cfg.n_heads,
+                            cfg.n_kv_heads)
+    torch.cuda.synchronize()
+    build_mod.reset_launches()
+    with build_mod.capture_launches() as captured:
+        out = S.attention(q, k, v, causal=True, policy="fused_dense")
+        torch.cuda.synchronize()
+    launches = dict(build_mod.LAUNCHES)
+    want = {**dict.fromkeys(build_mod.KERNELS, 0), "flash_attention": 1}
+    require(launches == want, f"{label}: ops.attention launches {launches}")
+    ok, err, _ = flash_gate(torch, K, out, q, k, v, True)
+    require(ok, f"{label}: ops.attention's own output against the plain "
+                f"version, max abs err {err}")
+    check_flash(torch, K, captured[0][1], parity, label)
+    return launches, captured, out, q, k, v
+
+
+def parity_k9(torch, K, gen, dev, parity: Parity) -> None:
+    """K9 against its plain version on seeded operands: causal and full,
+    H / Hkv 16/8, 16/16, 16/1, D 128, 64, 32, S 64, 300 (ragged, causal)
+    and 2048, f32 and bf16."""
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for h, hkv in K9_HEADS:
+            for d in K9_DIMS:
+                for s, causals in K9_SEQS:
+                    q = torch.randn((1, s, h, d), generator=gen,
+                                    device=dev).to(dtype)
+                    k = torch.randn((1, s, hkv, d), generator=gen,
+                                    device=dev).to(dtype)
+                    v = torch.randn((1, s, hkv, d), generator=gen,
+                                    device=dev).to(dtype)
+                    for causal in causals:
+                        check_flash(torch, K, (q, k, v, causal), parity,
+                                    f"sweep {str(dtype)[6:]} S {s} H {h}/"
+                                    f"{hkv} D {d} "
+                                    f"{'causal' if causal else 'full'}")
+                        n += 1
+    say(f"[parity] flash_attention: {n} sweep launches agree with the "
+        f"plain version")
+
+
+def time_k9(torch, K, gen, dev, parity: Parity, card: str) -> None:
+    """K9 at B 1, H 16 over Hkv 8, D 128, causal, S in ``K9_TIMING_S``, f32
+    and bf16: its time beside its plain version's, SDPA's (and the backend
+    SDPA took) and its bound (``flash_ops_ms``); beside it, for
+    information, the bound with every operation at the f32 rate, and with
+    every operation at the bf16 tensor-core rate (a wgmma redesign's
+    target)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for s in K9_TIMING_S:
+            q = torch.randn((1, s, 16, 128), generator=gen, device=dev).to(
+                dtype)
+            k = torch.randn((1, s, 8, 128), generator=gen, device=dev).to(
+                dtype)
+            v = torch.randn((1, s, 8, 128), generator=gen, device=dev).to(
+                dtype)
+            args = (q, k, v, True)
+            label = f"timing {str(dtype)[6:]} S {s}"
+            check_flash(torch, K, args, parity, label)
+            reps = max(3, 40960 // s)
+            ms = time_cuda(torch, lambda: K.flash_attention_cuda(*args), reps)
+            plain_ms = time_cuda(torch, lambda: K.attention_ref(
+                q, k, v, causal=True), max(2, reps // 4), warmup=1)
+            sdpa = sdpa_call(torch, *args)
+            sdpa_ms = time_cuda(torch, sdpa, reps)
+            backend = sdpa_backend(torch, *args)
+            nbytes, ops, _ = flash_bound(*args)
+            t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+            t_ops = flash_ops_ms(q, ops)
+            t_f32 = max(t_bytes, ops / PEAK_F32_OPS_PER_S * 1e3)
+            t_tc = max(t_bytes, ops / PEAK_BF16_TC_OPS_PER_S * 1e3)
+            say(f"[timing] flash_attention {str(dtype)[6:]} B 1 S {s} H 16/8 "
+                f"D 128 causal: {ms:.4f} ms; bound {max(t_bytes, t_ops):.4f} "
+                f"ms ({'bytes' if t_bytes >= t_ops else 'operations'}: "
+                f"{nbytes / 1e6:.3f} MB, {ops / 1e9:.3f} GFLOP"
+                + (", QK^T at the bf16 tensor-core rate, PV at the f32 rate"
+                   if dtype == torch.bfloat16 else " at the f32 rate")
+                + f"), roofline share {max(t_bytes, t_ops) / ms:.3f}; plain "
+                f"{plain_ms:.4f} ms; SDPA {sdpa_ms:.4f} ms, backend "
+                f"{backend}; all at the f32 rate {t_f32:.4f} ms, all at the "
+                f"bf16 tensor-core rate {t_tc:.4f} ms [{card}]")
+            del q, k, v, args, sdpa
+            torch.cuda.empty_cache()
+
+
+def phase_softmax(torch, S, K, build_mod, dev, parity: Parity) -> dict:
+    """qwen3-1.7b as published (softmax attention, GQA, qk_norm, RoPE, a
+    KV cache) served through the engine, gated against a direct loop,
+    chunked against blocking prefill, and with an f8 KV pool; K9 on the
+    LM's prefill operands and its parity sweep; the timings. Returns the
+    K9 path for the timing phase's rows."""
+    cfg = S.get_config(LM_ARCH)
+    require(cfg.attention_kind == "softmax" and not cfg.spiking,
+            f"{LM_ARCH} is not the published softmax model")
+    card = gpu_name_and_power()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    model = S.LM(cfg)
+    params = model.init(gen, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in S.tree_leaves(params))
+    kv_gb = (2 * cfg.n_layers * SERVE_ENGINE["max_slots"]
+             * SERVE_ENGINE["max_len"] * cfg.n_kv_heads
+             * cfg.resolved_head_dim * 2 / 1e9)
+    say(f"[softmax] {LM_ARCH} as published: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv of "
+        f"{cfg.resolved_head_dim}, qk_norm {cfg.qk_norm}, RoPE theta "
+        f"{cfg.rope_theta:g}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{str(cfg.dtype)[6:]} activations, {n_params} f32 parameters, "
+        f"bf16 KV pool {kv_gb:.3f} GB; init "
+        f"{time.perf_counter() - t0:.1f} s; card {card}")
+    trace = lm_trace(cfg.vocab_size)
+    zero = dict.fromkeys(build_mod.KERNELS, 0)
+    results = {}
+    for mode, chunk in (("chunked", SERVE_ENGINE["prefill_chunk"]),
+                        ("blocking", 0)):
+        res = results[mode] = run_engine(torch, S, build_mod, model, params,
+                                         None, trace, prefill_chunk=chunk)
+        st = res["stats"]
+        say(f"[softmax] engine {mode} prefill: stats "
+            + json.dumps({k: v for k, v in st.items() if k != "autotune"}))
+        require(res["launches"] == zero, f"softmax engine {mode}: launches "
+                                         f"{res['launches']}")
+        tokens = softmax_direct_loop(torch, S, model, params, trace,
+                                     chunked=chunk > 0)
+        same = sum(a == b for a, b in zip(tokens, res["tokens"]))
+        say(f"[softmax] engine {mode}: tokens equal to the direct "
+            f"{'prefill_chunk' if chunk else 'prefill'} / decode_step loop "
+            f"for {same} of {len(trace)} requests; no kernel launched "
+            f"({st['decode_ticks']} decode ticks, {st['prefill_calls']} "
+            f"prefill calls)")
+        require(same == len(trace), f"softmax engine {mode}: tokens differ "
+                                    f"from the direct loop")
+    same = sum(a == b for a, b in zip(results["chunked"]["tokens"],
+                                      results["blocking"]["tokens"]))
+    say(f"[softmax] engine chunked tokens equal blocking's for {same} of "
+        f"{len(trace)} requests (information; the gate is the f32 "
+        f"variant's)")
+    for what in ("decode", "prefill chunk"):
+        launches, _, _ = capture_tick(torch, S, build_mod, model, params,
+                                      what.split()[0])
+        require(launches == zero, f"softmax {what}: launches {launches}")
+        say(f"[softmax] one {what}: no kernel launched, as in the reference")
+
+    # the f8 KV pool: chunked prefill quantizes once, at the slot write
+    f8_model = S.LM(dataclasses.replace(cfg, kv_dtype="f8_e4m3"))
+    f8 = {mode: run_engine(torch, S, build_mod, f8_model, params, None,
+                           trace[:F8_REQUESTS], prefill_chunk=chunk)
+          for mode, chunk in (("chunked", SERVE_ENGINE["prefill_chunk"]),
+                              ("blocking", 0))}
+    same = sum(a == b for a, b in zip(f8["chunked"]["tokens"],
+                                      f8["blocking"]["tokens"]))
+    say(f"[softmax] f8 e4m3 KV pool: chunked tokens equal blocking's for "
+        f"{same} of {F8_REQUESTS} requests")
+    require(same == F8_REQUESTS, "f8 KV: chunked tokens differ from "
+                                 "blocking's")
+
+    longest = max((p for p, _ in trace), key=len)
+    launches, captured, out, q, k, v = k9_on_lm_operands(
+        torch, S, K, build_mod, model, params, longest, parity,
+        f"{LM_ARCH} layer 0 bf16 prefill of {len(longest)} tokens")
+    full = S.attn_full(q, k, v, cfg.resolved_head_dim ** -0.5, True)
+    say(f"[softmax] K9 against the bf16 _attn_full (weights rounded to bf16 "
+        f"before PV; information only): max abs diff "
+        f"{float((out.float() - full.float()).abs().max()):.3e}")
+    paths = {K9_PATH: (None, None, launches, captured)}
+    chunked_vs_blocking(torch, model, params,
+                        [p for p, _ in trace[:INFO_PROMPTS]],
+                        f"{LM_ARCH} bf16 {cfg.n_layers} layers")
+
+    for mode, res in results.items():
+        st = res["stats"]
+        say(f"[timing] softmax engine {mode}: decode tick p50 "
+            f"{st['decode_tick_p50_s'] * 1e3:.3f} ms, p99 "
+            f"{st['decode_tick_p99_s'] * 1e3:.3f} ms over "
+            f"{st['decode_ticks']} ticks; prefill "
+            f"{'chunk' if mode == 'chunked' else 'call'} p50 "
+            f"{st['prefill_call_p50_s'] * 1e3:.3f} ms over "
+            f"{st['prefill_calls']}; TTFT mean {st['ttft_mean_s']:.3f} s, "
+            f"p50 {res['ttft_p50_s']:.3f} s; {st['tokens']} tokens in "
+            f"{res['wall_s']:.3f} s wall ({st['tok_per_s']:.1f} tokens/s); "
+            f"peak device memory {res['peak_gib']:.3f} GiB, "
+            f"{res['peak_gib'] - res['base_gib']:.3f} GiB above the "
+            f"{res['base_gib']:.3f} GiB allocated before the engine "
+            f"[{card}]")
+    profile_tick(torch, S, build_mod, model, params, "softmax")
+    del params, results, f8, out, q, k, v, full
+    torch.cuda.empty_cache()
+
+    cfg4 = dataclasses.replace(cfg, n_layers=PARITY_LAYERS,
+                               dtype=torch.float32)
+    model4 = S.LM(cfg4)
+    params4 = model4.init(torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+    chunked_vs_blocking(torch, model4, params4, [p for p, _ in trace],
+                        f"{LM_ARCH} {PARITY_LAYERS}-layer f32", tol=1e-4)
+    _, _, out4, q4, k4, v4 = k9_on_lm_operands(
+        torch, S, K, build_mod, model4, params4, longest, parity,
+        f"{LM_ARCH} {PARITY_LAYERS}-layer f32 layer 0 prefill of "
+        f"{len(longest)} tokens")
+    full4 = S.attn_full(q4, k4, v4, cfg.resolved_head_dim ** -0.5, True)
+    err = float((out4 - full4).abs().max())
+    require(torch.allclose(out4, full4, rtol=1e-5, atol=1e-5),
+            f"K9 against _attn_full (f32): max abs err {err}")
+    say(f"[softmax] K9 against _attn_full on the f32 variant's operands: max "
+        f"abs err {err:.3e} (rtol = atol = 1e-5)")
+    del params4, out4, q4, k4, v4, full4
+    torch.cuda.empty_cache()
+
+    kgen = torch.Generator(device=dev).manual_seed(9)
+    parity_k9(torch, K, kgen, dev, parity)
+    time_k9(torch, K, kgen, dev, parity, card)
+    return paths
+
+
 # --------------------------------------------------------------------- main
 def kernels_namespace(torch):
     """The launchers, plain versions and helpers the phases call."""
     from repro_torch.core import events
+    import repro_torch.kernels.flash_attention as flash_attention
     import repro_torch.kernels.fused_pe as fused_pe
     import repro_torch.kernels.lif_update as lif_update
     import repro_torch.kernels.packed as packed
@@ -2499,6 +2942,8 @@ def kernels_namespace(torch):
         vld_map=spike_matmul.vld_map,
         dw_splits=spike_matmul.dw_splits,
         qk_attention_cuda=qk_attention.qk_attention_cuda,
+        flash_attention_cuda=flash_attention.flash_attention_cuda,
+        attention_ref=flash_attention.attention_ref,
         qk_attention_ref=qk_attention.qk_attention_ref,
         lif_update_cuda=lif_update.lif_update_cuda,
         lif_update_ref=lif_update.lif_update_ref,
@@ -2555,19 +3000,29 @@ def main() -> int:
     M = training_namespace()
     dev = torch.device("cuda")
     t_start = time.perf_counter()
+    marks = [t_start]
+
+    def lap(tag: str) -> None:
+        """Print a phase's own seconds beside the running total."""
+        now = time.perf_counter()
+        say(f"[{tag}] done: {now - marks[-1]:.1f} s this phase "
+            f"({now - t_start:.1f} s so far)")
+        marks.append(now)
 
     smi = phase_setup(torch)
     phase_build(_build)
+    lap("build")
     parity = phase_parity(torch, K, dev)
-    say(f"[parity] all kernels agree with their plain versions "
-        f"({time.perf_counter() - t_start:.1f} s so far)")
+    say("[parity] all kernels agree with their plain versions")
+    lap("parity")
     phase_constants(torch, K, dev)
+    lap("constants")
     cfg, fused, images, paths = phase_end_to_end(torch, snn_cnn, _build, dev,
                                                  BATCH)
     for policy in ("fused_dense", "fused_packed"):
         paths[f"{policy} busy"] = paths[policy]
     phase_vgg(torch, snn_cnn, _build, dev, VGG_BATCH)
-    say(f"[e2e] done ({time.perf_counter() - t_start:.1f} s so far)")
+    lap("e2e")
     models, traces = phase_auto(torch, snn_cnn, _build, ops, dev, images,
                                 paths)
     names = tuned_layer_names(cfg, snn_cnn)
@@ -2575,7 +3030,7 @@ def main() -> int:
         say(f"[plans] {label}: the card's plan of each layer per sparsity "
             f"bucket (kernels r/f, skip, block_n)")
         phase_plans(traces[label], names)
-    say(f"[auto] done ({time.perf_counter() - t_start:.1f} s so far)")
+    lap("auto")
     train_paths = phase_training(torch, M, _build, dev, TRAIN_BATCH)
     auto_train = phase_auto_training(torch, M, _build, dev, TRAIN_BATCH,
                                      models["quiet"][0], names)
@@ -2583,7 +3038,7 @@ def main() -> int:
                train_paths["unfused", "fused_dense+grad"],
                *auto_train.values()):
         paths[tp.name] = (None, None, tp.launches[0], tp.captured)
-    say(f"[train] done ({time.perf_counter() - t_start:.1f} s so far)")
+    lap("train")
     paths["explicit skip"] = phase_explicit(
         torch, K, _build, ops, paths,
         auto_train["train fold fused_dense+grad quiet"].captured)
@@ -2595,13 +3050,17 @@ def main() -> int:
                "launched with an explicit skip on the model's operands "
                f"({paths['explicit skip'][2][kernel]} launches)"))
     paths.update(phase_serve(torch, serve_namespace(), _build, dev))
-    say(f"[serve] done ({time.perf_counter() - t_start:.1f} s so far)")
+    lap("serve")
+    paths.update(phase_softmax(torch, serve_namespace(), K, _build, dev,
+                               parity))
+    lap("softmax")
     rows = phase_timing(torch, K, snn_cnn, models, images, paths, parity,
                         ITERS, ops.get_tuner())
     time_training(torch, M, train_paths, TRAIN_BATCH, TRAIN_ITERS)
     time_training(torch, M, {("fold quiet", p.policy): p
                              for p in auto_train.values()},
                   TRAIN_BATCH, TRAIN_ITERS, profile=False)
+    lap("timing")
     say(f"[done] {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": rows}))
     say(smi)

@@ -76,7 +76,10 @@ class ModelConfig:
     attn_q_block: int = 1024
     attn_kv_block: int = 1024
     flash_threshold: int = 8192      # chunked attention above this seq len
-    kv_dtype: str = ""               # "" = activation dtype
+    kv_dtype: str = ""               # "" = activation dtype, or "f8_e4m3"
+    # shard the decode KV cache's sequence axis over this mesh axis (the
+    # reference's context-parallel decode); still to port: "" only
+    decode_cp_axis: str = ""
 
     def __post_init__(self):
         if self.policy is not None:

@@ -46,7 +46,7 @@ def build_model(cfg: ModelConfig):
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"the {cfg.family!r} family ({cfg.name}) is still to port "
-            f"(ROADMAP queue 1 item 6); the port builds {PORTED_FAMILIES}")
+            f"(ROADMAP queue 1 item 4); the port builds {PORTED_FAMILIES}")
     from ..models.lm import LM
     return LM(cfg)
 

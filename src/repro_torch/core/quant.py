@@ -55,7 +55,7 @@ def quantize_fixed(x: torch.Tensor, bits: int = 8,
 def fake_quant(x: torch.Tensor, cfg: QuantConfig, *,
                is_weight: bool = True) -> torch.Tensor:
     """The configured fake-quant (a no-op when disabled). The fp8 modes are
-    still to port (ROADMAP queue 1 item 1) and raise."""
+    still to port (ROADMAP queue 1 item 3) and raise."""
     if not cfg.enabled:
         return x
     if not is_weight and not cfg.quantize_activations:
@@ -67,7 +67,7 @@ def fake_quant(x: torch.Tensor, cfg: QuantConfig, *,
     if cfg.mode.startswith("fp8"):
         raise NotImplementedError(
             f"fake_quant mode {cfg.mode!r} is still to port (ROADMAP queue "
-            f"1 item 1); the int modes are ported")
+            f"1 item 3); the int modes are ported")
     raise ValueError(f"unknown quant mode {cfg.mode!r}")
 
 

@@ -41,7 +41,7 @@ CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 KERNELS = ("lif_update", "fused_pe", "spike_matmul", "w2ttfs_pool",
            "pack_spikes", "unpack_spikes", "spike_matmul_dx",
            "spike_matmul_dw", "qk_attention", "fused_pe_gated",
-           "spike_matmul_gated", "spike_matmul_dw_gated")
+           "spike_matmul_gated", "spike_matmul_dw_gated", "flash_attention")
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 _VOID_P = ctypes.c_void_p
@@ -58,6 +58,7 @@ _SIGNATURES = {
     "repro_spike_matmul_dx": [_VOID_P] * 5 + [_I] * 4 + [_F] * 5 + [_VOID_P],
     "repro_spike_matmul_dw": [_VOID_P] * 8 + [_I] * 6 + [_VOID_P],
     "repro_qk_attention": [_VOID_P] * 3 + [_LL, _I, _F, _I, _VOID_P],
+    "repro_flash_attention": [_VOID_P] * 4 + [_I] * 5 + [_F, _I, _I, _VOID_P],
 }
 
 

@@ -8,7 +8,7 @@ engine, optionally chunk-prefilled (twin of ``repro.launch.serve``).
 Runs on the card unless ``--device`` says otherwise. The weights are
 random, drawn from a ``torch.Generator`` seeded 0 on the run's device.
 ``--replicas`` above 1, ``--chaos`` and ``--integrity-every`` are still to
-port (ROADMAP queue 1 item 6) and raise.
+port (ROADMAP queue 1 item 5) and raise.
 """
 from __future__ import annotations
 
@@ -50,7 +50,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if args.replicas != 1 or args.chaos or args.integrity_every:
         raise NotImplementedError(
             "replica routing, the chaos plan and the integrity guard are "
-            "still to port (ROADMAP queue 1 item 6)")
+            "still to port (ROADMAP queue 1 item 5)")
 
     from .. import resolve_device
     from ..configs import build_model, get_config, reduced as reduce_cfg

@@ -2,7 +2,7 @@
 In spiking mode the SiLU gate becomes a LIF spike, so the hidden
 activation is a binary event map times the up projection. The products
 are plain ``torch.matmul``s, as the reference leaves them to XLA. The
-MoE layers come with the ``moe`` family (ROADMAP queue 1 item 6).
+MoE layers come with the ``moe`` family (ROADMAP queue 1 item 4).
 """
 from __future__ import annotations
 
@@ -33,5 +33,13 @@ def mlp_apply(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         note_spikes("mlp", s)
         h = s * u
     else:
-        h = torch.nn.functional.silu(g) * u
+        h = silu(g) * u
     return dense_apply(p["down"], h)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """x * sigmoid(x) with the sigmoid as 1 / (1 + exp(-x)), each step in
+    x's dtype: at bf16 that rounds where the reference's (XLA's logistic
+    on the CPU) rounds, which ``torch.nn.functional.silu`` (one rounding)
+    does not."""
+    return x * torch.reciprocal(1.0 + torch.exp(-x))

@@ -5,9 +5,9 @@ tensors are [batch, seq, d].
 The paper's spiking mode plugs in here: ``maybe_spike`` turns a
 pre-activation ("membrane current") into a binary spike map with a
 surrogate gradient, the LM analogue of the LIF unit in NEURAL's PEs, and
-``fused_dense_lif`` runs dense(x) -> LIF as one fused PE pass. RoPE,
-``soft_cap`` and ``causal_mask`` come with the softmax attention path
-(ROADMAP queue 1 item 6).
+``fused_dense_lif`` runs dense(x) -> LIF as one fused PE pass. RoPE and
+``causal_mask`` serve the softmax attention path; ``soft_cap``, the
+reference's logit cap, has no caller in either package.
 
 ``spike_log()`` collects, while it is open, the spike totals of every LIF
 map the LM layers emit (``note_spikes``), as device tensors in call order:
@@ -17,6 +17,7 @@ nothing is counted.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import Iterator, Optional
 
@@ -123,6 +124,39 @@ def embedding_logits(p: dict, x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.float32) @ p["emb"].to(torch.float32).T
 
 
+# --------------------------------------------------------------------- RoPE
+def rope_freqs(head_dim: int, theta: float) -> torch.Tensor:
+    """[head_dim / 2] f32 inverse frequencies, made on the CPU (a CUDA
+    division by a Python scalar multiplies by its reciprocal, which would
+    round differently)."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32) / head_dim
+    p = torch.pow(torch.tensor(theta, dtype=torch.float32), exps)
+    return p.new_tensor(1.0) / p
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_freqs_on(head_dim: int, theta: float,
+                   device: torch.device) -> torch.Tensor:
+    """``rope_freqs`` moved to ``device`` once: a copy from host memory
+    waits for the device's queue, which a copy every layer would drain."""
+    return rope_freqs(head_dim, theta).to(device)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: [B, S, H, Dh]; positions: [B, S] (or [S]) int.
+
+    Angles, cos and sin are computed in f32; the rotation runs in x's
+    dtype, with cos and sin cast to it first, as the reference does."""
+    dh = x.shape[-1]
+    freqs = _rope_freqs_on(dh, theta, x.device)          # [Dh/2]
+    angles = positions[..., None].to(torch.float32) * freqs
+    cos = torch.cos(angles)[..., None, :].to(x.dtype)    # [B,S,1,Dh/2]
+    sin = torch.sin(angles)[..., None, :].to(x.dtype)
+    x1, x2 = x[..., :dh // 2], x[..., dh // 2:]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
 # ------------------------------------------------------------- spiking hook
 def maybe_spike(x: torch.Tensor, spiking: bool, lif: LIFConfig) -> torch.Tensor:
     """The paper's LIF activation as an LM drop-in: binary spikes with a
@@ -141,3 +175,18 @@ def fused_dense_lif(p: dict, x: torch.Tensor, lif: LIFConfig, *, q=None,
     x), True, lif)`` where the sums agree."""
     return ops.dense_lif(p, x, lif, q=q, qk_threshold=qk_threshold,
                          policy=ops.FUSED_DENSE if policy is None else policy)
+
+
+# ------------------------------------------------------------- misc numerics
+def soft_cap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    return cap * torch.tanh(x / cap)
+
+
+def causal_mask(sq: int, sk: int, q_offset: int = 0,
+                dtype: torch.dtype = torch.float32,
+                device=None) -> torch.Tensor:
+    """[sq, sk] additive mask: query i attends to keys <= i + q_offset;
+    the others get -1e30 (finite, so a fully masked row stays finite)."""
+    qi = torch.arange(sq, device=device)[:, None] + q_offset
+    ki = torch.arange(sk, device=device)[None, :]
+    return torch.where(ki <= qi, 0.0, -1e30).to(dtype)

@@ -1,7 +1,8 @@
 """Decoder-only LM of the model zoo, the ``dense`` family (twin of
-``repro.models.lm``): GQA attention (here the spiking QKFormer token
-attention, ``attention_kind="qk_spiking"``) and a SwiGLU MLP per block,
-RMSNorm, a tied or separate read-out.
+``repro.models.lm``): GQA attention (softmax attention with RoPE and a KV
+cache, or the spiking QKFormer token attention,
+``attention_kind="qk_spiking"``) and a SwiGLU MLP per block, RMSNorm, a
+tied or separate read-out.
 
 Execution modes: ``prefill`` (logits and the cache of a whole prompt),
 ``prefill_chunk`` (C more tokens against a cache: the serving engine's
@@ -10,12 +11,17 @@ token for every sequence of a slot pool). A Python loop over the layers
 takes the place of the reference's ``lax.scan``; the parameters keep one
 dict per block in ``params["blocks"]`` (``convert.lm_params_from_jax``
 unstacks the reference's stacked blocks). The cache keeps the reference's
-stacked layout, ``{"layers": (k [L, B, S, Hkv, Dh], v [...]), "len"}``;
-under ``qk_spiking`` both are empty (S = 0), except that a packed policy
-keeps each slot's packed spike state in k, [L, B, 1, 1, W] int32.
+stacked layout, ``{"layers": (k [L, B, S, Hkv, Dh], v [...]), "len"}``.
+Under softmax attention k and v hold the keys (after RoPE) and values in
+``cfg.dtype``, or in ``torch.float8_e4m3fn`` when ``kv_dtype="f8_e4m3"``;
+``decode_step`` and ``prefill_chunk`` write the new rows into the cache's
+tensors in place and return the same tensors (the engine's slot pool is
+one preallocated tensor, never copied a tick). Under ``qk_spiking`` both
+are empty (S = 0), except that a packed policy keeps each slot's packed
+spike state in k, [L, B, 1, 1, W] int32, made anew each call.
 
-The other families (moe, ssm, hybrid, vlm, encdec) and the softmax
-attention are still to port (ROADMAP queue 1 item 6).
+The other families (moe, ssm, hybrid, vlm, encdec) are still to port
+(ROADMAP queue 1 item 4), and so is LM training (item 2).
 """
 from __future__ import annotations
 
@@ -101,7 +107,7 @@ class LM:
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"the {cfg.family!r} family is still to port (ROADMAP queue "
-                f"1 item 6); the port's LM runs the dense family")
+                f"1 item 4); the port's LM runs the dense family")
         self.cfg = cfg
 
     # ------------------------------------------------------------------ init
@@ -197,23 +203,31 @@ class LM:
         logits = self._logits(params, x)
         if not all_logits:
             logits = logits[:, 0, :]
-        return logits, {"layers": _stack_layers(entries),
-                        "len": cache_len + tokens.shape[1]}
+        # softmax attention wrote its rows into the pool's own tensors
+        layers = (_stack_layers(entries) if cfg.attention_kind == "qk_spiking"
+                  else (k_pool, v_pool))
+        return logits, {"layers": layers, "len": cache_len + tokens.shape[1]}
 
     # ------------------------------------------------------------ cache spec
     def init_cache(self, batch_size: int, max_len: int,
                    device: DeviceLike = None) -> dict:
-        """Zero cache on ``device`` (the card unless told otherwise)."""
+        """Zero cache on ``device`` (the card unless told otherwise): under
+        softmax attention k and v of [L, B, max_len, Hkv, Dh] in the KV
+        dtype."""
         cfg = self.cfg
-        if cfg.attention_kind != "qk_spiking":
-            raise NotImplementedError(
-                "the softmax attention's KV cache is still to port (ROADMAP "
-                "queue 1 item 6)")
         dev = resolve_device(device)
         dh = cfg.resolved_head_dim
         hkv = cfg.n_kv_heads or cfg.n_heads
         lead = cfg.n_layers
-        empty = torch.zeros((lead, batch_size, 0, hkv, dh), dtype=cfg.dtype,
+        kv_dtype = (torch.float8_e4m3fn if cfg.kv_dtype == "f8_e4m3"
+                    else cfg.dtype)
+        if cfg.attention_kind != "qk_spiking":
+            shp = (lead, batch_size, max_len, hkv, dh)
+            return {"layers": (torch.zeros(shp, dtype=kv_dtype, device=dev),
+                               torch.zeros(shp, dtype=kv_dtype, device=dev)),
+                    "len": torch.tensor(max(max_len - 1, 0),
+                                        dtype=torch.int32, device=dev)}
+        empty = torch.zeros((lead, batch_size, 0, hkv, dh), dtype=kv_dtype,
                             device=dev)
         k = empty
         if cfg.exec_policy.packed:
@@ -222,7 +236,8 @@ class LM:
             k = torch.zeros((lead, batch_size, 1, 1,
                              qk_spike_state_width(cfg)), dtype=torch.int32,
                             device=dev)
-        # len = max_len - 1: the cache is "full", as the reference has it
+        # len = max_len - 1: the cache is "full", as the reference has it:
+        # the next token writes the last row
         return {"layers": (k, empty),
                 "len": torch.tensor(max(max_len - 1, 0), dtype=torch.int32,
                                     device=dev)}

@@ -12,9 +12,9 @@
 """
 from ..core.events import DEFAULT_BLOCKS, Blocks
 from .autotune import AutoTuner, KernelPlan, get_tuner
-from .dispatch import (FusedOut, conv_matmul_weights, dense_lif, fused_pe,
-                       fused_pe_layer, im2col, lif, matmul, pack, pool,
-                       qk_mask, unpack, w2ttfs_head)
+from .dispatch import (FusedOut, attention, conv_matmul_weights, dense_lif,
+                       fused_pe, fused_pe_layer, im2col, lif, matmul, pack,
+                       pool, qk_mask, unpack, w2ttfs_head)
 from .policy import (AUTO, AUTO_PACKED, FUSED_DENSE, FUSED_PACKED, POLICIES,
                      REFERENCE, ExecutionPolicy, as_policy,
                      merge_engine_policy, with_policy)
@@ -32,4 +32,5 @@ __all__ = [
     "pool",
     "im2col",
     "conv_matmul_weights", "qk_mask", "pack", "unpack", "w2ttfs_head",
+    "attention",
 ]

@@ -298,11 +298,23 @@ def dense_lif(p: dict, x: torch.Tensor, lif_cfg: LIFConfig, *,
     if pol.differentiable:
         raise NotImplementedError(
             "dense_lif under a '+grad' policy (LM training through the "
-            "fused PE) is still to port (ROADMAP queue 1 item 6)")
+            "fused PE) is still to port (ROADMAP queue 1 item 2)")
     return lookup("dense_lif", pol.mode)(p, flat, lif_cfg, q=qs,
                                          qk_threshold=qk_threshold,
                                          fmt=pol.format, heads=heads,
                                          kv_heads=kv_heads)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, q_block: int = 512, kv_block: int = 512,
+              policy: PolicyLike = None) -> torch.Tensor:
+    """Streaming causal (or full) softmax attention over q [B, S, H, Dh]
+    and grouped k, v [B, S, Hkv, Dh]: the non-spiking side of the hybrid
+    flow, registered by the ``flash_attention`` kernel family."""
+    pol = _non_tuned(_policy_for(policy))
+    return lookup("attention", pol.kernels)(q, k, v, causal=causal,
+                                            q_block=q_block,
+                                            kv_block=kv_block)
 
 
 def w2ttfs_head(spikes: torch.Tensor, fc_w: torch.Tensor,

@@ -28,7 +28,7 @@ hand-written kernels on CUDA tensors and run their plain versions on CPU
 tensors. Spike operands arrive dense f32 (autograd connectivity) and spike
 outputs leave dense f32; a packed-format forward packs and unpacks inside
 the primal only. T > 1 state (ROADMAP queue 2, K2 ``with_state``), and
-the head-blocked masks and ``dense_lif`` of LM training (queue 1 item 6)
+the head-blocked masks and ``dense_lif`` of LM training (queue 1 item 2)
 are still to port and have no entry.
 """
 from __future__ import annotations
@@ -292,7 +292,7 @@ def _fused_pe_impl(kernels: str):
         if heads is not None:
             raise NotImplementedError(
                 "the differentiable head-blocked QK mask is still to port, "
-                "with LM training (ROADMAP queue 1 item 6)")
+                "with LM training (ROADMAP queue 1 item 2)")
         x, w_, b = _dense_operand(st), _f32(w), _f32(bias)
         res = None if residual is None else _dense_operand(residual)
         q_ = None if q is None else _dense_operand(q)

@@ -29,6 +29,8 @@ from ..core.events import (DEFAULT_BLOCKS, LANE_BITS, PackedSpikes,
 from ..core.lif import LIFConfig, lif_forward
 # the registry is where the kernel wrappers are bound, so it imports them
 # neurallint: disable=NL-REGISTRY-BYPASS
+from ..kernels.flash_attention import attention_ref, flash_attention
+# neurallint: disable=NL-REGISTRY-BYPASS
 from ..kernels.fused_pe import fused_pe, fused_pe_ref, head_gate
 # neurallint: disable=NL-REGISTRY-BYPASS
 from ..kernels.lif_update import lif_update, lif_update_ref
@@ -302,6 +304,18 @@ def _qk_mask_fused(q: torch.Tensor, k: torch.Tensor, threshold: float):
 @register("qk_mask", "reference")
 def _qk_mask_ref(q: torch.Tensor, k: torch.Tensor, threshold: float):
     return qk_attention_ref(q, k, threshold=threshold)
+
+
+# ============================================================ flash_attention
+@register("attention", "fused")
+def _attention_fused(q, k, v, *, causal, q_block, kv_block):
+    return flash_attention(q, k, v, q_block=q_block, kv_block=kv_block,
+                           causal=causal)
+
+
+@register("attention", "reference")
+def _attention_ref(q, k, v, *, causal, q_block, kv_block):
+    return attention_ref(q, k, v, causal=causal)
 
 
 # ============================================================ spatial reshapes

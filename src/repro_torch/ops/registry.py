@@ -16,7 +16,6 @@ _LOADED = False
 
 # ops whose kernel is still to port -> its ROADMAP queue 2 item
 _FUSED_TODO = {
-    "attention": "K9",
     "fused_pe": "K2 (the 2-D inference entry; ops.fused_pe_layer has it)",
 }
 
@@ -50,7 +49,7 @@ def lookup(op: str, mode: str) -> Callable:
                 f"{_FUSED_TODO[op]})")
     elif mode.endswith("+grad"):
         hint = (" — its differentiable form is still to port (ROADMAP "
-                "queue 1 item 6 for the LM ops)")
+                "queue 1 item 2 for the LM ops)")
     else:
         hint = ""
     raise NotImplementedError(

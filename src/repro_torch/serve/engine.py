@@ -9,6 +9,9 @@ an elastic-FIFO chunked-prefill pipeline (twin of ``repro.serve.engine``).
     reads.
   * completion (EOS or ``max_new``) frees the slot; queued requests are
     admitted on the next tick.
+  * softmax models keep each slot's KV rows in the pool (``cfg.dtype``, or
+    f8 e4m3 with ``kv_dtype="f8_e4m3"``); decode writes the new row of
+    every slot in place.
   * spiking QKFormer models (``attention_kind="qk_spiking"``) keep no KV
     cache (their masks are token-local): under a packed policy each slot
     keeps its last token's masked spike map, packed, and the engine reads
@@ -22,14 +25,15 @@ blocking ``submit`` donates engine ticks until a place frees; sampled
 tokens stream into a per-request output FIFO (``pop_output``), and with
 ``out_fifo_depth`` a slot whose consumer stops draining is stalled (its
 cache row restored after the pool decode, its token fed again next tick)
-while the others keep decoding.
+while the others keep decoding (its rows are copied aside before the
+tick and written back after it).
 
 Sampling is greedy or by temperature, from the engine's own
 ``torch.Generator`` (seeded by ``rng_seed``; the reference draws from
 ``jax.random``, so the two agree only on greedy requests). The cache pool
 is updated in place. The fault plan, the integrity guard with its
 quarantine, and the replica router are still to port (ROADMAP queue 1
-item 6): asking for them raises.
+item 5): asking for them raises.
 """
 from __future__ import annotations
 
@@ -46,7 +50,7 @@ from .. import ops
 from ..core.events import popcount32
 from ..models.lm import param_device
 
-_UNPORTED = ("is still to port (ROADMAP queue 1 item 6: serving faults, "
+_UNPORTED = ("is still to port (ROADMAP queue 1 item 5: serving faults, "
              "the integrity guard and the replica router)")
 
 
@@ -330,6 +334,14 @@ class Engine:
         bucket = self._bucket_len(len(req.prompt))
         cache = self.model.init_cache(1, bucket, device=self.device)
         cache["len"] = torch.zeros((), dtype=torch.int32, device=self.device)
+        if self.model.cfg.kv_dtype:
+            # chunk attention reads back the prefix it wrote: keep the
+            # request's cache at compute precision and quantize once at
+            # _write_slot, where the blocking path does
+            dt = self.model.cfg.dtype
+            cache["layers"] = tuple(
+                a.to(dt) if a.dtype == torch.float8_e4m3fn else a
+                for a in cache["layers"])
         self.prefill_fifo.append(_PrefillJob(req, slot, cache, bucket))
         self._prefill_fifo_hwm = max(self._prefill_fifo_hwm,
                                      len(self.prefill_fifo))
@@ -381,17 +393,25 @@ class Engine:
 
     # ---------------------------------------------------------- cache moves
     def _write_slot(self, slot: int, prefill_cache: dict) -> None:
-        """Copy one request's prefill cache into its slot row (in place)."""
+        """Copy one request's prefill cache into its slot row (in place),
+        in the pool's dtype: KV rows quantized here when the pool is f8."""
         for pool, new in zip(self.cache["layers"], prefill_cache["layers"]):
             if new.shape[-3] == 0:          # qk_spiking: stateless
                 continue
             pool[:, slot:slot + 1, :new.shape[-3]] = new.to(pool.dtype)
 
-    def _restore_slot(self, slot: int, prev_layers: tuple) -> None:
-        """Copy one slot's rows back from the pre-decode cache, so a
-        stalled slot's tick leaves its state as it was."""
-        for pool, prev in zip(self.cache["layers"], prev_layers):
-            pool[:, slot:slot + 1] = prev[:, slot:slot + 1]
+    def _snapshot_slots(self, slots: set) -> dict:
+        """A copy of each slot's rows in every pool, taken before a decode
+        that writes the pool in place."""
+        return {slot: tuple(pool[:, slot:slot + 1].clone()
+                            for pool in self.cache["layers"])
+                for slot in slots}
+
+    def _restore_slot(self, slot: int, saved: tuple) -> None:
+        """Write one slot's rows back from its snapshot, so a stalled
+        slot's tick leaves its state as it was."""
+        for pool, prev in zip(self.cache["layers"], saved):
+            pool[:, slot:slot + 1] = prev
 
     def _sample(self, logits: torch.Tensor, req: Request,
                 greedy: Optional[int]) -> int:
@@ -433,7 +453,7 @@ class Engine:
         # per-slot length vector: every slot sees exactly its own prefix
         self.cache["len"] = torch.tensor(self.slot_len, dtype=torch.int32,
                                          device=self.device)
-        prev_layers = self.cache["layers"] if stalled else None
+        saved = self._snapshot_slots(stalled)
         t0 = time.perf_counter()
         logits, self.cache = self.model.decode_step(
             self.params, self._tokens(toks), self.cache)
@@ -446,7 +466,7 @@ class Engine:
             for slot in stalled:
                 # greedy: the state rolls back and the same token is fed
                 # again next tick, once the FIFO drains
-                self._restore_slot(slot, prev_layers)
+                self._restore_slot(slot, saved[slot])
         done_slots = []
         for slot, req in list(self.active.items()):
             if slot in stalled:

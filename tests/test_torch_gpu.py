@@ -14,9 +14,11 @@ import torch
 
 pytestmark = pytest.mark.gpu
 
-# the KD training kernels, which an inference forward never launches, and
-# the gated routes, which only the auto policies or an explicit skip launch
+# the KD training kernels, which an inference forward never launches, the
+# softmax attention kernel, which only ops.attention launches, and the
+# gated routes, which only the auto policies or an explicit skip launch
 NO_BACKWARD = {"spike_matmul_dx": 0, "spike_matmul_dw": 0, "qk_attention": 0,
+               "flash_attention": 0,
                "fused_pe_gated": 0, "spike_matmul_gated": 0,
                "spike_matmul_dw_gated": 0}
 
@@ -659,3 +661,114 @@ def test_spiking_lm_decode_launches_the_kernels(cuda):
             diff = (got[policy][1][kind] - tot).abs()
             assert bool((diff <= (tot // 1000).clamp_min(1)).all()), (
                 policy, kind)
+
+
+# ------------------------------------------------ K9: softmax attention
+# (s, h, hkv, d, causal): H/Hkv 16/8, 16/16 and 16/1; D 128, 64 and 32; S
+# 64, a ragged causal 300 and 2048
+FLASH_CASES = [
+    (64, 16, 8, 128, True), (64, 16, 16, 64, False), (64, 16, 1, 32, True),
+    (300, 16, 8, 128, True), (300, 16, 1, 64, True), (300, 16, 16, 32, True),
+    (2048, 16, 8, 128, True), (2048, 16, 16, 64, False),
+    (2048, 16, 1, 32, True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,h,hkv,d,causal", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(cuda, s, h, hkv, d, causal,
+                                              dtype):
+    """K9 against its plain version's f32 result (before it rounds to q's
+    dtype): rtol 1e-5, atol 1e-5 (IEEE f32 sums in another order), and in
+    bf16 half a bf16 ulp more (rtol 2**-8 + 1e-5) for the output's one
+    rounding to nearest; causal or full, grouped KV, a ragged sequence."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as K
+
+    gen = torch.Generator(device=cuda).manual_seed(s + d + hkv)
+    q = torch.randn((1, s, h, d), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((1, s, hkv, d), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((1, s, hkv, d), generator=gen, device=cuda).to(dtype)
+    _build.reset_launches()
+    out = K.flash_attention(q, k, v, causal=causal, q_block=s, kv_block=s)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention"] == 1
+    ref = K.attention_ref(q.float(), k.float(), v.float(), causal=causal)
+    rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -8 + 1e-5
+    assert out.dtype == dtype and bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out.float(), ref, rtol=rtol, atol=1e-5)
+
+
+def test_flash_attention_kernel_refuses_what_it_cannot_take(cuda):
+    from repro_torch.kernels import flash_attention as K
+
+    q = torch.zeros((1, 8, 2, 256), device=cuda)
+    with pytest.raises(ValueError, match="head dim 256"):
+        K.flash_attention(q, q, q)
+    q = torch.zeros((1, 8, 2, 16), device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        K.flash_attention(q, q, q)
+
+
+def _direct_softmax(model, params, prompt, chunk, max_new, dev):
+    """One request the way a one-slot engine runs it, with its shapes:
+    the prompt padded to its 8-token bucket, prefilled whole or in chunks,
+    its rows written into a pool of max_len 32, then decode steps with a
+    [1] length vector."""
+    s = len(prompt)
+    bucket = -(-s // 8) * 8
+    toks = torch.zeros((1, bucket), dtype=torch.int64, device=dev)
+    toks[0, :s] = torch.tensor(prompt, device=dev)
+    if chunk:
+        cache = model.init_cache(1, bucket, device=dev)
+        cache["len"] = torch.zeros((), dtype=torch.int32, device=dev)
+        for lo in range(0, bucket, chunk):
+            logits, cache = model.prefill_chunk(params, toks[:, lo:lo + chunk],
+                                                cache)
+            if lo <= s - 1 < lo + chunk:
+                first = logits[0, s - 1 - lo]
+    else:
+        logits, cache = model.prefill(params, {"tokens": toks},
+                                      return_all_logits=True)
+        first = logits[0, s - 1]
+    pool = model.init_cache(1, 32, device=dev)
+    for dst, src in zip(pool["layers"], cache["layers"]):
+        dst[:, :, :bucket] = src
+    out = [int(first.argmax())]
+    for i in range(max_new - 1):
+        pool["len"] = torch.tensor([s + i], dtype=torch.int32, device=dev)
+        lg, pool = model.decode_step(
+            params, torch.tensor([[out[-1]]], device=dev), pool)
+        out.append(int(lg[0].argmax()))
+    return out
+
+
+@pytest.mark.parametrize("chunk", [0, 4])
+def test_softmax_engine_on_the_card_equals_a_direct_loop(cuda, chunk):
+    """A few ticks of the reduced softmax qwen3-1.7b (bf16 activations,
+    one slot) through the engine on the card give a direct prefill /
+    decode loop's greedy tokens at the engine's shapes; the softmax LM
+    launches no kernel of the port (its products are cuBLAS, as the
+    reference's are XLA's)."""
+    import numpy as np
+
+    from repro_torch.configs import build_model, get_config, reduced
+    from repro_torch.kernels import _build
+    from repro_torch.serve import Engine, EngineConfig
+
+    cfg = reduced(get_config("qwen3-1.7b"), dtype=torch.bfloat16)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0),
+                        device=cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)) for n in (5, 11, 3)]
+    _build.reset_launches()
+    eng = Engine(model, params, EngineConfig(
+        max_slots=1, max_len=32, prefill_pad=8, prefill_chunk=chunk))
+    uids = [eng.submit(p, max_new=5) for p in prompts]
+    fin = {r.uid: r.out for r in eng.run_until_drained()}
+    torch.cuda.synchronize()
+    assert not any(_build.LAUNCHES.values())
+    want = [_direct_softmax(model, params, p, chunk, 5, cuda)
+            for p in prompts]
+    assert [fin[u] for u in uids] == want

@@ -23,6 +23,7 @@ from repro_torch.configs import build_model, get_config, reduced
 from repro_torch.core.lif import LIFConfig
 from repro_torch.launch.serve import main as serve_main
 from repro_torch.models import snn_cnn
+from repro_torch.models.attention import attn_apply
 from repro_torch.serve import Engine, EngineConfig
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -161,6 +162,8 @@ def _unported():
     variables = snn_cnn.init(torch.Generator(), cfg, device="cpu")
     lm_softmax = build_model(reduced(get_config("qwen3-1.7b")))
     lm_softmax_params = lm_softmax.init(torch.Generator(), device="cpu")
+    lm_softmax_cp = build_model(reduced(get_config("qwen3-1.7b"),
+                                        decode_cp_axis="data"))
     lm_spiking = build_model(reduced(get_config(
         "qwen3-1.7b", spiking=True, attention_kind="qk_spiking")))
     lm_spiking_params = lm_spiking.init(torch.Generator(), device="cpu")
@@ -215,11 +218,14 @@ def _unported():
             reduced(get_config("phi-3-vision-4.2b"))),
         "lm family encdec": lambda: build_model(
             reduced(get_config("seamless-m4t-large-v2"))),
-        "lm softmax attention prefill": lambda: lm_softmax.prefill(
-            lm_softmax_params, {"tokens": torch.zeros((1, 4),
-                                                      dtype=torch.int64)}),
-        "lm softmax attention cache": lambda: lm_softmax.init_cache(
-            1, 8, device="cpu"),
+        "lm softmax context-parallel decode":
+            lambda: lm_softmax_cp.decode_step(
+                lm_softmax_params, torch.zeros((1, 1), dtype=torch.int64),
+                lm_softmax_cp.init_cache(1, 8, device="cpu")),
+        "lm softmax kv_override": lambda: attn_apply(
+            lm_softmax_params["blocks"][0]["attn"], lm_softmax.cfg,
+            torch.zeros((1, 2, 64)), torch.zeros((1, 2), dtype=torch.int64),
+            kv_override=(torch.zeros((1, 2, 2, 16)),) * 2),
         "engine fault plan": lambda: Engine(
             lm_spiking, lm_spiking_params, EngineConfig(), faults=object()),
         "engine integrity guard": lambda: EngineConfig(integrity_every=1),

@@ -1,7 +1,8 @@
 """The port's continuous-batching engine on the CPU, serving the reduced
-spiking qwen3-1.7b (``attention_kind="qk_spiking"``), against the JAX
-package's engine on the same parameters and trace, and against a direct
-``prefill`` / ``decode_step`` loop of the port.
+spiking qwen3-1.7b (``attention_kind="qk_spiking"``) and the reduced
+softmax qwen3-1.7b and qwen2.5-3b (KV cache in the slot pool), against the
+JAX package's engine on the same parameters and trace, and against a
+direct ``prefill`` / ``decode_step`` loop of the port.
 
 Greedy decoding is deterministic, so the engines must agree token for
 token (this mirrors ``tests/test_serve_engine.py`` and
@@ -235,3 +236,134 @@ def test_launch_serve_runs_reduced_on_the_cpu():
                      "--prefill-chunk", "8", "--device", "cpu"])
     assert st["n"] == 3 and st["policy"] == "fused_packed"
     assert st["device"] == "cpu" and st["decode_ticks_measured"] > 0
+
+
+# --------------------------------------------------------- softmax models
+_SOFTMAX: dict = {}
+
+
+def softmax_models(arch: str = "qwen3-1.7b", **over):
+    """(JAX model, JAX params, port model, port params) of the reduced
+    softmax ``arch`` (f32, with ``over`` applied to both configs)."""
+    key = (arch, tuple(sorted(over.items())))
+    if key not in _SOFTMAX:
+        jm = jbuild(jreduced(jget(arch), **over))
+        jp = jm.init(jax.random.PRNGKey(0))
+        tm = build_model(reduced(get_config(arch), **over))
+        tp = convert.lm_params_from_jax(
+            jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+        _SOFTMAX[key] = (jm, jp, tm, tp)
+    return _SOFTMAX[key]
+
+
+@pytest.mark.parametrize("chunk", [0, 4])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "qwen2.5-3b"])
+def test_softmax_engine_tokens_equal_jax_engine(arch, chunk):
+    """More requests than slots, blocking and chunked prefill: the softmax
+    engine's greedy tokens are JAX's, request by request."""
+    jm, jp, tm, tp = softmax_models(arch)
+    prompts = trace(seed=6)
+    jout, _ = run(JEngine, JEngineConfig, jm, jp, prompts,
+                  prefill_chunk=chunk)
+    tout, eng = run(Engine, EngineConfig, tm, tp, prompts,
+                    prefill_chunk=chunk)
+    assert tout == jout
+    st = eng.stats()
+    assert st["n"] == len(prompts) and st["policy"] == "reference"
+    assert st["prefill_mode"] == ("chunked" if chunk else "blocking")
+
+
+@pytest.mark.parametrize("chunk", [0, 4])
+def test_softmax_engine_equals_a_direct_loop(chunk):
+    _, _, tm, tp = softmax_models()
+    prompts = trace(n=4, seed=7)
+    tout, _ = run(Engine, EngineConfig, tm, tp, prompts, prefill_chunk=chunk)
+    want = [_direct_greedy(tm, tp, p, (4, 6)[i % 2])
+            for i, p in enumerate(prompts)]
+    assert tout == want
+
+
+def test_softmax_kv_rows_are_written_into_the_slot_row():
+    """After a blocking prefill the slot row of the pool holds the
+    prefill's K/V rows of the prompt's bucket; the other slot stays 0."""
+    _, _, tm, tp = softmax_models()
+    prompt = trace(n=1, seed=8)[0]
+    eng = Engine(tm, tp, EngineConfig(max_slots=2, max_len=32, prefill_pad=8))
+    eng.submit(prompt, max_new=2)
+    eng._admit()
+    slot = next(iter(eng.active))
+    k_pool, v_pool = eng.cache["layers"]
+    cfg = tm.cfg
+    assert tuple(k_pool.shape) == (cfg.n_layers, 2, 32, cfg.n_kv_heads,
+                                   cfg.resolved_head_dim)
+    bucket = -(-len(prompt) // 8) * 8
+    toks = np.zeros((1, bucket), np.int64)
+    toks[0, :len(prompt)] = prompt
+    _, cache = tm.prefill(tp, {"tokens": torch.tensor(toks)})
+    assert torch.equal(k_pool[:, slot, :bucket], cache["layers"][0][:, 0])
+    assert torch.equal(v_pool[:, slot, :bucket], cache["layers"][1][:, 0])
+    assert int(k_pool[:, slot, bucket:].ne(0).sum()) == 0
+    assert int(k_pool[:, 1 - slot].ne(0).sum()) == 0
+
+
+def test_softmax_f8_kv_chunked_equals_blocking():
+    """An f8 serving pool (``kv_dtype="f8_e4m3"``): chunked prefill keeps
+    each request's chunk cache at compute precision and quantizes once at
+    the slot write, where the blocking path does, so the tokens are the
+    blocking engine's (``tests/test_serve_engine.py``'s f8 case) and
+    JAX's."""
+    jm, jp, tm, tp = softmax_models(kv_dtype="f8_e4m3")
+    prompts = trace(n=3, seed=5, lens=(3, 14))
+    blocking, eng = run(Engine, EngineConfig, tm, tp, prompts)
+    chunked, _ = run(Engine, EngineConfig, tm, tp, prompts, prefill_chunk=8)
+    assert chunked == blocking
+    assert all(t.dtype == torch.float8_e4m3fn for t in eng.cache["layers"])
+    jout, _ = run(JEngine, JEngineConfig, jm, jp, prompts, prefill_chunk=8)
+    assert chunked == jout
+
+
+def test_softmax_out_fifo_stall_keeps_the_tokens():
+    """A lazy consumer stalls slots on their full output FIFO; the decode
+    writes the pool in place, so a stalled slot's rows are copied aside
+    before the tick and written back after it: the tokens are unchanged,
+    and a stalled tick leaves its rows as they were."""
+    _, _, tm, tp = softmax_models()
+    prompts = trace(n=4, seed=9)
+    want, _ = run(Engine, EngineConfig, tm, tp, prompts)
+    eng = Engine(tm, tp, EngineConfig(max_slots=2, max_len=32, prefill_pad=8,
+                                      out_fifo_depth=2))
+    uids = [eng.submit(p, max_new=(4, 6)[i % 2])
+            for i, p in enumerate(prompts)]
+    got = {u: [] for u in uids}
+    checked = 0
+    for t in range(500):
+        stalled = eng._stalled_slots()
+        if stalled and len(stalled) < len(eng.active):
+            before = {s: [p[:, s].clone() for p in eng.cache["layers"]]
+                      for s in stalled}
+        else:
+            before = {}
+        eng.step()
+        for s, rows in before.items():
+            for pool, row in zip(eng.cache["layers"], rows):
+                assert torch.equal(pool[:, s], row)
+            checked += 1
+        for i, u in enumerate(uids):     # even requests drained each tick
+            if i % 2 == 0 or t % 4 == 3:
+                got[u] += eng.pop_output(u)
+        if not eng.pending():
+            break
+    for u in uids:
+        got[u] += eng.pop_output(u)
+    assert [got[u] for u in uids] == want
+    assert eng.stats()["stall_ticks"] > 0 and checked > 0
+
+
+def test_launch_serve_runs_the_softmax_model_on_the_cpu():
+    from repro_torch.launch import serve
+
+    st = serve.main(["--reduced", "--requests", "3", "--max-new", "3",
+                     "--slots", "2", "--max-len", "32", "--prefill-chunk",
+                     "8", "--device", "cpu"])
+    assert st["n"] == 3 and st["tokens"] == 9
+    assert st["device"] == "cpu" and st["prefill_mode"] == "chunked"
