@@ -16,16 +16,23 @@ Phases, in order; any failure raises and the script exits non-zero:
              silent row blocks, at the main paths' shapes plus ragged ones:
              the int8 (``fused_dense``) operands, then the packed ones of
              ``fused_packed`` (pack and unpack bit-equal, round trip exact;
-             the packed fused PE and spike-matmul variants), then the
+             the packed fused PE and spike-matmul variants), then the fused
+             PE's LIF state (T > 1) at every int8 pass shape: v_prev ~
+             randn, s_prev ~ Bernoulli(0.5), hard and soft reset, tau 0.5
+             and 0.7, int8 and packed x / spike residual / q / out, with and
+             without the emitted current, each packed launch bit-equal to
+             the int8 launch; then the
              KD training's: the dx kernel with and without the membrane
-             current for all four surrogates, the dw kernel (bit-equal on a
-             second launch, silent tiles contributing exactly 0), the QK
+             current for all four surrogates, the dw kernel on int8 and on
+             packed x (bit-equal on a second launch and to the int8 launch,
+             silent tiles contributing exactly 0), the QK
              mask kernel (bit-equal) and the fused PE's emitted current
              (its spikes exactly its own current thresholded); then the
              gated and two-level routes of the spike matmul (int8 and
              packed x), the fused PE (int8 in/out with residual, q and
-             emitted current; packed in/out with packed residual and q)
-             and dw, at silent-block fractions {0, 0.5, 0.9, 1.0} with a
+             emitted current; packed in/out with packed residual and q;
+             both also with the LIF state) and dw (int8 and packed x), at
+             silent-block fractions {0, 0.5, 0.9, 1.0} with a
              fully silent row block and clustered silent stripes, on 128-
              and 256-wide blocks: each against its plain version and bit
              for bit against the dense skip on the same operands.
@@ -77,6 +84,22 @@ Phases, in order; any failure raises and the script exits non-zero:
              explicit ``skip=`` on operands the model's layers produced,
              bit-equal to the dense skip: their rows report the first auto
              path that launched them, else these launches.
+5b. T      — the paper's T = 4 baseline: the same QKFResNet-11 at
+             ``timesteps=4`` (each fused PE pass a stateful launch a step).
+             Forward under ``fused_dense`` and ``fused_packed`` (launch
+             counts reset just before and read just after each: fused PE
+             52, spike matmul 12, LIF 4, head 4; packed also 14 packs and 5
+             unpacks) against ``reference`` (spike totals 0.1 %, top-1 >=
+             99 %, packed equal to dense), median forwards at T = 4 beside
+             T = 1, the profiler's breakdown of a fused_dense forward; three
+             folded KD steps per path under ``reference+grad``,
+             ``fused_dense+grad`` and ``fused_packed+grad`` (launches
+             asserted: dx and dw 64 a step), step 1 held to the training
+             gates, packed bit-equal to dense, the median step, its split
+             and peak memory, and a profiled fused_dense+grad step. Then
+             the dw launches of the folded ``fused_packed+grad`` step (T =
+             1) replayed on their spikes packed (packed_in), dense and
+             gated, bit-equal to the int8 launches.
 6. timing  — CUDA events: median forward time of each policy at both
              regimes, the host time the tuner's metadata reads add to an
              auto forward, the profiler's device breakdown of both kernel
@@ -167,13 +190,39 @@ FOLD_STEP_LAUNCHES = {"lif_update": 1, "fused_pe": 13, "spike_matmul": 3,
                       "w2ttfs_pool": 1, "pack_spikes": 0, "unpack_spikes": 0,
                       "spike_matmul_dx": 16, "spike_matmul_dw": 16,
                       "qk_attention": 0, **NO_GATED, **NO_ATTENTION}
+# the multi-timestep baseline (the T phase): the paper's T = 4 comparison.
+# A forward runs every fused PE pass, shortcut matmul, the stem's LIF and
+# the head once a step; under fused_packed the stem packs once, each of the
+# 13 stateful passes packs its steps in one launch after its scan, and the
+# K pass's q is unpacked once a step and the head's map once. A folded
+# training step adds one dx and one dw a fused PE pass and shortcut a step.
+T_STEPS = 4
+EXPECTED_LAUNCHES_T = {
+    "fused_dense": {"lif_update": 4, "fused_pe": 52, "spike_matmul": 12,
+                    "w2ttfs_pool": 4, "pack_spikes": 0, "unpack_spikes": 0,
+                    **NO_BACKWARD, **NO_GATED, **NO_ATTENTION},
+    "fused_packed": {"lif_update": 4, "fused_pe": 52, "spike_matmul": 12,
+                     "w2ttfs_pool": 4, "pack_spikes": 1 + 13,
+                     "unpack_spikes": 4 + 1,
+                     **NO_BACKWARD, **NO_GATED, **NO_ATTENTION},
+}
+FOLD_STEP_LAUNCHES_T = {"lif_update": 4, "fused_pe": 52, "spike_matmul": 12,
+                        "w2ttfs_pool": 4, "pack_spikes": 0,
+                        "unpack_spikes": 0, "spike_matmul_dx": 64,
+                        "spike_matmul_dw": 64, "qk_attention": 0,
+                        **NO_GATED, **NO_ATTENTION}
+T_FORWARD = {policy: f"forward {policy} T={T_STEPS}"
+             for policy in ("fused_dense", "fused_packed")}
+# the explicit packed-x dw launches (on the packed training step's operands)
+PACKED_DW_PATH = "explicit packed dw"
 # row of the kernels line -> (kernel, path whose launches it reports,
 # source, the TPU kernel's pallas_call it replaces)
 ROWS = {
     "lif_update": ("lif_update", "fused_dense",
                    "src/repro_torch/csrc/lif_update.cu",
                    "src/repro/kernels/lif_update/lif_update.py:62"),
-    "fused_pe": ("fused_pe", "fused_dense", "src/repro_torch/csrc/fused_pe.cu",
+    "fused_pe": ("fused_pe", "fused_dense",
+                 "src/repro_torch/csrc/fused_pe.cuh",
                  "src/repro/kernels/fused_pe/fused_pe.py:362"),
     "spike_matmul": ("spike_matmul", "fused_dense",
                      "src/repro_torch/csrc/spike_matmul.cu",
@@ -188,14 +237,14 @@ ROWS = {
                       "src/repro_torch/csrc/unpack_spikes.cu",
                       "src/repro/kernels/packed/packed.py:96"),
     "fused_pe_packed": ("fused_pe", "fused_packed",
-                        "src/repro_torch/csrc/fused_pe.cu",
+                        "src/repro_torch/csrc/fused_pe.cuh",
                         "src/repro/kernels/fused_pe/fused_pe.py:362"),
     "spike_matmul_packed": ("spike_matmul", "fused_packed",
                             "src/repro_torch/csrc/spike_matmul.cu",
                             "src/repro/kernels/spike_matmul/"
                             "spike_matmul.py:83"),
     "fused_pe_emit": ("fused_pe", "train fold fused_dense+grad",
-                      "src/repro_torch/csrc/fused_pe.cu",
+                      "src/repro_torch/csrc/fused_pe.cuh",
                       "src/repro/kernels/fused_pe/fused_pe.py:362"),
     "spike_matmul_dx": ("spike_matmul_dx", "train fold fused_dense+grad",
                         "src/repro_torch/csrc/spike_matmul_dx.cu",
@@ -209,7 +258,7 @@ ROWS = {
     # the gated routes: their path is the first of GATED_PATHS that
     # launched them (resolved at run time)
     "fused_pe_gated": ("fused_pe_gated", None,
-                       "src/repro_torch/csrc/fused_pe.cu",
+                       "src/repro_torch/csrc/fused_pe.cuh",
                        "src/repro/kernels/fused_pe/fused_pe.py:362"),
     "spike_matmul_gated": ("spike_matmul_gated", None,
                            "src/repro_torch/csrc/spike_matmul.cu",
@@ -225,13 +274,13 @@ ROWS = {
 # the head-blocked mask) and one spike matmul (wo) a layer
 ROWS.update({
     "fused_pe_heads": ("fused_pe", "serve fused_dense decode",
-                       "src/repro_torch/csrc/fused_pe.cu",
+                       "src/repro_torch/csrc/fused_pe.cuh",
                        "src/repro/kernels/fused_pe/fused_pe.py:362"),
     "fused_pe_heads_prefill": ("fused_pe", "serve fused_dense prefill chunk",
-                               "src/repro_torch/csrc/fused_pe.cu",
+                               "src/repro_torch/csrc/fused_pe.cuh",
                                "src/repro/kernels/fused_pe/fused_pe.py:362"),
     "fused_pe_heads_packed": ("fused_pe", "serve fused_packed decode",
-                              "src/repro_torch/csrc/fused_pe.cu",
+                              "src/repro_torch/csrc/fused_pe.cuh",
                               "src/repro/kernels/fused_pe/fused_pe.py:362"),
     "spike_matmul_lm": ("spike_matmul", "serve fused_dense decode",
                         "src/repro_torch/csrc/spike_matmul.cu",
@@ -247,6 +296,31 @@ K9_PATH = "ops.attention at qwen3-1.7b prefill"
 ROWS["flash_attention"] = (
     "flash_attention", K9_PATH, "src/repro_torch/csrc/flash_attention.cu",
     "src/repro/kernels/flash_attention/flash_attention.py:80")
+# the T = 4 baseline: the fused PE's LIF state (with_state) on the forward
+# paths and the folded training step, and the dw kernel's packed x
+# (packed_in), launched on the packed training step's dw operands
+ROWS.update({
+    "fused_pe_state": ("fused_pe", T_FORWARD["fused_dense"],
+                       "src/repro_torch/csrc/fused_pe_state.cu",
+                       "src/repro/kernels/fused_pe/fused_pe.py:362"),
+    "fused_pe_state_packed": ("fused_pe", T_FORWARD["fused_packed"],
+                              "src/repro_torch/csrc/"
+                              "fused_pe_state_packed.cu",
+                              "src/repro/kernels/fused_pe/fused_pe.py:362"),
+    "fused_pe_state_emit": ("fused_pe",
+                            f"train fold fused_dense+grad T={T_STEPS}",
+                            "src/repro_torch/csrc/fused_pe_state.cu",
+                            "src/repro/kernels/fused_pe/fused_pe.py:362"),
+    "spike_matmul_dw_packed": ("spike_matmul_dw", PACKED_DW_PATH,
+                               "src/repro_torch/csrc/spike_matmul_dw.cu",
+                               "src/repro/kernels/spike_matmul/"
+                               "backward.py:162"),
+    "spike_matmul_dw_gated_packed": ("spike_matmul_dw_gated", PACKED_DW_PATH,
+                                     "src/repro_torch/csrc/"
+                                     "spike_matmul_dw.cu",
+                                     "src/repro/kernels/spike_matmul/"
+                                     "backward.py:249"),
+})
 # where a gated kernel's row reads its launches, in order of preference:
 # the auto paths, then the explicit-skip launches on the model's operands
 GATED_PATHS = ("auto_packed quiet", "auto quiet", "auto_packed busy",
@@ -322,17 +396,33 @@ def rand_spikes(torch, gen, m: int, k: int, density: float, dev):
     return x.to(torch.int8)
 
 
+def fused_pe_row(args) -> str:
+    """The kernels-line row a fused PE launch's operands belong to."""
+    xp, packing, gate, heads, state = args[0], args[10], args[12], args[13], \
+        args[14]
+    if gate is not None:
+        return "fused_pe_gated"
+    if state is not None:
+        return ("fused_pe_state_emit" if packing.current else
+                "fused_pe_state_packed" if packing.x else "fused_pe_state")
+    return ("fused_pe_emit" if packing.current else
+            "fused_pe_heads" if heads is not None or xp.is_floating_point()
+            else "fused_pe_packed" if packing.x else "fused_pe")
+
+
 def check_fused_pe(torch, K, args, parity: Parity, label: str) -> None:
     """Kernel vs plain version on one set of block-aligned operands (dense
-    or packed; the row is ``fused_pe_packed`` when x is packed)."""
+    or packed, stateless or with the LIF state; the row is
+    ``fused_pe_row``'s): spikes equal where the plain membrane potential is
+    not within NEAR_VTH of v_th, v_next within RTOL/ATOL there, the
+    emitted current within RTOL/ATOL and the spikes exactly that current
+    (plus the decayed state, each operation rounded as the kernel rounds
+    it) thresholded and masked."""
     (xp, wp, vld, bp, rp, qp, m0, n0, v_th, qk, packing, block_n, gate,
-     heads) = args
-    row = ("fused_pe_gated" if gate is not None else
-           "fused_pe_emit" if packing.current else
-           "fused_pe_heads" if heads is not None or xp.is_floating_point()
-           else "fused_pe_packed" if packing.x else "fused_pe")
-    k_out, k_vld, *k_cur = K.fused_pe_cuda(*args)
-    p_out, p_vld, *p_cur = K.fused_pe_block_ref(*args)
+     heads, state) = args
+    row = fused_pe_row(args)
+    k_out, k_vld, *k_rest = K.fused_pe_cuda(*args)
+    p_out, p_vld, *p_rest = K.fused_pe_block_ref(*args)
     if packing.out:
         k_spk, p_spk = K.unpack_words(k_out), K.unpack_words(p_out)
         inv = K.check_packed_invariants(K.PackedSpikes(k_out, k_vld,
@@ -347,9 +437,18 @@ def check_fused_pe(torch, K, args, parity: Parity, label: str) -> None:
     if rp is not None:
         cur = cur + (K.unpack_words(rp, torch.float32) if packing.residual
                      else rp)
+
+    def decayed(c):
+        """c plus the decayed state, at the valid extent [m0, n0]."""
+        return state.tau * state.v_prev * (
+            1.0 - state.s_prev.to(torch.float32)) + c
+
+    v = cur.clone()
+    if state is not None:
+        v[:m0, :n0] = decayed(cur[:m0, :n0])
     valid = torch.zeros_like(k_spk, dtype=torch.bool)
     valid[:m0, :n0] = True
-    near = ((cur - v_th).abs() < NEAR_VTH) & valid
+    near = ((v - v_th).abs() < NEAR_VTH) & valid
     diff = k_spk != p_spk
     bad = int((diff & ~near).sum())
     flips = int((diff & near).sum())
@@ -360,13 +459,22 @@ def check_fused_pe(torch, K, args, parity: Parity, label: str) -> None:
     require(not bool(k_spk[m0:].any()) and not bool(k_spk[:, n0:].any()),
             f"{row} {label}: padding fired")
     err = float(bad)
+    if state is not None:
+        k_vn, p_vn = k_rest.pop(0), p_rest.pop(0)
+        far = ~near[:m0, :n0]
+        err = float(((k_vn - p_vn).abs() * far).max()) if k_vn.numel() \
+            else 0.0
+        require(torch.allclose(k_vn[far], p_vn[far], rtol=RTOL, atol=ATOL),
+                f"{row} {label}: v_next max abs err {err} away from v_th")
     if packing.current:
-        (k_c,), (p_c,) = k_cur, p_cur
-        err = float((k_c - p_c).abs().max()) if k_c.numel() else 0.0
+        (k_c,), (p_c,) = k_rest, p_rest
+        cur_err = float((k_c - p_c).abs().max()) if k_c.numel() else 0.0
+        err = max(err, cur_err) if state is not None else cur_err
         require(torch.allclose(k_c, p_c, rtol=RTOL, atol=ATOL),
-                f"{row} {label}: current max abs err {err}")
-        # the kernel's spikes are exactly its own current, thresholded
-        own = k_c >= v_th
+                f"{row} {label}: current max abs err {cur_err}")
+        # the kernel's spikes are exactly its own current (decayed state
+        # added), thresholded
+        own = (decayed(k_c) if state is not None else k_c) >= v_th
         if qp is not None:
             qd = K.unpack_words(qp) if packing.q else qp
             own &= (qd[:m0].to(torch.float32).sum(dim=1, keepdim=True)
@@ -381,7 +489,10 @@ def check_fused_pe(torch, K, args, parity: Parity, label: str) -> None:
         f"packing {tuple(packing)}; blocks 128x{block_n}x"
         f"{xp.shape[1] * (32 if packing.x else 1) // vld.shape[1]}"
         + ("" if gate is None else f"; skip {gate.skip}")
-        + ("" if heads is None else f"; heads {heads}"))
+        + ("" if heads is None else f"; heads {heads}")
+        + ("" if state is None else
+           f"; state tau {state.tau} {'soft' if state.soft_reset else 'hard'}"
+           f" reset, v_next max abs err {err:.3e} away from v_th"))
     return k_spk
 
 
@@ -478,9 +589,16 @@ def check_dw(torch, K, args, parity: Parity, label: str) -> None:
     one dropped or doubled 128-row block of x exceeds it many times over.
     Also: the same bits on a second launch; and the g rows of every
     all-silent 128-row block of x never enter: NaN written there changes
-    no bit of dw. ``max_abs_err`` is against the f32 plain version."""
-    x, g, vld = args
+    no bit of dw. ``max_abs_err`` is against the f32 plain version. A
+    packed x (row ``spike_matmul_dw_packed``) must also give the int8
+    launch's bits on its unpacked spikes."""
+    xa, g, vld = args
+    x = dense_x(K, xa)
+    row = "spike_matmul_dw_packed" if x is not xa else "spike_matmul_dw"
     dw = K.spike_matmul_dw_cuda(*args)
+    if x is not xa:
+        require(torch.equal(dw, K.spike_matmul_dw_cuda(x, g, vld)),
+                f"{row} {label}: not the int8 launch's bits")
     ref = K.spike_matmul_dw_ref(x, g, vld)
     err = float((dw - ref).abs().max()) if dw.numel() else 0.0
     splits, per = K.dw_splits(x.shape[0], x.shape[1], g.shape[1])
@@ -490,19 +608,19 @@ def check_dw(torch, K, args, parity: Parity, label: str) -> None:
         x64.abs().T @ g64.abs())
     excess = (dw.to(torch.float64) - exact).abs() - limit
     require(not bool((excess > 0).any()),
-            f"spike_matmul_dw {label}: {int((excess > 0).sum())} elements "
+            f"{row} {label}: {int((excess > 0).sum())} elements "
             f"beyond its limit (max abs err vs plain {err})")
     require(torch.equal(dw, K.spike_matmul_dw_cuda(*args)),
-            f"spike_matmul_dw {label}: a second launch gave other bits")
+            f"{row} {label}: a second launch gave other bits")
     silent = (vld == 0).all(dim=1).repeat_interleave(128)[:x.shape[0]]
     g_nan = g.clone()
     g_nan[silent] = float("nan")
-    require(torch.equal(dw, K.spike_matmul_dw_cuda(x, g_nan, vld)),
-            f"spike_matmul_dw {label}: a silent tile contributed")
-    parity.note("spike_matmul_dw", err)
+    require(torch.equal(dw, K.spike_matmul_dw_cuda(xa, g_nan, vld)),
+            f"{row} {label}: a silent tile contributed")
+    parity.note(row, err)
     used = float(((dw.to(torch.float64) - exact).abs()
                   / limit.clamp_min(1e-300)).max()) if dw.numel() else 0.0
-    say(f"[parity] spike_matmul_dw {label}: max abs err vs plain {err:.3e}; "
+    say(f"[parity] {row} {label}: max abs err vs plain {err:.3e}; "
         f"worst error {used:.3e} of its limit (n = "
         f"{per * 128 + splits}); bit-equal across launches; silent x blocks "
         f"{int((vld == 0).sum())}/{vld.numel()} contribute exactly 0")
@@ -532,16 +650,27 @@ def check_spike_matmul_gated(torch, K, args, parity: Parity, label: str
 
 
 def check_dw_gated(torch, K, args, parity: Parity, label: str) -> None:
-    """A main-path gated dw launch: bit-equal to the dense-skip dw."""
-    x, g, gate = args
+    """A main-path gated dw launch: bit-equal to the dense-skip dw on the
+    int8 spikes (a packed x: row ``spike_matmul_dw_gated_packed``)."""
+    xa, g, gate = args
+    x = dense_x(K, xa)
+    row = ("spike_matmul_dw_gated_packed" if x is not xa
+           else "spike_matmul_dw_gated")
     dw = K.spike_matmul_dw_gated_cuda(*args)
     require(torch.equal(dw, K.spike_matmul_dw_cuda(x, g, K.vld_map(x))),
-            f"spike_matmul_dw_gated {label}: not the dense skip's bits")
+            f"{row} {label}: not the int8 dense skip's bits")
     err = float((dw - K.spike_matmul_dw_gated_ref(*args)).abs().max()) \
         if dw.numel() else 0.0
-    parity.note("spike_matmul_dw_gated", err)
-    say(f"[parity] spike_matmul_dw_gated {label}: bit-equal to the dense "
-        f"skip; max abs err vs plain {err:.3e}")
+    parity.note(row, err)
+    say(f"[parity] {row} {label}: bit-equal to the int8 dense skip; max abs "
+        f"err vs plain {err:.3e}")
+
+
+def dense_x(K, x):
+    """A packed dw operand as its logical int8 map; an int8 one as it is."""
+    if isinstance(x, K.PackedSpikes):
+        return K.unpack_words(x.words)[:x.shape[0], :x.shape[1]].contiguous()
+    return x
 
 
 def flash_gate(torch, K, out, q, k, v, causal) -> tuple[bool, float, float]:
@@ -655,6 +784,60 @@ def parity_fused_pe(torch, K, gen, dev, parity, shapes, packed: bool
                            f"{label} [{m}x{k}x{n}] density {p}")
 
 
+# the LIF state (T > 1) at every pass shape of the int8 main path: (soft
+# reset, tau, packed x / spike residual / q / out, emit_current), each of
+# them at every shape; v_prev ~ randn, s_prev ~ Bernoulli(0.5)
+STATE_COMPOSITIONS = [(False, 0.5, False, False), (True, 0.7, False, True),
+                      (False, 0.7, True, False), (True, 0.5, True, True)]
+
+
+def parity_state(torch, K, gen, dev, parity: Parity) -> None:
+    """The stateful fused PE (``check_fused_pe`` with its state), and each
+    packed launch bit-equal to the int8 launch on the same spikes: the
+    spike map, vld_next, v_next and the emitted current."""
+    for i, (label, m, k, n, res, with_q) in enumerate(FUSED_PE_SHAPES):
+        p = DENSITIES[1 + i % 2]
+        x = rand_spikes(torch, gen, m, k, p, dev)
+        w = torch.randn((k, n), generator=gen, device=dev) \
+            * (2.0 / math.sqrt(k))
+        b = 0.6 + 0.4 * torch.randn((n,), generator=gen, device=dev)
+        r = None
+        if res == "f32":
+            r = 0.5 * torch.randn((m, n), generator=gen, device=dev)
+        elif res is not None:
+            r = rand_spikes(torch, gen, m, n, 0.3, dev)
+        q = rand_spikes(torch, gen, m, n, 0.002, dev) if with_q else None
+        v = torch.randn((m, n), generator=gen, device=dev)
+        sp = (torch.rand((m, n), generator=gen, device=dev) < 0.5).to(
+            torch.int8)
+        for soft, tau, packed, emit in STATE_COMPOSITIONS:
+            kw = dict(bias=b, v_th=V_TH, qk_threshold=1.0, v_prev=v,
+                      s_prev=sp, tau=tau, soft_reset=soft,
+                      emit_current=emit)
+            tag = (f"{label} [{m}x{k}x{n}] density {p} tau {tau} "
+                   f"{'soft' if soft else 'hard'} reset"
+                   + (" emit_current" if emit else ""))
+            int8 = K.fused_pe_operands(x, w, residual=r, q=q, **kw)
+            if not packed:
+                check_fused_pe(torch, K, int8, parity, tag)
+                continue
+            pk = K.fused_pe_operands(
+                K.pack_spikes_ref(x), w,
+                residual=(K.pack_spikes_ref(r) if res == "int8" else r),
+                q=None if q is None else K.pack_spikes_ref(q),
+                out_format="packed", **kw)
+            check_fused_pe(torch, K, pk, parity, tag + " packed")
+            k_p, k_i = K.fused_pe_cuda(*pk), K.fused_pe_cuda(*int8)
+            require(torch.equal(K.unpack_words(k_p[0]), k_i[0])
+                    and all(torch.equal(a, c) for a, c in zip(k_p[1:],
+                                                               k_i[1:])),
+                    f"fused_pe_state_packed {tag}: not the int8 launch's "
+                    f"spikes, vld_next, v_next and current")
+            say(f"[parity] fused_pe_state_packed {tag}: spikes, vld_next, "
+                f"v_next" + (" and current" if emit else "")
+                + " bit-equal to the int8 launch")
+
+
 # KD training's backward launches at the BN-folded graph's shapes
 # (batch 256): dx and dw of the 13 fused PE passes and the 3 shortcut
 # matmuls (M, K, N), and the QK mask of the unfused graph (rows, D)
@@ -679,6 +862,10 @@ def parity_training(torch, K, gen, dev, parity: Parity) -> None:
             x = rand_spikes(torch, gen, m, k, p, dev)
             check_dw(torch, K, (x, g, K.vld_map(x)), parity,
                      f"{label} [{m}x{k}]^T @ [{m}x{n}] density {p}")
+            # packed_in: the words of the same spikes, the int8 launch's bits
+            check_dw(torch, K, (K.pack_spikes_ref(x), g, K.vld_map(x)),
+                     parity, f"{label} [{m}x{k}]^T @ [{m}x{n}] density {p} "
+                     f"packed x")
     for label, rows, d in QK_SHAPES:
         for p in DENSITIES:
             q = rand_spikes(torch, gen, rows, d, p, dev)
@@ -786,32 +973,35 @@ def check_gated_fused_pe(torch, K, fused_kw: dict, parity: Parity,
 
 
 def check_gated_dw(torch, K, x, g, skip: str, parity: Parity,
-                   label: str) -> None:
-    """The gated dw bit-equal to the dense-skip dw (and so within
+                   label: str, packed: bool = False) -> None:
+    """The gated dw bit-equal to the int8 dense-skip dw (and so within
     ``check_dw``'s limit of the exact product), against its plain
-    version, and blind to NaN in the g rows of wholly silent row blocks."""
+    version, and blind to NaN in the g rows of wholly silent row blocks;
+    with ``packed`` on x's packed words (row
+    ``spike_matmul_dw_gated_packed``)."""
+    row = "spike_matmul_dw_gated_packed" if packed else "spike_matmul_dw_gated"
     vld = K.vld_map(x)
-    gate = K.dw_gate(x, vld, skip)
-    dw = K.spike_matmul_dw_gated_cuda(x, g, gate)
-    ref = K.spike_matmul_dw_gated_ref(x, g, gate)
+    xa = K.pack_spikes_ref(x, with_occ=True) if packed else x
+    gate = K.dw_gate(xa, vld, skip)
+    dw = K.spike_matmul_dw_gated_cuda(xa, g, gate)
+    ref = K.spike_matmul_dw_gated_ref(xa, g, gate)
     err = float((dw - ref).abs().max()) if dw.numel() else 0.0
     require(torch.equal(dw, K.spike_matmul_dw_cuda(x, g, vld)),
-            f"spike_matmul_dw_gated {label}: not bit-equal to the dense skip")
+            f"{row} {label}: not bit-equal to the int8 dense skip")
     splits, per = K.dw_splits(x.shape[0], x.shape[1], g.shape[1])
     x64, g64 = x.to(torch.float64), g.to(torch.float64)
     limit = DW_C * math.sqrt(per * 128 + splits) * 2.0 ** -24 * (
         x64.abs().T @ g64.abs())
     require(not bool(((dw.to(torch.float64) - x64.T @ g64).abs()
                       > limit).any()),
-            f"spike_matmul_dw_gated {label}: beyond its limit (max abs err "
-            f"vs plain {err})")
+            f"{row} {label}: beyond its limit (max abs err vs plain {err})")
     silent = (vld == 0).all(dim=1).repeat_interleave(128)[:x.shape[0]]
     g_nan = g.clone()
     g_nan[silent] = float("nan")
-    require(torch.equal(dw, K.spike_matmul_dw_gated_cuda(x, g_nan, gate)),
-            f"spike_matmul_dw_gated {label}: a silent tile contributed")
-    parity.note("spike_matmul_dw_gated", err)
-    say(f"[parity] spike_matmul_dw_gated {label}: max abs err vs plain "
+    require(torch.equal(dw, K.spike_matmul_dw_gated_cuda(xa, g_nan, gate)),
+            f"{row} {label}: a silent tile contributed")
+    parity.note(row, err)
+    say(f"[parity] {row} {label}: max abs err vs plain "
         f"{err:.3e}; bit-equal to the dense skip; NaN in {int(silent.sum())}"
         f" silent g rows changes no bit; active blocks "
         f"{int(gate.nact.sum())}/{gate.kmap.numel()}")
@@ -829,6 +1019,9 @@ def parity_gated(torch, K, gen, dev, parity: Parity) -> None:
             rs = K.pack_spikes_ref(rand_spikes(torch, gen, m, n, 0.3, dev),
                                    block_k=block_n)
             q = rand_spikes(torch, gen, m, n, 0.002, dev)
+            v = torch.randn((m, n), generator=gen, device=dev)
+            sp = (torch.rand((m, n), generator=gen, device=dev) < 0.5).to(
+                torch.int8)
             for skip in GATED_SKIPS:
                 tag = (f"{label} [{m}x{k}x{n}] blocks 128x{block_n}x{block_k}"
                        f" silent {silent} {skip}")
@@ -845,14 +1038,28 @@ def parity_gated(torch, K, gen, dev, parity: Parity) -> None:
                     base, x=xpk, residual=rs, q=K.pack_spikes_ref(q),
                     out_format="packed"), parity, f"{tag} packed in/out, "
                     f"packed residual and q")
+                # with the LIF state: the same routes, the same bits
+                state = dict(v_prev=v, s_prev=sp, tau=0.7, soft_reset=True)
+                check_gated_fused_pe(torch, K, dict(
+                    base, x=x, residual=r, q=q, out_format="dense",
+                    emit_current=True, **state), parity,
+                    f"{tag} int8 in/out, f32 residual, q, emit_current, "
+                    f"LIF state")
+                check_gated_fused_pe(torch, K, dict(
+                    base, x=xpk, residual=rs, q=K.pack_spikes_ref(q),
+                    out_format="packed", **dict(state, soft_reset=False,
+                                                tau=0.5)), parity,
+                    f"{tag} packed in/out, packed residual and q, LIF state")
     for label, m, k, n in GATED_DW_SHAPES:
         g = torch.randn((m, n), generator=gen, device=dev)
         for silent in GATED_SILENT:
             x = gated_spikes(torch, gen, m, k, silent, 128, dev)
             for skip in GATED_SKIPS:
-                check_gated_dw(torch, K, x, g, skip, parity,
-                               f"{label} [{m}x{k}]^T @ [{m}x{n}] silent "
-                               f"{silent} {skip}")
+                for packed in (False, True):
+                    check_gated_dw(torch, K, x, g, skip, parity,
+                                   f"{label} [{m}x{k}]^T @ [{m}x{n}] silent "
+                                   f"{silent} {skip}"
+                                   + (" packed x" if packed else ""), packed)
 
 
 # the spiking LM's fused PE pass at qwen3-1.7b's width (K = d_model 2048):
@@ -944,6 +1151,7 @@ def phase_parity(torch, K, dev) -> Parity:
             fc_b = torch.randn((classes,), generator=gen, device=dev)
             check_w2ttfs(torch, K, (spikes, fc_w, fc_b, window), parity,
                          f"[{b},{h},{h},{c}] window {window} density {p}")
+    parity_state(torch, K, gen, dev, parity)
     parity_training(torch, K, gen, dev, parity)
     parity_gated(torch, K, gen, dev, parity)
     parity_lm_pe(torch, K, gen, dev, parity)
@@ -1671,8 +1879,169 @@ def compare_training(path, ref) -> None:
                                  f"relative L2 error {errs[worst]} past 1e-3")
 
 
+# ---------------------------------------------------------------- phase 5b
+def time_forwards(torch, snn_cnn, fused, images, cfg, policy: str,
+                  iters: int) -> list:
+    """Host ms of ``iters`` synchronised forwards, after two warm-ups."""
+    times = []
+    for i in range(iters + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snn_cnn.forward(fused, images, cfg, policy=policy)
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def phase_timesteps(torch, M, build_mod, dev, images, batch: int) -> dict:
+    """The paper's T = 4 baseline on the card: the phase-4 QKFResNet-11
+    (same weights, every BN beta 0.5, folded) at ``timesteps=4``, the input
+    repeated over the steps. Forward under fused_dense and fused_packed
+    (launch counts reset just before and read just after each) against
+    reference: spike totals within 0.1 %, top-1 >= 99 %, packed spike
+    totals equal to dense; median forwards at T = 4 beside T = 1 on the
+    same weights and images; the device breakdown of a fused_dense
+    forward. Then three folded KD steps per training path from one state,
+    step 1 of each kernel path held to the training gates against
+    reference+grad, packed losses and gradients bit-equal to dense, every
+    step's launches asserted, and the median step with its split and peak
+    memory. Returns the kernel paths by name, for the kernels line."""
+    snn_cnn = M.snn_cnn
+    cfg1, variables = init_model(torch, snn_cnn, dev)
+    cfg = dataclasses.replace(cfg1, timesteps=T_STEPS)
+    fused = snn_cnn.fuse_model(variables, cfg)
+    say(f"[T] QKFResNet-11 width 1.0 at T = {T_STEPS}, batch {batch}: the "
+        f"phase-4 weights, images repeated over the steps")
+    paths, auxes = {}, {}
+    for policy in ("fused_dense", "fused_packed"):
+        build_mod.reset_launches()
+        with build_mod.capture_launches() as captured:
+            logits, _, aux = snn_cnn.forward(fused, images, cfg,
+                                             policy=policy)
+            torch.cuda.synchronize()
+        launches = dict(build_mod.LAUNCHES)
+        say(f"[T] kernel launches in one {policy} T={T_STEPS} forward: "
+            f"{launches}")
+        require(launches == EXPECTED_LAUNCHES_T[policy],
+                f"{policy} T={T_STEPS} launch counts {launches} != "
+                f"{EXPECTED_LAUNCHES_T[policy]}")
+        require(all(a[14] is not None for n_, a, _ in captured
+                    if n_ == "fused_pe"),
+                f"a {policy} T={T_STEPS} fused PE launch ran without state")
+        paths[T_FORWARD[policy]] = (logits, aux, launches, captured)
+        auxes[policy] = (logits, aux)
+    ref_logits, _, ref_aux = snn_cnn.forward(fused, images, cfg,
+                                             policy="reference")
+    torch.cuda.synchronize()
+    (d_logits, d_aux), (p_logits, p_aux) = (auxes["fused_dense"],
+                                            auxes["fused_packed"])
+    for key, rate in d_aux["rates"].items():
+        say(f"[T] rate {key}: fused_dense {float(rate):.4f} fused_packed "
+            f"{float(p_aux['rates'][key]):.4f} reference "
+            f"{float(ref_aux['rates'][key]):.4f}")
+        require(0.0 < float(rate) < 1.0, f"T={T_STEPS} rate {key} = "
+                                         f"{float(rate)}")
+    compare_spikes(d_aux, ref_aux, f"T={T_STEPS} fused_dense vs reference",
+                   1e-3)
+    compare_spikes(p_aux, d_aux, f"T={T_STEPS} fused_packed vs fused_dense",
+                   0.0)
+    check_logits(torch, d_logits, ref_logits, batch,
+                 f"T={T_STEPS} fused_dense vs reference")
+    check_logits(torch, p_logits, ref_logits, batch,
+                 f"T={T_STEPS} fused_packed vs reference")
+    say(f"[T] spike bytes between kernels at T={T_STEPS}: fused_dense "
+        f"{d_aux['spike_hbm_bytes']}, fused_packed "
+        f"{p_aux['spike_hbm_packed_bytes']} (int8 equivalent "
+        f"{p_aux['spike_hbm_dense_bytes']})")
+    card = gpu_name_and_power()
+    medians = {}
+    fused1 = snn_cnn.fuse_model(variables, cfg1)
+    for policy in ("fused_dense", "fused_packed", "reference"):
+        for t_, c_, f_ in ((1, cfg1, fused1), (T_STEPS, cfg, fused)):
+            times = time_forwards(torch, snn_cnn, f_, images, c_, policy,
+                                  ITERS)
+            medians[policy, t_] = statistics.median(times)
+        m1, mt = medians[policy, 1], medians[policy, T_STEPS]
+        say(f"[timing] forward {policy} T=1 vs T={T_STEPS} ({card}): median "
+            f"{m1:.3f} vs {mt:.3f} ms over {ITERS}, {batch / m1 * 1e3:.1f} vs "
+            f"{batch / mt * 1e3:.1f} images/s; T={T_STEPS} / T=1 "
+            f"{mt / m1:.3f}")
+    phase_profile(torch, snn_cnn, cfg, fused, images, "fused_dense",
+                  medians["fused_dense", T_STEPS],
+                  tag=f"fused_dense T={T_STEPS}")
+
+    tcfg, tvar, batches = kd_setup(torch, M, dev, batch)
+    tpaths = {}
+    for policy in ("reference+grad", "fused_dense+grad", "fused_packed+grad"):
+        path = TrainPath(torch, M, cfg, variables, tcfg, tvar, "fold", policy,
+                         suffix=f" T={T_STEPS}")
+        path.run(batches, build_mod)
+        want = (dict.fromkeys(FOLD_STEP_LAUNCHES_T, 0)
+                if policy.startswith("reference")
+                else dict(FOLD_STEP_LAUNCHES_T, unpack_spikes=52)
+                if policy.startswith("fused_packed")
+                else FOLD_STEP_LAUNCHES_T)
+        for i, got in enumerate(path.launches):
+            require(got == want, f"{path.name} step {i}: launches {got} != "
+                                 f"{want}")
+        for loss in path.losses:
+            require(math.isfinite(loss), f"{path.name}: loss {loss}")
+        tpaths["fold", policy] = path
+    ref = tpaths["fold", "reference+grad"]
+    for policy in ("fused_dense+grad", "fused_packed+grad"):
+        compare_training(tpaths["fold", policy], ref)
+    dense = tpaths["fold", "fused_dense+grad"]
+    packed = tpaths["fold", "fused_packed+grad"]
+    require(packed.losses == dense.losses,
+            f"T={T_STEPS} fused_packed+grad losses {packed.losses} != "
+            f"fused_dense+grad's {dense.losses}")
+    unequal = sum(not torch.equal(a, b)
+                  for a, b in zip(packed.grads, dense.grads))
+    require(unequal == 0, f"T={T_STEPS} fused_packed+grad: {unequal} "
+                          f"gradient leaves differ from fused_dense+grad's")
+    say(f"[T] fused_packed+grad losses and step-1 gradients bit-equal to "
+        f"fused_dense+grad's at T={T_STEPS} ({len(dense.grads)} leaves)")
+    graph = f"fold T={T_STEPS}"
+    step_ms = time_training(torch, M, {(graph, p.policy): p
+                                       for p in tpaths.values()},
+                            batch, TRAIN_ITERS, profile=False)
+    profile_step(torch, dense, step_ms[graph, "fused_dense+grad"])
+    paths[dense.name] = (None, None, dense.launches[0], dense.captured)
+    return paths
+
+
+def phase_packed_dw(torch, K, build_mod, captured) -> tuple:
+    """dw over a packed x (packed_in): every dw launch of the folded
+    fused_packed+grad step (T = 1), its int8 x packed by the pack kernel,
+    launched through ``spike_matmul_dw`` with the dense skip and with the
+    gated walk; each bit-equal to the int8 dense-skip launch on the same
+    spikes. Returns the path tuple of these launches."""
+    picks = [(K.pack_spikes(a[0]), a) for n_, a, _ in captured
+             if n_ == "spike_matmul_dw"]
+    require(len(picks) == 16, f"{len(picks)} dw launches to replay")
+    build_mod.reset_launches()
+    with build_mod.capture_launches() as out:
+        for ps, (x8, g, vld) in picks:
+            want = K.spike_matmul_dw_cuda(x8, g, vld)
+            for skip in ("dense", "gated"):
+                got = K.spike_matmul_dw(ps, g, skip=skip)
+                require(torch.equal(got, want),
+                        f"packed dw {skip} [{x8.shape[0]}x{x8.shape[1]}] is "
+                        f"not the int8 launch's bits")
+        torch.cuda.synchronize()
+    launches = dict(build_mod.LAUNCHES)
+    say(f"[packed dw] {len(picks)} dw launches of the packed step replayed "
+        f"on packed x, dense and gated, bit-equal to the int8 launches; "
+        f"launches {launches}")
+    require(launches["spike_matmul_dw"] == 16
+            and launches["spike_matmul_dw_gated"] == 16,
+            f"packed dw launches {launches}")
+    return None, None, launches, out
+
+
 def time_training(torch, M, paths, batch: int, iters: int,
-                  profile: bool = True) -> None:
+                  profile: bool = True) -> dict:
     """Median step time of each training path (host clock around a
     synchronised step), its forward (the student alone, no autograd) and
     the rest (backward and update), images/s and peak memory; then the
@@ -1708,6 +2077,7 @@ def time_training(torch, M, paths, batch: int, iters: int,
     if profile:
         path = paths["fold", "fused_dense+grad"]
         profile_step(torch, path, medians["fold", "fused_dense+grad"])
+    return medians
 
 
 def profile_step(torch, path, step_ms: float, reps: int = 2) -> None:
@@ -1828,8 +2198,8 @@ def bound(torch, K, name: str, args, inputs) -> tuple[float, float, float]:
         return nbytes, ops, 2.0 * tiles * n + ops - 2.0 * m * n * k
     if name == "spike_matmul_dw_gated":
         x, g, _ = args
-        return bound(torch, K, "spike_matmul_dw", (x, g, K.vld_map(x)),
-                     inputs)
+        vld = x.vld_cnt if isinstance(x, K.PackedSpikes) else K.vld_map(x)
+        return bound(torch, K, "spike_matmul_dw", (x, g, vld), inputs)
     if name == "spike_matmul_gated":
         xp, wp, gate, packed = args
         walked = K.gated_mask(gate.nact, gate.kmap, None,
@@ -1837,7 +2207,8 @@ def bound(torch, K, name: str, args, inputs) -> tuple[float, float, float]:
         return bound(torch, K, "spike_matmul", (xp, wp, walked.to(
             torch.int32), packed), inputs)
     if name == "spike_matmul_dw":
-        x, g, vld = args
+        xa, g, vld = args
+        x = dense_x(K, xa)
         (m, k), n = x.shape, g.shape[1]
         active = (vld > 0).to(torch.float64).cpu()
         rows = valid_extent(torch, m, active.shape[0])
@@ -1845,6 +2216,8 @@ def bound(torch, K, name: str, args, inputs) -> tuple[float, float, float]:
         # the x blocks the skip keeps (one byte a spike position), the g
         # rows some kept block needs, dw written; 2 * nnz(x) * N operations
         x_bytes = float((active * rows[:, None] * cols[None, :]).sum())
+        if x is not xa:                # packed: a bit a spike position
+            x_bytes /= 8.0
         g_rows = float((rows * (active.sum(dim=1) > 0)).sum())
         nbytes = x_bytes + 4.0 * g_rows * n + 4.0 * k * n + 4.0 * vld.numel()
         nnz = int((x != 0).sum())
@@ -1899,6 +2272,9 @@ def bound(torch, K, name: str, args, inputs) -> tuple[float, float, float]:
     if packing.current:                            # the f32 current out
         nbytes += 4.0 * m0 * n0
     epilogue = 3.0 * m0 * n0
+    if args[14] is not None:     # LIF state: v_prev f32, s_prev int8 read,
+        nbytes += 9.0 * m0 * n0  # v_next f32 written; decay, add, reset
+        epilogue += 6.0 * m0 * n0
     return nbytes, 2.0 * nnz * n_prod + epilogue, block_ops + epilogue
 
 
@@ -1926,10 +2302,12 @@ def flash_ops_ms(q, ops: float) -> float:
 
 
 def phase_profile(torch, snn_cnn, cfg, fused, images, policy: str,
-                  forward_ms: float, reps: int = 3) -> None:
+                  forward_ms: float, reps: int = 3, tag: str = "") -> None:
     """Where the time of one forward of a kernel path goes on the device:
     ``torch.profiler`` self device time by kernel, summed over ``reps``
-    forwards, and the device's idle share of the forward's median time."""
+    forwards, and the device's idle share of the forward's median time
+    (printed under ``tag``, the policy by default)."""
+    tag = tag or policy
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1952,14 +2330,14 @@ def phase_profile(torch, snn_cnn, cfg, fused, images, policy: str,
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     if busy == 0:
-        say(f"[profile] the profiler reported no device time: {policy} "
+        say(f"[profile] the profiler reported no device time: {tag} "
             f"device breakdown not measured")
         return
-    say(f"[profile] {policy}: device busy {busy:.3f} ms per forward of "
+    say(f"[profile] {tag}: device busy {busy:.3f} ms per forward of "
         f"median {forward_ms:.3f} ms: idle share "
         f"{max(0.0, 1 - busy / forward_ms):.3f}")
     for ms, count, key in rows[:20]:
-        say(f"[profile]   {policy} {ms:8.4f} ms  x{count:<4d} {key[:100]}")
+        say(f"[profile]   {tag} {ms:8.4f} ms  x{count:<4d} {key[:100]}")
 
 
 def library_call(torch, K, name: str, args, inputs):
@@ -1977,7 +2355,7 @@ def library_call(torch, K, name: str, args, inputs):
         return sdpa_call(torch, *args[:4])
     if name in ("spike_matmul_dw", "spike_matmul_dw_gated"):
         x, g, _ = args
-        xf = x.to(torch.float32)
+        xf = dense_x(K, x).to(torch.float32)
         return lambda: torch.matmul(xf.T, g)
     if name not in ("fused_pe", "spike_matmul", "fused_pe_gated",
                     "spike_matmul_gated") or (
@@ -2027,7 +2405,7 @@ def dense_twin(torch, K, name: str, args):
     """The dense-skip launch of a gated launch's operands (the same x,
     weights and vld map), or None for another kernel."""
     if name == "fused_pe_gated":
-        return lambda: K.fused_pe_cuda(*args[:12], None)
+        return lambda: K.fused_pe_cuda(*args[:12], None, *args[13:])
     if name == "spike_matmul_gated":
         xp, wp, gate, packed = args
         vld = K.gated_mask(gate.nact, gate.kmap, None,
@@ -2035,7 +2413,7 @@ def dense_twin(torch, K, name: str, args):
         return lambda: K.spike_matmul_cuda(xp, wp, vld, packed)
     if name == "spike_matmul_dw_gated":
         x, g, _ = args
-        vld = K.vld_map(x)
+        vld = x.vld_cnt if isinstance(x, K.PackedSpikes) else K.vld_map(x)
         return lambda: K.spike_matmul_dw_cuda(x, g, vld)
     return None
 
@@ -2047,14 +2425,8 @@ def phase_timing(torch, K, snn_cnn, models, images, paths, parity: Parity,
     for regime, (beta, cfg, fused) in models.items():
         for policy in ("fused_dense", "fused_packed", "reference",
                        *AUTO_POLICIES):
-            times = []
-            for i in range(iters + 2):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                snn_cnn.forward(fused, images, cfg, policy=policy)
-                torch.cuda.synchronize()
-                if i >= 2:
-                    times.append((time.perf_counter() - t0) * 1e3)
+            times = time_forwards(torch, snn_cnn, fused, images, cfg, policy,
+                                  iters)
             med = medians[policy, regime] = statistics.median(times)
             say(f"[timing] forward {policy} {regime} (resblock BN1 beta "
                 f"{0.5 if beta is None else beta}): "
@@ -2937,6 +3309,7 @@ def kernels_namespace(torch):
         compact_kmap=events.compact_kmap,
         spike_matmul_dx_cuda=spike_matmul.spike_matmul_dx_cuda,
         spike_matmul_dx_ref=spike_matmul.spike_matmul_dx_ref,
+        spike_matmul_dw=spike_matmul.spike_matmul_dw,
         spike_matmul_dw_cuda=spike_matmul.spike_matmul_dw_cuda,
         spike_matmul_dw_ref=spike_matmul.spike_matmul_dw_ref,
         vld_map=spike_matmul.vld_map,
@@ -2949,6 +3322,7 @@ def kernels_namespace(torch):
         lif_update_ref=lif_update.lif_update_ref,
         w2ttfs_pool_cuda=w2ttfs_pool.w2ttfs_pool_cuda,
         w2ttfs_pool_fc_ref=w2ttfs_pool.w2ttfs_pool_fc_ref,
+        pack_spikes=packed.pack_spikes,
         pack_spikes_cuda=packed.pack_spikes_cuda,
         unpack_spikes_cuda=packed.unpack_spikes_cuda,
         pack_spikes_ref=packed.pack_spikes_ref,
@@ -3034,11 +3408,15 @@ def main() -> int:
     train_paths = phase_training(torch, M, _build, dev, TRAIN_BATCH)
     auto_train = phase_auto_training(torch, M, _build, dev, TRAIN_BATCH,
                                      models["quiet"][0], names)
+    lap("train")
+    paths.update(phase_timesteps(torch, M, _build, dev, images, BATCH))
+    paths[PACKED_DW_PATH] = phase_packed_dw(
+        torch, K, _build, train_paths["fold", "fused_packed+grad"].captured)
     for tp in (train_paths["fold", "fused_dense+grad"],
                train_paths["unfused", "fused_dense+grad"],
                *auto_train.values()):
         paths[tp.name] = (None, None, tp.launches[0], tp.captured)
-    lap("train")
+    lap("T")
     paths["explicit skip"] = phase_explicit(
         torch, K, _build, ops, paths,
         auto_train["train fold fused_dense+grad quiet"].captured)

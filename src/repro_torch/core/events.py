@@ -98,6 +98,31 @@ def pad_to_blocks(x: torch.Tensor, block_m: int,
     return x
 
 
+def block_occupancy(spikes: torch.Tensor, block_m: int = DEFAULT_BLOCKS.m,
+                    block_k: int = DEFAULT_BLOCKS.k) -> torch.Tensor:
+    """Fraction of non-silent blocks on the kernels' tile grid (the
+    sparsity the block skip can use; the raw spike rate is what an FPGA
+    uses). f32 scalar."""
+    flat = pad_to_blocks(spikes.reshape(-1, spikes.shape[-1]), block_m,
+                         block_k)
+    cnt = block_count_map_2d(flat, block_m, block_k)
+    return (cnt > 0).to(torch.float32).mean()
+
+
+def event_stats(spikes: torch.Tensor, block_m: int = DEFAULT_BLOCKS.m,
+                block_k: int = DEFAULT_BLOCKS.k) -> dict:
+    """Spike rate, total spikes and block occupancy of a spike tensor."""
+    s = spikes.to(torch.float32)
+    return {"spike_rate": s.mean(), "total_spikes": s.sum(),
+            "block_occupancy": block_occupancy(spikes, block_m, block_k)}
+
+
+def synaptic_ops(spikes: torch.Tensor, fanout: int) -> torch.Tensor:
+    """Synaptic operations a spike tensor triggers: ``fanout``
+    accumulations a spike (the SOPS numerator of the paper's GSOPS/W)."""
+    return spikes.to(torch.float32).sum() * fanout
+
+
 # ====================================================== bit-packed spike format
 _MASK32 = 0xFFFFFFFF
 

@@ -1,6 +1,6 @@
-"""Fixed-point quantization and BN folding (twin of ``repro.core.quant``):
-the F&Q stage that builds the served artifact, and the straight-through
-fake-quant the KD-QAT stage trains with.
+"""Fixed-point and fp8 quantization and BN folding (twin of
+``repro.core.quant``): the F&Q stage that builds the served artifact, and
+the straight-through fake-quant the KD-QAT stage trains with.
 
 The folds keep ``gamma / sqrt(var + eps)`` as the reference writes it (not
 ``rsqrt``), with the square root correctly rounded, so folded weights match
@@ -52,10 +52,32 @@ def quantize_fixed(x: torch.Tensor, bits: int = 8,
     return _ste(x, q * scale)
 
 
+# fp8 variant -> the torch dtype a value is rounded through
+FP8_DTYPES = {"e4m3": torch.float8_e4m3fn, "e5m2": torch.float8_e5m2}
+# e4m3fn has no infinity: the reference's cast gives NaN for a magnitude
+# that rounds past the largest finite value, 448 (above 464, the tie, which
+# rounds to even, 448), where torch's cast saturates to 448
+E4M3_OVERFLOW = 464.0
+
+
+def quantize_fp8(x: torch.Tensor, variant: str = "e4m3") -> torch.Tensor:
+    """fp8 fake-quant with a straight-through gradient: x rounded to the
+    nearest e4m3 (or e5m2) value and back; an e4m3 overflow is NaN, as in
+    the reference."""
+    if variant not in FP8_DTYPES:
+        raise ValueError(f"unknown fp8 variant {variant!r}")
+    xq = x.to(FP8_DTYPES[variant]).to(x.dtype)
+    if variant == "e4m3":
+        xq = torch.where(x.abs() > E4M3_OVERFLOW,
+                         torch.full_like(xq, float("nan")), xq)
+    return _ste(x, xq)
+
+
 def fake_quant(x: torch.Tensor, cfg: QuantConfig, *,
                is_weight: bool = True) -> torch.Tensor:
-    """The configured fake-quant (a no-op when disabled). The fp8 modes are
-    still to port (ROADMAP queue 1 item 3) and raise."""
+    """The configured fake-quant (a no-op when disabled): symmetric fixed
+    point for ``"int"``, a round trip through fp8 for ``"fp8_e4m3"`` and
+    ``"fp8_e5m2"``."""
     if not cfg.enabled:
         return x
     if not is_weight and not cfg.quantize_activations:
@@ -65,9 +87,7 @@ def fake_quant(x: torch.Tensor, cfg: QuantConfig, *,
         axis = 0 if (is_weight and cfg.per_channel and x.ndim >= 2) else None
         return quantize_fixed(x, bits, axis)
     if cfg.mode.startswith("fp8"):
-        raise NotImplementedError(
-            f"fake_quant mode {cfg.mode!r} is still to port (ROADMAP queue "
-            f"1 item 3); the int modes are ported")
+        return quantize_fp8(x, cfg.mode.split("_")[1])
     raise ValueError(f"unknown quant mode {cfg.mode!r}")
 
 
@@ -100,3 +120,17 @@ def fuse_bn_into_linear(w: torch.Tensor, b: Optional[torch.Tensor],
     b0 = b if b is not None else torch.zeros_like(bn_mean)
     b_fused = (b0 - bn_mean) * inv_std + bn_beta
     return w_fused, b_fused
+
+
+def quantize_tree(params, cfg: QuantConfig):
+    """Fake-quant every floating tensor of a nested dict / list of
+    parameters (the QAT forward); other leaves pass through."""
+    if not cfg.enabled:
+        return params
+    if isinstance(params, dict):
+        return {k: quantize_tree(v, cfg) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(quantize_tree(v, cfg) for v in params)
+    if isinstance(params, torch.Tensor) and params.is_floating_point():
+        return fake_quant(params, cfg, is_weight=True)
+    return params

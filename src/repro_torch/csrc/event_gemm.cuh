@@ -1,4 +1,4 @@
-// Event-gated tile product shared by fused_pe.cu and spike_matmul.cu — the
+// Event-gated tile product shared by fused_pe.cuh and spike_matmul.cu — the
 // Hopper counterpart of repro/kernels/gating.py::accum_tile, for the three
 // byte-skip strategies of the reference (kernels/spike_matmul/ops.py
 // SKIP_MODES):

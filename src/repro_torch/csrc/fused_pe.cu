@@ -1,268 +1,22 @@
-// Fused PE layer, stateless variant — replaces the Pallas kernel
-// repro/kernels/fused_pe/fused_pe.py::fused_pe_pallas (bias, residual,
-// whole-row or head-blocked Q mask, emit_vld, emit_current; T=1, no state)
-// under its three byte-skip strategies, skip="dense", "gated" and
-// "two_level" (the routes of event_gemm.cuh, which give the same bits),
-// with every spike operand and the output dense (int8) or bit-packed
-// (int32 words of 32 spikes, the packed_in / packed_q / packed_residual /
-// packed_out flags). x may also be a dense f32 or bf16 activation (the
-// LM's ops.dense_lif projections of the residual stream): the same tile
-// product over the f32 widening, on the dense route with an all-ones vld
-// map (a float operand has no silent blocks to skip).
-//
-// Per 128x128 output tile, in one pass: the event-gated f32 product
-// x @ w (event_gemm.cuh), then in registers
-//   cur   = (acc + bias) + residual          (the reference's order)
-//   spike = cur >= v_th                      (T=1: v = cur, no state)
-//   spike &= gate(row, col)                  (QKFormer write-back mask)
-//   spike &= row < m_valid && col < n_valid  (padding never fires)
-// The gate is rowsum(q[row]) >= qk_threshold for the whole-row mask; with
-// heads (head_dim dh > 0, h * dh == n_valid) column c belongs to head
-// c / dh and its gate is rowsum(q[row, head*dh : (head+1)*dh]) >=
-// qk_threshold (an int8 q sums its head's values; a packed q popcounts its
-// head's lanes, the words ANDed with the lanes' mask, which is
-// core/events.py::head_lane_masks formed from the column arithmetic). A
-// tile may hold several heads (dh < 128) or cut one (dh not dividing
-// 128), so the gates of every (row, head) the tile touches are computed
-// once into shared memory, in the GEMM tiles' space, after the product.
-// and the tile's spike count is written as the next layer's vld_cnt. The
-// count map tiles the output on (128, bn): bn = 128 is one CTA's tile; the
-// autotuner may ask for bn = 256, and then the two CTAs of a 128x256 tile
-// add their counts into one zeroed entry with an integer atomicAdd (exact
-// in any order). The f32 pre-activation never reaches device memory,
-// except in the emit_current variant (EmitCurrent, the training forward):
-// there each thread also writes the f32 current of its outputs inside the
-// valid extent to a [m_valid, n_valid] buffer, the residual the backward
-// differentiates from; the spikes are the same compare on that same value.
-//
-// The packed forms read and write 1/8 of the int8 bytes and never widen a
-// spike map in device memory: packed x is expanded to 0/1 floats in shared
-// memory (event_gemm.cuh); a packed Q row sum is __popc over the row's
-// words; a packed residual (the identity shortcut) is the thread's 8 bits
-// of one word, added as 0.f/1.f where the f32 residual is; a packed output
-// word is the 8-bit rows of four neighbouring threads, combined with
-// __shfl_xor_sync and stored by one of them. The f32 sums are the same as
-// the int8 path's, so both give the same spikes.
-//
-// Bound on the H100: the kernel runs the dense f32 product over every
-// 128x128 block the route does not skip, 2*128*128*Np operations per
-// block, so the 67 TFLOP/s f32 rate outside the tensor cores bounds it
-// (parity with the reference rules out TF32). The data needs less: one add
-// per spike and output column, a quarter to a half of that at the main
-// path's spike rates, and a layer with N < 128 (resblock 1, N = 64)
-// computes a half-empty tile. A packed patch matrix pads each 3x3 tap's
-// channels to whole 128-wide blocks, so at C = 64 its K is twice the int8
-// one (1152, not 576): the padding is zeros the block skip cannot see, and
-// the stripe skip (two_level) can, where an occ map comes with x. The
-// design keeps 64 accumulators per thread in registers and stages x and w
-// through 32 KB of shared memory so each loaded value feeds 8 FMAs; the
-// skip removes both the loads and the FMAs of a silent block. A dense
-// activation x is a full f32 product, 2*M*K*N operations; at the LM's
-// decode (M = a few to a few dozen slots, padded to the 128-row tile) the
-// padded rows multiply zeros, and the grid is only N/128 CTAs a row block,
-// so the f32 weight stream and the padding bound it. wgmma, TMA, a
-// multi-stage pipeline and narrower tiles (N = 64, decode's M) are later
-// work.
+// Fused PE layer: the C entry, and the stateless launches of an int8 or
+// a dense float x (the kernel, its design and its bound are described in
+// fused_pe.cuh; the other variants are instantiated in fused_pe_packed.cu,
+// fused_pe_state.cu and fused_pe_state_packed.cu).
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "event_gemm.cuh"
+#include "fused_pe.cuh"
 
 using namespace repro;
 
-// the flags argument of repro_fused_pe: one bit per packed operand, then
-// the dtype of a dense activation x (neither bit: int8 spikes)
-constexpr int kPackedX = 1, kPackedQ = 2, kPackedResidual = 4, kPackedOut = 8;
-constexpr int kF32X = 16, kBF16X = 32;
-
-// the (row, head) gates of one tile: at most 128 / dh + 2 heads, stored as
-// bytes over the GEMM tiles once the product is done
-constexpr int kMaxGateBytes = static_cast<int>(sizeof(GemmSmem));
-
-// The QK row sum of row `row` over q's columns [lo, hi): one warp, the
-// lanes striding the int8 values (16 at a time where the range is
-// 16-aligned) or the words (each word ANDed with the lanes of [lo, hi) it
-// holds). Lane 0 returns the sum.
-__device__ __forceinline__ int qk_row_sum(const void* __restrict__ q, int dq,
-                                          bool packed_q, size_t row, int lo,
-                                          int hi, int lane) {
-  int s = 0;
-  if (packed_q) {  // dq words per row
-    const int* qr = static_cast<const int*>(q) + row * dq;
-    for (int wd = lo / 32 + lane; wd * 32 < hi; wd += 32) {
-      const int b0 = max(lo - wd * 32, 0), b1 = min(hi - wd * 32, 32);
-      const unsigned lanes = (b1 - b0 == 32 ? 0xffffffffu : ((1u << (b1 - b0)) - 1u)) << b0;
-      s += __popc(static_cast<unsigned>(qr[wd]) & lanes);
-    }
-  } else if ((lo | hi) % 16 == 0) {  // int8 spikes, 16-byte aligned range
-    const int8_t* qr = static_cast<const int8_t*>(q) + row * dq;
-    for (int c = lo + lane * 16; c < hi; c += 32 * 16) {
-      const int4 v = *reinterpret_cast<const int4*>(qr + c);
-      const int8_t* e = reinterpret_cast<const int8_t*>(&v);
-#pragma unroll
-      for (int i = 0; i < 16; ++i) s += e[i];
-    }
-  } else {                           // int8 spikes, a ragged head
-    const int8_t* qr = static_cast<const int8_t*>(q) + row * dq;
-    for (int c = lo + lane; c < hi; c += 32) s += qr[c];
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
-  return s;
-}
-
-template <int XKind, bool EmitCurrent, int Skip>
-__global__ void __launch_bounds__(kThreads)
-fused_pe_kernel(const void* __restrict__ x, const float* __restrict__ w,
-                Route route, const float* __restrict__ bias,
-                const void* __restrict__ residual, const void* __restrict__ q,
-                int dq, void* __restrict__ spikes, int* __restrict__ vld_next,
-                float* __restrict__ current,
-                int kp, int np, int bn, int m_valid, int n_valid, float v_th,
-                float qk_threshold, int head_dim, int flags) {
-  __shared__ GemmSmem sm;
-  __shared__ int warp_count[kThreads / 32];
-  const int row_blk = blockIdx.y, col0 = blockIdx.x * kTile;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int lane = tid % 32, warp = tid / 32;
-  const bool packed_q = flags & kPackedQ, packed_res = flags & kPackedResidual;
-  const bool packed_out = flags & kPackedOut;
-
-  float acc[kSub][kSub];
-#pragma unroll
-  for (int i = 0; i < kSub; ++i)
-#pragma unroll
-    for (int j = 0; j < kSub; ++j) acc[i][j] = 0.f;
-  event_gemm_tile<XKind, Skip>(x, w, route, kp, np, row_blk, col0, sm, acc);
-
-  const int c0 = col0 + tx * kSub;
-  // the heads this tile touches: [h_first, h_first + n_heads); the whole-row
-  // mask is one "head" over all of q's columns
-  int h_first = 0, n_heads = 1;
-  if (head_dim > 0) {
-    const int c_end = min(col0 + kTile, n_valid);  // columns past it never fire
-    h_first = col0 / head_dim;
-    n_heads = c_end > col0 ? (c_end - 1) / head_dim - h_first + 1 : 0;
-  }
-  // this thread's columns -> their gate slot (-1: past n_valid)
-  int gate_of[kSub];
-#pragma unroll
-  for (int j = 0; j < kSub; ++j)
-    gate_of[j] = (c0 + j >= n_valid) ? -1 : head_dim > 0 ? (c0 + j) / head_dim - h_first : 0;
-  unsigned char* gate = reinterpret_cast<unsigned char*>(&sm);  // [kTile][n_heads]
-  if (q != nullptr) {  // one warp per (row, head): integer row sums of Q spikes
-    const int q_cols = packed_q ? dq * 32 : dq;
-    for (int g = warp; g < kTile * n_heads; g += kThreads / 32) {
-      const int r = g / n_heads, hh = h_first + g % n_heads;
-      const int lo = head_dim > 0 ? hh * head_dim : 0;
-      const int hi = head_dim > 0 ? lo + head_dim : q_cols;
-      const size_t row = static_cast<size_t>(row_blk) * kTile + r;
-      const int s = qk_row_sum(q, dq, packed_q, row, lo, hi, lane);
-      if (lane == 0) gate[g] = static_cast<float>(s) >= qk_threshold ? 1 : 0;
-    }
-    __syncthreads();
-  }
-
-  const int words_per_row = np / 32;
-  float b[kSub];
-#pragma unroll
-  for (int j = 0; j < kSub; ++j) b[j] = 0.f;
-  if (bias != nullptr) {
-    const float4 b0 = *reinterpret_cast<const float4*>(bias + c0);
-    const float4 b1 = *reinterpret_cast<const float4*>(bias + c0 + 4);
-    b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
-    b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
-  }
-  int count = 0;
-#pragma unroll
-  for (int i = 0; i < kSub; ++i) {
-    const int rl = ty * kSub + i;
-    const int row = row_blk * kTile + rl;
-    float r[kSub] = {};
-    if (residual != nullptr && packed_res) {  // this thread's 8 bits of a word
-      const unsigned word = static_cast<unsigned>(static_cast<const int*>(residual)[
-          static_cast<size_t>(row) * words_per_row + c0 / 32]);
-      const unsigned bits = (word >> (c0 % 32)) & 0xffu;
-#pragma unroll
-      for (int j = 0; j < kSub; ++j) r[j] = ((bits >> j) & 1u) ? 1.f : 0.f;
-    } else if (residual != nullptr) {
-      const float* rp = static_cast<const float*>(residual) + static_cast<size_t>(row) * np + c0;
-      const float4 r0 = *reinterpret_cast<const float4*>(rp);
-      const float4 r1 = *reinterpret_cast<const float4*>(rp + 4);
-      r[0] = r0.x; r[1] = r0.y; r[2] = r0.z; r[3] = r0.w;
-      r[4] = r1.x; r[5] = r1.y; r[6] = r1.z; r[7] = r1.w;
-    }
-    const bool row_on = row < m_valid;
-    uint64_t bytes = 0;
-    unsigned bits = 0;
-#pragma unroll
-    for (int j = 0; j < kSub; ++j) {
-      float cur = acc[i][j];
-      if (bias != nullptr) cur = __fadd_rn(cur, b[j]);
-      if (residual != nullptr) cur = __fadd_rn(cur, r[j]);
-      if constexpr (EmitCurrent) {
-        if (row < m_valid && c0 + j < n_valid)
-          current[static_cast<size_t>(row) * n_valid + c0 + j] = cur;
-      }
-      const bool on = row_on && gate_of[j] >= 0 &&
-                      (q == nullptr || gate[rl * n_heads + gate_of[j]] != 0);
-      const bool s = on && cur >= v_th;
-      count += s;
-      bytes |= static_cast<uint64_t>(s) << (8 * j);
-      bits |= static_cast<unsigned>(s) << j;
-    }
-    if (packed_out) {
-      // lanes 4g..4g+3 hold columns 32g'..32g'+31 of one row (tx = 4g'..),
-      // each 8 of them: shift each byte into place and OR the four
-      unsigned word = bits << (8 * (tx % 4));
-      word |= __shfl_xor_sync(0xffffffffu, word, 1);
-      word |= __shfl_xor_sync(0xffffffffu, word, 2);
-      if (tx % 4 == 0)
-        static_cast<int*>(spikes)[static_cast<size_t>(row) * words_per_row + c0 / 32] =
-            static_cast<int>(word);
-    } else {
-      *reinterpret_cast<uint64_t*>(static_cast<int8_t*>(spikes) +
-                                   static_cast<size_t>(row) * np + c0) = bytes;
-    }
-  }
-
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) count += __shfl_down_sync(0xffffffffu, count, off);
-  if (lane == 0) warp_count[warp] = count;
-  __syncthreads();
-  if (tid == 0) {
-    int total = 0;
-#pragma unroll
-    for (int i = 0; i < kThreads / 32; ++i) total += warp_count[i];
-    int* dst = vld_next + row_blk * (np / bn) + col0 / bn;
-    if (bn == kTile)
-      *dst = total;
-    else
-      atomicAdd(dst, total);  // the CTAs of a wide tile; integer, exact
-  }
-}
-
 namespace {
 
-template <int XKind, bool EmitCurrent, int Skip>
-void launch(const void* x, const float* w, const Route& route, const float* bias,
-            const void* residual, const void* q, int dq, void* spikes,
-            int* vld_next, float* current, int mp, int kp, int np, int bn,
-            int m_valid, int n_valid, float v_th, float qk_threshold,
-            int head_dim, int flags, cudaStream_t stream) {
-  const dim3 grid(np / kTile, mp / kTile);
-  fused_pe_kernel<XKind, EmitCurrent, Skip><<<grid, kThreads, 0, stream>>>(
-      x, w, route, bias, residual, q, dq, spikes, vld_next, current, kp, np, bn,
-      m_valid, n_valid, v_th, qk_threshold, head_dim, flags);
-}
-
-using Launch = decltype(&launch<kXInt8, false, kDense>);
-
-template <int XKind, bool EmitCurrent>
-constexpr Launch pick(int skip) {
-  return skip == kDense ? &launch<XKind, EmitCurrent, kDense>
-         : skip == kGated ? &launch<XKind, EmitCurrent, kGated>
-                          : &launch<XKind, EmitCurrent, kTwoLevel>;
+// a spike x (int8 or packed words): every route, with or without state
+Launch pick(int x_kind, bool emit, bool state, int skip) {
+  if (x_kind == kXPacked)
+    return state ? pick_state_packed(emit, skip) : pick_packed(emit, skip);
+  if (state) return pick_state_int8(emit, skip);
+  return emit ? pick_skip<kXInt8, true, false>(skip) : pick_skip<kXInt8, false, false>(skip);
 }
 
 }  // namespace
@@ -274,41 +28,53 @@ constexpr Launch pick(int skip) {
 // takes kDense only. May be null: bias [np] f32; residual [mp, np] f32 or
 // [mp, np/32] words (kPackedResidual); q [mp, dq] int8 (dq a multiple of
 // 128) or [mp, dq] words (kPackedQ, dq words per row); current [m_valid,
-// n_valid] f32 (the emit_current variant). head_dim > 0 makes the q mask
-// head-blocked (heads of head_dim columns, head_dim * heads == n_valid,
-// q at least n_valid columns wide); 0 keeps the whole-row mask. Writes
-// spikes [mp, np] int8 or [mp, np/32] words (kPackedOut), vld_next
+// n_valid] f32 (the emit_current variant); the LIF state (a spike x
+// only, all three or none): v_prev [m_valid, n_valid] f32, s_prev
+// [m_valid, n_valid] int8 and v_next [m_valid, n_valid] f32 out, decayed
+// by tau and reset hard, or soft with kSoftReset. head_dim > 0 makes the q
+// mask head-blocked (heads of head_dim columns, head_dim * heads ==
+// n_valid, q at least n_valid columns wide); 0 keeps the whole-row mask.
+// Writes spikes [mp, np] int8 or [mp, np/32] words (kPackedOut), vld_next
 // [mp/128, np/bn] int32 (zeroed by the caller when bn > 128) and, when
 // current is not null, the current.
 extern "C" int repro_fused_pe(const void* x, const float* w, const int* vld,
                               const int* nact, const int* kmap, const int* occ,
                               const float* bias, const void* residual,
                               const void* q, int dq, void* spikes,
-                              int* vld_next, float* current, int mp, int kp,
-                              int np, int bk, int bn, int m_valid, int n_valid,
-                              float v_th, float qk_threshold, int head_dim,
+                              int* vld_next, float* current,
+                              const float* v_prev, const int8_t* s_prev,
+                              float* v_next, int mp, int kp, int np, int bk,
+                              int bn, int m_valid, int n_valid, float v_th,
+                              float qk_threshold, float tau, int head_dim,
                               int flags, int skip, cudaStream_t stream) {
   const int x_kind = (flags & kPackedX) ? kXPacked
                      : (flags & kF32X)  ? kXF32
                      : (flags & kBF16X) ? kXBF16
                                         : kXInt8;
   const bool float_x = x_kind == kXF32 || x_kind == kXBF16;
+  const bool state = v_prev != nullptr;
   if (skip < kDense || skip > kTwoLevel || (bn != kTile && bn != 2 * kTile) ||
-      (float_x && skip != kDense) || head_dim < 0 ||
+      (float_x && (skip != kDense || state)) || head_dim < 0 ||
+      state != (s_prev != nullptr) || state != (v_next != nullptr) ||
       (head_dim > 0 && (kTile / head_dim + 2) * kTile > kMaxGateBytes))
     return static_cast<int>(cudaErrorInvalidValue);
   if (mp > 0 && np > 0) {
     const bool emit = current != nullptr;
     Launch fn;
     switch (x_kind) {
-      case kXPacked: fn = emit ? pick<kXPacked, true>(skip) : pick<kXPacked, false>(skip); break;
-      case kXF32: fn = emit ? &launch<kXF32, true, kDense> : &launch<kXF32, false, kDense>; break;
-      case kXBF16: fn = emit ? &launch<kXBF16, true, kDense> : &launch<kXBF16, false, kDense>; break;
-      default: fn = emit ? pick<kXInt8, true>(skip) : pick<kXInt8, false>(skip);
+      case kXPacked: fn = pick(kXPacked, emit, state, skip); break;
+      case kXF32:
+        fn = emit ? &launch<kXF32, true, kDense, false> : &launch<kXF32, false, kDense, false>;
+        break;
+      case kXBF16:
+        fn = emit ? &launch<kXBF16, true, kDense, false> : &launch<kXBF16, false, kDense, false>;
+        break;
+      default: fn = pick(kXInt8, emit, state, skip);
     }
     const Route route{vld, nact, kmap, occ, bk};
-    fn(x, w, route, bias, residual, q, dq, spikes, vld_next, current, mp, kp, np, bn,
-       m_valid, n_valid, v_th, qk_threshold, head_dim, flags, stream);
+    const State st{v_prev, s_prev, v_next, tau};
+    fn(x, w, route, bias, residual, q, dq, spikes, vld_next, current, st, mp, kp, np,
+       bn, m_valid, n_valid, v_th, qk_threshold, head_dim, flags, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,16 @@
+// Fused PE layer: the stateless launches of a bit-packed x (packed_in),
+// every route, with or without the emitted current. They live in a source
+// of their own so that nvcc compiles them in parallel with the other
+// variants; the kernel is in fused_pe.cuh.
+#include <cuda_runtime.h>
+
+#include "fused_pe.cuh"
+
+namespace repro {
+
+Launch pick_packed(bool emit, int skip) {
+  return emit ? pick_skip<kXPacked, true, false>(skip)
+              : pick_skip<kXPacked, false, false>(skip);
+}
+
+}  // namespace repro

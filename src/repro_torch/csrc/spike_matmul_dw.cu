@@ -1,8 +1,8 @@
 // Backward weight-gradient of a spiking linear layer — replaces two Pallas
 // kernels of repro/kernels/spike_matmul/backward.py, spike_matmul_dw_pallas
 // (skip="dense") and spike_matmul_dw_gated_pallas (skip="gated" and
-// "two_level", with gating.py::accum_tile_t), for int8 x: dw[K, N] = x^T @ g
-// over M. The dense skip leaves out every 128 x 128 (m, k) block of x whose
+// "two_level", with gating.py::accum_tile_t), for int8 x and for bit-packed
+// x (packed_in: int32 words of 32 spikes): dw[K, N] = x^T @ g over M. The dense skip leaves out every 128 x 128 (m, k) block of x whose
 // forward vld_cnt is zero; the gated walk visits, for each k block, only
 // the compacted list mmap[kb, 0 .. nact_t[kb]) of its non-silent m blocks
 // (core/events.py::compact_kmap of the transposed vld map); the two-level
@@ -10,7 +10,12 @@
 // that a silent 32-column stripe of x (a clear occ bit) never feeds. A
 // silent block's spikes are all zero, so every skip is exact. x is [M, K]
 // int8 spikes, g is [M, N] f32, both row-major and unpadded (loads check
-// their bounds); vld and occ are x's [ceil(M/128), ceil(K/128)] maps.
+// their bounds); vld and occ are x's [ceil(M/128), ceil(K/128)] maps. A
+// packed x is the words [Mp, Kp/32] of the map packed on the 128 x 128
+// grid (Mp, Kp: M, K rounded up to 128); a tile row's 128 columns are
+// four words, and each thread stores its element's bit as 0.f/1.f in the
+// same f32 shared tile the int8 load fills with the same values, so the
+// FMAs, their order and dw are the int8 launch's bits.
 //
 // The TPU grid reduces over M inside one output tile. On the card that
 // gives far too few CTAs (at resblock 1, K x N = 576 x 64 is 5 tiles of
@@ -33,7 +38,8 @@
 // outside the tensor cores. Each kept block costs the dense 2*128*128*128
 // product, in the register-tiled FMA loop of event_gemm.cuh (8 x 8 outputs
 // a thread, 32-deep steps through shared memory); the partials add
-// 4 * S * Kp * Np bytes written and read once.
+// 4 * S * Kp * Np bytes written and read once. A packed x is read as an
+// eighth of the int8 bytes (each 4-byte word loaded once a warp).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -44,10 +50,12 @@ using namespace repro;
 namespace {
 
 // one m block of the CTA's run: acc += x[mb, kb tile]^T @ g[mb, nb tile],
-// leaving out the output rows of the stripes whose bit of `bits` is clear
+// leaving out the output rows of the stripes whose bit of `bits` is clear.
+// x is int8 [m, k] or, Packed, int32 words [Mp, kw]
+template <bool Packed>
 __device__ __forceinline__ void dw_block(
-    const int8_t* __restrict__ x, const float* __restrict__ g, int m, int k, int n,
-    int mb, int col_k, int col_n, unsigned bits, float (&a)[kStep][kTile],
+    const void* __restrict__ x, const float* __restrict__ g, int m, int k, int n,
+    int kw, int mb, int col_k, int col_n, unsigned bits, float (&a)[kStep][kTile],
     float (&b)[kStep][kTile], float (&acc)[kSub][kSub]) {
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   // thread rows ty*8 .. ty*8+7 of the k tile lie in stripe ty / 4
@@ -60,9 +68,18 @@ __device__ __forceinline__ void dw_block(
       const int r = idx / kTile, c = idx % kTile;  // a warp reads one row
       const int row = m0 + r;
       const bool row_ok = row < m;
-      a[r][c] = (row_ok && col_k + c < k)
-                    ? static_cast<float>(x[static_cast<size_t>(row) * k + col_k + c])
-                    : 0.f;
+      float xv = 0.f;
+      if (row_ok && col_k + c < k) {
+        if constexpr (Packed) {  // a warp's 32 columns lie in one word
+          const unsigned word = static_cast<unsigned>(static_cast<const int*>(x)[
+              static_cast<size_t>(row) * kw + (col_k + c) / 32]);
+          xv = ((word >> ((col_k + c) % 32)) & 1u) ? 1.f : 0.f;
+        } else {
+          xv = static_cast<float>(
+              static_cast<const int8_t*>(x)[static_cast<size_t>(row) * k + col_k + c]);
+        }
+      }
+      a[r][c] = xv;
       b[r][c] = (row_ok && col_n + c < n) ? g[static_cast<size_t>(row) * n + col_n + c]
                                           : 0.f;
     }
@@ -86,9 +103,9 @@ __device__ __forceinline__ void dw_block(
   }
 }
 
-template <int Skip>
+template <int Skip, bool Packed>
 __global__ void __launch_bounds__(kThreads)
-spike_matmul_dw_kernel(const int8_t* __restrict__ x, const float* __restrict__ g,
+spike_matmul_dw_kernel(const void* __restrict__ x, const float* __restrict__ g,
                        const int* __restrict__ vld, const int* __restrict__ nact_t,
                        const int* __restrict__ mmap, const int* __restrict__ occ,
                        float* __restrict__ partial, int m, int k, int n,
@@ -98,7 +115,7 @@ spike_matmul_dw_kernel(const int8_t* __restrict__ x, const float* __restrict__ g
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int nb = blockIdx.x, kb = blockIdx.y, s = blockIdx.z;
   const int gk = (k + kTile - 1) / kTile, gm = (m + kTile - 1) / kTile;
-  const int kp = gk * kTile, np = gridDim.x * kTile;
+  const int kp = gk * kTile, np = gridDim.x * kTile, kw = kp / 32;
   const int col_k = kb * kTile, col_n = nb * kTile;
   const int mb_begin = s * blocks_per_split;
   const int mb_end = min(gm, mb_begin + blocks_per_split);
@@ -112,7 +129,7 @@ spike_matmul_dw_kernel(const int8_t* __restrict__ x, const float* __restrict__ g
   if constexpr (Skip == kDense) {
     for (int mb = mb_begin; mb < mb_end; ++mb) {
       if (vld[mb * gk + kb] == 0) continue;  // event skip (uniform)
-      dw_block(x, g, m, k, n, mb, col_k, col_n, 0xffffffffu, a, b, acc);
+      dw_block<Packed>(x, g, m, k, n, kw, mb, col_k, col_n, 0xffffffffu, a, b, acc);
     }
   } else {
     // the non-silent m blocks of k block kb, ascending: those of this run
@@ -123,7 +140,7 @@ spike_matmul_dw_kernel(const int8_t* __restrict__ x, const float* __restrict__ g
       if (mb >= mb_end) break;
       unsigned bits = 0xffffffffu;
       if constexpr (Skip == kTwoLevel) bits = static_cast<unsigned>(occ[mb * gk + kb]);
-      dw_block(x, g, m, k, n, mb, col_k, col_n, bits, a, b, acc);
+      dw_block<Packed>(x, g, m, k, n, kw, mb, col_k, col_n, bits, a, b, acc);
     }
   }
 
@@ -149,32 +166,45 @@ __global__ void dw_sum_kernel(const float* __restrict__ partial, float* __restri
   dw[i] = s;
 }
 
+template <bool Packed>
+void launch_dw(const void* x, const float* g, const int* vld, const int* nact_t,
+               const int* mmap, const int* occ, float* partial, int m, int k, int n,
+               int blocks_per_split, int skip, dim3 grid, cudaStream_t stream) {
+  if (skip == kDense)
+    spike_matmul_dw_kernel<kDense, Packed><<<grid, kThreads, 0, stream>>>(
+        x, g, vld, nact_t, mmap, occ, partial, m, k, n, blocks_per_split);
+  else if (skip == kGated)
+    spike_matmul_dw_kernel<kGated, Packed><<<grid, kThreads, 0, stream>>>(
+        x, g, vld, nact_t, mmap, occ, partial, m, k, n, blocks_per_split);
+  else
+    spike_matmul_dw_kernel<kTwoLevel, Packed><<<grid, kThreads, 0, stream>>>(
+        x, g, vld, nact_t, mmap, occ, partial, m, k, n, blocks_per_split);
+}
+
 }  // namespace
 
-// x [m, k] int8, g [m, n] f32, partial [splits, kp, np] f32 scratch (kp,
-// np: k, n rounded up to 128) -> dw [k, n] f32. CTA s covers the 128-row
+// x [m, k] int8 or, packed != 0, [mp, kp/32] int32 words (mp: m rounded
+// up to 128), g [m, n] f32, partial [splits, kp, np] f32 scratch (kp, np:
+// k, n rounded up to 128) -> dw [k, n] f32. CTA s covers the 128-row
 // blocks [s * blocks_per_split, (s + 1) * blocks_per_split). The route
 // (skip, see event_gemm.cuh): kDense reads vld [gm, gk] (gm, gk: m, k
 // over 128, rounded up); kGated nact_t [gk] and mmap [gk, gm], the
 // compacted transposed vld map; kTwoLevel also occ [gm, gk].
-extern "C" int repro_spike_matmul_dw(const int8_t* x, const float* g, const int* vld,
+extern "C" int repro_spike_matmul_dw(const void* x, const float* g, const int* vld,
                                      const int* nact_t, const int* mmap, const int* occ,
                                      float* partial, float* dw, int m, int k, int n,
                                      int splits, int blocks_per_split, int skip,
-                                     cudaStream_t stream) {
+                                     int packed, cudaStream_t stream) {
   if (skip < kDense || skip > kTwoLevel) return static_cast<int>(cudaErrorInvalidValue);
   if (k > 0 && n > 0) {
     const int kp = (k + kTile - 1) / kTile * kTile, np = (n + kTile - 1) / kTile * kTile;
     const dim3 grid(np / kTile, kp / kTile, splits);
-    if (skip == kDense)
-      spike_matmul_dw_kernel<kDense><<<grid, kThreads, 0, stream>>>(
-          x, g, vld, nact_t, mmap, occ, partial, m, k, n, blocks_per_split);
-    else if (skip == kGated)
-      spike_matmul_dw_kernel<kGated><<<grid, kThreads, 0, stream>>>(
-          x, g, vld, nact_t, mmap, occ, partial, m, k, n, blocks_per_split);
+    if (packed)
+      launch_dw<true>(x, g, vld, nact_t, mmap, occ, partial, m, k, n, blocks_per_split,
+                      skip, grid, stream);
     else
-      spike_matmul_dw_kernel<kTwoLevel><<<grid, kThreads, 0, stream>>>(
-          x, g, vld, nact_t, mmap, occ, partial, m, k, n, blocks_per_split);
+      launch_dw<false>(x, g, vld, nact_t, mmap, occ, partial, m, k, n, blocks_per_split,
+                       skip, grid, stream);
     const size_t total = static_cast<size_t>(k) * n;
     dw_sum_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(
         partial, dw, k, n, kp, np, splits);

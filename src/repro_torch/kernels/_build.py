@@ -49,14 +49,14 @@ _I, _LL, _F = ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry -> argument types (pointers and the stream as void*)
 _SIGNATURES = {
     "repro_lif_update": [_VOID_P] * 5 + [_LL, _F, _F, _I, _VOID_P],
-    "repro_fused_pe": [_VOID_P] * 9 + [_I] + [_VOID_P] * 3
-    + [_I] * 7 + [_F, _F, _I, _I, _I, _VOID_P],
+    "repro_fused_pe": [_VOID_P] * 9 + [_I] + [_VOID_P] * 6
+    + [_I] * 7 + [_F, _F, _F, _I, _I, _I, _VOID_P],
     "repro_spike_matmul": [_VOID_P] * 7 + [_I] * 6 + [_VOID_P],
     "repro_w2ttfs_pool": [_VOID_P] * 4 + [_I] * 6 + [_F, _VOID_P],
     "repro_pack_spikes": [_VOID_P] * 4 + [_I] * 5 + [_VOID_P],
     "repro_unpack_spikes": [_VOID_P] * 2 + [_LL, _VOID_P],
     "repro_spike_matmul_dx": [_VOID_P] * 5 + [_I] * 4 + [_F] * 5 + [_VOID_P],
-    "repro_spike_matmul_dw": [_VOID_P] * 8 + [_I] * 6 + [_VOID_P],
+    "repro_spike_matmul_dw": [_VOID_P] * 8 + [_I] * 7 + [_VOID_P],
     "repro_qk_attention": [_VOID_P] * 3 + [_LL, _I, _F, _I, _VOID_P],
     "repro_flash_attention": [_VOID_P] * 4 + [_I] * 5 + [_F, _I, _I, _VOID_P],
 }

@@ -1,5 +1,5 @@
-"""Wrapper for the fused PE kernel (``csrc/fused_pe.cu``), stateless
-variant: padding, metadata plumbing, checks, and the device split.
+"""Wrapper for the fused PE kernel (``csrc/fused_pe.cuh``): padding,
+metadata plumbing, checks, the device split, and the multi-timestep scan.
 
 Spike operands (x, q, residual) may be int8 maps or ``PackedSpikes``, and
 ``out_format="packed"`` makes the emitted map leave as a PackedSpikes whose
@@ -13,10 +13,12 @@ with a ``Gate``), and the blocks are the autotuner's: x's metadata grid
 is 128 x ``block_k`` and the emitted ``vld_next`` tiles the output on 128 x
 ``block_n`` (each 128 or 256). ``heads=(h, dh)`` makes the QK mask
 head-blocked: each head's row sum of q gates only its own dh output
-columns. The variant still to port (ROADMAP queue 2, K2) — LIF state for
-T>1 — is not accepted here; the ops layer raises before it gets this far.
-``emit_current=True`` (the training forward) also returns the f32 current
-the spikes were thresholded from.
+columns. ``v_prev`` / ``s_prev`` make a launch stateful (T>1): the
+membrane decays by ``tau``, resets hard or soft, and ``v_next`` leaves with
+the spikes; a dense activation x takes no state. ``emit_current=True``
+(the training forward) also returns the f32 current the spikes were
+thresholded from. ``fused_pe_layer`` runs a [T, M, K] spike train: one
+stateless launch at T=1, the stateful kernel scanned over time otherwise.
 """
 from __future__ import annotations
 
@@ -25,19 +27,22 @@ from typing import Optional, Union
 import torch
 import torch.nn.functional as F
 
-from ...core.events import (LANE_BITS, PackedSpikes, pad_to_blocks,
-                            vld_or_compute)
+from ...core.events import (LANE_BITS, PackedSpikes, block_count_map_2d,
+                            pad_to_blocks, popcount_block_map, vld_or_compute)
 from .. import _build
+from ..packed.ops import pack_spikes, unpack_spikes
 from ..spike_matmul.ops import (SKIP_IDS, TILE, Gate, check_block_contract,
                                 check_width, make_gate, packed_operand,
                                 weight_operand, x_occupancy)
-from .ref import Packing, fused_pe_block_ref
+from .ref import LIFState, Packing, fused_pe_block_ref, head_gate
 
 Spikes = Union[torch.Tensor, PackedSpikes]
 
 
 # a dense activation x: its dtype -> the kernel's flag for it
 FLOAT_X_FLAGS = {torch.float32: 16, torch.bfloat16: 32}
+# the flag bit of a soft reset (a stateful launch)
+SOFT_RESET_FLAG = 64
 
 
 def spike_operand(x: torch.Tensor) -> torch.Tensor:
@@ -74,11 +79,12 @@ def fused_pe_cuda(xp: torch.Tensor, wp: torch.Tensor, vld: torch.Tensor,
                   v_th: float, qk_threshold: float,
                   packing: Packing = Packing(), block_n: int = TILE,
                   gate: Optional[Gate] = None,
-                  heads: Optional[tuple[int, int]] = None) -> tuple:
+                  heads: Optional[tuple[int, int]] = None,
+                  state: Optional[LIFState] = None) -> tuple:
     """Launch the kernel on block-aligned CUDA operands (see
     ``fused_pe_block_ref`` for the contract and the outputs): the dense
-    skip on ``vld``, or the gated walk of ``gate`` (spike x only). Does
-    not count."""
+    skip on ``vld``, or the gated walk of ``gate`` (spike x only), with the
+    LIF ``state`` (spike x only) or without. Does not count."""
     dev = xp.device
     if dev.type != "cuda":
         raise ValueError(f"fused_pe_cuda needs CUDA tensors, got {dev}")
@@ -131,6 +137,18 @@ def fused_pe_cuda(xp: torch.Tensor, wp: torch.Tensor, vld: torch.Tensor,
             _build.require(qp, "q", torch.int8, (mp, dq), dev)
     check_heads(heads, n_valid,
                 None if qp is None else dq * (LANE_BITS if packing.q else 1))
+    v_next = None
+    if state is not None:
+        if xp.dtype in FLOAT_X_FLAGS:
+            raise ValueError("a dense activation x takes no LIF state")
+        _build.require(state.v_prev, "v_prev", torch.float32,
+                       (m_valid, n_valid), dev, align=4)
+        _build.require(state.s_prev, "s_prev", torch.int8,
+                       (m_valid, n_valid), dev, align=1)
+        v_next = torch.empty((m_valid, n_valid), dtype=torch.float32,
+                             device=dev)
+        if state.soft_reset:
+            flags |= SOFT_RESET_FLAG
     if packing.out:
         spikes = torch.empty((mp, np_ // LANE_BITS), dtype=torch.int32,
                              device=dev)
@@ -146,13 +164,20 @@ def fused_pe_cuda(xp: torch.Tensor, wp: torch.Tensor, vld: torch.Tensor,
         _build.ptr(xp), _build.ptr(wp), _build.ptr(vld), _build.ptr(nact),
         _build.ptr(kmap), _build.ptr(occ), _build.ptr(bp), _build.ptr(rp),
         _build.ptr(qp), dq, _build.ptr(spikes), _build.ptr(vld_next),
-        _build.ptr(current), mp, kp, np_, bk, block_n, m_valid, n_valid, v_th,
-        qk_threshold, 0 if heads is None else heads[1], flags,
+        _build.ptr(current),
+        None if state is None else _build.ptr(state.v_prev),
+        None if state is None else _build.ptr(state.s_prev),
+        _build.ptr(v_next), mp, kp, np_, bk, block_n, m_valid, n_valid, v_th,
+        qk_threshold, 0.0 if state is None else state.tau,
+        0 if heads is None else heads[1], flags,
         SKIP_IDS["dense" if gate is None else gate.skip], _build.stream(xp))
     _build.check(err, "repro_fused_pe")
+    out = (spikes, vld_next)
+    if state is not None:
+        out = (*out, v_next)
     if packing.current:
-        return spikes, vld_next, current
-    return spikes, vld_next
+        out = (*out, current)
+    return out
 
 
 def fused_pe_operands(x: Spikes, w: torch.Tensor, *,
@@ -164,7 +189,10 @@ def fused_pe_operands(x: Spikes, w: torch.Tensor, *,
                       out_format: str = "dense",
                       emit_current: bool = False, block_n: int = TILE,
                       block_k: int = TILE, skip: str = "dense",
-                      heads: Optional[tuple[int, int]] = None) -> tuple:
+                      heads: Optional[tuple[int, int]] = None,
+                      v_prev: Optional[torch.Tensor] = None,
+                      s_prev: Optional[torch.Tensor] = None,
+                      tau: float = 0.5, soft_reset: bool = False) -> tuple:
     """The block-aligned operands of one launch, in the order
     ``fused_pe_cuda`` and ``fused_pe_block_ref`` take them: x (int8, f32 or
     bf16, or a packed x's words), w padded to x's padded K and to
@@ -172,8 +200,10 @@ def fused_pe_operands(x: Spikes, w: torch.Tensor, *,
     padded to Np, the residual (f32, an int8 binary shortcut cast as the
     reference wrapper casts it, or a packed one's words), q (int8 padded to
     128 columns, or words), then the valid extent, the thresholds, the
-    ``Packing``, ``block_n``, the ``Gate`` (None for the dense skip) and
-    ``heads`` (None for the whole-row mask)."""
+    ``Packing``, ``block_n``, the ``Gate`` (None for the dense skip),
+    ``heads`` (None for the whole-row mask) and the ``LIFState`` (None
+    without ``v_prev``: v_prev as f32 and s_prev as int8, as the reference
+    wrapper casts them, zeros for a missing s_prev, all unpadded)."""
     if out_format not in ("dense", "packed"):
         raise ValueError(f"out_format={out_format!r} not in "
                          f"('dense', 'packed')")
@@ -236,8 +266,22 @@ def fused_pe_operands(x: Spikes, w: torch.Tensor, *,
                       out_format == "packed", emit_current)
     if heads is not None:
         check_heads(heads, n0, None if q is None else q.shape[-1])
+    state = None
+    if s_prev is not None and v_prev is None:
+        raise ValueError("s_prev needs v_prev")
+    if v_prev is not None:
+        if xp.dtype in FLOAT_X_FLAGS:
+            raise ValueError("a dense activation x takes no LIF state")
+        for name, t in (("v_prev", v_prev), ("s_prev", s_prev)):
+            if t is not None and tuple(t.shape) != (m0, n0):
+                raise ValueError(f"{name} {tuple(t.shape)} is not "
+                                 f"[{m0}, {n0}]")
+        sp = (torch.zeros((m0, n0), dtype=torch.int8, device=xp.device)
+              if s_prev is None else s_prev.to(torch.int8))
+        state = LIFState(v_prev.to(torch.float32).contiguous(),
+                         sp.contiguous(), float(tau), bool(soft_reset))
     return (xp, wp, vld, bp, rp, qp, m0, n0, v_th, qk_threshold, packing,
-            block_n, gate, heads)
+            block_n, gate, heads, state)
 
 
 def fused_pe(x: Spikes, w: torch.Tensor, *,
@@ -249,8 +293,12 @@ def fused_pe(x: Spikes, w: torch.Tensor, *,
              out_format: str = "dense", emit_current: bool = False,
              block_n: int = TILE, block_k: int = TILE,
              skip: str = "dense",
-             heads: Optional[tuple[int, int]] = None) -> tuple:
-    """One stateless fused PE layer (the deployed T=1 form).
+             heads: Optional[tuple[int, int]] = None,
+             v_prev: Optional[torch.Tensor] = None,
+             s_prev: Optional[torch.Tensor] = None,
+             tau: float = 0.5, soft_reset: bool = False) -> tuple:
+    """One fused PE layer: stateless (the deployed T=1 form), or one step
+    of a T>1 train with the LIF state ``v_prev`` / ``s_prev`` [M, N].
 
     x [M, K] int8 spikes, a 2-D PackedSpikes or a dense f32 / bf16
     activation, w [K, N]; optional bias [N], residual [M, N] (f32 current,
@@ -260,18 +308,23 @@ def fused_pe(x: Spikes, w: torch.Tensor, *,
     ``vld_cnt`` — x's [Mp/128, Kp/block_k] count map from the producing
     layer (computed here for a dense spike x without one, all ones for an
     activation; a packed x carries its own). ``skip`` as in
-    ``spike_matmul.SKIP_MODES`` (``"dense"`` for an activation). Returns (spikes, vld_next
-    [Mp/128, Np/block_n] int32): spikes are int8 [M, N], or with
+    ``spike_matmul.SKIP_MODES`` (``"dense"`` for an activation). With the
+    state, v = tau * v_prev * (1 - s_prev) + current fires on v >= v_th,
+    and v_next is reset (``soft_reset``: v - v_th * spike, else v * (1 -
+    spike)) by the layer's own spike, before the QK mask. Returns (spikes,
+    vld_next [Mp/128, Np/block_n] int32): spikes are int8 [M, N], or with
     ``out_format="packed"`` a PackedSpikes of the logical shape [M, N] on
-    the (128, block_n) grid. With ``emit_current`` a third output is the
-    f32 [M, N] current (post-bias, post-residual) the spikes were
-    thresholded from. The kernel on CUDA tensors, the plain version on CPU
-    tensors."""
+    the (128, block_n) grid; then, with the state, v_next f32 [M, N], and
+    with ``emit_current`` the f32 [M, N] current (post-bias,
+    post-residual) the spikes were thresholded from. The kernel on CUDA
+    tensors, the plain version on CPU tensors."""
     args = fused_pe_operands(x, w, bias=bias, residual=residual, q=q,
                              vld_cnt=vld_cnt, v_th=v_th,
                              qk_threshold=qk_threshold, out_format=out_format,
                              emit_current=emit_current, block_n=block_n,
-                             block_k=block_k, skip=skip, heads=heads)
+                             block_k=block_k, skip=skip, heads=heads,
+                             v_prev=v_prev, s_prev=s_prev, tau=tau,
+                             soft_reset=soft_reset)
     dev = args[0].device
     if dev.type == "cpu":
         outs = fused_pe_block_ref(*args)
@@ -289,3 +342,91 @@ def fused_pe(x: Spikes, w: torch.Tensor, *,
     else:
         spikes = spikes[:m0, :n0]
     return (spikes, vld_next, *outs[2:])
+
+
+def _at(t, i: int):
+    """Step ``i`` of an optional [T, ...] operand (tensor or PackedSpikes)."""
+    return None if t is None else t[i]
+
+
+def _stack_packed(ps: PackedSpikes) -> PackedSpikes:
+    """A 2-D packed output as the [1, M, N] of a one-step train."""
+    return PackedSpikes(ps.words[None], ps.vld_cnt[None], (1, *ps.shape),
+                        ps.block_m, ps.block_k,
+                        None if ps.occ is None else ps.occ[None])
+
+
+def pack_steps(spikes: torch.Tensor, block_n: int) -> PackedSpikes:
+    """[T, M, N] int8 spikes -> a PackedSpikes on the (128, block_n) grid,
+    every step in one pack launch. The pack kernel tiles on 128 x 128: for
+    a 256-wide grid the map is padded to it first and the counts are summed
+    from the words."""
+    if block_n == TILE or spikes.device.type == "cpu":
+        return pack_spikes(spikes, block_m=TILE, block_k=block_n)
+    ps = pack_spikes(pad_to_blocks(spikes, TILE, block_n))
+    return PackedSpikes(ps.words, popcount_block_map(ps.words, TILE, block_n),
+                        tuple(spikes.shape), TILE, block_n)
+
+
+def fused_pe_layer(x: Spikes, w: torch.Tensor, *,
+                   bias: Optional[torch.Tensor] = None,
+                   residual: Optional[Spikes] = None,
+                   q: Optional[Spikes] = None,
+                   vld_cnt: Optional[torch.Tensor] = None,
+                   tau: float = 0.5, v_th: float = 1.0,
+                   soft_reset: bool = False, qk_threshold: float = 1.0,
+                   out_format: str = "dense", block_n: int = TILE,
+                   block_k: int = TILE, skip: str = "dense",
+                   heads: Optional[tuple[int, int]] = None) -> tuple:
+    """The fused PE layer over a [T, M, K] spike train (int8 or a 3-D
+    PackedSpikes), the twin of the reference's kernel-layer scan:
+    ``residual``, ``q`` and ``vld_cnt`` are per step ([T, ...]) or None.
+
+    T=1 is one stateless launch (the deployed form). T>1 scans the
+    stateful launch over time, carrying (v, s) from zeros, as
+    ``core.lif.lif_multistep`` does: ``s`` is the kernel's pre-mask int8
+    spike map. With q the kernel runs unmasked and the whole-row (or,
+    with ``heads``, per-head) mask gates its spikes outside, a packed q
+    unpacked for it, and the step's vld map is recounted on the masked
+    map. A packed output is packed after the scan, every step in one pack
+    launch. Returns (spikes [T, M, N] int8 or a PackedSpikes on the (128,
+    block_n) grid, vld_next [T, Mp/128, Np/block_n] int32)."""
+    t = x.shape[0]
+    kw = dict(bias=bias, v_th=v_th, block_n=block_n, block_k=block_k,
+              skip=skip)
+    if t == 1:
+        spikes, vld = fused_pe(
+            x[0], w, residual=_at(residual, 0), q=_at(q, 0),
+            vld_cnt=_at(vld_cnt, 0), qk_threshold=qk_threshold,
+            out_format=out_format, heads=heads, **kw)
+        if out_format == "packed":
+            return _stack_packed(spikes), vld[None]
+        return spikes[None], vld[None]
+    m, n = x.shape[1], w.shape[1]
+    dev = (x.words if isinstance(x, PackedSpikes) else x).device
+    v = torch.zeros((m, n), dtype=torch.float32, device=dev)
+    s = torch.zeros((m, n), dtype=torch.int8, device=dev)
+    spikes_ts, vld_ts = [], []
+    for ti in range(t):
+        spk, vld, v = fused_pe(
+            x[ti], w, residual=_at(residual, ti), vld_cnt=_at(vld_cnt, ti),
+            v_prev=v, s_prev=s, tau=tau, soft_reset=soft_reset, **kw)
+        s = spk                                   # the pre-mask carry
+        q_t = _at(q, ti)
+        if q_t is not None:
+            if isinstance(q_t, PackedSpikes):
+                q_t = unpack_spikes(q_t)
+            if heads is not None:
+                gate = head_gate(q_t, heads, qk_threshold)
+            else:
+                gate = (q_t.to(torch.float32).sum(dim=-1, keepdim=True)
+                        >= qk_threshold).to(torch.int8)
+            spk = spk * gate
+            vld = block_count_map_2d(pad_to_blocks(spk, TILE, block_n), TILE,
+                                     block_n)
+        spikes_ts.append(spk)
+        vld_ts.append(vld)
+    spk3, vld3 = torch.stack(spikes_ts), torch.stack(vld_ts)
+    if out_format == "packed":
+        return pack_steps(spk3, block_n), vld3
+    return spk3, vld3

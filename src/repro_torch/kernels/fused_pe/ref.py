@@ -4,8 +4,9 @@
 chain matmul -> (+bias, +residual) -> LIF -> QK mask -> block counts, on
 unpadded operands. ``fused_pe_block_ref`` is the plain version of the CUDA
 kernel itself, on the same block-aligned operands: it honours the input
-``vld`` map (a silent block contributes nothing) and the ``m_valid`` /
-``n_valid`` margins exactly as the kernel does. Its packed variants unpack
+``vld`` map (a silent block contributes nothing), the ``m_valid`` /
+``n_valid`` margins and the LIF state (``LIFState``, at the valid extent)
+exactly as the kernel does. Its packed variants unpack
 their packed operands, run the dense plain version, and pack its spikes,
 so the dense plain version is the one definition of the function.
 """
@@ -74,6 +75,18 @@ def fused_pe_ref(x: torch.Tensor, w: torch.Tensor, *,
     return spk, (None if stateless else v_next), vld_next
 
 
+class LIFState(NamedTuple):
+    """The LIF state of one stateful launch (the reference's with_state),
+    at the valid extent [m_valid, n_valid]: the membrane potential
+    ``v_prev`` f32 and the previous step's pre-mask spikes ``s_prev`` int8
+    in, decayed by ``tau``; the reset is ``v - v_th * s`` with
+    ``soft_reset``, else ``v * (1 - s)``."""
+    v_prev: torch.Tensor
+    s_prev: torch.Tensor
+    tau: float = 0.5
+    soft_reset: bool = False
+
+
 class Packing(NamedTuple):
     """The variant of one launch: which spike operands are int32 words of
     32 spikes (the reference's packed_in / packed_q / packed_residual /
@@ -97,8 +110,8 @@ def fused_pe_block_ref(xp: torch.Tensor, wp: torch.Tensor, vld: torch.Tensor,
                        qp: Optional[torch.Tensor], m_valid: int, n_valid: int,
                        v_th: float, qk_threshold: float,
                        packing: Packing = Packing(), block_n: int = 128,
-                       gate=None, heads: Optional[tuple[int, int]] = None
-                       ) -> tuple:
+                       gate=None, heads: Optional[tuple[int, int]] = None,
+                       state: Optional[LIFState] = None) -> tuple:
     """The kernel's function on block-aligned operands: x [Mp, Kp] int8
     spikes or a dense f32 / bf16 activation, w [Kp, Np] f32, vld [Mp/128,
     Kp/bk] (bk the k width of x's metadata blocks), bias [Np], residual
@@ -106,32 +119,43 @@ def fused_pe_block_ref(xp: torch.Tensor, wp: torch.Tensor, vld: torch.Tensor,
     marks comes as its int32 words instead. x is read where the dense skip
     of ``vld`` reads it or, with a ``gate`` (nact, kmap, occ), where that
     gated walk reads it. ``heads=(h, dh)`` (``h*dh == n_valid``) makes the
-    q mask head-blocked. Returns (spikes [Mp, Np] int8, or [Mp, Np/32]
-    words with ``packing.out``, and vld_next [Mp/128, Np/block_n] int32),
-    and with ``packing.current`` also the f32 current [m_valid, n_valid]
-    the spikes were thresholded from."""
+    q mask head-blocked. ``state`` makes the launch stateful: v = tau *
+    v_prev * (1 - s_prev) + cur, and the reset of v_next comes from the
+    pre-mask spike. Returns (spikes [Mp, Np] int8, or [Mp, Np/32] words
+    with ``packing.out``, and vld_next [Mp/128, Np/block_n] int32), then
+    with ``state`` v_next [m_valid, n_valid] f32, and with
+    ``packing.current`` the f32 current [m_valid, n_valid] the spikes were
+    thresholded from."""
     x = unpack_words(xp) if packing.x else xp
     r = unpack_words(rp, torch.float32) if packing.residual else rp
     q = unpack_words(qp) if packing.q else qp
     mask = (block_skip_mask(vld, x.shape) if gate is None
             else gated_mask(*gate, x.shape))
-    xs = x * mask
-    spk, _, _ = fused_pe_ref(xs, wp, bias=bp, residual=r,
-                             q=None if heads is not None else q, v_th=v_th,
-                             qk_threshold=qk_threshold)
-    if heads is not None and q is not None:
-        hd = heads[0] * heads[1]
-        spk[:, :hd] *= head_gate(q, heads, qk_threshold)
-    spk[m_valid:, :] = 0
-    spk[:, n_valid:] = 0
-    vld_next = block_count_map_2d(spk, 128, block_n)
-    out = (pack_words(spk) if packing.out else spk), vld_next
-    if not packing.current:
-        return out
-    # the same sums in the same order as fused_pe_ref's
-    cur = spike_matmul_ref(xs, wp)
+    # the sums in fused_pe_ref's order: product, bias, residual
+    cur = spike_matmul_ref(x * mask, wp)
     if bp is not None:
         cur = cur + bp.reshape(1, -1).to(torch.float32)
     if r is not None:
         cur = cur + r.to(torch.float32)
-    return (*out, cur[:m_valid, :n_valid].contiguous())
+    vp, sp = torch.zeros_like(cur), torch.zeros_like(cur)
+    tau, soft_reset = 0.5, False
+    if state is not None:     # zeros past the valid extent, where none fires
+        vp[:m_valid, :n_valid] = state.v_prev
+        sp[:m_valid, :n_valid] = state.s_prev.to(torch.float32)
+        tau, soft_reset = state.tau, state.soft_reset
+    spk, v_next = lif_update_ref(cur, vp, sp, tau=tau, v_th=v_th,
+                                 soft_reset=soft_reset)
+    if heads is not None and q is not None:
+        hd = heads[0] * heads[1]
+        spk[:, :hd] *= head_gate(q, heads, qk_threshold)
+    elif q is not None:
+        spk = qk_attention_ref(q, spk, threshold=qk_threshold)
+    spk[m_valid:, :] = 0
+    spk[:, n_valid:] = 0
+    vld_next = block_count_map_2d(spk, 128, block_n)
+    out = (pack_words(spk) if packing.out else spk), vld_next
+    if state is not None:
+        out = (*out, v_next[:m_valid, :n_valid].contiguous())
+    if packing.current:
+        out = (*out, cur[:m_valid, :n_valid].contiguous())
+    return out

@@ -4,26 +4,30 @@ the reference's ``kernels/spike_matmul/backward.py`` entry points:
 
   * ``spike_matmul_dx``: ``dv = g ⊙ surr'(v - v_th)`` and ``dx = dv @ wᵀ``
     in one pass, the surrogate factor formed in the kernel;
-  * ``spike_matmul_dw``: ``dw = xᵀ @ g`` over the int8 spike operand,
-    skipping every 128x128 block of x whose forward ``vld_cnt`` is zero,
-    by the dense skip or, with ``skip="gated"``/``"two_level"``, by a walk
-    of the compacted transposed vld map (and the occ stripe skip).
+  * ``spike_matmul_dw``: ``dw = xᵀ @ g`` over the spike operand, int8 or
+    bit-packed (the reference's packed_in: a ``PackedSpikes`` on the
+    128x128 grid, whose words the kernel reads as they are), skipping
+    every 128x128 block of x whose forward ``vld_cnt`` is zero, by the
+    dense skip or, with ``skip="gated"``/``"two_level"``, by a walk of the
+    compacted transposed vld map (and the occ stripe skip).
 
-Both take unpadded operands (the kernels check their bounds). The kernels
-run on CUDA tensors, the plain versions (``ref.py``) on CPU tensors.
+Both take unpadded operands (the kernels check their bounds; packed words
+come padded to the grid). The kernels run on CUDA tensors, the plain
+versions (``ref.py``) on CPU tensors.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
-from ...core.events import (block_count_map_2d, compact_kmap, pad_to_blocks,
+from ...core.events import (LANE_BITS, PackedSpikes, block_count_map_2d,
+                            compact_kmap, pad_to_blocks, word_occupancy_map,
                             word_occupancy_map_dense)
 from ...core.surrogate import available_surrogates
 from .. import _build
-from .ops import SKIP_IDS, Gate, check_skip
+from .ops import SKIP_IDS, Gate, check_block_contract, check_skip
 from .ref import (spike_matmul_dw_gated_ref, spike_matmul_dw_ref,
                   spike_matmul_dx_ref)
 
@@ -117,8 +121,21 @@ def dw_splits(m: int, k: int, n: int) -> tuple[int, int]:
     return -(-mblocks // per), per
 
 
-def dw_gate(x: torch.Tensor, vld: torch.Tensor, skip: str
-            ) -> Optional[Gate]:
+SpikeX = Union[torch.Tensor, PackedSpikes]
+
+
+def _x_occ(x: SpikeX) -> torch.Tensor:
+    """x's occ bitmap on the 128x128 grid (a packed x's own, else derived
+    from its words; a dense x's from its padded int8 map)."""
+    if isinstance(x, PackedSpikes):
+        occ = x.occ if x.occ is not None else word_occupancy_map(
+            x.words, TILE, TILE)
+        return occ.to(torch.int32).contiguous()
+    return word_occupancy_map_dense(pad_to_blocks(x, TILE, TILE), TILE,
+                                    TILE).contiguous()
+
+
+def dw_gate(x: SpikeX, vld: torch.Tensor, skip: str) -> Optional[Gate]:
     """None for ``"dense"``; else the walk of the gated dw: ``compact_kmap``
     of the transposed vld map (for each k block, its non-silent m blocks)
     and, for ``"two_level"``, x's occ bitmap on the 128x128 grid."""
@@ -126,20 +143,24 @@ def dw_gate(x: torch.Tensor, vld: torch.Tensor, skip: str
     if skip == "dense":
         return None
     nact_t, mmap = compact_kmap(vld.T.contiguous())
-    occ = (word_occupancy_map_dense(pad_to_blocks(x, TILE, TILE), TILE, TILE)
-           .contiguous() if skip == "two_level" else None)
-    return Gate(nact_t, mmap, occ)
+    return Gate(nact_t, mmap, _x_occ(x) if skip == "two_level" else None)
 
 
-def _dw_launch(x: torch.Tensor, g: torch.Tensor, vld: Optional[torch.Tensor],
+def _dw_launch(x: SpikeX, g: torch.Tensor, vld: Optional[torch.Tensor],
                gate: Optional[Gate]) -> torch.Tensor:
-    dev = x.device
+    packed = isinstance(x, PackedSpikes)
+    xt = x.words if packed else x
+    dev = xt.device
     if dev.type != "cuda":
         raise ValueError(f"spike_matmul_dw needs CUDA tensors, got {dev}")
     m, k = x.shape
     n = g.shape[1]
     gm, gk = -(-m // TILE), -(-k // TILE)
-    _build.require(x, "x", torch.int8, (m, k), dev, align=1)
+    if packed:
+        _build.require(xt, "x words", torch.int32,
+                       (gm * TILE, gk * TILE // LANE_BITS), dev, align=4)
+    else:
+        _build.require(xt, "x", torch.int8, (m, k), dev, align=1)
     _build.require(g, "g", torch.float32, (m, n), dev, align=4)
     if gate is None:
         _build.require(vld, "vld_cnt", torch.int32, (gm, gk), dev, align=4)
@@ -157,48 +178,73 @@ def _dw_launch(x: torch.Tensor, g: torch.Tensor, vld: Optional[torch.Tensor],
     dw = torch.empty((k, n), dtype=torch.float32, device=dev)
     nact_t, mmap, occ = gate if gate is not None else (None, None, None)
     err = _build.library().repro_spike_matmul_dw(
-        _build.ptr(x), _build.ptr(g), _build.ptr(vld), _build.ptr(nact_t),
+        _build.ptr(xt), _build.ptr(g), _build.ptr(vld), _build.ptr(nact_t),
         _build.ptr(mmap), _build.ptr(occ), _build.ptr(partial), _build.ptr(dw),
-        m, k, n, splits, per, SKIP_IDS[skip], _build.stream(x))
+        m, k, n, splits, per, SKIP_IDS[skip], int(packed), _build.stream(g))
     _build.check(err, "repro_spike_matmul_dw")
     return dw
 
 
-def spike_matmul_dw_cuda(x: torch.Tensor, g: torch.Tensor,
+def spike_matmul_dw_cuda(x: SpikeX, g: torch.Tensor,
                          vld: torch.Tensor) -> torch.Tensor:
-    """Launch the dense-skip dw kernel: x [M, K] int8, g [M, N] f32, vld
+    """Launch the dense-skip dw kernel: x [M, K] int8 (or a 2-D
+    PackedSpikes on the 128x128 grid, contiguous words), g [M, N] f32, vld
     [ceil(M/128), ceil(K/128)] int32, all contiguous on one CUDA device.
     Returns dw [K, N] f32. Does not count."""
     return _dw_launch(x, g, vld, None)
 
 
-def spike_matmul_dw_gated_cuda(x: torch.Tensor, g: torch.Tensor,
+def spike_matmul_dw_gated_cuda(x: SpikeX, g: torch.Tensor,
                                gate: Gate) -> torch.Tensor:
     """Launch the gated (with ``gate.occ``, two-level) dw kernel on the
     walk of ``dw_gate``. Returns dw [K, N] f32. Does not count."""
     return _dw_launch(x, g, None, gate)
 
 
-def spike_matmul_dw(x: torch.Tensor, g: torch.Tensor, *,
+def _packed_dw_operand(x: PackedSpikes, vld_cnt: Optional[torch.Tensor]
+                       ) -> tuple[PackedSpikes, torch.Tensor]:
+    """A packed x with contiguous words, and its vld map, checked against
+    the kernel's 128x128 grid."""
+    check_block_contract(x, TILE, TILE, "spike_matmul_dw x")
+    if len(x.shape) != 2:
+        raise ValueError(f"spike_matmul_dw takes a 2-D packed operand, got "
+                         f"logical shape {tuple(x.shape)}")
+    vld = (x.vld_cnt if vld_cnt is None else vld_cnt).to(torch.int32)
+    grid = (x.words.shape[0] // TILE, x.words.shape[1] * LANE_BITS // TILE)
+    if tuple(vld.shape) != grid:
+        raise ValueError(f"spike_matmul_dw x: vld_cnt grid "
+                         f"{tuple(vld.shape)} does not match its words' "
+                         f"{grid}")
+    xc = PackedSpikes(x.words.contiguous(), vld.contiguous(), tuple(x.shape),
+                      TILE, TILE, x.occ)
+    return xc, xc.vld_cnt
+
+
+def spike_matmul_dw(x: SpikeX, g: torch.Tensor, *,
                     vld_cnt: Optional[torch.Tensor] = None,
                     skip: str = "dense") -> torch.Tensor:
     """Backward weight-gradient ``dw = xᵀ @ g``, event-skipped on x.
 
-    x [M, K] binary spikes (any dtype; cast to int8, exact), the forward's
-    operand; g [M, N] cotangent; ``vld_cnt`` x's [ceil(M/128),
-    ceil(K/128)] count map from the forward (computed here when not
-    given). Silent blocks were silent on the way forward and contribute
-    nothing here; ``skip`` (``SKIP_MODES``) picks how they are left out,
-    along the transposed axis. Returns dw [K, N] f32."""
-    if x.ndim != 2 or g.ndim != 2 or g.shape[0] != x.shape[0]:
+    x [M, K] binary spikes (any dtype; cast to int8, exact) or a 2-D
+    ``PackedSpikes`` packed on the 128x128 grid (its words go to the kernel
+    as they are: packed_in), the forward's operand; g [M, N] cotangent;
+    ``vld_cnt`` x's [ceil(M/128), ceil(K/128)] count map from the forward
+    (computed here for a dense x without one; a packed x carries its own).
+    Silent blocks were silent on the way forward and contribute nothing
+    here; ``skip`` (``SKIP_MODES``) picks how they are left out, along the
+    transposed axis. Returns dw [K, N] f32."""
+    if len(x.shape) != 2 or g.ndim != 2 or g.shape[0] != x.shape[0]:
         raise ValueError(f"x {tuple(x.shape)} and g {tuple(g.shape)} do not "
                          f"chain: x is [M, K] and g is [M, N]")
-    x8 = x.to(torch.int8).contiguous()
-    vld = (vld_map(x8) if vld_cnt is None
-           else vld_cnt.to(torch.int32).contiguous())
+    if isinstance(x, PackedSpikes):
+        x8, vld = _packed_dw_operand(x, vld_cnt)
+    else:
+        x8 = x.to(torch.int8).contiguous()
+        vld = (vld_map(x8) if vld_cnt is None
+               else vld_cnt.to(torch.int32).contiguous())
     gf = g.to(torch.float32).contiguous()
     gate = dw_gate(x8, vld, skip)
-    dev = x.device
+    dev = g.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"spike_matmul_dw runs on cuda or cpu, not {dev}")
     if gate is None:

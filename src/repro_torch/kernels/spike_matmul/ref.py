@@ -6,7 +6,7 @@ from typing import Optional
 
 import torch
 
-from ...core.events import LANE_BITS, unpack_words
+from ...core.events import LANE_BITS, PackedSpikes, unpack_words
 from ...core.surrogate import surrogate_grad
 
 
@@ -80,12 +80,21 @@ def spike_matmul_dx_ref(g: torch.Tensor, w: torch.Tensor,
     return dv @ w.to(torch.float32).T, dv
 
 
-def spike_matmul_dw_ref(x: torch.Tensor, g: torch.Tensor,
+def _dense_x(x) -> torch.Tensor:
+    """A packed operand unpacked to its logical [M, K] map."""
+    if isinstance(x, PackedSpikes):
+        return unpack_words(x.words)[:x.shape[0], :x.shape[1]]
+    return x
+
+
+def spike_matmul_dw_ref(x, g: torch.Tensor,
                         vld: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The backward weight-gradient ``dw = xᵀ @ g`` over spikes x [M, K]
-    and g [M, N]; with ``vld`` (x's count map on the 128x128 grid of its
-    padded shape) the blocks whose count is zero contribute nothing, as in
-    the kernel. Returns dw [K, N] f32."""
+    (or a 2-D ``PackedSpikes``, unpacked) and g [M, N]; with ``vld`` (x's
+    count map on the 128x128 grid of its padded shape) the blocks whose
+    count is zero contribute nothing, as in the kernel. Returns dw [K, N]
+    f32."""
+    x = _dense_x(x)
     xf = x.to(torch.float32)
     if vld is not None:
         m, k = x.shape
@@ -94,14 +103,14 @@ def spike_matmul_dw_ref(x: torch.Tensor, g: torch.Tensor,
     return xf.T @ g.to(torch.float32)
 
 
-def spike_matmul_dw_gated_ref(x: torch.Tensor, g: torch.Tensor,
-                              gate) -> torch.Tensor:
+def spike_matmul_dw_gated_ref(x, g: torch.Tensor, gate) -> torch.Tensor:
     """The gated dw kernel's function: ``dw = xᵀ @ g`` with x read only
     where the walk of ``gate`` reads it. ``gate`` routes the transposed
     vld map (nact_t [Gk], mmap [Gk, Gm]: for each k block its non-silent
     m blocks) and, for ``"two_level"``, carries x's occ [Gm, Gk] on the
     128x128 grid: a clear bit leaves out the 32 rows of dw the stripe
-    feeds."""
+    feeds. A packed x is unpacked first."""
+    x = _dense_x(x)
     m, k = x.shape
     nact_t, mmap, occ = gate
     gk, gm = mmap.shape

@@ -143,10 +143,12 @@ def fused_pe(x: Spikes, w: torch.Tensor, *,
              block_n: int = DEFAULT_BLOCKS.n,
              block_k: int = DEFAULT_BLOCKS.k) -> FusedOut:
     """One fused PE layer over a 2-D [M, K] spike operand: event-skipped
-    matmul + bias / residual + LIF threshold + optional whole-row QK mask.
-    Only the stateless ``+grad`` forms are ported (KD training);
-    LIF state (``v_prev``), head-blocked masks and the inference modes of
-    this 2-D entry raise (``fused_pe_layer`` is the inference entry)."""
+    matmul + bias / residual + LIF threshold + optional QK write-back mask
+    (whole-row, or per head with ``heads=(h, dh)``), emitting the next
+    layer's metadata on the fly. ``v_prev`` / ``s_prev`` carry the LIF
+    state of a T>1 step (``v_next`` comes back in ``FusedOut.v_next``; the
+    reset is the layer's own pre-mask spike). The ``+grad`` modes take the
+    state too; a head-blocked mask under ``+grad`` raises (LM training)."""
     st = SpikeTensor.wrap(x)
     res = SpikeTensor.wrap(residual) if residual is not None else None
     qs = SpikeTensor.wrap(q) if q is not None else None

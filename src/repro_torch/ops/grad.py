@@ -19,17 +19,22 @@ on {0,1}) with the ``vld_cnt`` map it streamed, the weight and the
 kernel-emitted membrane current (``emit_current``), and the backward
 recomputes only the elementwise tail from that current. The two transposed
 contractions are the backward kernels: ``dx = dv @ wᵀ`` with the surrogate
-factor formed inside the dx kernel, and ``dw = xᵀ @ dv`` skipping the
-blocks that were silent on the way forward. The elementwise ops (``lif``,
+factor formed inside the dx kernel (the stateless pass), or as the plain
+transposed product of the tail's ``dcur`` (a stateful T>1 step, whose
+tail also carries the gradients into ``v_prev`` and ``s_prev``), and
+``dw = xᵀ @ dv`` skipping the blocks that were silent on the way forward.
+At T>1 the layer chains one residual-cached step per timestep; the carries
+``(v, s)`` stay in the autograd graph (``s`` the pre-mask surrogate spike
+in f32, handed to the kernel as an exact int8 copy), so BPTT flows through
+both. The elementwise ops (``lif``,
 ``qk_mask``) and the small W2TTFS head keep the recompute-from-inputs vjp.
 
 Executor: every fused entry calls the kernel wrappers, which launch the
 hand-written kernels on CUDA tensors and run their plain versions on CPU
 tensors. Spike operands arrive dense f32 (autograd connectivity) and spike
 outputs leave dense f32; a packed-format forward packs and unpacks inside
-the primal only. T > 1 state (ROADMAP queue 2, K2 ``with_state``), and
-the head-blocked masks and ``dense_lif`` of LM training (queue 1 item 2)
-are still to port and have no entry.
+the primal only. The head-blocked masks and ``dense_lif`` of LM training
+(ROADMAP queue 1 item 2) are still to port and raise.
 """
 from __future__ import annotations
 
@@ -135,15 +140,24 @@ def _pe_current(x, w, bias, residual) -> torch.Tensor:
     return cur
 
 
+def _row_masked(s: torch.Tensor, q: Optional[torch.Tensor],
+                cfg: LIFConfig, qk_threshold: float) -> torch.Tensor:
+    """Spikes gated by q's whole-row QK mask (as they are without q)."""
+    if q is None:
+        return s
+    return s * _qk_rowmask(q.reshape(s.shape[0], -1), qk_threshold,
+                           "threshold", cfg.surrogate, cfg.alpha)
+
+
 def _pe_reference(x, w, bias, residual, q, cfg: LIFConfig,
-                  qk_threshold: float) -> torch.Tensor:
-    """The stateless fused PE layer as plain autograd: current, surrogate
-    spike, whole-row QK mask."""
-    s, _ = _lif_step(_pe_current(x, w, bias, residual), None, None, cfg)
-    if q is not None:
-        s = s * _qk_rowmask(q.reshape(s.shape[0], -1), qk_threshold,
-                            "threshold", cfg.surrogate, cfg.alpha)
-    return s
+                  qk_threshold: float, v_prev=None, s_prev=None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fused PE layer as plain autograd: current, the surrogate LIF
+    step (stateless without ``v_prev``), whole-row QK mask. Returns
+    (spikes, v_next)."""
+    s, v_next = _lif_step(_pe_current(x, w, bias, residual), v_prev, s_prev,
+                          cfg)
+    return _row_masked(s, q, cfg, qk_threshold), v_next
 
 
 def _forward_vld(vld: torch.Tensor, block_k: int) -> Optional[torch.Tensor]:
@@ -281,29 +295,109 @@ class _FusedPE(torch.autograd.Function):
         return dx, dw, dbias, dres, dq, None, None, None, None, None
 
 
+class _FusedPEState(torch.autograd.Function):
+    """One stateful fused PE step (T>1) on the kernels.
+
+    Forward: one fused PE launch with the LIF state and ``emit_current``
+    (a packed output is unpacked by the unpack kernel); returns the spikes
+    (QK-masked when q is given) and v_next, reset by the pre-mask spike.
+    Backward: the elementwise tail (``_lif_step`` from the cached current,
+    then the mask) differentiated by autograd gives ``dcur`` and the
+    gradients into ``v_prev``, ``s_prev`` and q; then ``dx = dcur @ wᵀ``
+    on the dx kernel without a surrogate (its plain transposed form) and
+    ``dw = xᵀ @ dcur`` on the dw kernel; the bias gradient is the column
+    sum of dcur and the residual's is dcur."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, residual, q, v_prev, s_prev, cfg: LIFConfig,
+                qk_threshold: float, fmt: str, skip: str, blocks: tuple):
+        x8 = x.to(torch.int8)                               # exact on {0,1}
+        vld = vld_map(x8)
+        _, block_n, block_k = blocks
+        spikes, _, v_next, cur = fused_pe(
+            x8, w, bias=bias, residual=residual, q=q,
+            vld_cnt=_forward_vld(vld, block_k), v_prev=v_prev,
+            s_prev=s_prev, tau=cfg.tau, v_th=cfg.v_th,
+            soft_reset=cfg.soft_reset, qk_threshold=qk_threshold,
+            out_format=fmt, emit_current=True, block_n=block_n,
+            block_k=block_k, skip=skip)
+        if fmt == "packed":
+            spikes = unpack_spikes(spikes)
+        ctx.save_for_backward(x8, vld, w, q, v_prev, s_prev, cur)
+        ctx.cfg, ctx.qk_threshold, ctx.skip = cfg, qk_threshold, skip
+        ctx.has_bias, ctx.has_residual = bias is not None, residual is not None
+        return spikes.to(torch.float32), v_next
+
+    @staticmethod
+    def backward(ctx, gs: torch.Tensor, gv: torch.Tensor):
+        x8, vld, w, q, v_prev, s_prev, cur = ctx.saved_tensors
+        cfg = ctx.cfg
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True)
+                      for t in (cur, v_prev, s_prev)]
+            q_ = None if q is None else q.detach().requires_grad_(True)
+            spk, v_next = _lif_step(*leaves, cfg)
+            spk = _row_masked(spk, q_, cfg, ctx.qk_threshold)
+            wrt = leaves + ([] if q_ is None else [q_])
+            grads = torch.autograd.grad((spk, v_next), wrt, (gs, gv),
+                                        allow_unused=True)
+        dcur, dv_prev, ds_prev = (torch.zeros_like(t) if g is None else g
+                                  for g, t in zip(grads[:3], leaves))
+        dq = None if q_ is None else grads[3]
+        dx, _ = spike_matmul_dx(dcur, w)
+        dw = spike_matmul_dw(x8, dcur, vld_cnt=vld, skip=ctx.skip) \
+            if ctx.needs_input_grad[1] else None
+        dbias = dcur.sum(dim=0) if ctx.has_bias else None
+        dres = dcur if ctx.has_residual else None
+        return (dx, dw, dbias, dres, dq, dv_prev, ds_prev, None, None, None,
+                None, None)
+
+
+def _pe_step(kernels: str, x, w, bias, residual, q, v_prev, s_prev,
+             cfg: LIFConfig, qk_threshold: float, fmt: str, skip: str,
+             blocks: tuple) -> tuple[torch.Tensor, torch.Tensor]:
+    """One stateful step: (spikes, v_next), the spikes QK-masked when q is
+    given; plain autograd under ``"reference"``, the kernels otherwise."""
+    if kernels != "reference":
+        _check_blocks(*blocks)
+        return _FusedPEState.apply(x, w, bias, residual, q, v_prev, s_prev,
+                                   cfg, qk_threshold, fmt, skip, blocks)
+    return _pe_reference(x, w, bias, residual, q, cfg, qk_threshold, v_prev,
+                         s_prev)
+
+
+def _no_heads(heads) -> None:
+    if heads is not None:
+        raise NotImplementedError(
+            "the differentiable head-blocked QK mask is still to port, "
+            "with LM training (ROADMAP queue 1 item 2)")
+
+
 def _fused_pe_impl(kernels: str):
     def impl(st, w, *, bias, residual, q, v_prev, s_prev, qk_threshold,
              lif_cfg, fmt, block_m, block_n, block_k, skip="dense",
              heads=None):
-        if v_prev is not None or s_prev is not None:
-            raise NotImplementedError(
-                "the differentiable fused PE with LIF state is still to port "
-                "(ROADMAP queue 2, K2 with_state)")
-        if heads is not None:
-            raise NotImplementedError(
-                "the differentiable head-blocked QK mask is still to port, "
-                "with LM training (ROADMAP queue 1 item 2)")
+        _no_heads(heads)
+        if s_prev is not None and v_prev is None:
+            raise ValueError("s_prev needs v_prev")
         x, w_, b = _dense_operand(st), _f32(w), _f32(bias)
         res = None if residual is None else _dense_operand(residual)
         q_ = None if q is None else _dense_operand(q)
-        if kernels == "reference":
-            spk = _pe_reference(x, w_, b, res, q_, lif_cfg, qk_threshold)
+        blocks = (block_m, block_n, block_k)
+        v_next = None
+        if v_prev is not None:
+            vp = _f32(v_prev)
+            sp = torch.zeros_like(vp) if s_prev is None else _f32(s_prev)
+            spk, v_next = _pe_step(kernels, x, w_, b, res, q_, vp, sp,
+                                   lif_cfg, qk_threshold, fmt, skip, blocks)
+        elif kernels == "reference":
+            spk, _ = _pe_reference(x, w_, b, res, q_, lif_cfg, qk_threshold)
         else:
-            _check_blocks(block_m, block_n, block_k)
+            _check_blocks(*blocks)
             spk = _FusedPE.apply(x, w_, b, res, q_, lif_cfg, qk_threshold,
-                                 fmt, skip, (block_m, block_n, block_k))
+                                 fmt, skip, blocks)
         return FusedOut(SpikeTensor.dense(spk, block_m=block_m,
-                                          block_k=block_n), None, None)
+                                          block_k=block_n), v_next, None)
     return impl
 
 
@@ -312,11 +406,11 @@ def _fused_pe_layer_impl(kernels: str):
     def impl(st, w, *, bias, residual, q, qk_threshold, lif_cfg, fmt,
              block_m, block_n, block_k, skip="dense", heads=None):
         t = st.shape[0]
+        _no_heads(heads)
         if t != 1:
-            raise NotImplementedError(
-                f"the differentiable fused PE layer with T={t} needs LIF "
-                f"state, which is still to port (ROADMAP queue 2, K2 "
-                f"with_state)")
+            return _stateful_layer(kernels, st, w, bias, residual, q,
+                                   qk_threshold, lif_cfg, fmt,
+                                   (block_m, block_n, block_k), skip)
         out = _fused_pe_impl(kernels)(
             st[0], w, bias=bias,
             residual=None if residual is None else residual[0],
@@ -328,6 +422,30 @@ def _fused_pe_layer_impl(kernels: str):
         return FusedOut(SpikeTensor.dense(spk, block_m=block_m,
                                           block_k=block_n), None, None)
     return impl
+
+
+def _stateful_layer(kernels: str, st, w, bias, residual, q, qk_threshold,
+                    cfg: LIFConfig, fmt: str, blocks: tuple, skip: str
+                    ) -> FusedOut:
+    """T>1: one stateful step per timestep, the carry (v, s) from zeros and
+    in the autograd graph; ``s`` is the step's pre-mask surrogate spike,
+    and the QK mask gates each step's spikes outside the carry."""
+    x, w_, b = _dense_operand(st), _f32(w), _f32(bias)
+    res = None if residual is None else _dense_operand(residual)
+    q_ = None if q is None else _dense_operand(q)
+    m, n = x.shape[1], w_.shape[1]
+    v = torch.zeros((m, n), dtype=torch.float32, device=x.device)
+    s = torch.zeros_like(v)
+    spikes = []
+    for ti in range(x.shape[0]):
+        spk, v = _pe_step(kernels, x[ti], w_, b,
+                          None if res is None else res[ti], None, v, s, cfg,
+                          qk_threshold, fmt, skip, blocks)
+        s = spk
+        spikes.append(_row_masked(spk, None if q_ is None else q_[ti], cfg,
+                                  qk_threshold))
+    return FusedOut(SpikeTensor.dense(torch.stack(spikes), block_m=blocks[0],
+                                      block_k=blocks[1]), None, None)
 
 
 # ------------------------------------------------------------------ qk_mask

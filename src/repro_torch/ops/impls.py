@@ -9,8 +9,8 @@ tensors it runs the wrapper's plain version. Implementations take wrapped
 ``PackedSpikes``, and wrap spike outputs back in the format ``fmt`` asks
 for, so neither the kernels nor the call sites fork on the format. A
 packed operand goes to the kernel's packed variant; it is never unpacked
-to run the dense kernel. A fused variant whose kernel is still to port
-(T>1 state) raises; it never runs the reference instead. The fused matmul-sweep registrations take the byte-skip strategy
+to run the dense kernel, and a fused variant never runs the reference
+instead. The fused matmul-sweep registrations take the byte-skip strategy
 (``skip``) and every block shape the autotuner can plan: block_m 128,
 block_k on the operand's grid and block_n 128 or 256. The ``+grad`` modes
 are registered by ``repro_torch.ops.grad``.
@@ -31,7 +31,8 @@ from ..core.lif import LIFConfig, lif_forward
 # neurallint: disable=NL-REGISTRY-BYPASS
 from ..kernels.flash_attention import attention_ref, flash_attention
 # neurallint: disable=NL-REGISTRY-BYPASS
-from ..kernels.fused_pe import fused_pe, fused_pe_ref, head_gate
+from ..kernels.fused_pe import (fused_pe, fused_pe_layer, fused_pe_ref,
+                                head_gate)
 # neurallint: disable=NL-REGISTRY-BYPASS
 from ..kernels.lif_update import lif_update, lif_update_ref
 # neurallint: disable=NL-REGISTRY-BYPASS
@@ -68,10 +69,32 @@ def _operand(st: Optional[SpikeTensor]):
     return st.to_packed_spikes() if st.is_packed else st.data
 
 
-def _stack_packed(ps: PackedSpikes) -> PackedSpikes:
-    """A 2-D kernel output as the [1, M, N] of a one-step train."""
-    return PackedSpikes(ps.words[None], ps.vld_cnt[None], (1, *ps.shape),
-                        ps.block_m, ps.block_k)
+def _q_operand(q: Optional[SpikeTensor]):
+    """Q spikes for the write-back mask of the 2-D entry: packed stays
+    packed (row sums are popcounts); dense flattens to the [tokens, Dq]
+    core."""
+    if q is None:
+        return None
+    if q.is_packed:
+        return q.to_packed_spikes()
+    return q.data.reshape(-1, q.data.shape[-1])
+
+
+def _wrap_spikes(spikes, vld, fmt: str, block_m: int, block_n: int
+                 ) -> SpikeTensor:
+    """Kernel output -> SpikeTensor (the emitted map's metadata grid tiles
+    on (block_m, block_n), so the output tensor's block_k IS block_n)."""
+    if fmt == "packed":
+        return SpikeTensor.from_packed(spikes)
+    return SpikeTensor.dense(spikes, vld, block_m=block_m, block_k=block_n)
+
+
+def _ref_wrap(spk: torch.Tensor, vld, fmt: str, block_m: int, block_n: int
+              ) -> SpikeTensor:
+    if fmt == "packed":
+        return SpikeTensor.from_packed(
+            pack_spikes_ref(spk, block_m=block_m, block_k=block_n))
+    return SpikeTensor.dense(spk, vld, block_m=block_m, block_k=block_n)
 
 
 # =============================================================== spike_matmul
@@ -107,31 +130,58 @@ def _lif_ref(current, v_prev, s_prev, cfg: LIFConfig):
 
 
 # =================================================================== fused_pe
+@register("fused_pe", "fused")
+def _fused_pe_fused(st: SpikeTensor, w: torch.Tensor, *, bias, residual, q,
+                    v_prev, s_prev, qk_threshold, lif_cfg: LIFConfig, fmt,
+                    block_m, block_n, block_k, skip="dense", heads=None):
+    _check_blocks(block_m, block_n, block_k)
+    if len(st.shape) != 2:
+        raise ValueError(f"the fused PE pass takes a 2-D [M, K] operand, "
+                         f"got {tuple(st.shape)}")
+    out = fused_pe(
+        _operand(st), w, bias=bias, residual=_operand(residual),
+        q=_q_operand(q), vld_cnt=None if st.is_packed else st.vld_cnt,
+        v_prev=v_prev, s_prev=s_prev, tau=lif_cfg.tau, v_th=lif_cfg.v_th,
+        soft_reset=lif_cfg.soft_reset, qk_threshold=qk_threshold,
+        out_format=fmt, block_n=block_n, block_k=block_k, skip=skip,
+        heads=heads)
+    spikes, vld = out[:2]
+    v_next = out[2] if v_prev is not None else None
+    return FusedOut(_wrap_spikes(spikes, vld, fmt, block_m, block_n), v_next,
+                    vld)
+
+
+@register("fused_pe", "reference")
+def _fused_pe_reference(st: SpikeTensor, w: torch.Tensor, *, bias, residual,
+                        q, v_prev, s_prev, qk_threshold, lif_cfg: LIFConfig,
+                        fmt, block_m, block_n, block_k, skip="dense",
+                        heads=None):
+    res = residual.to_dense(torch.float32) if residual is not None else None
+    qd = q.to_dense().reshape(-1, q.shape[-1]) if q is not None else None
+    spk, v_next, vld = fused_pe_ref(
+        st.to_dense() if st.is_packed else st.data, w, bias=bias,
+        residual=res, v_prev=v_prev, s_prev=s_prev, q=qd, tau=lif_cfg.tau,
+        v_th=lif_cfg.v_th, soft_reset=lif_cfg.soft_reset,
+        qk_threshold=qk_threshold, block_m=block_m, block_n=block_n,
+        heads=heads)
+    return FusedOut(_ref_wrap(spk, vld, fmt, block_m, block_n), v_next, vld)
+
+
 @register("fused_pe_layer", "fused")
 def _fused_pe_layer_fused(st: SpikeTensor, w: torch.Tensor, *, bias,
                           residual, q, qk_threshold, lif_cfg: LIFConfig,
                           fmt, block_m, block_n, block_k, skip="dense",
                           heads=None):
     _check_blocks(block_m, block_n, block_k)
-    t = st.shape[0]
-    if t != 1:
-        raise NotImplementedError(
-            f"the fused PE layer with T={t} needs the kernel's LIF-state "
-            f"variant, which is still to port (ROADMAP queue 2, K2 "
-            f"with_state)")
-    spikes, vld = fused_pe(
-        _operand(st[0]), w, bias=bias,
-        residual=None if residual is None else _operand(residual[0]),
-        q=None if q is None else _operand(q[0]),
-        vld_cnt=None if st.is_packed or st.vld_cnt is None else st.vld_cnt[0],
-        v_th=lif_cfg.v_th, qk_threshold=qk_threshold, out_format=fmt,
-        block_n=block_n, block_k=block_k, skip=skip, heads=heads)
-    if fmt == "packed":
-        out = SpikeTensor.from_packed(_stack_packed(spikes))
-    else:
-        out = SpikeTensor.dense(spikes[None], vld[None], block_m=block_m,
-                                block_k=block_n)
-    return FusedOut(out, None, vld[None])
+    spikes, vld = fused_pe_layer(
+        _operand(st), w, bias=bias, residual=_operand(residual),
+        q=_operand(q),
+        vld_cnt=None if st.is_packed or st.vld_cnt is None else st.vld_cnt,
+        tau=lif_cfg.tau, v_th=lif_cfg.v_th, soft_reset=lif_cfg.soft_reset,
+        qk_threshold=qk_threshold, out_format=fmt, block_n=block_n,
+        block_k=block_k, skip=skip, heads=heads)
+    return FusedOut(_wrap_spikes(spikes, vld, fmt, block_m, block_n), None,
+                    vld)
 
 
 @register("fused_pe_layer", "reference")
@@ -178,12 +228,7 @@ def _fused_pe_layer_reference(st: SpikeTensor, w: torch.Tensor, *, bias,
         vld_ts.append(vld)
     spk3 = torch.stack(spikes_ts)
     vld3 = torch.stack(vld_ts)
-    if fmt == "packed":
-        out = SpikeTensor.from_packed(
-            pack_spikes_ref(spk3, block_m=block_m, block_k=block_n))
-    else:
-        out = SpikeTensor.dense(spk3, vld3, block_m=block_m, block_k=block_n)
-    return FusedOut(out, None, vld3)
+    return FusedOut(_ref_wrap(spk3, vld3, fmt, block_m, block_n), None, vld3)
 
 
 # ============================================================ dense -> LIF map
@@ -227,10 +272,7 @@ def _dense_lif_fused(p: dict, flat: torch.Tensor, lif_cfg: LIFConfig, *, q,
         # heads drives only the head-blocked mask: grouped KV without q is
         # the weight expansion alone
         heads=None if q is None else heads)
-    if fmt == "packed":
-        return SpikeTensor.from_packed(spikes)
-    return SpikeTensor.dense(spikes, vld, block_m=DEFAULT_BLOCKS.m,
-                             block_k=DEFAULT_BLOCKS.n)
+    return _wrap_spikes(spikes, vld, fmt, DEFAULT_BLOCKS.m, DEFAULT_BLOCKS.n)
 
 
 @register("dense_lif", "reference")

@@ -3,9 +3,9 @@
 ``repro_torch.ops.grad`` (the ``+grad`` modes) on first lookup.
 
 Unlike the reference there is no graceful-degradation guard around the
-fused entries: a fused mode either runs its kernel or raises. A mode whose
-kernel is still to port has no entry, and looking it up raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+fused entries: a fused mode either runs its kernel or raises. A mode still
+to port has no entry, and looking it up raises ``NotImplementedError``
+(for a ``+grad`` mode, naming the ROADMAP item that ports it).
 """
 from __future__ import annotations
 
@@ -13,11 +13,6 @@ from typing import Callable, Optional
 
 _REGISTRY: dict[tuple[str, str], Callable] = {}
 _LOADED = False
-
-# ops whose kernel is still to port -> its ROADMAP queue 2 item
-_FUSED_TODO = {
-    "fused_pe": "K2 (the 2-D inference entry; ops.fused_pe_layer has it)",
-}
 
 
 def register(op: str, mode: str) -> Callable[[Callable], Callable]:
@@ -44,10 +39,7 @@ def lookup(op: str, mode: str) -> Callable:
     except KeyError:
         pass
     have = sorted(m for o, m in _REGISTRY if o == op)
-    if mode.startswith("fused") and op in _FUSED_TODO:
-        hint = (f" — its kernel is still to port (ROADMAP queue 2, "
-                f"{_FUSED_TODO[op]})")
-    elif mode.endswith("+grad"):
+    if mode.endswith("+grad"):
         hint = (" — its differentiable form is still to port (ROADMAP "
                 "queue 1 item 2 for the LM ops)")
     else:

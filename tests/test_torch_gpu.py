@@ -772,3 +772,151 @@ def test_softmax_engine_on_the_card_equals_a_direct_loop(cuda, chunk):
     want = [_direct_softmax(model, params, p, chunk, 5, cuda)
             for p in prompts]
     assert [fin[u] for u in uids] == want
+
+
+# ------------------------------------- LIF state (T > 1) and packed-x dw
+# (packed x / residual / out, residual, q, skip, emit_current, soft, tau)
+STATE_VARIANTS = [
+    (False, "f32", None, "dense", False, False, 0.5),
+    (False, "f32", "row", "gated", True, True, 0.7),
+    (False, "spikes", "row", "two_level", False, False, 0.7),
+    (True, "spikes", "row", "dense", False, True, 0.5),
+    (True, "spikes", None, "gated", True, False, 0.5),
+    (True, None, "row", "two_level", False, True, 0.7),
+]
+
+
+@pytest.mark.parametrize("packed,res,q_kind,skip,emit,soft,tau",
+                         STATE_VARIANTS)
+def test_fused_pe_state_matches_plain(cuda, packed, res, q_kind, skip, emit,
+                                      soft, tau):
+    """The stateful fused PE against its plain version: spikes equal away
+    from v_th, v_next within rtol 1e-5 / atol 1e-4 there, vld_next the
+    count of its own spikes; the packed launch bit-equal to the int8 launch
+    on the same spikes, and a gated route bit-equal to the dense skip."""
+    from repro_torch.core.events import block_count_map_2d, unpack_words
+    from repro_torch.kernels import fused_pe as K
+    from repro_torch.kernels.packed import pack_spikes_ref
+    from repro_torch.kernels.spike_matmul import (
+        spike_matmul_block_ref, spike_matmul_gated_block_ref)
+
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    m, k, n = 300, 257, 150
+    x = _spikes(gen, m, k, 0.2, cuda)
+    w = torch.randn((k, n), generator=gen, device=cuda) * 0.15
+    b = 0.3 + 0.3 * torch.randn((n,), generator=gen, device=cuda)
+    r = None
+    if res == "f32":
+        r = 0.5 * torch.randn((m, n), generator=gen, device=cuda)
+    elif res == "spikes":
+        r = _spikes(gen, m, n, 0.3, cuda)
+    q = _spikes(gen, m, 64, 0.02, cuda) if q_kind else None
+    v = torch.randn((m, n), generator=gen, device=cuda)
+    s = (torch.rand((m, n), generator=gen, device=cuda) < 0.5).float()
+
+    def launch(pack, route):
+        def p(a):
+            return None if a is None else pack_spikes_ref(a) if pack else a
+        args = K.fused_pe_operands(
+            p(x), w, bias=b, residual=p(r) if res == "spikes" else r,
+            q=p(q), out_format="packed" if pack else "dense",
+            emit_current=emit, skip=route, v_prev=v, s_prev=s, tau=tau,
+            soft_reset=soft)
+        outs = K.fused_pe_cuda(*args)
+        spk = unpack_words(outs[0]) if pack else outs[0]
+        return args, (spk, *outs[1:])
+
+    args, k_out = launch(packed, skip)
+    p_out = K.fused_pe_block_ref(*args)
+    p_spk = unpack_words(p_out[0]) if packed else p_out[0]
+    rp = args[4]
+    cur = spike_matmul_block_ref(*args[:3], packed) if skip == "dense" \
+        else spike_matmul_gated_block_ref(args[0], args[1], args[12], packed)
+    cur = cur + args[3]
+    if rp is not None:
+        cur = cur + (unpack_words(rp, torch.float32) if packed else rp)
+    vv = 0.0 * cur
+    vv[:m, :n] = tau * v * (1.0 - s)
+    near = ((vv + cur) - 1.0).abs() < 1e-4
+    assert not bool(((k_out[0] != p_spk) & ~near).any())
+    assert torch.equal(k_out[1], block_count_map_2d(k_out[0], 128, 128))
+    ok = ~near[:m, :n]
+    torch.testing.assert_close(k_out[2][ok], p_out[2][ok], rtol=1e-5,
+                               atol=1e-4)
+    if emit:
+        torch.testing.assert_close(k_out[3], p_out[3], rtol=1e-5, atol=1e-4)
+    if packed:
+        _, int8_out = launch(False, skip)
+        assert all(torch.equal(a, b_) for a, b_ in zip(k_out, int8_out))
+    if skip != "dense":
+        _, dense_out = launch(packed, "dense")
+        assert all(torch.equal(a, b_) for a, b_ in zip(k_out, dense_out))
+
+
+@pytest.mark.parametrize("skip", ["dense", "gated", "two_level"])
+@pytest.mark.parametrize("density", [0.0, 0.1, 0.5])
+def test_dw_packed_operand_bit_equal_to_int8(cuda, skip, density):
+    """dw over a packed x: the int8 launch's bits on the unpacked spikes,
+    within tolerance of the plain version, and 0 in a silent k block."""
+    from repro_torch.kernels import spike_matmul as K
+    from repro_torch.kernels.packed import pack_spikes
+
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    m, k, n = 8192, 576, 64
+    x = _spikes(gen, m, k, density, cuda)
+    x[:, :128] = 0
+    g = torch.randn((m, n), generator=gen, device=cuda)
+    got = K.spike_matmul_dw(pack_spikes(x), g, skip=skip)
+    assert torch.equal(got, K.spike_matmul_dw(x, g, skip=skip))
+    torch.testing.assert_close(got, K.spike_matmul_dw_ref(x, g), rtol=1e-5,
+                               atol=1e-3)
+    assert not bool(got[:128].any())
+
+
+@pytest.mark.parametrize("policy", ["fused_dense", "fused_packed"])
+def test_two_step_forward_launches_the_state_kernel(cuda, policy):
+    """QKFResNet-11 at T = 2: each fused PE pass once a step, the stem LIF,
+    shortcut matmuls and head once a step; packed, the stem pack and one
+    pack of every stateful pass's steps, and the K pass's q and the head
+    unpacked; logits within 1e-5 of the reference, packed equal to dense."""
+    from repro_torch.kernels import _build
+    from repro_torch.models import snn_cnn
+
+    cfg = snn_cnn.SNNCNNConfig(arch="qkfresnet11", width_mult=0.125,
+                               image_size=16, timesteps=2)
+    fused = snn_cnn.fuse_model(
+        snn_cnn.init(torch.Generator().manual_seed(0), cfg), cfg)
+    img = torch.rand((2, 16, 16, 3), device=cuda)
+    _build.reset_launches()
+    logits, _, _ = snn_cnn.forward(fused, img, cfg, policy=policy)
+    torch.cuda.synchronize()
+    packed = policy == "fused_packed"
+    assert dict(_build.LAUNCHES) == {
+        "lif_update": 2, "fused_pe": 26, "spike_matmul": 6,
+        "w2ttfs_pool": 2, "pack_spikes": 14 if packed else 0,
+        "unpack_spikes": 3 if packed else 0, **NO_BACKWARD}
+    ref, _, _ = snn_cnn.forward(fused, img, cfg, policy="reference")
+    torch.testing.assert_close(logits, ref, rtol=1e-5, atol=1e-5)
+    if packed:
+        dense, _, _ = snn_cnn.forward(fused, img, cfg, policy="fused_dense")
+        assert torch.equal(logits, dense)
+
+
+def test_packed_scan_on_a_wide_grid_matches_plain(cuda):
+    """A T > 1 packed layer on a 256-wide output grid (a plan the tuner may
+    make): the steps packed by the 128 x 128 pack kernel and re-gridded,
+    bit-equal to the plain pack of the same spikes on that grid."""
+    from repro_torch.kernels import fused_pe as K
+    from repro_torch.kernels.packed import pack_spikes_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    x = (torch.rand((2, 300, 200), generator=gen, device=cuda) < 0.3).to(
+        torch.int8)
+    w = torch.randn((200, 300), generator=gen, device=cuda) * 0.15
+    ps, vld = K.fused_pe_layer(x, w, out_format="packed", block_n=256)
+    dense, vld_d = K.fused_pe_layer(x, w, block_n=256)
+    ref = pack_spikes_ref(dense, block_m=128, block_k=256)
+    assert (ps.block_m, ps.block_k) == (128, 256)
+    assert torch.equal(ps.words, ref.words)
+    assert torch.equal(ps.vld_cnt, ref.vld_cnt)
+    assert torch.equal(vld, vld_d) and int(vld.sum()) == int(dense.sum())

@@ -168,40 +168,13 @@ def _unported():
         "qwen3-1.7b", spiking=True, attention_kind="qk_spiking")))
     lm_spiking_params = lm_spiking.init(torch.Generator(), device="cpu")
     return {
-        "fused_pe_layer T=2": lambda: ops.fused_pe_layer(
-            _spikes(t=2), w, policy="fused_dense"),
-        "fused_pe_layer packed T=2": lambda: ops.fused_pe_layer(
-            _packed(t=2), w, policy="fused_packed"),
-        "fused_pe_layer +grad T=2": lambda: ops.fused_pe_layer(
-            ops.SpikeTensor.dense(torch.ones((2, 8, 8))), w,
-            policy="fused_dense+grad"),
-        "fused_pe_layer reference+grad T=2": lambda: ops.fused_pe_layer(
-            ops.SpikeTensor.dense(torch.ones((2, 8, 8))), w,
-            policy="reference+grad"),
-        "fused_pe +grad LIF state": lambda: ops.fused_pe(
-            torch.ones((8, 8)), w, v_prev=torch.zeros((8, 8)),
-            policy="fused_dense+grad"),
         "fused_pe +grad heads": lambda: ops.fused_pe(
             torch.ones((8, 8)), w, q=torch.ones((8, 8)), heads=(2, 4),
             policy="fused_dense+grad"),
-        "fused_pe inference": lambda: ops.fused_pe(
-            torch.ones((8, 8), dtype=torch.int8), w, policy="fused_dense"),
         "dense_lif fused+grad lookup": lambda: ops.lookup(
             "dense_lif", "fused+grad"),
         "dense_lif reference+grad lookup": lambda: ops.lookup(
             "dense_lif", "reference+grad"),
-        "fake_quant fp8": lambda: snn_cnn.fake_quant(
-            w, snn_cnn.QuantConfig(enabled=True, mode="fp8_e4m3")),
-        "forward fused_packed T=2": lambda: snn_cnn.forward(
-            fused, img, dataclasses.replace(cfg, timesteps=2),
-            policy="fused_packed"),
-        "forward fused T=2": lambda: snn_cnn.forward(
-            fused, img, dataclasses.replace(cfg, timesteps=2),
-            policy="fused_dense"),
-        "forward +grad bn_fold T=2": lambda: snn_cnn.forward(
-            variables, img, dataclasses.replace(cfg, timesteps=2,
-                                                bn_fold=True),
-            policy="fused_dense"),
         "dense_lif fused_dense+grad": lambda: ops.dense_lif(
             {"w": w}, torch.ones((4, 8)), LIFConfig(),
             policy="fused_dense+grad"),
@@ -344,16 +317,77 @@ def test_variants_ported_with_the_lm_run(case):
     assert int(out.vld_next.sum()) == 64
 
 
+def _ported_with_state():
+    """Variants that raised until the LIF-state variant of the fused PE
+    (T > 1) was ported: each now runs on the CPU (the plain versions) and
+    gives a result of the expected shape, (T, M, N) spikes, (M, N) spikes
+    and v_next, or (batch, classes) logits."""
+    w = torch.ones((8, 8))
+    cfg = snn_cnn.SNNCNNConfig(arch="resnet11", width_mult=0.125,
+                               image_size=16)
+    variables = snn_cnn.init(torch.Generator(), cfg, device="cpu")
+    fused = snn_cnn.fuse_model(variables, cfg)
+    img = torch.zeros((1, 16, 16, 3))
+    two = dataclasses.replace(cfg, timesteps=2)
+
+    def layer(x, policy):
+        return ops.fused_pe_layer(x, w, policy=policy).spikes.to_dense(
+            torch.float32), (2, 8, 8)
+
+    def pe(policy):
+        out = ops.fused_pe(torch.ones((8, 8), dtype=torch.int8), w,
+                           v_prev=torch.zeros((8, 8)), policy=policy)
+        return torch.cat([out.spikes.to_dense(torch.float32), out.v_next]), \
+            (16, 8)
+
+    return {
+        "fused_pe_layer T=2": lambda: layer(_spikes(t=2), "fused_dense"),
+        "fused_pe_layer packed T=2": lambda: layer(_packed(t=2),
+                                                   "fused_packed"),
+        "fused_pe_layer +grad T=2": lambda: layer(
+            ops.SpikeTensor.dense(torch.ones((2, 8, 8))), "fused_dense+grad"),
+        "fused_pe_layer reference+grad T=2": lambda: layer(
+            ops.SpikeTensor.dense(torch.ones((2, 8, 8))), "reference+grad"),
+        "fused_pe +grad LIF state": lambda: pe("fused_dense+grad"),
+        "fused_pe inference": lambda: pe("fused_dense"),
+        "forward fused_packed T=2": lambda: (snn_cnn.forward(
+            fused, img, two, policy="fused_packed")[0], (1, 10)),
+        "forward fused T=2": lambda: (snn_cnn.forward(
+            fused, img, two, policy="fused_dense")[0], (1, 10)),
+        "forward +grad bn_fold T=2": lambda: (snn_cnn.forward(
+            variables, img, dataclasses.replace(two, bn_fold=True),
+            policy="fused_dense")[0], (1, 10)),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_ported_with_state()))
+def test_variants_ported_with_state_run(case):
+    out, shape = _ported_with_state()[case]()
+    assert tuple(out.shape) == shape
+    assert bool(torch.isfinite(out.to(torch.float32)).all())
+
+
+def test_fp8_fake_quant_ported_runs():
+    """The fp8 fake-quant modes raised until the core twins were ported:
+    they now round through e4m3 / e5m2 (``test_torch_core_twins.py`` holds
+    the values to JAX's)."""
+    w = torch.full((8, 8), 3.3)
+    out = snn_cnn.fake_quant(w, snn_cnn.QuantConfig(enabled=True,
+                                                    mode="fp8_e4m3"))
+    torch.testing.assert_close(out, torch.full((8, 8), 3.25), rtol=0,
+                               atol=0)
+
+
 def test_reference_twins_stay_registered():
     """Every op of the slice has a reference mode, and a fused mode where
     its kernel is ported; every op of the training walk has both "+grad"
     modes."""
     table = ops.implementations()
-    for op in ("matmul", "lif", "fused_pe_layer", "im2col", "pool",
-               "qk_mask", "w2ttfs_head", "pack", "unpack"):
+    for op in ("matmul", "lif", "fused_pe", "fused_pe_layer", "im2col",
+               "pool", "qk_mask", "w2ttfs_head", "pack", "unpack"):
         assert (op, "reference") in table, op
-    for op in ("matmul", "lif", "fused_pe_layer", "im2col", "pool",
-               "qk_mask", "w2ttfs_head", "pack", "unpack"):
+    for op in ("matmul", "lif", "fused_pe", "fused_pe_layer", "im2col",
+               "pool", "qk_mask", "w2ttfs_head", "pack", "unpack"):
         assert (op, "fused") in table, op
     for op in ("matmul", "lif", "fused_pe", "fused_pe_layer", "qk_mask",
                "w2ttfs_head", "im2col", "pool"):
