@@ -35,7 +35,10 @@ Phases, in order; any failure raises and the script exits non-zero:
              silent-block fractions {0, 0.5, 0.9, 1.0} with a
              fully silent row block and clustered silent stripes, on 128-
              and 256-wide blocks: each against its plain version and bit
-             for bit against the dense skip on the same operands.
+             for bit against the dense skip on the same operands; then
+             the LM's head-blocked, dense-activation fused PE pass and K3
+             on its wo at the decode route (16 and 64 rows), each against
+             its plain version and bit for bit against the 128-row tile.
    constants — the cost model's constants measured on the card (the values
              ``launch/roofline.py`` carries): the f32 FMA rate of the
              dense-skip spike matmul, a 1 GiB copy's rate, one launch,
@@ -103,12 +106,18 @@ Phases, in order; any failure raises and the script exits non-zero:
 6. timing  — CUDA events: median forward time of each policy at both
              regimes, the host time the tuner's metadata reads add to an
              auto forward, the profiler's device breakdown of both kernel
-             paths, and each kernel's time at the operands its path gave
-             it, beside its bound, its plain version, its dense-skip twin
-             (a gated route) and, where one PyTorch call does the same
-             product, that call; the median step time of each training
-             path with its forward/backward split and peak memory, and the
-             profiler's top kernels of one ``fused_dense+grad`` step.
+             paths, and each kernel's device time at the operands its path
+             gave it (``device_time``: each call bracketed by events after
+             a 256 MB write evicts the L2, all queued behind long matmuls,
+             so a wrapper's host work does not show), beside its bound
+             (no row may read below it), its plain version, its
+             dense-skip twin (a gated route) and, where one PyTorch call
+             does the same product, that call; for the LM rows also the
+             route they took, the 128-row tile's time on the same
+             operands and the host clock; the median step time of each
+             training path with its forward/backward split and peak
+             memory, and the profiler's top kernels of one
+             ``fused_dense+grad`` step.
 7. serve   — (run before the timing phase, whose kernel rows it feeds)
              the spiking QKFormer LM at qwen3-1.7b's published width
              (28 layers, d_model 2048, 16 heads over 8 KV heads of 128,
@@ -120,7 +129,10 @@ Phases, in order; any failure raises and the script exits non-zero:
              ``"fused_packed"`` and ``"reference"``: the launches of one
              decode tick and one prefill chunk (``fused_pe`` 56,
              ``spike_matmul`` 28, counts reset just before and read just
-             after), the engine's tokens against a direct
+             after), every fused PE and spike matmul launch of that tick
+             and chunk replayed on the decode route and on the 128-row
+             tile, equal bit for bit (the count printed), the engine's
+             tokens against a direct
              ``prefill_chunk`` / ``decode_step`` loop, ``fused_packed``
              tokens and per-layer spike totals against ``fused_dense``'s,
              the fused path against ``"reference"`` on a 4-layer f32
@@ -290,6 +302,15 @@ ROWS.update({
                                "src/repro/kernels/spike_matmul/"
                                "spike_matmul.py:83"),
 })
+# the LM rows' time on the 128-row tile before the decode route took their
+# launches, as recorded in PERF.md section 6 (host clock around
+# back-to-back launches, one NVIDIA H100 80GB HBM3 at 700 W): printed
+# beside this run's tile-route time, which the kernels line reports
+# (``tile_route_ms``)
+TILE_MS_BEFORE = {"fused_pe_heads": 13.0847,
+                  "fused_pe_heads_prefill": 13.0866,
+                  "fused_pe_heads_packed": 13.0837, "spike_matmul_lm": 6.2504,
+                  "spike_matmul_lm_packed": 6.1213}
 # the softmax LM's K9: one ops.attention launch on layer 0's q, k and v of
 # a full-width prefill of the trace's longest prompt (phase 8)
 K9_PATH = "ops.attention at qwen3-1.7b prefill"
@@ -410,18 +431,20 @@ def fused_pe_row(args) -> str:
             else "fused_pe_packed" if packing.x else "fused_pe")
 
 
-def check_fused_pe(torch, K, args, parity: Parity, label: str) -> None:
+def check_fused_pe(torch, K, args, parity: Parity, label: str,
+                   route: str = "tile") -> None:
     """Kernel vs plain version on one set of block-aligned operands (dense
     or packed, stateless or with the LIF state; the row is
-    ``fused_pe_row``'s): spikes equal where the plain membrane potential is
+    ``fused_pe_row``'s), launched on ``route``: spikes equal where the plain membrane potential is
     not within NEAR_VTH of v_th, v_next within RTOL/ATOL there, the
     emitted current within RTOL/ATOL and the spikes exactly that current
     (plus the decayed state, each operation rounded as the kernel rounds
     it) thresholded and masked."""
+    k_out, k_vld, *k_rest = K.fused_pe_cuda(*args, route=route)
+    args = K.fused_pe_tile_operands(args)
     (xp, wp, vld, bp, rp, qp, m0, n0, v_th, qk, packing, block_n, gate,
      heads, state) = args
     row = fused_pe_row(args)
-    k_out, k_vld, *k_rest = K.fused_pe_cuda(*args)
     p_out, p_vld, *p_rest = K.fused_pe_block_ref(*args)
     if packing.out:
         k_spk, p_spk = K.unpack_words(k_out), K.unpack_words(p_out)
@@ -496,9 +519,11 @@ def check_fused_pe(torch, K, args, parity: Parity, label: str) -> None:
     return k_spk
 
 
-def check_spike_matmul(torch, K, args, parity: Parity, label: str) -> None:
+def check_spike_matmul(torch, K, args, parity: Parity, label: str,
+                       route: str = "tile") -> None:
     row = "spike_matmul_packed" if args[3] else "spike_matmul"
-    out = K.spike_matmul_cuda(*args)
+    out = K.spike_matmul_cuda(*args, route=route)
+    args = K.spike_matmul_tile_operands(args)
     ref = K.spike_matmul_block_ref(*args)
     err = float((out - ref).abs().max())
     require(torch.allclose(out, ref, rtol=RTOL, atol=ATOL),
@@ -1093,18 +1118,51 @@ def parity_lm_pe(torch, K, gen, dev, parity: Parity) -> None:
                 for q in qs:
                     maps = []
                     for fmt in ("dense", "packed"):
-                        args = K.fused_pe_operands(
-                            x, w, q=q, v_th=V_TH, qk_threshold=thr,
-                            out_format=fmt, heads=heads)
+                        kw = dict(q=q, v_th=V_TH, qk_threshold=thr,
+                                  out_format=fmt, heads=heads)
+                        args = K.fused_pe_operands(x, w, **kw)
                         qk = ("no q" if q is None else "packed q"
                               if isinstance(q, K.PackedSpikes) else "int8 q")
-                        maps.append(check_fused_pe(
-                            torch, K, args, parity,
-                            f"[{m}x{LM_PE_K}x{n}] {str(dtype)[6:]} x, {qk}, "
-                            f"{fmt} out"))
+                        label = (f"[{m}x{LM_PE_K}x{n}] {str(dtype)[6:]} x, "
+                                 f"{qk}, {fmt} out")
+                        maps.append(check_fused_pe(torch, K, args, parity,
+                                                   label))
+                        if m <= K.DECODE_ROWS:   # the decode route: its own
+                            dec = K.fused_pe_operands(x, w, **kw,  # operands
+                                                      route="decode")
+                            check_fused_pe(torch, K, dec, parity,
+                                           label + ", decode route",
+                                           route="decode")
+                            require(same_outputs(torch, K.fused_pe_cuda(
+                                *dec, route="decode"),
+                                K.fused_pe_cuda(*args)),
+                                    f"fused_pe_heads {label}: the decode "
+                                    f"route differs from the 128-row tile")
                     require(torch.equal(maps[0], maps[1]),
                             f"fused_pe_heads [{m}x{n}] heads {heads}: the "
                             f"packed output is not the int8 output")
+
+
+def parity_lm_matmul(torch, K, gen, dev, parity: Parity) -> None:
+    """K3 at the LM's wo shape on the decode route: int8 and packed x of 16
+    and 64 rows with silent 128-column blocks, against the plain version
+    and bit for bit against the 128-row tile."""
+    for m in (16, 64):
+        for p in DENSITIES:
+            x = (torch.rand((m, LM_PE_K), generator=gen, device=dev) < p
+                 ).to(torch.int8)
+            x[:, 256:512] = 0
+            w = torch.randn((LM_PE_K, LM_PE_K), generator=gen, device=dev)
+            for xx in (x, K.pack_spikes_ref(x)):
+                dec = K.spike_matmul_operands(xx, w, route="decode")
+                label = (f"LM wo [{m}x{LM_PE_K}x{LM_PE_K}] density {p}, "
+                         f"decode route")
+                check_spike_matmul(torch, K, dec, parity, label,
+                                   route="decode")
+                require(torch.equal(K.spike_matmul_cuda(*dec, route="decode"),
+                                    K.spike_matmul_cuda(
+                                        *K.spike_matmul_tile_operands(dec))),
+                        f"{label}: differs from the 128-row tile")
 
 
 def phase_parity(torch, K, dev) -> Parity:
@@ -1155,6 +1213,7 @@ def phase_parity(torch, K, dev) -> Parity:
     parity_training(torch, K, gen, dev, parity)
     parity_gated(torch, K, gen, dev, parity)
     parity_lm_pe(torch, K, gen, dev, parity)
+    parity_lm_matmul(torch, K, gen, dev, parity)
     torch.cuda.synchronize()
     return parity
 
@@ -1322,7 +1381,7 @@ def phase_end_to_end(torch, snn_cnn, build_mod, dev, batch: int):
                  "fused_packed vs reference")
     say(f"[e2e] fused_packed logits equal fused_dense's: "
         f"{bool(torch.equal(p_logits, d_logits))}")
-    for name, args, _ in paths["fused_packed"][3]:
+    for name, args, *_ in paths["fused_packed"][3]:
         if name == "spike_matmul":
             require(args[3] is True,
                     f"a fused_packed {name} launch took int8 operands")
@@ -1395,7 +1454,7 @@ def tuned_layer_names(cfg, snn_cnn) -> list:
 
 def active_fracs(captured) -> list:
     """Active-block fraction of x in each fused PE / spike matmul launch."""
-    return [float((args[2] > 0).float().mean()) for name, args, _ in captured
+    return [float((args[2] > 0).float().mean()) for name, args, *_ in captured
             if name in ("fused_pe", "spike_matmul")]
 
 
@@ -1520,7 +1579,7 @@ def phase_explicit(torch, K, build_mod, ops, paths, train_captured):
 
     def most_silent(captured, name):
         cands = [(float((a[2] > 0).float().mean()), i, a, inp)
-                 for i, (n_, a, inp) in enumerate(captured) if n_ == name]
+                 for i, (n_, a, inp, _) in enumerate(captured) if n_ == name]
         return min(cands, key=lambda c: (c[0], c[1]))
 
     picks = []
@@ -1648,7 +1707,11 @@ def plain_launchers():
         return bwd_ops.spike_matmul_dx_ref(g, w, v, surrogate=surrogate,
                                            alpha=alpha, v_th=v_th)
 
-    swaps = [(mm_ops, "spike_matmul_cuda", mm_ops.spike_matmul_block_ref),
+    def matmul(*args, route="tile"):
+        return mm_ops.spike_matmul_block_ref(
+            *mm_ops.spike_matmul_tile_operands(args))
+
+    swaps = [(mm_ops, "spike_matmul_cuda", matmul),
              (bwd_ops, "spike_matmul_dx_cuda", dx),
              (bwd_ops, "spike_matmul_dw_cuda", bwd_ops.spike_matmul_dw_ref),
              (lif_ops, "lif_update_cuda", lif_ops.lif_update_ref),
@@ -1926,7 +1989,7 @@ def phase_timesteps(torch, M, build_mod, dev, images, batch: int) -> dict:
         require(launches == EXPECTED_LAUNCHES_T[policy],
                 f"{policy} T={T_STEPS} launch counts {launches} != "
                 f"{EXPECTED_LAUNCHES_T[policy]}")
-        require(all(a[14] is not None for n_, a, _ in captured
+        require(all(a[14] is not None for n_, a, *_ in captured
                     if n_ == "fused_pe"),
                 f"a {policy} T={T_STEPS} fused PE launch ran without state")
         paths[T_FORWARD[policy]] = (logits, aux, launches, captured)
@@ -2017,7 +2080,7 @@ def phase_packed_dw(torch, K, build_mod, captured) -> tuple:
     launched through ``spike_matmul_dw`` with the dense skip and with the
     gated walk; each bit-equal to the int8 dense-skip launch on the same
     spikes. Returns the path tuple of these launches."""
-    picks = [(K.pack_spikes(a[0]), a) for n_, a, _ in captured
+    picks = [(K.pack_spikes(a[0]), a) for n_, a, *_ in captured
              if n_ == "spike_matmul_dw"]
     require(len(picks) == 16, f"{len(picks)} dw launches to replay")
     build_mod.reset_launches()
@@ -2128,6 +2191,72 @@ def time_cuda(torch, fn, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+_FILLER = []
+# bytes read between two timed calls to evict the H100's 50 MB L2, so that
+# each call reads its operands from device memory, as the main path's
+# launches do (a decode tick streams 84 distinct weights, 1.4 GB); a read
+# leaves clean lines, so the timed call pays no write-back of the flush
+L2_FLUSH_BYTES = 256 << 20
+
+
+def device_time(torch, fn, reps: int, warmup: int = 2) -> float:
+    """Mean device ms per call over ``reps`` calls with a cold L2, after
+    warm-up: before each call a 256 MB buffer is summed (evicting the
+    call's operands from the L2), and a pair of CUDA events brackets the
+    call alone. 4096^3 f32 matmuls (about 2.7 ms each on the card), as many
+    as the last warm-up call's host time asks for (at most 16), are queued
+    first, so that the calls are enqueued while they run and each call's
+    events then bracket its device work: a call whose host work outlasts
+    its kernels (a wrapper's checks, allocations and ctypes call) is timed
+    by its device work, as ``time_cuda`` would not. (The flush also ends
+    programmatic overlap between two calls, which a tick's launches may
+    have.)"""
+    if not _FILLER:
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        _FILLER.extend(torch.randn((4096, 4096), generator=gen, device="cuda")
+                       for _ in range(2))
+        _FILLER.append(torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                                  device="cuda"))
+    a, b, flush = _FILLER
+    for _ in range(warmup):
+        host = time.perf_counter()      # the last warm-up call's host time
+        flush.sum()
+        fn()
+        host = time.perf_counter() - host
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for _ in range(min(16, 1 + math.ceil(1.5 * reps * host / 2.7e-3))):
+        torch.matmul(a, b)
+    for start, end in events:
+        flush.sum()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in events) / reps
+
+
+def tile_args(K, name: str, args) -> tuple:
+    """A launch's operands on the 128-row tile route: a fused PE or spike
+    matmul launch's padded back (``*_tile_operands``, which leaves a tile
+    launch's as they were), any other as it is. The plain versions, the
+    bounds and the checks read these."""
+    if name == "fused_pe":
+        return K.fused_pe_tile_operands(args)
+    if name == "spike_matmul":
+        return K.spike_matmul_tile_operands(args)
+    return args
+
+
+def relaunch(launch_fn: dict, launch):
+    """A captured launch again, on its own operands and route."""
+    fn = launch_fn[launch.name]
+    if launch.route != "tile":
+        return lambda: fn(*launch.args, route=launch.route)
+    return lambda: fn(*launch.args)
 
 
 def valid_extent(torch, n: int, blocks: int, width: int = 128):
@@ -2488,27 +2617,44 @@ def phase_timing(torch, K, snn_cnn, models, images, paths, parity: Parity,
               for row in ROWS}
     row_of = {(kernel, policy): row
               for row, (kernel, policy, _, _) in rows_map.items()}
+    routes = {row: set() for row in ROWS}
+    tot_host = {row: {"ms": 0.0, "lib": 0.0, "tile": 0.0}
+                for row in TILE_MS_BEFORE}
     i = 0
     for policy, (_, _, _, captured) in paths.items():
-        for name, args, inputs in captured:
+        for launch in captured:
+            name, args, inputs, route = launch
             row = row_of.get((name, policy))
             if row is None:     # the same kernel at the same shapes as the
                 continue        # other path's launch, which is timed there
             # the main path's own operands: kernel vs plain version again
-            CHECKS[name](torch, K, args, parity, f"main-path launch {i}")
-            ms = time_cuda(torch, lambda: launch_fn[name](*args), reps=20)
-            plain_ms = time_cuda(torch, lambda: plain_fn[name](*args), reps=5)
-            nbytes, ops, block_ops = bound(torch, K, name, args, inputs)
+            CHECKS[name](torch, K, args, parity, f"main-path launch {i}",
+                         **({} if route == "tile" else {"route": route}))
+            targs = tile_args(K, name, args)
+            ms = device_time(torch, relaunch(launch_fn, launch), reps=20)
+            plain_ms = device_time(torch, lambda: plain_fn[name](*targs),
+                                   reps=5)
+            nbytes, ops, block_ops = bound(torch, K, name, targs, inputs)
             t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
             t_ops = (flash_ops_ms(args[0], ops) if name == "flash_attention"
                      else ops / PEAK_F32_OPS_PER_S * 1e3)
             t_block = block_ops / PEAK_F32_OPS_PER_S * 1e3
             lib = library_call(torch, K, name, args, inputs)
-            lib_ms = None if lib is None else time_cuda(torch, lib, reps=10)
+            lib_ms = None if lib is None else device_time(torch, lib, reps=10)
             lib_name = "SDPA" if name == "flash_attention" else "torch.matmul"
+            if row in TILE_MS_BEFORE:
+                # the redesigned rows: the 128-row tile on the same operands,
+                # and the host clock, by which the tile's time was recorded
+                host = tot_host[row]
+                host["tile"] += device_time(
+                    torch, lambda: launch_fn[name](*targs), reps=20)
+                host["ms"] += time_cuda(torch, relaunch(launch_fn, launch),
+                                        reps=20)
+                host["lib"] += time_cuda(torch, lib, reps=10)
             del lib
             twin = dense_twin(torch, K, name, args)
-            twin_ms = None if twin is None else time_cuda(torch, twin, reps=20)
+            twin_ms = None if twin is None else device_time(torch, twin,
+                                                            reps=20)
             if twin_ms is not None:
                 totals[row]["twin_ms"] += twin_ms
             tot = totals[row]
@@ -2525,7 +2671,11 @@ def phase_timing(torch, K, snn_cnn, models, images, paths, parity: Parity,
                         "spike_matmul_dw", "fused_pe_gated",
                         "spike_matmul_gated", "spike_matmul_dw_gated"):
                 shape += f" @ {args[1].shape[0]}x{args[1].shape[1]}"
-            say(f"[timing] launch {i} {row} [{shape}]: {ms:.4f} ms, bound "
+            routes[row].add(route)
+            say(f"[timing] launch {i} {row} [{shape}]"
+                + (f" ({route} route)" if name in ("fused_pe", "spike_matmul")
+                   else "") + ": "
+                f"{ms:.4f} ms, bound "
                 f"{max(t_bytes, t_ops):.4f} ms "
                 f"({'bytes' if t_bytes >= t_ops else 'operations'}), its "
                 f"unskipped blocks at the f32 peak {t_block:.4f} ms, plain "
@@ -2548,6 +2698,20 @@ def phase_timing(torch, K, snn_cnn, models, images, paths, parity: Parity,
                "bound_by": ("bytes" if tot["bytes_s"] >= tot["ops_s"]
                             else "operations"),
                "library_ms": tot["library_ms"]}
+        if kernel in ("fused_pe", "spike_matmul"):
+            out["gemm_route"] = "+".join(sorted(routes[row])) or "tile"
+        if row in TILE_MS_BEFORE:
+            host = tot_host[row]
+            out["tile_route_ms"] = host["tile"]
+            say(f"[timing] {row} ({out['gemm_route']} route): {tot['ms']:.4f}"
+                f" ms device time, {host['tile']:.4f} ms on the 128-row tile"
+                f" (same operands, same clock; recorded before the decode "
+                f"route: {TILE_MS_BEFORE[row]:.4f} ms by the host clock); host "
+                f"clock now {host['ms']:.4f} ms against torch.matmul's "
+                f"{host['lib']:.4f}; device time against torch.matmul's "
+                f"{tot['library_ms']:.4f}: "
+                f"{tot['library_ms'] / tot['ms']:.2f}x, "
+                f"{tot['ms'] / tot['bound_ms']:.2f}x its bound")
         say(f"[timing] {row}: {out['ms']:.4f} ms per {policy} pass in "
             f"{out['launches']} launches; bound {out['bound_ms']:.4f} ms "
             f"({out['bound_by']}); unskipped blocks at the f32 peak "
@@ -2557,6 +2721,11 @@ def phase_timing(torch, K, snn_cnn, models, images, paths, parity: Parity,
             + (f"; dense-skip twin {tot['twin_ms']:.4f} ms"
                if tot["twin_ms"] else ""))
         rows.append(out)
+    # a time below the least the card could take is a measurement fault (an
+    # operand read from the L2, not from device memory)
+    below = [f"{r['name']} {r['ms']:.4f} < {r['bound_ms']:.4f} ms"
+             for r in rows if r["ms"] < r["bound_ms"]]
+    require(not below, f"kernel times below their bound: {below}")
     return rows
 
 
@@ -2712,6 +2881,38 @@ def capture_tick(torch, S, build_mod, model, params, what: str) -> tuple:
     return dict(build_mod.LAUNCHES), captured, (fn, toks, cache)
 
 
+def same_outputs(torch, a, b) -> bool:
+    """Two launches' outputs (a tuple, or one tensor) equal bit for bit."""
+    a, b = ((a,), (b,)) if isinstance(a, torch.Tensor) else (a, b)
+    return len(a) == len(b) and all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def replay_routes(torch, K, captured, label: str) -> int:
+    """Every fused PE and spike matmul launch of one captured pass (all on
+    the decode route) launched again on both routes: the decode route on
+    its own operands (and a fused PE's also on the 128-row tile's, whose
+    first rows it reads), against the tile on the tile's. Spikes,
+    vld_next, packed words and K3's f32 output must be equal bit for bit,
+    padded rows included. Returns the number replayed."""
+    n = 0
+    for name, args, _, route in captured:
+        if name not in ("fused_pe", "spike_matmul"):
+            continue
+        require(route == "decode", f"{label}: a {name} launch of the "
+                                   f"{route} route")
+        targs = tile_args(K, name, args)
+        launch = K.fused_pe_cuda if name == "fused_pe" else K.spike_matmul_cuda
+        tile = launch(*targs)
+        same = same_outputs(torch, launch(*args, route="decode"), tile)
+        if name == "fused_pe":
+            same = same and same_outputs(
+                torch, launch(*targs, route="decode"), tile)
+        require(same, f"{label}: {name} launch {n}: the decode route differs "
+                      f"from the 128-row tile")
+        n += 1
+    return n
+
+
 def grouped_kv(cfg, captured) -> list:
     """A tick's captured launches, each grouped wk pass's inputs extended
     by the weight columns its product needs (``bound``): the kv heads'
@@ -2721,12 +2922,13 @@ def grouped_kv(cfg, captured) -> list:
     if cfg.n_kv_heads == cfg.n_heads:
         return captured
     out = []
-    for name, args, inputs in captured:
-        if name == "fused_pe" and inputs[4] is not None:    # wk, q-masked
+    for launch in captured:
+        inputs = launch.inputs
+        if launch.name == "fused_pe" and inputs[4] is not None:  # wk, q-masked
             require(inputs[1].shape[1] == cfg.n_heads * dh,
                     f"a wk launch of {inputs[1].shape[1]} columns")
-            inputs = inputs + (cfg.n_kv_heads * dh,)
-        out.append((name, args, inputs))
+            launch = launch._replace(inputs=inputs + (cfg.n_kv_heads * dh,))
+        out.append(launch)
     return out
 
 
@@ -2808,8 +3010,10 @@ def profile_tick(torch, S, build_mod, model, params, policy: str) -> None:
         say(f"[profile] serve {policy}: the profiler reported no device "
             f"time; breakdown not measured")
         return
-    ours = sum(r[0] for r in rows if "fused_pe_kernel" in r[2]
-               or "spike_matmul_kernel" in r[2])
+    ours = sum(r[0] for r in rows if any(
+        k in r[2] for k in ("fused_pe_kernel", "spike_matmul_kernel",
+                            "fused_pe_decode_kernel",
+                            "spike_matmul_decode_kernel")))
     launched = sum(r[1] for r in rows)
     say(f"[profile] serve {policy} decode tick: device busy {busy:.3f} ms "
         f"of median {med:.3f} ms in {launched} device kernels: idle share "
@@ -2820,7 +3024,7 @@ def profile_tick(torch, S, build_mod, model, params, policy: str) -> None:
             f"{key[:100]}")
 
 
-def phase_serve(torch, S, build_mod, dev) -> dict:
+def phase_serve(torch, S, K, build_mod, dev) -> dict:
     """The spiking QKFormer LM served at qwen3-1.7b's published width:
     the trace through the engine under each policy, the launches of a tick,
     the engine against a direct loop, packed against dense, the fused
@@ -2845,6 +3049,7 @@ def phase_serve(torch, S, build_mod, dev) -> dict:
         f"engine {SERVE_ENGINE}")
     want = tick_launches(build_mod, cfg.n_layers)
     paths, results, direct = {}, {}, {}
+    compared = 0
     for policy in SERVE_POLICIES:
         model = S.LM(S.with_policy(cfg, policy))
         results[policy] = res = run_engine(torch, S, build_mod, model,
@@ -2881,9 +3086,15 @@ def phase_serve(torch, S, build_mod, dev) -> dict:
                 f"{ {k: v for k, v in launches.items() if v} }")
             require(launches == want, f"{policy} {what} launches "
                                       f"{launches} != {want}")
+            replayed = replay_routes(torch, K, captured,
+                                     f"serve {policy} {what}")
+            compared += replayed
+            say(f"[serve] {policy} {what}: {replayed} fused_pe and "
+                f"spike_matmul launches replayed on both routes, decode "
+                f"equal to the 128-row tile bit for bit")
             paths[f"serve {policy} {what}"] = (
                 None, None, launches, grouped_kv(model.cfg, captured))
-        for name, args, _ in paths[f"serve {policy} decode"][3]:
+        for name, args, *_ in paths[f"serve {policy} decode"][3]:
             packed = policy == "fused_packed"
             if name == "fused_pe":
                 require(args[0].is_floating_point() and args[10].out == packed
@@ -2892,6 +3103,9 @@ def phase_serve(torch, S, build_mod, dev) -> dict:
             if name == "spike_matmul":
                 require(args[3] is packed,
                         f"a {policy} spike_matmul launch took the wrong x")
+    say(f"[serve] decode route bit-equal to the 128-row tile on all "
+        f"{compared} replayed launches (a decode tick and a prefill chunk "
+        f"of fused_dense and fused_packed)")
     d, p = results["fused_dense"], results["fused_packed"]
     require(p["tokens"] == d["tokens"], "fused_packed tokens differ from "
                                         "fused_dense's")
@@ -3298,6 +3512,9 @@ def kernels_namespace(torch):
         fused_pe_cuda=fused_pe.fused_pe_cuda,
         fused_pe_block_ref=fused_pe.fused_pe_block_ref,
         fused_pe_operands=fused_pe.fused_pe_operands,
+        fused_pe_tile_operands=fused_pe.fused_pe_tile_operands,
+        spike_matmul_tile_operands=spike_matmul.spike_matmul_tile_operands,
+        DECODE_ROWS=spike_matmul.DECODE_ROWS,
         spike_matmul_cuda=spike_matmul.spike_matmul_cuda,
         spike_matmul_block_ref=spike_matmul.spike_matmul_block_ref,
         spike_matmul_operands=spike_matmul.spike_matmul_operands,
@@ -3427,7 +3644,7 @@ def main() -> int:
                "the card's cost model planned it on no auto path; "
                "launched with an explicit skip on the model's operands "
                f"({paths['explicit skip'][2][kernel]} launches)"))
-    paths.update(phase_serve(torch, serve_namespace(), _build, dev))
+    paths.update(phase_serve(torch, serve_namespace(), K, _build, dev))
     lap("serve")
     paths.update(phase_softmax(torch, serve_namespace(), K, _build, dev,
                                parity))

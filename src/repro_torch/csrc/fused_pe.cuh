@@ -77,13 +77,18 @@
 // so the f32 weight stream and the padding bound it. The LIF state adds
 // 9 bytes an output element (v_prev and v_next f32, s_prev int8), read and
 // written once at the valid extent, against the 2 K operations of its
-// product. wgmma, TMA, a multi-stage pipeline and narrower tiles (N = 64,
-// decode's M) are later work.
+// product. A dense activation x of at most kDecodeRows live rows without
+// residual, state or emitted current (the LM's projections at its decode
+// ticks and prefill chunks) takes the decode route instead
+// (fused_pe_decode_kernel, decode_gemm.cuh): 16-column CTAs over the live
+// rows only, the same sums and the same epilogue. wgmma, TMA and a tile
+// for N = 64 are later work.
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "decode_gemm.cuh"
 #include "event_gemm.cuh"
 
 namespace repro {
@@ -129,6 +134,37 @@ __device__ __forceinline__ int qk_row_sum(const void* __restrict__ q, int dq,
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
   return s;
+}
+
+// Lane s (0..3) of a quarter-warp's share of the QK sum of row `row` over
+// q's columns [lo, hi): every fourth 16-value piece (int8, 16-aligned),
+// value (ragged int8) or word (packed, ANDed with the lanes of [lo, hi) it
+// holds). The four lanes' shares add up to qk_row_sum's; eight pairs a warp
+// load at once.
+__device__ __forceinline__ int qk_quarter_sum(const void* __restrict__ q, int dq,
+                                              bool packed_q, size_t row, int lo,
+                                              int hi, int s) {
+  int sum = 0;
+  if (packed_q) {
+    const int* qr = static_cast<const int*>(q) + row * dq;
+    for (int wd = lo / 32 + s; wd * 32 < hi; wd += 4) {
+      const int b0 = max(lo - wd * 32, 0), b1 = min(hi - wd * 32, 32);
+      const unsigned lanes = (b1 - b0 == 32 ? 0xffffffffu : ((1u << (b1 - b0)) - 1u)) << b0;
+      sum += __popc(static_cast<unsigned>(qr[wd]) & lanes);
+    }
+  } else if ((lo | hi) % 16 == 0) {
+    const int8_t* qr = static_cast<const int8_t*>(q) + row * dq;
+    for (int c = lo + 16 * s; c < hi; c += 64) {
+      const int4 v = *reinterpret_cast<const int4*>(qr + c);
+      const int8_t* e = reinterpret_cast<const int8_t*>(&v);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) sum += e[i];
+    }
+  } else {
+    const int8_t* qr = static_cast<const int8_t*>(q) + row * dq;
+    for (int c = lo + s; c < hi; c += 4) sum += qr[c];
+  }
+  return sum;
 }
 
 template <int XKind, bool EmitCurrent, int Skip, bool WithState>
@@ -282,12 +318,173 @@ fused_pe_kernel(const void* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// the state operands of one launch (all null without state)
+// The decode route of the same layer (decode_gemm.cuh), for a dense f32 or
+// bf16 activation x without residual, state or emitted current (the LM's
+// projections): one CTA owns kDecodeCols output columns over the live
+// rows, consumer thread (c, rg) the TR rows by TC columns DecodeGemm
+// names. The QK gates of the (row, head) pairs the CTA touches are summed
+// by the warps the ring leaves idle (or, at 64 rows, by every warp while
+// the first chunks are in flight); the epilogue is the tile kernel's
+// without state, output by output, in the consumers. The rows past 16 RM, up to the padded mp, are
+// written as zeros (spikes, or the 16-bit half of each packed word this
+// CTA's columns fill: the low half holds the lower 16 columns). The CTAs of
+// one (128, bn) count tile add their spike counts, and an arrival, with
+// one integer atomicAdd (exact in any order) into the tile's slot of a
+// count scratch that every launch leaves zero (one a stream, kept by the
+// caller), and the last CTA of the tile writes vld_next: no zero-filled
+// vld_next, so no second kernel a launch. (A thread block
+// cluster of a tile's 8 CTAs, summing through distributed shared memory,
+// would need no scratch, but 8 CTAs of one SM each do not fit a GPC in one
+// wave: it was slower on the H100.)
+constexpr int kMaxDecodeHeads = kDecodeCols + 2;  // head_dim 1: 16 + 2
+
+template <int XKind, int RM>
+__global__ void __launch_bounds__(kDecodeThreads, 1)
+fused_pe_decode_kernel(const void* __restrict__ x, const float* __restrict__ w,
+                       Route route, const float* __restrict__ bias,
+                       const void* __restrict__ q, int dq, void* __restrict__ spikes,
+                       int* __restrict__ vld_next, int* __restrict__ counts, int mp,
+                       int kp, int np, int bn, int m_valid, int n_valid, float v_th,
+                       float qk_threshold, int head_dim, int flags) {
+  static_assert(XKind == kXF32 || XKind == kXBF16, "a dense activation x");
+  using G = DecodeGemm<XKind, RM>;
+  constexpr int kTR = G::kTR, kTC = G::kTC, kRows = 16 * RM;
+  constexpr int kWarps = kDecodeThreads / 32;
+  extern __shared__ __align__(16) unsigned char dsm[];
+  __shared__ unsigned char gate[kDecodeRows * kMaxDecodeHeads];
+  __shared__ int warp_count[kWarps];
+  const int col0 = blockIdx.x * kDecodeCols;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const bool packed_q = flags & kPackedQ, packed_out = flags & kPackedOut;
+
+  G gemm{dsm, x, w, kp, np, col0, m_valid, 0};
+  gemm.start(route.vld, route.bk);
+
+  // the heads this CTA touches (the whole-row mask: one over all of q)
+  int h_first = 0, n_heads = 1;
+  if (head_dim > 0) {
+    const int c_end = min(col0 + kDecodeCols, n_valid);
+    h_first = col0 / head_dim;
+    n_heads = c_end > col0 ? (c_end - 1) / head_dim - h_first + 1 : 0;
+  }
+  // the gates, a quarter-warp per (live row, head), eight pairs a warp at
+  // once: by the warps the ring leaves idle, while it runs, or else by
+  // every warp while it fills
+  auto gates = [&](int first, int warps) {
+    if (q == nullptr) return;
+    const int q_cols = packed_q ? dq * 32 : dq;
+    const int pairs = m_valid * n_heads;
+    for (int g = 8 * first + lane / 4; g - lane / 4 < pairs; g += 8 * warps) {
+      int sum = 0;
+      if (g < pairs) {
+        const int r = g / n_heads, hh = h_first + g % n_heads;
+        const int lo = head_dim > 0 ? hh * head_dim : 0;
+        const int hi = head_dim > 0 ? lo + head_dim : q_cols;
+        sum = qk_quarter_sum(q, dq, packed_q, static_cast<size_t>(r), lo, hi, lane % 4);
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      if (lane % 4 == 0 && g < pairs)
+        gate[g] = static_cast<float>(sum) >= qk_threshold ? 1 : 0;
+    }
+  };
+  constexpr int kIdleFirst = G::kConsumers / 32;
+  constexpr int kIdle = (kDecodeThreads - kProducers) / 32 - kIdleFirst;
+  if constexpr (!G::kIdleWarps) gates(warp, kWarps);
+
+  float acc[kTR][kTC];
+  gemm.run(acc, [&] { gates(warp - kIdleFirst, kIdle); });
+
+  const int words_per_row = np / 32;
+  uint16_t* halves = static_cast<uint16_t*>(spikes);  // the packed words' halves
+  const int half_at = 2 * (col0 / 32) + (col0 % 32) / 16;
+  int count = 0;
+  if (tid < G::kConsumers) {
+    const int c = tid % G::kColGroups, rg = tid / G::kColGroups;
+    const int c0 = col0 + kTC * c;
+    int gate_of[kTC];
+    float b[kTC];
+#pragma unroll
+    for (int j = 0; j < kTC; ++j) {
+      gate_of[j] = (c0 + j >= n_valid) ? -1 : head_dim > 0 ? (c0 + j) / head_dim - h_first : 0;
+      b[j] = bias != nullptr ? bias[c0 + j] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kTR; ++i) {
+      const int row = rg + G::kRowGroups * i;
+      const bool row_on = row < m_valid;
+      unsigned bits = 0;
+#pragma unroll
+      for (int j = 0; j < kTC; ++j) {
+        float cur = acc[i][j];
+        if (bias != nullptr) cur = __fadd_rn(cur, b[j]);
+        const bool fire = cur >= v_th;
+        const bool on = row_on && gate_of[j] >= 0 &&
+                        (q == nullptr || gate[row * n_heads + gate_of[j]] != 0);
+        bits |= static_cast<unsigned>(on && fire) << j;
+      }
+      count += __popc(bits);
+      if (packed_out) {  // the kColGroups lanes of this row, in lane order
+        unsigned half = bits << (kTC * c);
+#pragma unroll
+        for (int off = 1; off < G::kColGroups; off <<= 1)
+          half |= __shfl_xor_sync(0xffffffffu, half, off);
+        if (c == 0)
+          halves[2 * static_cast<size_t>(row) * words_per_row + half_at] =
+              static_cast<uint16_t>(half);
+      } else {  // one byte a column
+        unsigned bytes = 0;
+#pragma unroll
+        for (int j = 0; j < kTC; ++j) bytes |= ((bits >> j) & 1u) << (8 * j);
+        *reinterpret_cast<uint16_t*>(static_cast<int8_t*>(spikes) +
+                                     static_cast<size_t>(row) * np + c0) =
+            static_cast<uint16_t>(bytes);
+      }
+    }
+  }
+  // the padded rows past this CTA's rows: no spike
+  if (packed_out) {
+    for (int row = kRows + tid; row < mp; row += kDecodeThreads)
+      halves[2 * static_cast<size_t>(row) * words_per_row + half_at] = 0;
+  } else {
+    for (int i = tid; i < (mp - kRows) * (kDecodeCols / 4); i += kDecodeThreads) {
+      const int row = kRows + i / (kDecodeCols / 4), p = i % (kDecodeCols / 4);
+      *reinterpret_cast<int*>(static_cast<int8_t*>(spikes) + static_cast<size_t>(row) * np +
+                              col0 + 4 * p) = 0;
+    }
+  }
+
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) count += __shfl_down_sync(0xffffffffu, count, off);
+  if (lane == 0) warp_count[warp] = count;
+  __syncthreads();
+  if (tid == 0) {
+    int total = 0;
+#pragma unroll
+    for (int v = 0; v < kWarps; ++v) total += warp_count[v];
+    // the (128, bn) count tile's CTAs add count << 8 | 1 into its slot of
+    // the count scratch (at most 64 x 256 spikes and 16 CTAs a tile): the
+    // one that finds the other CTAs' arrivals there writes the sum to
+    // vld_next (row block 0; the padded row blocks hold none) and leaves
+    // the slot zero for the stream's next launch
+    int* slot = counts + col0 / bn;
+    const int seen = atomicAdd(slot, total << 8 | 1);
+    if ((seen & 0xff) == bn / kDecodeCols - 1) {
+      vld_next[col0 / bn] = (seen >> 8) + total;
+      *slot = 0;
+      for (int rb = 1; rb < mp / kTile; ++rb) vld_next[rb * (np / bn) + col0 / bn] = 0;
+    }
+  }
+}
+
+// the state operands of one launch (all null without state), and the
+// decode route's count scratch
 struct State {
   const float* v_prev;
   const int8_t* s_prev;
   float* v_next;
   float tau;
+  int* counts;
 };
 
 template <int XKind, bool EmitCurrent, int Skip, bool WithState>
@@ -303,6 +500,23 @@ void launch(const void* x, const float* w, const Route& route, const float* bias
       st.tau, head_dim, flags);
 }
 
+// the decode route's launch (route.vld may be null: every chunk kept; the
+// C entry refuses a residual, a state and the current on this route)
+template <int XKind, int RM>
+void launch_decode(const void* x, const float* w, const Route& route, const float* bias,
+                   const void*, const void* q, int dq, void* spikes, int* vld_next,
+                   float*, const State& st, int mp, int kp, int np, int bn, int m_valid,
+                   int n_valid, float v_th, float qk_threshold, int head_dim, int flags,
+                   cudaStream_t stream) {
+  const auto kernel = fused_pe_decode_kernel<XKind, RM>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDecodeMaxSmem);
+  (void)attr;  // a refusal shows as the launch's own error
+  launch_decode_kernel(kernel, np, decode_smem_bytes<XKind, RM>(kp), stream, x, w, route,
+                       bias, q, dq, spikes, vld_next, st.counts, mp, kp, np, bn, m_valid,
+                       n_valid, v_th, qk_threshold, head_dim, flags);
+}
+
 using Launch = decltype(&launch<kXInt8, false, kDense, false>);
 
 template <int XKind, bool EmitCurrent, bool WithState>
@@ -312,12 +526,20 @@ constexpr Launch pick_skip(int skip) {
                           : &launch<XKind, EmitCurrent, kTwoLevel, WithState>;
 }
 
-// a spike x's launches (emit_current or not) on a route; each variant
-// set is instantiated in a source of its own, so that the nvcc processes,
-// all started together, build them in parallel: the int8 stateless
-// launches and the float x ones in fused_pe.cu, and
-Launch pick_packed(bool emit, int skip);         // fused_pe_packed.cu
-Launch pick_state_int8(bool emit, int skip);     // fused_pe_state.cu
-Launch pick_state_packed(bool emit, int skip);   // fused_pe_state_packed.cu
+// the decode route at the row tile that covers m_valid: 16 rows, or 64
+template <int XKind>
+constexpr Launch pick_decode(int m_valid) {
+  return m_valid <= 16 ? &launch_decode<XKind, 1> : &launch_decode<XKind, 4>;
+}
+
+// a launch's variant set: a spike x's (emit_current or not) on the tile
+// route's skip, or a float x's on the decode route; each set is
+// instantiated in a source of its own, so that the nvcc processes, all
+// started together, build them in parallel: the int8 stateless launches
+// and the float x tile ones in fused_pe.cu, and
+Launch pick_decode_float(int x_kind, int m_valid);   // fused_pe_decode.cu
+Launch pick_packed(bool emit, int skip);             // fused_pe_packed.cu
+Launch pick_state_int8(bool emit, int skip);         // fused_pe_state.cu
+Launch pick_state_packed(bool emit, int skip);       // fused_pe_state_packed.cu
 
 }  // namespace repro

@@ -22,7 +22,7 @@ import pathlib
 import shutil
 import subprocess
 import time
-from typing import Iterator, Optional
+from typing import Iterator, NamedTuple, Optional
 
 import torch
 
@@ -50,8 +50,8 @@ _I, _LL, _F = ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "repro_lif_update": [_VOID_P] * 5 + [_LL, _F, _F, _I, _VOID_P],
     "repro_fused_pe": [_VOID_P] * 9 + [_I] + [_VOID_P] * 6
-    + [_I] * 7 + [_F, _F, _F, _I, _I, _I, _VOID_P],
-    "repro_spike_matmul": [_VOID_P] * 7 + [_I] * 6 + [_VOID_P],
+    + [_I] * 7 + [_F, _F, _F, _I, _I, _I, _I, _VOID_P, _VOID_P],
+    "repro_spike_matmul": [_VOID_P] * 7 + [_I] * 8 + [_VOID_P],
     "repro_w2ttfs_pool": [_VOID_P] * 4 + [_I] * 6 + [_F, _VOID_P],
     "repro_pack_spikes": [_VOID_P] * 4 + [_I] * 5 + [_VOID_P],
     "repro_unpack_spikes": [_VOID_P] * 2 + [_LL, _VOID_P],
@@ -196,16 +196,28 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name} must be {align}-byte aligned")
 
 
-def count_launch(name: str, args: tuple, inputs: tuple) -> None:
+class Launch(NamedTuple):
+    """One captured launch: kernel ``name``, the operands the wrapper
+    handed it (``args``), the tensors its caller gave the wrapper before
+    padding and casts (``inputs``), and the route it took (``"tile"`` or,
+    for the fused PE and the spike matmul, ``"decode"``)."""
+    name: str
+    args: tuple
+    inputs: tuple
+    route: str = "tile"
+
+
+def count_launch(name: str, args: tuple, inputs: tuple,
+                 route: str = "tile") -> None:
     """Called by a wrapper right where it launches kernel ``name``, with
-    the operands it hands the kernel (``args``) and the tensors its caller
-    gave it before padding and casts (``inputs``). Inside
-    ``capture_launches()`` both are kept, so a measurement can replay the
-    exact launch the main path made and size its work at the caller's
-    extent and dtypes."""
+    the operands it hands the kernel (``args``), the tensors its caller
+    gave it before padding and casts (``inputs``) and the route it
+    launches. Inside ``capture_launches()`` they are kept as a ``Launch``,
+    so a measurement can replay the exact launch the main path made and
+    size its work at the caller's extent and dtypes."""
     LAUNCHES[name] += 1
     if _CAPTURE is not None:
-        _CAPTURE.append((name, args, inputs))
+        _CAPTURE.append(Launch(name, args, inputs, route))
 
 
 def reset_launches() -> None:
@@ -215,8 +227,7 @@ def reset_launches() -> None:
 
 @contextlib.contextmanager
 def capture_launches() -> Iterator[list]:
-    """Record ``(kernel, operands, caller inputs)`` for every launch inside
-    the block."""
+    """Record a ``Launch`` for every launch inside the block."""
     global _CAPTURE
     prev, _CAPTURE = _CAPTURE, []
     try:

@@ -19,6 +19,13 @@ the spikes; a dense activation x takes no state. ``emit_current=True``
 (the training forward) also returns the f32 current the spikes were
 thresholded from. ``fused_pe_layer`` runs a [T, M, K] spike train: one
 stateless launch at T=1, the stateful kernel scanned over time otherwise.
+
+On the card a launch takes the route ``pick_route`` gives it: the 128-row
+tile, or for a dense activation x of at most 64 rows on the dense skip,
+without residual, state or emitted current (the LM's projections at its
+decode ticks and prefill chunks), the decode route, which gives the same
+bits and reads x and q at their own rows, unpadded, and x without a vld
+map (``fused_pe_operands(..., route="decode")``).
 """
 from __future__ import annotations
 
@@ -31,9 +38,11 @@ from ...core.events import (LANE_BITS, PackedSpikes, block_count_map_2d,
                             pad_to_blocks, popcount_block_map, vld_or_compute)
 from .. import _build
 from ..packed.ops import pack_spikes, unpack_spikes
-from ..spike_matmul.ops import (SKIP_IDS, TILE, Gate, check_block_contract,
+from ..spike_matmul.ops import (DECODE_ROWS, ROUTE_IDS, SKIP_IDS, TILE, Gate,
+                                check_block_contract, check_route,
                                 check_width, make_gate, packed_operand,
-                                weight_operand, x_occupancy)
+                                row_vld, rows_padded, weight_operand,
+                                x_occupancy)
 from .ref import LIFState, Packing, fused_pe_block_ref, head_gate
 
 Spikes = Union[torch.Tensor, PackedSpikes]
@@ -73,46 +82,126 @@ def check_heads(heads: Optional[tuple[int, int]], n_valid: int,
                          f"{h * dh}")
 
 
-def fused_pe_cuda(xp: torch.Tensor, wp: torch.Tensor, vld: torch.Tensor,
+def pick_route(x: Spikes, skip: str, *, residual=None, v_prev=None,
+               emit_current: bool = False) -> str:
+    """The route of a launch: ``"decode"`` for a dense f32 or bf16
+    activation x of at most ``DECODE_ROWS`` rows on the dense skip without
+    a residual, LIF state or emitted current (the LM's projections), else
+    ``"tile"``. The two give the same bits, so this is a choice of speed
+    alone."""
+    float_x = not isinstance(x, PackedSpikes) and x.dtype in FLOAT_X_FLAGS
+    return ("decode" if float_x and skip == "dense"
+            and x.shape[0] <= DECODE_ROWS and residual is None
+            and v_prev is None and not emit_current else "tile")
+
+
+# the decode route's count scratch, one a (device, stream): an int32 a
+# count tile, into which its CTAs add their counts and arrivals
+_COUNTS: dict = {}
+
+
+def count_scratch(device, stream: int, tiles: int) -> torch.Tensor:
+    """The zeroed count scratch of the decode route's launches on ``stream``
+    for ``tiles`` (128, block_n) count tiles. Each CTA adds its spike count
+    and its arrival into its tile's slot with one integer atomic (exact in
+    any order), and the last CTA of a tile writes the sum to vld_next and
+    zeroes the slot again, so one buffer serves every launch of a stream
+    (they run in order) and vld_next needs neither zeroing nor a kernel of
+    its own."""
+    key = (str(device), stream)
+    buf = _COUNTS.get(key)
+    if buf is None or buf.numel() < tiles:
+        buf = _COUNTS[key] = torch.zeros(max(tiles, 128), dtype=torch.int32,
+                                         device=device)
+    return buf
+
+
+def launch_outputs(mp: int, np_: int, m_valid: int, n_valid: int,
+                   packing: Packing, block_n: int, stateful: bool,
+                   route: str, device) -> tuple:
+    """The outputs one launch writes, allocated: spikes [mp, np_] int8 or
+    [mp, np_/32] words, vld_next [mp/128, np_/block_n] int32, and v_next
+    and the current at the valid extent (None where the launch has none).
+    The kernel writes every spike position, padded rows included; the tile
+    route's 256-wide count tiles add their two CTAs' counts into a zeroed
+    vld_next (integer atomics, exact in any order); the decode route writes
+    vld_next whole (``count_scratch``)."""
+    if packing.out:
+        spikes = torch.empty((mp, np_ // LANE_BITS), dtype=torch.int32,
+                             device=device)
+    else:
+        spikes = torch.empty((mp, np_), dtype=torch.int8, device=device)
+    added = route == "tile" and block_n != TILE
+    vld_next = (torch.zeros if added else torch.empty)(
+        (mp // TILE, np_ // block_n), dtype=torch.int32, device=device)
+    v_next = (torch.empty((m_valid, n_valid), dtype=torch.float32,
+                          device=device) if stateful else None)
+    current = (torch.empty((m_valid, n_valid), dtype=torch.float32,
+                           device=device) if packing.current else None)
+    return spikes, vld_next, v_next, current
+
+
+def fused_pe_cuda(xp: torch.Tensor, wp: torch.Tensor,
+                  vld: Optional[torch.Tensor],
                   bp: Optional[torch.Tensor], rp: Optional[torch.Tensor],
                   qp: Optional[torch.Tensor], m_valid: int, n_valid: int,
                   v_th: float, qk_threshold: float,
                   packing: Packing = Packing(), block_n: int = TILE,
                   gate: Optional[Gate] = None,
                   heads: Optional[tuple[int, int]] = None,
-                  state: Optional[LIFState] = None) -> tuple:
+                  state: Optional[LIFState] = None, *,
+                  route: str = "tile") -> tuple:
     """Launch the kernel on block-aligned CUDA operands (see
     ``fused_pe_block_ref`` for the contract and the outputs): the dense
     skip on ``vld``, or the gated walk of ``gate`` (spike x only), with the
-    LIF ``state`` (spike x only) or without. Does not count."""
+    LIF ``state`` (spike x only) or without. ``route="decode"`` launches
+    the decode route (a dense activation x of at most 64 rows on the dense
+    skip, without residual, state or emitted current): x and q need only
+    their first m_valid rows, ``vld`` may be None (every block kept), and
+    the outputs have x's rows padded to 128. Does not count."""
     dev = xp.device
     if dev.type != "cuda":
         raise ValueError(f"fused_pe_cuda needs CUDA tensors, got {dev}")
-    mp = xp.shape[0]
+    check_route(route, "dense" if gate is None else gate.skip)
+    decode = route == "decode"
+    rows = xp.shape[0]
+    mp = -(-rows // TILE) * TILE if decode else rows
     kp, np_ = wp.shape
     check_width("block_n", block_n)
-    if mp % TILE or kp % TILE or np_ % block_n or kp % vld.shape[1]:
+    gk = None if vld is None else vld.shape[1]
+    if mp % TILE or kp % TILE or np_ % block_n or (gk and kp % gk):
         raise ValueError(f"operands must be {TILE}-aligned: x {tuple(xp.shape)}"
                          f", w {tuple(wp.shape)}, block_n {block_n}")
-    bk = kp // vld.shape[1]
+    if gk is None and not decode:
+        raise ValueError("the tile route reads a vld map")
+    bk = kp // gk if gk else TILE
     check_width("block_k", bk)
     if not (0 <= m_valid <= mp and 0 <= n_valid <= np_):
         raise ValueError(f"valid extent ({m_valid}, {n_valid}) outside the "
                          f"padded [{mp}, {np_}]")
+    if decode and (xp.dtype not in FLOAT_X_FLAGS or rp is not None
+                   or state is not None or packing.current
+                   or not m_valid <= min(rows, DECODE_ROWS)):
+        raise ValueError(f"the decode route takes a dense activation x of at "
+                         f"most {DECODE_ROWS} live rows without residual, "
+                         f"state or emitted current: x {xp.dtype} of "
+                         f"{m_valid} live rows")
+
     flags = packing.flags
     if packing.x:
-        _build.require(xp, "x", torch.int32, (mp, kp // LANE_BITS), dev)
+        _build.require(xp, "x", torch.int32, (rows, kp // LANE_BITS), dev)
     elif xp.dtype in FLOAT_X_FLAGS:
         if gate is not None:
             raise ValueError("a dense activation x takes the dense skip "
                              "only")
-        _build.require(xp, "x", xp.dtype, (mp, kp), dev)
+        _build.require(xp, "x", xp.dtype, (rows, kp), dev)
         flags |= FLOAT_X_FLAGS[xp.dtype]
     else:
-        _build.require(xp, "x", torch.int8, (mp, kp), dev)
+        _build.require(xp, "x", torch.int8, (rows, kp), dev)
     _build.require(wp, "w", torch.float32, (kp, np_), dev)
     grid = (mp // TILE, kp // bk)
-    _build.require(vld, "vld_cnt", torch.int32, grid, dev, align=4)
+    if vld is not None:
+        _build.require(vld, "vld_cnt", torch.int32, grid, dev, align=4)
     if gate is not None:
         _build.require(gate.nact, "nact", torch.int32, grid[:1], dev, align=4)
         _build.require(gate.kmap, "kmap", torch.int32, grid, dev, align=4)
@@ -129,15 +218,16 @@ def fused_pe_cuda(xp: torch.Tensor, wp: torch.Tensor, vld: torch.Tensor,
     dq = 0
     if qp is not None:
         dq = qp.shape[1]                  # words per row when packed
+        # the decode route reads q's first m_valid rows
+        q_rows = qp.shape[0] if decode and qp.shape[0] >= m_valid else mp
         if packing.q:
-            _build.require(qp, "q", torch.int32, (mp, dq), dev, align=4)
+            _build.require(qp, "q", torch.int32, (q_rows, dq), dev, align=4)
         else:
             if dq % TILE:
                 raise ValueError(f"q width {dq} must be padded to {TILE}")
-            _build.require(qp, "q", torch.int8, (mp, dq), dev)
+            _build.require(qp, "q", torch.int8, (q_rows, dq), dev)
     check_heads(heads, n_valid,
                 None if qp is None else dq * (LANE_BITS if packing.q else 1))
-    v_next = None
     if state is not None:
         if xp.dtype in FLOAT_X_FLAGS:
             raise ValueError("a dense activation x takes no LIF state")
@@ -145,21 +235,15 @@ def fused_pe_cuda(xp: torch.Tensor, wp: torch.Tensor, vld: torch.Tensor,
                        (m_valid, n_valid), dev, align=4)
         _build.require(state.s_prev, "s_prev", torch.int8,
                        (m_valid, n_valid), dev, align=1)
-        v_next = torch.empty((m_valid, n_valid), dtype=torch.float32,
-                             device=dev)
         if state.soft_reset:
             flags |= SOFT_RESET_FLAG
-    if packing.out:
-        spikes = torch.empty((mp, np_ // LANE_BITS), dtype=torch.int32,
-                             device=dev)
-    else:
-        spikes = torch.empty((mp, np_), dtype=torch.int8, device=dev)
-    # a wide tile's count is the sum of its two CTAs' (integer atomics)
-    vld_next = (torch.empty if block_n == TILE else torch.zeros)(
-        (mp // TILE, np_ // block_n), dtype=torch.int32, device=dev)
-    current = (torch.empty((m_valid, n_valid), dtype=torch.float32,
-                           device=dev) if packing.current else None)
+    spikes, vld_next, v_next, current = launch_outputs(
+        mp, np_, m_valid, n_valid, packing, block_n, state is not None,
+        route, dev)
     nact, kmap, occ = gate if gate is not None else (None, None, None)
+    stream = _build.stream(xp)
+    counts = (count_scratch(dev, stream, np_ // block_n) if decode
+              else None)
     err = _build.library().repro_fused_pe(
         _build.ptr(xp), _build.ptr(wp), _build.ptr(vld), _build.ptr(nact),
         _build.ptr(kmap), _build.ptr(occ), _build.ptr(bp), _build.ptr(rp),
@@ -170,7 +254,8 @@ def fused_pe_cuda(xp: torch.Tensor, wp: torch.Tensor, vld: torch.Tensor,
         _build.ptr(v_next), mp, kp, np_, bk, block_n, m_valid, n_valid, v_th,
         qk_threshold, 0.0 if state is None else state.tau,
         0 if heads is None else heads[1], flags,
-        SKIP_IDS["dense" if gate is None else gate.skip], _build.stream(xp))
+        SKIP_IDS["dense" if gate is None else gate.skip], ROUTE_IDS[route],
+        _build.ptr(counts), stream)
     _build.check(err, "repro_fused_pe")
     out = (spikes, vld_next)
     if state is not None:
@@ -192,7 +277,8 @@ def fused_pe_operands(x: Spikes, w: torch.Tensor, *,
                       heads: Optional[tuple[int, int]] = None,
                       v_prev: Optional[torch.Tensor] = None,
                       s_prev: Optional[torch.Tensor] = None,
-                      tau: float = 0.5, soft_reset: bool = False) -> tuple:
+                      tau: float = 0.5, soft_reset: bool = False,
+                      route: str = "tile") -> tuple:
     """The block-aligned operands of one launch, in the order
     ``fused_pe_cuda`` and ``fused_pe_block_ref`` take them: x (int8, f32 or
     bf16, or a packed x's words), w padded to x's padded K and to
@@ -203,31 +289,49 @@ def fused_pe_operands(x: Spikes, w: torch.Tensor, *,
     ``Packing``, ``block_n``, the ``Gate`` (None for the dense skip),
     ``heads`` (None for the whole-row mask) and the ``LIFState`` (None
     without ``v_prev``: v_prev as f32 and s_prev as int8, as the reference
-    wrapper casts them, zeros for a missing s_prev, all unpadded)."""
+    wrapper casts them, zeros for a missing s_prev, all unpadded).
+
+    ``route="decode"`` gives the decode route's operands (a dense
+    activation x without residual, state or emitted current), in the same
+    order: x and q at their own rows (only their columns padded; packed
+    words come padded), and no vld map without one (the route then keeps
+    every block). ``fused_pe_tile_operands`` pads them back to the
+    tile's."""
     if out_format not in ("dense", "packed"):
         raise ValueError(f"out_format={out_format!r} not in "
                          f"('dense', 'packed')")
     check_width("block_n", block_n)
     check_width("block_k", block_k)
+    check_route(route, skip)
+    decode = route == "decode"
+    bm = 1 if decode else TILE          # the row padding of dense operands
     m0, k0 = x.shape
     n0 = w.shape[1]
     if w.shape[0] != k0:
         raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.shape)} do not "
                          f"chain")
+    if decode and pick_route(x, skip, residual=residual, v_prev=v_prev,
+                             emit_current=emit_current) != "decode":
+        raise ValueError(f"the decode route takes a dense activation x of at "
+                         f"most {DECODE_ROWS} rows without residual, state or "
+                         f"emitted current")
     if isinstance(x, PackedSpikes):
         xp, vld = packed_operand(x, vld_cnt, "fused_pe x", block_k)
         kp = xp.shape[1] * LANE_BITS
     else:
-        xp = pad_to_blocks(spike_operand(x), TILE, block_k).contiguous()
+        xp = pad_to_blocks(spike_operand(x), bm, block_k).contiguous()
         if xp.dtype in FLOAT_X_FLAGS:
             if skip != "dense":
                 raise ValueError(f"a dense activation x takes skip='dense', "
                                  f"not {skip!r}")
-            if vld_cnt is None:   # no silent blocks to find: never recount
-                vld_cnt = torch.ones((xp.shape[0] // TILE,
+            if vld_cnt is None and not decode:  # no silent blocks to find:
+                vld_cnt = torch.ones((xp.shape[0] // TILE,  # never recount
                                       xp.shape[1] // block_k),
                                      dtype=torch.int32, device=xp.device)
-        vld = vld_or_compute(xp, vld_cnt, TILE, block_k).contiguous()
+        if decode:
+            vld = None if vld_cnt is None else row_vld(xp, vld_cnt, block_k)
+        else:
+            vld = vld_or_compute(xp, vld_cnt, TILE, block_k).contiguous()
         kp = xp.shape[1]
     gate = make_gate(vld, skip, x_occupancy(x, xp, block_k)
                      if skip == "two_level" else None)
@@ -260,7 +364,7 @@ def fused_pe_operands(x: Spikes, w: torch.Tensor, *,
         if q.shape[0] != m0:
             raise ValueError(f"q has {q.shape[0]} rows, x has {m0}")
         # zero padding never changes a row sum
-        qp = pad_to_blocks(q.to(torch.int8), TILE, TILE).contiguous()
+        qp = pad_to_blocks(q.to(torch.int8), bm, TILE).contiguous()
     packing = Packing(isinstance(x, PackedSpikes), isinstance(q, PackedSpikes),
                       isinstance(residual, PackedSpikes),
                       out_format == "packed", emit_current)
@@ -282,6 +386,20 @@ def fused_pe_operands(x: Spikes, w: torch.Tensor, *,
                          sp.contiguous(), float(tau), bool(soft_reset))
     return (xp, wp, vld, bp, rp, qp, m0, n0, v_th, qk_threshold, packing,
             block_n, gate, heads, state)
+
+
+def fused_pe_tile_operands(args: tuple) -> tuple:
+    """The 128-row tile's operands of a launch's operands (either route's):
+    x and q with their rows zero-padded to whole 128-row blocks, and the
+    all-ones vld map of a float x read without one, on which the tile route
+    computes the decode route's outputs."""
+    xp, wp, vld, bp, rp, qp, *rest = args
+    xp = rows_padded(xp)
+    if vld is None:
+        vld = torch.ones((xp.shape[0] // TILE, wp.shape[0] // TILE),
+                         dtype=torch.int32, device=xp.device)
+    return (xp, wp, vld, bp, rp, None if qp is None else rows_padded(qp),
+            *rest)
 
 
 def fused_pe(x: Spikes, w: torch.Tensor, *,
@@ -317,22 +435,26 @@ def fused_pe(x: Spikes, w: torch.Tensor, *,
     the (128, block_n) grid; then, with the state, v_next f32 [M, N], and
     with ``emit_current`` the f32 [M, N] current (post-bias,
     post-residual) the spikes were thresholded from. The kernel on CUDA
-    tensors, the plain version on CPU tensors."""
+    tensors, on the route ``pick_route`` gives; the plain version on CPU
+    tensors."""
+    dev = (x.words if isinstance(x, PackedSpikes) else x).device
+    route = (pick_route(x, skip, residual=residual, v_prev=v_prev,
+                        emit_current=emit_current)
+             if dev.type == "cuda" else "tile")
     args = fused_pe_operands(x, w, bias=bias, residual=residual, q=q,
                              vld_cnt=vld_cnt, v_th=v_th,
                              qk_threshold=qk_threshold, out_format=out_format,
                              emit_current=emit_current, block_n=block_n,
                              block_k=block_k, skip=skip, heads=heads,
                              v_prev=v_prev, s_prev=s_prev, tau=tau,
-                             soft_reset=soft_reset)
-    dev = args[0].device
+                             soft_reset=soft_reset, route=route)
     if dev.type == "cpu":
         outs = fused_pe_block_ref(*args)
     elif dev.type == "cuda":
         _build.count_launch("fused_pe" if skip == "dense" else
                             "fused_pe_gated", args,
-                            (x, w, bias, residual, q))
-        outs = fused_pe_cuda(*args)
+                            (x, w, bias, residual, q), route)
+        outs = fused_pe_cuda(*args, route=route)
     else:
         raise ValueError(f"fused_pe runs on cuda or cpu, not {dev}")
     spikes, vld_next = outs[:2]

@@ -10,6 +10,12 @@ variant).
 skips the silent 32-column stripes inside a block on the word-occupancy
 bitmap ``occ``. The three give the same sums; the autotuner picks one per
 layer from its cost model.
+
+The kernel has two routes (``ROUTES``), picked from the shapes alone
+(``pick_route``): the 128-row tile, and the decode route
+(``csrc/decode_gemm.cuh``) for a launch of at most ``DECODE_ROWS`` live
+rows on the dense skip (the LM's ``wo`` at a decode tick or a prefill
+chunk), which reads x at its own rows, unpadded, and gives the tile's bits.
 """
 from __future__ import annotations
 
@@ -32,6 +38,11 @@ SKIP_IDS = {skip: i for i, skip in enumerate(SKIP_MODES)}
 # may tile a layer's output twice as wide, and the next layer's k inherits
 # that grid
 BLOCK_WIDTHS = (TILE, 2 * TILE)
+# the kernels' routes: the 128-row tile, and the decode route for a launch
+# of at most DECODE_ROWS live rows on the dense skip
+ROUTES = ("tile", "decode")
+ROUTE_IDS = {route: i for i, route in enumerate(ROUTES)}
+DECODE_ROWS = 64
 
 
 class Gate(NamedTuple):
@@ -50,6 +61,42 @@ class Gate(NamedTuple):
 def check_skip(skip: str) -> None:
     if skip not in SKIP_MODES:
         raise ValueError(f"skip={skip!r} not in {SKIP_MODES}")
+
+
+def pick_route(m: int, skip: str) -> str:
+    """The route of a launch of ``m`` live rows on ``skip``: ``"decode"``
+    for at most ``DECODE_ROWS`` rows on the dense skip, else ``"tile"``.
+    The two give the same bits, so this is a choice of speed alone."""
+    check_skip(skip)
+    return "decode" if skip == "dense" and m <= DECODE_ROWS else "tile"
+
+
+def check_route(route: str, skip: str) -> None:
+    if route not in ROUTES:
+        raise ValueError(f"route={route!r} not in {ROUTES}")
+    if route == "decode" and skip != "dense":
+        raise ValueError(f"the decode route takes skip='dense', not {skip!r}")
+
+
+def rows_padded(t: torch.Tensor) -> torch.Tensor:
+    """An operand's rows zero-padded to whole 128-row blocks (words of a
+    packed operand come so already)."""
+    return pad_to_blocks(t, TILE, 1).contiguous()
+
+
+def row_vld(xp: torch.Tensor, vld_cnt: Optional[torch.Tensor],
+            block_k: int) -> torch.Tensor:
+    """The count map of an int8 x read at its own rows, on the (128,
+    block_k) grid of its rows padded to 128: the producer's, checked, or
+    one pass over the padded rows."""
+    if vld_cnt is None:
+        return vld_or_compute(rows_padded(xp), None, TILE, block_k)
+    expect = (-(-xp.shape[0] // TILE), xp.shape[1] // block_k)
+    if tuple(vld_cnt.shape) != expect:
+        raise ValueError(f"vld_cnt grid {tuple(vld_cnt.shape)} does not "
+                         f"match the [{xp.shape[0]}, {xp.shape[1]}] operand's "
+                         f"{expect} on (128, block_k={block_k})")
+    return vld_cnt.to(torch.int32).contiguous()
 
 
 def check_width(name: str, width: int) -> None:
@@ -123,47 +170,58 @@ def weight_operand(w: torch.Tensor, kp: int, block_k: int = TILE,
 
 
 def _launch(xp: torch.Tensor, wp: torch.Tensor, vld: Optional[torch.Tensor],
-            gate: Optional[Gate], gk: int, packed_x: bool) -> torch.Tensor:
+            gate: Optional[Gate], gk: int, packed_x: bool,
+            route: str = "tile") -> torch.Tensor:
     dev = xp.device
     if dev.type != "cuda":
         raise ValueError(f"spike_matmul needs CUDA tensors, got {dev}")
-    mp, (kp, np_) = xp.shape[0], wp.shape
+    skip = "dense" if gate is None else gate.skip
+    check_route(route, skip)
+    rows, (kp, np_) = xp.shape[0], wp.shape
+    # the output's rows: the tile route's are x's; the decode route reads
+    # x's rows (the live ones) and writes whole 128-row blocks
+    mp = rows if route == "tile" else -(-rows // TILE) * TILE
     if mp % TILE or kp % TILE or np_ % TILE or not gk or kp % gk:
         raise ValueError(f"operands must be {TILE}-aligned: x "
                          f"{tuple(xp.shape)}, w {tuple(wp.shape)}")
+    if route == "decode" and rows > DECODE_ROWS:
+        raise ValueError(f"the decode route takes at most {DECODE_ROWS} "
+                         f"rows of x, got {rows}")
     bk = kp // gk
     check_width("block_k", bk)
     if packed_x:
-        _build.require(xp, "x", torch.int32, (mp, kp // LANE_BITS), dev)
+        _build.require(xp, "x", torch.int32, (rows, kp // LANE_BITS), dev)
     else:
-        _build.require(xp, "x", torch.int8, (mp, kp), dev)
+        _build.require(xp, "x", torch.int8, (rows, kp), dev)
     _build.require(wp, "w", torch.float32, (kp, np_), dev)
     grid = (mp // TILE, gk)
     if gate is None:
         _build.require(vld, "vld_cnt", torch.int32, grid, dev, align=4)
-        skip = "dense"
     else:
         _build.require(gate.nact, "nact", torch.int32, grid[:1], dev, align=4)
         _build.require(gate.kmap, "kmap", torch.int32, grid, dev, align=4)
         if gate.occ is not None:
             _build.require(gate.occ, "occ", torch.int32, grid, dev, align=4)
-        skip = gate.skip
     out = torch.empty((mp, np_), dtype=torch.float32, device=dev)
     nact, kmap, occ = gate if gate is not None else (None, None, None)
     err = _build.library().repro_spike_matmul(
         _build.ptr(xp), _build.ptr(wp), _build.ptr(vld), _build.ptr(nact),
         _build.ptr(kmap), _build.ptr(occ), _build.ptr(out), mp, kp, np_, bk,
-        int(packed_x), SKIP_IDS[skip], _build.stream(xp))
+        int(packed_x), SKIP_IDS[skip], ROUTE_IDS[route], rows,
+        _build.stream(xp))
     _build.check(err, "repro_spike_matmul")
     return out
 
 
 def spike_matmul_cuda(xp: torch.Tensor, wp: torch.Tensor,
-                      vld: torch.Tensor, packed_x: bool = False
-                      ) -> torch.Tensor:
+                      vld: torch.Tensor, packed_x: bool = False, *,
+                      route: str = "tile") -> torch.Tensor:
     """Launch the dense-skip route on block-aligned CUDA operands (see
-    ``spike_matmul_block_ref`` for the contract). Does not count."""
-    return _launch(xp, wp, vld, None, vld.shape[1], packed_x)
+    ``spike_matmul_block_ref`` for the contract): the 128-row tile, or with
+    ``route="decode"`` the decode route over x's rows, at most
+    ``DECODE_ROWS`` of them and not padded to 128 (the output's rows are).
+    Does not count."""
+    return _launch(xp, wp, vld, None, vld.shape[1], packed_x, route)
 
 
 def spike_matmul_gated_cuda(xp: torch.Tensor, wp: torch.Tensor,
@@ -179,14 +237,21 @@ def spike_matmul_operands(x: Union[torch.Tensor, PackedSpikes],
                           w: torch.Tensor,
                           vld_cnt: Optional[torch.Tensor] = None, *,
                           block_n: int = TILE, block_k: int = TILE,
-                          skip: str = "dense") -> tuple:
+                          skip: str = "dense", route: str = "tile") -> tuple:
     """The block-aligned operands of one launch, in the order the launchers
     and plain versions take them: (x, w f32, vld, packed_x) for
     ``skip="dense"``, (x, w f32, Gate, packed_x) for the gated routes. A
     dense x is cast to int8, as the reference wrapper casts it; a packed x
     brings its words, vld map (and occ), and w gets zero rows up to the
-    words' padded K and zero columns up to a multiple of ``block_n``."""
+    words' padded K and zero columns up to a multiple of ``block_n``.
+
+    ``route="decode"`` gives the decode route's operands, in the same
+    order: x at its own M rows (a dense x's K padded, no row padding; a
+    packed x's first M rows of words), its vld map on the grid of its rows
+    padded to 128. ``spike_matmul_tile_operands`` pads them back to the
+    tile's."""
     check_skip(skip)
+    check_route(route, skip)
     check_width("block_n", block_n)
     check_width("block_k", block_k)
     packed = isinstance(x, PackedSpikes)
@@ -197,6 +262,12 @@ def spike_matmul_operands(x: Union[torch.Tensor, PackedSpikes],
     if packed:
         xp, vld = packed_operand(x, vld_cnt, "spike_matmul x", block_k)
         kp = xp.shape[1] * LANE_BITS
+        if route == "decode":
+            xp = xp[:x.shape[-2]]
+    elif route == "decode":
+        xp = pad_to_blocks(x.to(torch.int8), 1, block_k).contiguous()
+        vld = row_vld(xp, vld_cnt, block_k)
+        kp = xp.shape[1]
     else:
         xp = pad_to_blocks(x.to(torch.int8), TILE, block_k).contiguous()
         vld = vld_or_compute(xp, vld_cnt, TILE, block_k).contiguous()
@@ -208,6 +279,14 @@ def spike_matmul_operands(x: Union[torch.Tensor, PackedSpikes],
     return xp, wp, make_gate(vld, skip, occ), packed
 
 
+def spike_matmul_tile_operands(args: tuple) -> tuple:
+    """The 128-row tile's operands of a launch's operands (either route's):
+    x's rows zero-padded to whole 128-row blocks, on which the tile route
+    computes the decode route's outputs."""
+    xp, *rest = args
+    return (rows_padded(xp), *rest)
+
+
 def spike_matmul(x: Union[torch.Tensor, PackedSpikes], w: torch.Tensor, *,
                  vld_cnt: Optional[torch.Tensor] = None,
                  block_n: int = TILE, block_k: int = TILE,
@@ -217,19 +296,23 @@ def spike_matmul(x: Union[torch.Tensor, PackedSpikes], w: torch.Tensor, *,
     padded to ``block_n``). ``vld_cnt`` is the [Mp/128, Kp/block_k] count
     map of x (a fused layer's ``vld_next``); a dense x without one gets it
     computed here, a packed x carries its own. ``skip`` as in
-    ``SKIP_MODES``. The kernel on CUDA tensors, the plain version on CPU
+    ``SKIP_MODES``. The kernel on CUDA tensors, on the route
+    ``pick_route`` gives M and ``skip``; the plain version on CPU
     tensors."""
-    args = spike_matmul_operands(x, w, vld_cnt, block_n=block_n,
-                                 block_k=block_k, skip=skip)
-    dev = args[0].device
+    dev = (x.words if isinstance(x, PackedSpikes) else x).device
     gated = skip != "dense"
+    kw = dict(block_n=block_n, block_k=block_k, skip=skip)
     if dev.type == "cpu":
+        args = spike_matmul_operands(x, w, vld_cnt, **kw)
         out = (spike_matmul_gated_block_ref if gated
                else spike_matmul_block_ref)(*args)
     elif dev.type == "cuda":
+        route = pick_route(x.shape[-2], skip)
+        args = spike_matmul_operands(x, w, vld_cnt, **kw, route=route)
         _build.count_launch("spike_matmul_gated" if gated else "spike_matmul",
-                            args, (x, w))
-        out = (spike_matmul_gated_cuda if gated else spike_matmul_cuda)(*args)
+                            args, (x, w), route)
+        out = (spike_matmul_gated_cuda(*args) if gated
+               else spike_matmul_cuda(*args, route=route))
     else:
         raise ValueError(f"spike_matmul runs on cuda or cpu, not {dev}")
     return out[:x.shape[-2], :w.shape[1]]

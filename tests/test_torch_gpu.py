@@ -144,7 +144,7 @@ def test_packed_forward_launches_every_kernel(cuda):
                                      "spike_matmul": 3, "w2ttfs_pool": 1,
                                      "pack_spikes": 1, "unpack_spikes": 1,
                                      **NO_BACKWARD}
-    for name, args, _ in captured:
+    for name, args, _, _ in captured:
         if name == "fused_pe":
             assert args[10].x and args[10].out
         elif name == "spike_matmul":
@@ -565,7 +565,7 @@ def test_auto_forward_launches_the_gated_kernels_it_plans(cuda, policy, wide,
     assert launches["fused_pe_gated"] == 13 and launches["fused_pe"] == 0
     assert launches["spike_matmul_gated"] == 3
     assert launches["spike_matmul"] == 0
-    widths = {args[11] for name, args, _ in captured
+    widths = {args[11] for name, args, _, _ in captured
               if name == "fused_pe_gated"}
     assert widths == ({128, 256} if wide else {128})
     assert torch.equal(logits, want)
@@ -920,3 +920,114 @@ def test_packed_scan_on_a_wide_grid_matches_plain(cuda):
     assert torch.equal(ps.words, ref.words)
     assert torch.equal(ps.vld_cnt, ref.vld_cnt)
     assert torch.equal(vld, vld_d) and int(vld.sum()) == int(dense.sum())
+
+
+# ----------------------------------------- the decode route (K2 and K3)
+# M live rows: one, a ragged few, a decode tick of 16, a ragged 33 (the
+# 64-row tile), a 64-token prefill chunk
+DECODE_ROWS_CASES = [1, 7, 16, 33, 64]
+
+
+def _same(a, b):
+    a, b = ((a,), (b,)) if isinstance(a, torch.Tensor) else (a, b)
+    return len(a) == len(b) and all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def _both_routes(K, args):
+    """The decode route on its own operands and on the 128-row tile's,
+    and the tile route on the tile's, for one fused PE launch."""
+    tile = K.fused_pe_tile_operands(args)
+    return (K.fused_pe_cuda(*args, route="decode"),
+            K.fused_pe_cuda(*tile, route="decode"), K.fused_pe_cuda(*tile))
+
+
+@pytest.mark.parametrize("m", DECODE_ROWS_CASES)
+@pytest.mark.parametrize("dh,h,dtype,pq,pout",
+                         [v[:5] for v in HEAD_VARIANTS])
+def test_decode_route_heads_bit_equal_to_tile(cuda, m, dh, h, dtype, pq,
+                                             pout):
+    """The LM's head-blocked, dense-activation pass (the HEAD_VARIANTS
+    axes, with a bias) on the decode route: spikes, vld_next and packed
+    words equal to the 128-row tile's bit for bit, padded rows included,
+    on the decode route's own operands and on the tile's."""
+    from repro_torch.kernels import fused_pe as K
+    from repro_torch.kernels.packed import pack_spikes_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(m * 7 + dh)
+    k, n = 512, h * dh
+    x = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+    w = torch.randn((k, n), generator=gen, device=cuda) / k ** 0.5
+    b = 0.2 * torch.randn((n,), generator=gen, device=cuda)
+    q = (torch.rand((m, n), generator=gen, device=cuda) < 0.05).to(
+        torch.int8)
+    args = K.fused_pe_operands(
+        x, w, bias=b, q=pack_spikes_ref(q) if pq else q,
+        qk_threshold=float(1 + dh // 32),
+        out_format="packed" if pout else "dense", heads=(h, dh),
+        route="decode")
+    assert args[0].shape[0] == m and args[2] is None
+    own, on_tile, tile = _both_routes(K, args)
+    assert _same(own, tile) and _same(on_tile, tile)
+
+
+@pytest.mark.parametrize("m", DECODE_ROWS_CASES)
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("density", [0.0, 0.1, 0.5])
+def test_decode_route_spike_matmul_bit_equal_to_tile(cuda, m, packed,
+                                                     density):
+    """K3 on the decode route, int8 and packed x with a silent 128-column
+    block: the f32 output equal to the 128-row tile's bit for bit, padded
+    rows included, and to the plain version within rtol 1e-5 / atol 1e-4
+    (f32 sums in another order than torch.matmul's)."""
+    from repro_torch.kernels import spike_matmul as K
+    from repro_torch.kernels.packed import pack_spikes_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(41 + m)
+    k, n = 640, 272
+    x = (torch.rand((m, k), generator=gen, device=cuda) < density).to(
+        torch.int8)
+    x[:, 256:384] = 0
+    w = torch.randn((k, n), generator=gen, device=cuda)
+    args = K.spike_matmul_operands(pack_spikes_ref(x) if packed else x, w,
+                                   route="decode")
+    assert args[0].shape[0] == m
+    tile = K.spike_matmul_tile_operands(args)
+    out = K.spike_matmul_cuda(*args, route="decode")
+    ref = K.spike_matmul_cuda(*tile)
+    assert torch.equal(out, ref)
+    assert not bool(out[m:].any())
+    torch.testing.assert_close(out, K.spike_matmul_block_ref(*tile),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("m", [16, 64, 65, 200])
+@pytest.mark.parametrize("skip", ["dense", "gated"])
+def test_wrappers_take_the_decode_route_by_shape(cuda, m, skip):
+    """fused_pe launches the decode route exactly for a dense activation x
+    of M <= 64 rows (a spike x keeps the tile), spike_matmul exactly when M
+    <= 64 and the skip is dense (pick_route); each gives the plain
+    version's spikes and sums whichever route it took."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_pe as F
+    from repro_torch.kernels import spike_matmul as S
+
+    gen = torch.Generator(device=cuda).manual_seed(51 + m)
+    x = _spikes(gen, m, 256, 0.3, cuda)
+    a = torch.randn((m, 256), generator=gen, device=cuda).to(torch.bfloat16)
+    w = torch.randn((256, 128), generator=gen, device=cuda) * 0.2
+    with _build.capture_launches() as captured:
+        spk_a, _ = F.fused_pe(a, w)
+        spk, _ = F.fused_pe(x, w, skip=skip)
+        out = S.spike_matmul(x, w, skip=skip)
+        torch.cuda.synchronize()
+    assert [launch.route for launch in captured] == [
+        "decode" if m <= 64 else "tile", "tile", S.pick_route(m, skip)]
+    for xx, got in ((a, spk_a), (x, spk)):
+        ref_spk, _ = F.fused_pe(xx.cpu(), w.cpu(),
+                                skip="dense" if xx is a else skip)
+        cur = xx.float().cpu() @ w.cpu()
+        near = (cur - 1.0).abs() < 1e-4
+        assert not bool(((got.cpu() != ref_spk) & ~near).any())
+    torch.testing.assert_close(out.cpu(), S.spike_matmul(x.cpu(), w.cpu(),
+                                                         skip=skip),
+                               rtol=1e-5, atol=1e-4)
