@@ -142,6 +142,20 @@ Phases, in order; any failure raises and the script exits non-zero:
              and a profiled decode tick. The parity phase also holds the
              LM's head-blocked, dense-activation fused PE pass against its
              plain version at K = 2048.
+8. softmax — qwen3-1.7b as published (softmax attention, GQA, qk_norm,
+             RoPE, a KV cache) through the engine against a direct loop,
+             chunked against blocking prefill, an f8 KV pool; K9 through
+             ``ops.attention`` on layer 0's prefill q, k, v (bf16: the
+             wgmma route; the 4-layer f32 variant's: the scalar route), the
+             route of each launch checked, and each launch again on every
+             route it can take against the plain version; the K9 sweep (H /
+             Hkv 16/8, 16/16, 16/1, D 128/64/32, S 64/300/2048, causal and
+             full, f32 and bf16, bf16 on both routes, bf16 at D 48 on the
+             scalar route; q scaled by 8, f32 and bf16, each route and
+             the plain version against an f64 result); K9 at S 512 / 2048
+             / 8192 by device time on every route beside its plain
+             version, SDPA, its bound (none below it) and the one-pass
+             floor.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Without a
@@ -152,8 +166,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -166,8 +182,9 @@ SRC = ROOT / "src"
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, the f32 rate outside the
 # tensor cores (IEEE f32 is what parity with the reference needs) and the
-# bf16 tensor-core rate (f32 accumulation), which K9's QK^T at bf16 operands
-# is held to (``flash_ops_ms``)
+# bf16 tensor-core rate (f32 accumulation), at which a bf16 K9 call's work
+# is priced (``flash_ops_ms``): QK^T of the bf16 q and k once, and PV, whose
+# f32 weights p split exactly into three bf16 terms, three times
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 PEAK_BF16_TC_OPS_PER_S = 989e12
@@ -312,11 +329,22 @@ TILE_MS_BEFORE = {"fused_pe_heads": 13.0847,
                   "fused_pe_heads_packed": 13.0837, "spike_matmul_lm": 6.2504,
                   "spike_matmul_lm_packed": 6.1213}
 # the softmax LM's K9: one ops.attention launch on layer 0's q, k and v of
-# a full-width prefill of the trace's longest prompt (phase 8)
+# a full-width prefill of the trace's longest prompt (phase 8): bf16, the
+# wgmma route; and the same on the 4-layer f32 variant, the scalar route
 K9_PATH = "ops.attention at qwen3-1.7b prefill"
-ROWS["flash_attention"] = (
-    "flash_attention", K9_PATH, "src/repro_torch/csrc/flash_attention.cu",
-    "src/repro/kernels/flash_attention/flash_attention.py:80")
+K9_F32_PATH = "ops.attention at qwen3-1.7b prefill, f32 variant"
+# K9's route -> the row of the kernels line its launches and errors go to
+K9_ROW = {"wgmma": "flash_attention", "scalar": "flash_attention_scalar"}
+ROWS.update({
+    "flash_attention": ("flash_attention", K9_PATH,
+                        "src/repro_torch/csrc/flash_attention_wgmma.cu",
+                        "src/repro/kernels/flash_attention/"
+                        "flash_attention.py:80"),
+    "flash_attention_scalar": ("flash_attention", K9_F32_PATH,
+                               "src/repro_torch/csrc/flash_attention.cu",
+                               "src/repro/kernels/flash_attention/"
+                               "flash_attention.py:80"),
+})
 # the T = 4 baseline: the fused PE's LIF state (with_state) on the forward
 # paths and the folded training step, and the dw kernel's packed x
 # (packed_in), launched on the packed training step's dw operands
@@ -393,6 +421,34 @@ def phase_build(build_mod) -> None:
         if ("Compiling entry" in line or "Used" in line or "spill" in line
                 or line.startswith("==")):
             say(f"[build]   {line.strip()}")
+    sass_registers(build_mod, info.path, "flash_wgmma_kernel")
+
+
+def sass_registers(build_mod, lib, kernel: str) -> None:
+    """For each instance of ``kernel`` in the built library, from its SASS
+    (``cuobjdump -sass``): the highest register it names and its local
+    memory (spill) loads and stores, apart before the first setmaxnreg,
+    from there to the second (a warp-specialised kernel's first branch),
+    and after it. Information only: ptxas's "Used N registers" is the
+    launch's count, not what a branch raised by setmaxnreg may use."""
+    tool = Path(build_mod._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    for fn in text.split("Function : ")[1:]:
+        name = fn.split(None, 1)[0]
+        if kernel not in name:
+            continue
+        spans = [[0, 0]]                           # [highest R, local ops]
+        for ins in re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", fn):
+            if ins.startswith("USETMAXREG"):
+                spans.append([0, 0])
+            regs = [int(r) for r in re.findall(r"\bR(\d+)\b", ins)]
+            spans[-1][0] = max([spans[-1][0], *regs])
+            op = re.sub(r"^@!?U?P\w+\s+", "", ins).split(None, 1)[0]
+            spans[-1][1] += op.split(".")[0] in ("LDL", "STL")
+        say(f"[build]   sass {name[-60:]}: per setmaxnreg span, highest "
+            f"register / local loads and stores: "
+            + ", ".join(f"R{r} / {n}" for r, n in spans))
 
 
 # ------------------------------------------------------------------ phase 3
@@ -713,14 +769,97 @@ def flash_gate(torch, K, out, q, k, v, causal) -> tuple[bool, float, float]:
     return ok, err, rtol
 
 
-def check_flash(torch, K, args, parity: Parity, label: str) -> None:
-    """K9 against its plain version on the same operands."""
-    out = K.flash_attention_cuda(*args)
+def attention_f64(torch, q, k, v, causal):
+    """Softmax attention of q [B,S,H,D], k and v [B,S,Hkv,D] in f64: the
+    exact result of the operands as given, to within f64 rounding."""
+    b, s, h, d = q.shape
+    g = h // k.shape[2]
+    qh = q.double().transpose(1, 2)
+    kh, vh = (t.double().repeat_interleave(g, dim=2).transpose(1, 2)
+              for t in (k, v))
+    sc = (qh @ kh.transpose(-1, -2)) * d ** -0.5
+    if causal:
+        sc = sc.masked_fill(~torch.ones((s, s), dtype=torch.bool,
+                                        device=q.device).tril(), -1e300)
+    return (torch.softmax(sc, dim=-1) @ vh).transpose(1, 2)
+
+
+def flash_witness(torch, K, out, q, k, v, causal) -> tuple[bool, float,
+                                                            float]:
+    """K9's f32 output ``out`` and its plain version's f32 result, each
+    against the f64 result (``attention_f64``): within twice the plain
+    version's own error. Scores far from unit scale are where the f32
+    gate against the plain version cannot hold: the plain version scales
+    the product, the reference's kernel (and so the scalar route) scales q
+    first, and each rounds s (about 2**-24 |s|) where p = exp(s - m) turns
+    an error in s into the same relative error in p. JAX's own kernel
+    meets the same rule (``tests/test_torch_attention.py``). Returns (ok,
+    the kernel's max abs error, the plain version's)."""
+    exact = attention_f64(torch, q, k, v, causal)
+    plain = K.attention_ref(q.float(), k.float(), v.float(), causal=causal)
+    err = float((out.double() - exact).abs().max())
+    err_plain = float((plain.double() - exact).abs().max())
+    ok = bool(torch.isfinite(out).all()) and err <= 2 * err_plain
+    return ok, err, err_plain
+
+
+def check_flash_scaled(torch, K, gen, dev) -> None:
+    """K9 on q scaled by 8 (``K9_SCALED``), f32 and bf16, on every route:
+    f32 held to ``flash_witness``, bf16 to ``flash_gate``; each route's and
+    the plain version's max abs error against the f64 result printed, and
+    at f32 the kernel's distance to the plain version in units of the f32
+    gate (information: above 1 where the scale is no power of two)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for s, h, hkv, d, causal in K9_SCALED:
+            q = (torch.randn((1, s, h, d), generator=gen, device=dev)
+                 * 8).to(dtype)
+            k = torch.randn((1, s, hkv, d), generator=gen, device=dev).to(
+                dtype)
+            v = torch.randn((1, s, hkv, d), generator=gen, device=dev).to(
+                dtype)
+            label = (f"scaled x8 {str(dtype)[6:]} S {s} H {h}/{hkv} D {d} "
+                     f"{'causal' if causal else 'full'}")
+            for route in flash_routes(K, q):
+                out = K.flash_attention_cuda(q, k, v, causal, route=route)
+                ok, err, err_plain = flash_witness(torch, K, out, q, k, v,
+                                                   causal)
+                if dtype == torch.float32:
+                    ref = K.attention_ref(q, k, v, causal=causal)
+                    ratio = float(((out - ref).abs()
+                                   / (1e-5 + 1e-5 * ref.abs())).max())
+                    note = (f"; against the plain version {ratio:.3f} of "
+                            f"the f32 gate (rtol = atol = 1e-5)")
+                else:
+                    ok, _, _ = flash_gate(torch, K, out, q, k, v, causal)
+                    note = "; flash_gate met"
+                require(ok, f"flash_attention {label} ({route} route): max "
+                            f"abs err {err} against f64, the plain "
+                            f"version's {err_plain}")
+                say(f"[parity] flash_attention {label} ({route} route): max "
+                    f"abs err against f64 {err:.3e}, the plain f32 "
+                    f"version's {err_plain:.3e}{note}")
+
+
+def flash_routes(K, q) -> tuple:
+    """The routes K9 can take for q: at bf16 and D 32, 64 or 128 both
+    (``pick_route``'s, the wgmma route, first), else the scalar route."""
+    return (("wgmma", "scalar") if K.flash_pick_route(q) == "wgmma"
+            else ("scalar",))
+
+
+def check_flash(torch, K, args, parity: Parity, label: str,
+                route=None) -> None:
+    """K9 on ``route`` (``pick_route``'s by default) against its plain
+    version on the same operands."""
+    route = route or K.flash_pick_route(args[0])
+    out = K.flash_attention_cuda(*args, route=route)
     ok, err, rtol = flash_gate(torch, K, out, *args)
-    require(ok, f"flash_attention {label}: max abs err {err}")
-    parity.note("flash_attention", err)
-    say(f"[parity] flash_attention {label}: max abs err {err:.3e} against "
-        f"the plain f32 result (rtol {rtol:.3e}, atol 1e-05)")
+    require(ok, f"flash_attention {label} ({route} route): max abs err "
+                f"{err}")
+    parity.note(K9_ROW[route], err)
+    say(f"[parity] flash_attention {label} ({route} route): max abs err "
+        f"{err:.3e} against the plain f32 result (rtol {rtol:.3e}, atol "
+        f"1e-05)")
 
 
 CHECKS = {"fused_pe": check_fused_pe, "spike_matmul": check_spike_matmul,
@@ -2410,8 +2549,9 @@ def bound(torch, K, name: str, args, inputs) -> tuple[float, float, float]:
 def flash_bound(q, k, v, causal) -> tuple[float, float, float]:
     """(bytes, operations, operations) of one K9 call: q, k, v read and
     out written once at their dtype (K and V at their Hkv heads); 2 D
-    multiply-adds a (query, key) pair for the scores and again for PV, over
-    the S (S + 1) / 2 causal pairs (about half of S^2) or all S^2."""
+    operations (a multiply and an add) a (query, key) pair for the scores
+    and again for PV, over the S (S + 1) / 2 causal pairs (about half of
+    S^2) or all S^2."""
     b, s, h, d = q.shape
     nbytes = float(2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     pairs = s * (s + 1) / 2 if causal else float(s * s)
@@ -2421,13 +2561,17 @@ def flash_bound(q, k, v, causal) -> tuple[float, float, float]:
 
 def flash_ops_ms(q, ops: float) -> float:
     """The least time, in ms, of K9's ``ops`` operations at the card's peak
-    for their types: half are QK^T, half PV. With bf16 q and k, QK^T runs at
-    the bf16 tensor-core rate (a product of two bf16 values is exact in f32,
-    and the tensor cores sum in f32); PV, whose weights p are f32, and all
-    of an f32 call run at the f32 rate outside the tensor cores."""
-    score_rate = (PEAK_BF16_TC_OPS_PER_S if q.element_size() == 2
-                  else PEAK_F32_OPS_PER_S)
-    return (ops / 2 / score_rate + ops / 2 / PEAK_F32_OPS_PER_S) * 1e3
+    for their types: half are QK^T, half PV. With bf16 q, k and v, QK^T runs
+    once at the bf16 tensor-core rate (a product of two bf16 values is
+    exact in f32, and the tensor cores sum in f32); PV's weights p are f32,
+    not bf16, and the least tensor-core work that keeps them exact is three
+    products, one a term of p's split into three bf16 values (24
+    significand bits in three 8-bit pieces): 2 x ``ops`` at the bf16
+    tensor-core rate in all. An f32 call runs at the f32 rate outside the
+    tensor cores."""
+    if q.element_size() == 2:
+        return 2 * ops / PEAK_BF16_TC_OPS_PER_S * 1e3
+    return ops / PEAK_F32_OPS_PER_S * 1e3
 
 
 def phase_profile(torch, snn_cnn, cfg, fused, images, policy: str,
@@ -2673,7 +2817,8 @@ def phase_timing(torch, K, snn_cnn, models, images, paths, parity: Parity,
                 shape += f" @ {args[1].shape[0]}x{args[1].shape[1]}"
             routes[row].add(route)
             say(f"[timing] launch {i} {row} [{shape}]"
-                + (f" ({route} route)" if name in ("fused_pe", "spike_matmul")
+                + (f" ({route} route)" if name in ("fused_pe", "spike_matmul",
+                                                   "flash_attention")
                    else "") + ": "
                 f"{ms:.4f} ms, bound "
                 f"{max(t_bytes, t_ops):.4f} ms "
@@ -2698,7 +2843,7 @@ def phase_timing(torch, K, snn_cnn, models, images, paths, parity: Parity,
                "bound_by": ("bytes" if tot["bytes_s"] >= tot["ops_s"]
                             else "operations"),
                "library_ms": tot["library_ms"]}
-        if kernel in ("fused_pe", "spike_matmul"):
+        if kernel in ("fused_pe", "spike_matmul", "flash_attention"):
             out["gemm_route"] = "+".join(sorted(routes[row])) or "tile"
         if row in TILE_MS_BEFORE:
             host = tot_host[row]
@@ -3169,6 +3314,9 @@ K9_HEADS = ((16, 8), (16, 16), (16, 1))
 K9_DIMS = (128, 64, 32)
 K9_SEQS = ((64, (True, False)), (300, (True,)), (2048, (True, False)))
 K9_TIMING_S = (512, 2048, 8192)   # B 1, H 16 over Hkv 8, D 128, causal
+# (s, h, hkv, d, causal): q scaled by 8 (scores up to about 40), held
+# against an f64 result; at D 128 the scale is no power of two
+K9_SCALED = ((300, 16, 8, 128, True), (2048, 16, 16, 64, False))
 
 
 def softmax_direct_loop(torch, S, model, params, trace, chunked: bool
@@ -3290,17 +3438,25 @@ def k9_on_lm_operands(torch, S, K, build_mod, model, params, prompt,
     launches = dict(build_mod.LAUNCHES)
     want = {**dict.fromkeys(build_mod.KERNELS, 0), "flash_attention": 1}
     require(launches == want, f"{label}: ops.attention launches {launches}")
+    route = captured[0].route
+    require(route == K.flash_pick_route(q), f"{label}: ops.attention took "
+                                            f"the {route} route")
     ok, err, _ = flash_gate(torch, K, out, q, k, v, True)
-    require(ok, f"{label}: ops.attention's own output against the plain "
-                f"version, max abs err {err}")
-    check_flash(torch, K, captured[0][1], parity, label)
+    require(ok, f"{label}: ops.attention's own output ({route} route) "
+                f"against the plain version, max abs err {err}")
+    say(f"[softmax] {label}: ops.attention launched K9 once, on the {route} "
+        f"route")
+    for r in flash_routes(K, q):
+        check_flash(torch, K, captured[0].args, parity, label, r)
     return launches, captured, out, q, k, v
 
 
 def parity_k9(torch, K, gen, dev, parity: Parity) -> None:
     """K9 against its plain version on seeded operands: causal and full,
     H / Hkv 16/8, 16/16, 16/1, D 128, 64, 32, S 64, 300 (ragged, causal)
-    and 2048, f32 and bf16."""
+    and 2048, f32 (the scalar route) and bf16 (the wgmma and the scalar
+    routes); then bf16 at D 48, which only the scalar route takes; then
+    q scaled by 8 (``check_flash_scaled``)."""
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
         for h, hkv in K9_HEADS:
@@ -3312,24 +3468,39 @@ def parity_k9(torch, K, gen, dev, parity: Parity) -> None:
                                     device=dev).to(dtype)
                     v = torch.randn((1, s, hkv, d), generator=gen,
                                     device=dev).to(dtype)
-                    for causal in causals:
+                    for causal, route in itertools.product(
+                            causals, flash_routes(K, q)):
                         check_flash(torch, K, (q, k, v, causal), parity,
                                     f"sweep {str(dtype)[6:]} S {s} H {h}/"
                                     f"{hkv} D {d} "
-                                    f"{'causal' if causal else 'full'}")
+                                    f"{'causal' if causal else 'full'}",
+                                    route)
                         n += 1
-    say(f"[parity] flash_attention: {n} sweep launches agree with the "
+    q = torch.randn((1, 300, 16, 48), generator=gen, device=dev).to(
+        torch.bfloat16)
+    kv = torch.randn((1, 300, 8, 48), generator=gen, device=dev).to(
+        torch.bfloat16)
+    require(K.flash_pick_route(q) == "scalar", "bf16 at D 48 must take the "
+                                               "scalar route")
+    check_flash(torch, K, (q, kv, kv, True), parity,
+                "bf16 S 300 H 16/8 D 48 causal")
+    check_flash_scaled(torch, K, gen, dev)
+    say(f"[parity] flash_attention: {n + 1} sweep launches agree with the "
         f"plain version")
 
 
 def time_k9(torch, K, gen, dev, parity: Parity, card: str) -> None:
     """K9 at B 1, H 16 over Hkv 8, D 128, causal, S in ``K9_TIMING_S``, f32
-    and bf16: its time beside its plain version's, SDPA's (and the backend
-    SDPA took) and its bound (``flash_ops_ms``); beside it, for
-    information, the bound with every operation at the f32 rate, and with
-    every operation at the bf16 tensor-core rate (a wgmma redesign's
-    target)."""
+    and bf16, by device time with a cold L2 (``device_time``), all on the
+    same operands: each route (at bf16 the wgmma and the scalar route; at
+    f32 the scalar route), its plain version, SDPA (and the backend SDPA
+    took) and the bound (``flash_ops_ms``); beside the bf16 bound, for
+    information, the one-pass floor (every operation once at the bf16
+    tensor-core rate: what a bf16 p would need, which the reference's f32 p
+    rules out). Fails if a route reads below its bound."""
+    below = []
     for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype)[6:]
         for s in K9_TIMING_S:
             q = torch.randn((1, s, 16, 128), generator=gen, device=dev).to(
                 dtype)
@@ -3338,32 +3509,50 @@ def time_k9(torch, K, gen, dev, parity: Parity, card: str) -> None:
             v = torch.randn((1, s, 8, 128), generator=gen, device=dev).to(
                 dtype)
             args = (q, k, v, True)
-            label = f"timing {str(dtype)[6:]} S {s}"
-            check_flash(torch, K, args, parity, label)
+            label = f"timing {dt} S {s}"
             reps = max(3, 40960 // s)
-            ms = time_cuda(torch, lambda: K.flash_attention_cuda(*args), reps)
-            plain_ms = time_cuda(torch, lambda: K.attention_ref(
-                q, k, v, causal=True), max(2, reps // 4), warmup=1)
-            sdpa = sdpa_call(torch, *args)
-            sdpa_ms = time_cuda(torch, sdpa, reps)
-            backend = sdpa_backend(torch, *args)
             nbytes, ops, _ = flash_bound(*args)
             t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
             t_ops = flash_ops_ms(q, ops)
-            t_f32 = max(t_bytes, ops / PEAK_F32_OPS_PER_S * 1e3)
-            t_tc = max(t_bytes, ops / PEAK_BF16_TC_OPS_PER_S * 1e3)
-            say(f"[timing] flash_attention {str(dtype)[6:]} B 1 S {s} H 16/8 "
-                f"D 128 causal: {ms:.4f} ms; bound {max(t_bytes, t_ops):.4f} "
-                f"ms ({'bytes' if t_bytes >= t_ops else 'operations'}: "
-                f"{nbytes / 1e6:.3f} MB, {ops / 1e9:.3f} GFLOP"
-                + (", QK^T at the bf16 tensor-core rate, PV at the f32 rate"
-                   if dtype == torch.bfloat16 else " at the f32 rate")
-                + f"), roofline share {max(t_bytes, t_ops) / ms:.3f}; plain "
-                f"{plain_ms:.4f} ms; SDPA {sdpa_ms:.4f} ms, backend "
-                f"{backend}; all at the f32 rate {t_f32:.4f} ms, all at the "
-                f"bf16 tensor-core rate {t_tc:.4f} ms [{card}]")
+            bound = max(t_bytes, t_ops)
+            times = {}
+            for route in flash_routes(K, q):
+                check_flash(torch, K, args, parity, label, route)
+                times[route] = device_time(
+                    torch, lambda: K.flash_attention_cuda(*args, route=route),
+                    reps)
+            plain_ms = device_time(torch, lambda: K.attention_ref(
+                q, k, v, causal=True), max(2, reps // 4), warmup=1)
+            sdpa = sdpa_call(torch, *args)
+            sdpa_ms = device_time(torch, sdpa, reps)
+            backend = sdpa_backend(torch, *args)
+            for route, ms in times.items():
+                say(f"[timing] flash_attention {dt} B 1 S {s} H 16/8 D 128 "
+                    f"causal ({route} route): {ms:.4f} ms; bound {bound:.4f} "
+                    f"ms ({'bytes' if t_bytes >= t_ops else 'operations'}: "
+                    f"{nbytes / 1e6:.3f} MB, {ops / 1e9:.3f} GFLOP"
+                    + (", QK^T once and PV three times at the bf16 "
+                       "tensor-core rate" if dtype == torch.bfloat16
+                       else " at the f32 rate")
+                    + f"), roofline share {bound / ms:.3f}; SDPA "
+                    f"{sdpa_ms:.4f} ms ({ms / sdpa_ms:.2f}x SDPA's time) "
+                    f"[{card}]")
+                if ms < bound:
+                    below.append(f"{label} {route} route {ms:.4f} < "
+                                 f"{bound:.4f} ms")
+            if dtype == torch.bfloat16:
+                floor = max(t_bytes, ops / PEAK_BF16_TC_OPS_PER_S * 1e3)
+                say(f"[timing] flash_attention bf16 S {s}: the wgmma route "
+                    f"{times['wgmma']:.4f} ms, "
+                    f"{times['scalar'] / times['wgmma']:.2f}x faster than "
+                    f"the scalar route's {times['scalar']:.4f} ms on the same "
+                    f"operands; one-pass floor (PV once, p in bf16, not the "
+                    f"reference's function) {floor:.4f} ms, for information")
+            say(f"[timing] flash_attention {dt} S {s}: plain {plain_ms:.4f} "
+                f"ms; SDPA {sdpa_ms:.4f} ms, backend {backend}")
             del q, k, v, args, sdpa
             torch.cuda.empty_cache()
+    require(not below, f"K9 times below their bound: {below}")
 
 
 def phase_softmax(torch, S, K, build_mod, dev, parity: Parity) -> dict:
@@ -3477,10 +3666,11 @@ def phase_softmax(torch, S, K, build_mod, dev, parity: Parity) -> dict:
                           device=dev)
     chunked_vs_blocking(torch, model4, params4, [p for p, _ in trace],
                         f"{LM_ARCH} {PARITY_LAYERS}-layer f32", tol=1e-4)
-    _, _, out4, q4, k4, v4 = k9_on_lm_operands(
+    launches4, captured4, out4, q4, k4, v4 = k9_on_lm_operands(
         torch, S, K, build_mod, model4, params4, longest, parity,
         f"{LM_ARCH} {PARITY_LAYERS}-layer f32 layer 0 prefill of "
         f"{len(longest)} tokens")
+    paths[K9_F32_PATH] = (None, None, launches4, captured4)
     full4 = S.attn_full(q4, k4, v4, cfg.resolved_head_dim ** -0.5, True)
     err = float((out4 - full4).abs().max())
     require(torch.allclose(out4, full4, rtol=1e-5, atol=1e-5),
@@ -3533,6 +3723,7 @@ def kernels_namespace(torch):
         dw_splits=spike_matmul.dw_splits,
         qk_attention_cuda=qk_attention.qk_attention_cuda,
         flash_attention_cuda=flash_attention.flash_attention_cuda,
+        flash_pick_route=flash_attention.pick_route,
         attention_ref=flash_attention.attention_ref,
         qk_attention_ref=qk_attention.qk_attention_ref,
         lif_update_cuda=lif_update.lif_update_cuda,

@@ -1,4 +1,5 @@
-// Streaming (flash) softmax attention, forward — replaces the Pallas kernel
+// Streaming (flash) softmax attention, forward, the scalar route —
+// replaces the Pallas kernel
 // repro/kernels/flash_attention/flash_attention.py::flash_attention_pallas
 // (body _kernel), batched by flash_attention in ops.py there.
 //
@@ -28,13 +29,18 @@
 // SM.
 //
 // Bound on the H100: operations, 4 * B * H * S^2 * D (halved when causal),
-// half of them QK^T and half PV. PV, and all of an f32 call, at the 67
-// TFLOP/s f32 rate outside the tensor cores; QK^T of bf16 operands at the
-// 989 TFLOP/s bf16 tensor-core rate, since a product of two bf16 values is
-// exact in f32. Against that, reading q, k, v (K and V at Hkv heads) and
-// writing out once at 3.35 TB/s. This
-// first kernel issues every product as a scalar f32 FMA from shared
-// memory; wgmma over bf16 tiles, fed by TMA, is the later redesign.
+// half of them QK^T and half PV. An f32 call at the 67 TFLOP/s f32 rate
+// outside the tensor cores. A bf16 call is priced as the tensor cores can
+// compute the same function (the wgmma route, flash_attention_wgmma.cu):
+// the reference scales q in f32 before the product, so its QK^T operands
+// are not both bf16, but the unscaled product of the bf16 q and k is exact
+// in f32 and the scale can follow it (one f32 rounding moves); the weights
+// p are f32, not bf16, and keep exact only as three bf16 terms: QK^T once
+// and PV three times at the 989 TFLOP/s bf16 tensor-core rate. Against
+// that, reading q, k, v (K and V at Hkv heads) and writing out once at
+// 3.35 TB/s. This kernel issues every product as a scalar f32 FMA from
+// shared memory; it is the route for f32, and for bf16 at a head dim the
+// wgmma route has no instance for (other than 32, 64 and 128).
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -1,0 +1,303 @@
+// Hopper (sm_90a) building blocks written in PTX: mbarriers, TMA tile
+// loads through a CUtensorMap, wgmma shared-memory descriptors and the
+// bf16 wgmma shapes the flash attention route issues, setmaxnreg, and the
+// host-side encoding of a 4-D bf16 tensor map. Used by
+// flash_attention_wgmma.cu.
+//
+// Shared-memory layouts are the canonical swizzled ones that TMA writes
+// and wgmma reads: a tile of R rows by W bf16 columns (W = 64 with the
+// 128-byte swizzle, 32 with the 64-byte one) lies row after row, 2 W bytes
+// a row, 16-byte chunks XOR-ed by the row within each group of 8 rows.
+// The tile's base is 1024-byte aligned, so the swizzle phase is the
+// address's own.
+#pragma once
+
+#include <cstdint>
+#include <cuda.h>
+#include <cuda_runtime.h>
+
+namespace hopper {
+
+// a C entry's return value for a failed tensor-map encode: this base plus
+// the CUDA driver API's CUresult (repro_error_string names it)
+constexpr int kEncodeError = 1 << 20;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---------------------------------------------------------------- mbarrier
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// one arrival, and `bytes` more transaction bytes for the phase to wait for
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// clock cycles after which a wait is taken for a deadlock (about 10 s)
+constexpr long long kWaitCycles = 1ll << 34;
+
+// until the phase of parity `parity` has completed; a wait that outlasts
+// kWaitCycles traps, so a deadlock fails the launch instead of hanging the
+// card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  const long long t0 = clock64();
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done && clock64() - t0 > kWaitCycles) __trap();
+  } while (!done);
+}
+
+// --------------------------------------------------------------------- TMA
+// the box of `map` at element coordinates (c0, c1, c2, c3), innermost
+// first, into shared memory at `dst`; completion is counted on `bar`.
+// Elements outside the tensor arrive as zeros.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ------------------------------------------------------------------- wgmma
+// swizzle modes of a descriptor (bits 62-63)
+constexpr uint32_t kSwizzle128 = 1;
+constexpr uint32_t kSwizzle64 = 2;
+
+// a shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (in 16-byte units), swizzle mode. K-major tiles (the
+// reduction runs along a row): the stride offset steps 8 rows, the
+// leading offset is unused. MN-major tiles (the reduction runs down the
+// rows): the stride offset steps 8 rows of the reduction, the leading
+// offset steps from one swizzle atom's columns to the next's.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint32_t swizzle) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (static_cast<uint64_t>(swizzle) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int Pending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(Pending)
+               : "memory");
+}
+
+// keeps the compiler from moving accesses of an accumulator or fragment
+// register across a wgmma fence or wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// the f32 accumulator of an m64nNk16 wgmma: N / 2 registers a thread. For
+// thread t of the warpgroup (warp w = t / 32, lane l = t % 32), register
+// 4 j + e holds row 16 w + l / 4 + 8 (e / 2), column 8 j + 2 (l % 4) +
+// e % 2. The A fragment of an m64k16 wgmma from registers is four bf16
+// pairs in the same rows: (row, columns 2 (l % 4) + {0, 1}), (row + 8, the
+// same), (row, those + 8), (row + 8, those + 8), so the accumulator's
+// registers 8 s .. 8 s + 7, rounded in pairs, are the A fragment of its
+// columns 16 s .. 16 s + 15.
+template <int N>
+struct Wgmma;
+
+#define WG_D4(i) "+f"(d[(i)]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3])
+#define WG_D16(i) WG_D4(i), WG_D4((i) + 4), WG_D4((i) + 8), WG_D4((i) + 12)
+
+template <>
+struct Wgmma<32> {
+  // d += A B, A [64 x 16] in registers (four bf16 pairs a thread), B
+  // [16 x 32] MN-major in shared memory (the transpose bit)
+  static __device__ __forceinline__ void rs(float (&d)[16],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : WG_D16(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  // d (+)= A B^T, A [64 x 16] and B [64 x 16] K-major in shared memory
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a,
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : WG_D16(0), WG_D16(16)
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+  // d += A B, A [64 x 16] in registers (four bf16 pairs a thread), B
+  // [16 x 64] MN-major in shared memory (the transpose bit)
+  static __device__ __forceinline__ void rs(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : WG_D16(0), WG_D16(16)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  // d (+)= A B^T, A [64 x 16] and B [128 x 16] K-major in shared memory
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a,
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : WG_D16(0), WG_D16(16), WG_D16(32), WG_D16(48)
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+  // d += A B, A [64 x 16] in registers (four bf16 pairs a thread), B
+  // [16 x 128] MN-major in shared memory (the transpose bit)
+  static __device__ __forceinline__ void rs(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : WG_D16(0), WG_D16(16), WG_D16(32), WG_D16(48)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+#undef WG_D16
+#undef WG_D4
+
+template <uint32_t Regs>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(Regs));
+}
+
+template <uint32_t Regs>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(Regs));
+}
+
+// ------------------------------------------------------------- host side
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of the CUDA driver API, taken through the
+// runtime (the library is not linked against libcuda); null if missing
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A bf16 tensor [batch, rows, heads, d], contiguous, as a 4-D map whose
+// box is one head's `box_rows` rows by min(d, 64) columns, swizzled 128
+// bytes (64 bytes when d is 32). Returns 0 or kEncodeError + the CUresult.
+inline int encode_bf16_rows(CUtensorMap* map, const void* base, int batch,
+                            int rows, int heads, int d, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return kEncodeError + CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t row = static_cast<cuuint64_t>(d) * 2;
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * rows};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(d < 64 ? d : 64), 1,
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t steps[4] = {1, 1, 1, 1};
+  const CUresult r = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      d < 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(r);
+}
+
+}  // namespace hopper

@@ -6,7 +6,11 @@ shared library with a plain C interface. The library lands in
 ``build/repro_torch/<hash of sources and flags>/`` at the repo root (listed
 in ``.gitignore``) on first use and is reused while the sources are
 unchanged. Nothing is built or imported when this module is imported, and
-a failed build raises: there is no fallback.
+a failed build raises: there is no fallback. The library is not linked
+against the CUDA driver library (``libcuda``): the one function of it
+that it calls, ``cuTensorMapEncodeTiled`` (the flash attention's wgmma
+route encodes its TMA tensor maps per call), is taken through the
+runtime's ``cudaGetDriverEntryPoint`` (``csrc/hopper.cuh``).
 
 Each kernel wrapper counts its launches here (``LAUNCHES``), where it
 launches, and nowhere else.
@@ -59,6 +63,9 @@ _SIGNATURES = {
     "repro_spike_matmul_dw": [_VOID_P] * 8 + [_I] * 7 + [_VOID_P],
     "repro_qk_attention": [_VOID_P] * 3 + [_LL, _I, _F, _I, _VOID_P],
     "repro_flash_attention": [_VOID_P] * 4 + [_I] * 5 + [_F, _I, _I, _VOID_P],
+    "repro_flash_attention_wgmma": [_VOID_P] * 4 + [_I] * 5
+    + [_F, _I, _VOID_P],
+    "repro_wgmma_probe": [_VOID_P] * 4 + [_I, _I, _VOID_P],
 }
 
 
@@ -200,7 +207,8 @@ class Launch(NamedTuple):
     """One captured launch: kernel ``name``, the operands the wrapper
     handed it (``args``), the tensors its caller gave the wrapper before
     padding and casts (``inputs``), and the route it took (``"tile"`` or,
-    for the fused PE and the spike matmul, ``"decode"``)."""
+    for the fused PE and the spike matmul, ``"decode"``; for the flash
+    attention ``"wgmma"`` or ``"scalar"``)."""
     name: str
     args: tuple
     inputs: tuple

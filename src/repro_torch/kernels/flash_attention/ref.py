@@ -39,3 +39,16 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = flash_attention_ref(heads_first(q), heads_first(k), heads_first(v),
                               causal=causal, scale=d ** -0.5)
     return out.reshape(b, h, s, d).transpose(1, 2)
+
+
+def split_bf16x3(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """f32 p as three bf16 terms, each rounded to nearest from what the
+    terms before it leave (the differences are exact in f32): the split the
+    wgmma route makes of its weights before PV. p1 + p2 + p3 == p wherever
+    the pieces stay in bf16's normal range (p >= 2**-100 or so)."""
+    p1 = p.to(torch.bfloat16)
+    r = p - p1.float()
+    p2 = r.to(torch.bfloat16)
+    p3 = (r - p2.float()).to(torch.bfloat16)
+    return p1, p2, p3

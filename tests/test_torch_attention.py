@@ -2,7 +2,11 @@
 the causal mask, the attention layer's full, chunked, append and decode
 paths (with qk_norm, QKV bias and grouped KV), and ``ops.attention``,
 whose fused mode is the flash kernel's wrapper (on CPU tensors its plain
-version) against JAX's Pallas kernel in interpret mode and its reference.
+version) against JAX's Pallas kernel in interpret mode and its reference;
+the bf16 wgmma route's arithmetic on the CPU: its exact three-term split
+of the weights p (``split_bf16x3``), and a plain emulation of its order
+(scores scaled after QK^T, 128-row by 128-key tiles, PV as three bf16
+terms) against JAX's kernel in interpret mode.
 
 Inputs are numpy arrays made from a seed, handed to both frameworks.
 Tolerances: RoPE and the mask at rtol 1e-6, atol 1e-6 (f32 angles; the
@@ -11,6 +15,7 @@ in f32 at rtol 1e-5, atol 1e-5 (f32 sums in another order); bf16 at 2e-2,
 as JAX's own ``tests/test_flash_attention.py``.
 """
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -28,9 +33,12 @@ from repro.models import layers as jlayers
 from repro_torch import convert, ops
 from repro_torch.configs import get_config, reduced
 from repro_torch.kernels import _build
+from hypothesis import given
+from hypothesis import strategies as st
 from repro_torch.kernels.flash_attention import (attention_ref,
                                                  flash_attention,
-                                                 flash_attention_ref)
+                                                 flash_attention_ref,
+                                                 pick_route, split_bf16x3)
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 
@@ -349,3 +357,166 @@ def test_flash_attention_wrapper_checks_its_operands():
         flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
     torch.testing.assert_close(flash_attention(q, k, v),
                                attention_ref(q, k, v))
+
+
+# ----------------------------------------------- the wgmma route's arithmetic
+def _split_sum(p: torch.Tensor) -> torch.Tensor:
+    p1, p2, p3 = split_bf16x3(p)
+    assert p1.dtype == p2.dtype == p3.dtype == torch.bfloat16
+    # every partial sum is exact in f32: at most 24 significand bits
+    return (p1.float() + p2.float()) + p3.float()
+
+
+def test_split_bf16x3_is_exact_on_softmax_weights():
+    """p1 + p2 + p3 == p bit for bit on 1.0, on f32 values spread over
+    [2**-100, 1], and on exp over [-80, 0] (the weights a softmax step
+    forms) wherever p >= 2**-110. Below that p3 falls under bf16's normal
+    range (2**-126) and keeps its bits only down to 2**-133: there the sum
+    is within half that step, 2**-134, of p, a weight f32 cannot resolve
+    beside a row's sum l >= 1 (the row's max weighs exp(0) = 1)."""
+    rng = np.random.default_rng(19)
+    mant = rng.uniform(1.0, 2.0, 100_000).astype(np.float32)
+    wide = np.ldexp(mant, rng.integers(-100, 0, 100_000)).astype(np.float32)
+    for vals in (np.float32([1.0, 2.0 ** -100]), wide):
+        p = torch.tensor(vals.copy())
+        assert bool(((p >= 2.0 ** -100) & (p <= 1.0)).all())
+        assert torch.equal(_split_sum(p), p)
+    p = torch.tensor(np.exp(np.linspace(-80.0, 0.0, 200_001,
+                                        dtype=np.float32)))
+    got = _split_sum(p)
+    normal = p >= 2.0 ** -110
+    assert 0.9 < float(normal.float().mean()) < 1.0
+    assert torch.equal(got[normal], p[normal])
+    assert float((got - p).abs().max()) <= 2.0 ** -134
+
+
+@given(st.integers(min_value=-100, max_value=-1),
+       st.floats(min_value=1.0, max_value=2.0))
+def test_split_bf16x3_is_exact_property(exponent, mantissa):
+    """Any f32 p in [2**-100, 1]: the three bf16 terms sum back to p, and
+    each is the rounding to nearest of what the terms before leave."""
+    p = torch.tensor([min(1.0, math.ldexp(mantissa, exponent))],
+                     dtype=torch.float32)
+    p1, p2, p3 = split_bf16x3(p)
+    assert torch.equal(_split_sum(p), p)
+    assert torch.equal(p1, p.to(torch.bfloat16))
+    assert torch.equal(p2, (p - p1.float()).to(torch.bfloat16))
+    assert torch.equal(p3.float(), p - p1.float() - p2.float())
+
+
+def test_pick_route():
+    bf = {d: torch.zeros((1, 2, 2, d), dtype=torch.bfloat16)
+          for d in (16, 32, 48, 64, 128)}
+    assert [pick_route(bf[d]) for d in (32, 64, 128)] == ["wgmma"] * 3
+    assert pick_route(bf[48]) == pick_route(bf[16]) == "scalar"
+    assert pick_route(torch.zeros((1, 2, 2, 64))) == "scalar"
+
+
+def _wgmma_route_emulated(q, k, v, causal, block_q=128, block_k=128):
+    """The wgmma route's order in plain torch on [B,S,H,D] bf16 operands:
+    per 128-row q tile, 128-key tiles in order (causal: up to the q tile's
+    last row), S = q k^T of the bf16 values in f32 and then s = scale * S,
+    masked scores -1e30, the online softmax in f32 (l sums the f32 p), and
+    PV as three products of p's bf16 terms; returns the f32 output."""
+    b, s_len, h, d = q.shape
+    g = h // k.shape[2]
+    scale = torch.tensor(d ** -0.5, dtype=torch.float32)
+
+    def heads(t, rep):
+        t = t.float().repeat_interleave(rep, dim=2)
+        return t.transpose(1, 2).reshape(b * h, s_len, d)
+
+    qh, kh, vh = heads(q, 1), heads(k, g), heads(v, g)
+    out = torch.empty((b * h, s_len, d), dtype=torch.float32)
+    for q0 in range(0, s_len, block_q):
+        rows = torch.arange(q0, min(s_len, q0 + block_q))
+        m = torch.full((b * h, len(rows)), -1e30)
+        l = torch.zeros((b * h, len(rows)))
+        acc = torch.zeros((b * h, len(rows), d))
+        stop = min(s_len, q0 + block_q) if causal else s_len
+        for k0 in range(0, stop, block_k):
+            keys = torch.arange(k0, min(s_len, k0 + block_k))
+            sc = torch.einsum("bqd,bkd->bqk", qh[:, rows], kh[:, keys]) * scale
+            if causal:
+                sc = torch.where(keys[None, None] > rows[None, :, None],
+                                 torch.tensor(-1e30), sc)
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            p = torch.exp(sc - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None]
+            for term in split_bf16x3(p):
+                acc = acc + torch.einsum("bqk,bkd->bqd", term.float(),
+                                         vh[:, keys])
+            m = m_new
+        out[:, rows] = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(b, h, s_len, d).transpose(1, 2)
+
+
+# (s, h, hkv, d, causal, mul): ragged S (200 is no multiple of the 128-row
+# or the 128-key tile), GQA, causal and full, and scores scaled by 8 so that
+# the running max moves and its correction matters
+EMULATED_CASES = [(200, 4, 2, 64, True, 1.0), (200, 4, 2, 64, False, 1.0),
+                  (150, 2, 1, 32, True, 8.0), (96, 2, 2, 128, False, 8.0)]
+
+
+@pytest.mark.parametrize("s,h,hkv,d,causal,mul", EMULATED_CASES)
+def test_wgmma_route_order_matches_jax(s, h, hkv, d, causal, mul):
+    """The emulated route against JAX's Pallas kernel in interpret mode on
+    the same bf16 values widened to f32 (so the kernel returns its f32
+    result): the f32 output within rtol = atol = 1e-5, and rounded to bf16
+    within flash_gate's gate (half a bf16 ulp more, rtol 2**-8 + 1e-5)."""
+    q, k, v = _qkv(s + d, 1, s, h, hkv, d)
+    tq, tk, tv = (torch.tensor(a).to(torch.bfloat16) for a in (q, k, v))
+    tq = (tq.float() * mul).to(torch.bfloat16)
+    jq, jk, jv = (jnp.asarray(t.float().numpy()) for t in (tq, tk, tv))
+    want = jax_flash(jq, jk, jv, q_block=512, kv_block=512, causal=causal,
+                     interpret=True)
+    got = _wgmma_route_emulated(tq, tk, tv, causal)
+    _close(got, want)
+    np.testing.assert_allclose(_np(got.to(torch.bfloat16)), _np(want),
+                               rtol=2.0 ** -8 + 1e-5, atol=1e-5)
+    _close(got, attention_ref(tq.float(), tk.float(), tv.float(),
+                              causal=causal))
+
+
+def _attention_f64(q, k, v, causal):
+    """Softmax attention of [B,S,H,D] q, k and v (numpy, equal heads) in
+    f64."""
+    qh, kh, vh = (torch.tensor(a).double().transpose(1, 2) for a in (q, k, v))
+    s = q.shape[1]
+    sc = (qh @ kh.transpose(-1, -2)) * q.shape[-1] ** -0.5
+    if causal:
+        sc = sc.masked_fill(~torch.ones((s, s), dtype=torch.bool).tril(),
+                            -1e300)
+    return (torch.softmax(sc, dim=-1) @ vh).transpose(1, 2)
+
+
+# (s, h, d, causal): f32 with q scaled by 8, at D 128 (the scale 2**-3.5
+# rounds q * scale) and D 64 (the scale 2**-3 is exact)
+SCALED_F32_CASES = [(256, 4, 128, True), (512, 4, 128, True),
+                    (256, 4, 64, False)]
+
+
+@pytest.mark.parametrize("s,h,d,causal", SCALED_F32_CASES)
+def test_f32_scaled_scores_jax_kernel_against_f64(s, h, d, causal):
+    """Where the f32 gate against the plain version stops holding, and why:
+    with q scaled by 8 (scores up to about 40), JAX's own Pallas kernel in
+    interpret mode, which scales q before the product as the scalar route
+    does, and the plain version, which scales the product, are each held
+    against the f64 result. The kernel's error stays within twice the plain
+    version's (the GPU tests' ``_flash_witness``); where the scale is a
+    power of two the two orders round s alike and the kernel meets the f32
+    gate (rtol = atol = 1e-5) against the plain version too."""
+    q, k, v = _qkv(s + d, 1, s, h, h, d)
+    q = q * np.float32(8.0)
+    want = jax_flash(*(jnp.asarray(a) for a in (q, k, v)), q_block=128,
+                     kv_block=128, causal=causal, interpret=True)
+    plain = attention_ref(*(torch.tensor(a) for a in (q, k, v)),
+                          causal=causal)
+    exact = _attention_f64(q, k, v, causal)
+    err = np.abs(np.asarray(want, np.float64) - exact.numpy()).max()
+    err_plain = (plain.double() - exact).abs().max().item()
+    assert err <= 2 * err_plain, (err, err_plain)
+    if d == 64:
+        _close(want, plain)

@@ -672,31 +672,139 @@ FLASH_CASES = [
     (2048, 16, 8, 128, True), (2048, 16, 16, 64, False),
     (2048, 16, 1, 32, True),
 ]
+# (s, h, hkv, d, causal, mul): the cases above at q's scale, S 1 and S 65
+# (one row; one row past a tile), GQA 16/1 at D 128, and q scaled by 8
+# (large scores: the running max moves, its correction matters), each f32
+# and bf16
+FLASH_UNIT = [c + (1.0,) for c in FLASH_CASES] + [
+    (1, 16, 8, 128, True, 1.0), (65, 16, 8, 128, True, 1.0),
+    (65, 16, 16, 64, False, 1.0), (300, 16, 1, 128, True, 1.0),
+    (2048, 16, 1, 128, False, 1.0),
+    (300, 16, 8, 128, True, 8.0), (2048, 16, 16, 64, False, 8.0),
+]
+FLASH_ALL = [c + (dt,) for c in FLASH_UNIT
+             for dt in (torch.float32, torch.bfloat16)]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("s,h,hkv,d,causal", FLASH_CASES)
+def _flash_gate(K, out, q, k, v, causal):
+    """K9's output against its plain version's f32 result (before it
+    rounds to q's dtype): rtol 1e-5, atol 1e-5 (IEEE f32 sums in another
+    order), and in bf16 half a bf16 ulp more (rtol 2**-8 + 1e-5) for the
+    output's one rounding to nearest."""
+    ref = K.attention_ref(q.float(), k.float(), v.float(), causal=causal)
+    rtol = 1e-5 if out.dtype == torch.float32 else 2.0 ** -8 + 1e-5
+    assert out.dtype == q.dtype and bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out.float(), ref, rtol=rtol, atol=1e-5)
+
+
+def _attention_f64(q, k, v, causal):
+    """Softmax attention of q [B,S,H,D], k and v [B,S,Hkv,D] in f64."""
+    b, s, h, d = q.shape
+    g = h // k.shape[2]
+    qh = q.double().transpose(1, 2)
+    kh, vh = (t.double().repeat_interleave(g, dim=2).transpose(1, 2)
+              for t in (k, v))
+    sc = (qh @ kh.transpose(-1, -2)) * d ** -0.5
+    if causal:
+        sc = sc.masked_fill(~torch.ones((s, s), dtype=torch.bool,
+                                        device=q.device).tril(), -1e300)
+    return (torch.softmax(sc, dim=-1) @ vh).transpose(1, 2)
+
+
+def _flash_witness(K, out, q, k, v, causal):
+    """An f32 output at scores far from unit scale, where the f32 gate
+    against the plain version cannot hold (it scales the product, the
+    reference's kernel and the scalar route scale q first, and each
+    rounding of s moves p = exp(s - m) by as much relative): the kernel's
+    max abs error against the f64 result within twice the plain version's
+    own, a rule JAX's own kernel meets (tests/test_torch_attention.py)."""
+    exact = _attention_f64(q, k, v, causal)
+    plain = K.attention_ref(q, k, v, causal=causal)
+    err = (out.double() - exact).abs().max()
+    err_plain = (plain.double() - exact).abs().max()
+    assert bool(torch.isfinite(out).all())
+    assert err <= 2 * err_plain, (float(err), float(err_plain))
+
+
+@pytest.mark.parametrize("s,h,hkv,d,causal,mul,dtype", FLASH_ALL)
 def test_flash_attention_kernel_matches_plain(cuda, s, h, hkv, d, causal,
-                                              dtype):
-    """K9 against its plain version's f32 result (before it rounds to q's
-    dtype): rtol 1e-5, atol 1e-5 (IEEE f32 sums in another order), and in
-    bf16 half a bf16 ulp more (rtol 2**-8 + 1e-5) for the output's one
-    rounding to nearest; causal or full, grouped KV, a ragged sequence."""
+                                              mul, dtype):
+    """K9 through ``flash_attention`` (one launch, counted, on
+    ``pick_route``'s route: wgmma for bf16, scalar for f32) and, for bf16,
+    again on the scalar route, each against its plain version
+    (``_flash_gate``; f32 with q scaled by 8 against the f64 result,
+    ``_flash_witness``); causal or full, grouped KV, a ragged sequence."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as K
 
     gen = torch.Generator(device=cuda).manual_seed(s + d + hkv)
-    q = torch.randn((1, s, h, d), generator=gen, device=cuda).to(dtype)
+    q = (torch.randn((1, s, h, d), generator=gen, device=cuda)
+         * mul).to(dtype)
     k = torch.randn((1, s, hkv, d), generator=gen, device=cuda).to(dtype)
     v = torch.randn((1, s, hkv, d), generator=gen, device=cuda).to(dtype)
+    route = "wgmma" if dtype == torch.bfloat16 else "scalar"
+    assert K.pick_route(q) == route
     _build.reset_launches()
-    out = K.flash_attention(q, k, v, causal=causal, q_block=s, kv_block=s)
+    with _build.capture_launches() as cap:
+        out = K.flash_attention(q, k, v, causal=causal, q_block=s,
+                                kv_block=s)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["flash_attention"] == 1
-    ref = K.attention_ref(q.float(), k.float(), v.float(), causal=causal)
-    rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -8 + 1e-5
-    assert out.dtype == dtype and bool(torch.isfinite(out).all())
-    torch.testing.assert_close(out.float(), ref, rtol=rtol, atol=1e-5)
+    assert [launch.route for launch in cap] == [route]
+    if dtype == torch.float32 and mul != 1.0:
+        _flash_witness(K, out, q, k, v, causal)
+    else:
+        _flash_gate(K, out, q, k, v, causal)
+    if dtype == torch.bfloat16:
+        _flash_gate(K, K.flash_attention_cuda(q, k, v, causal,
+                                              route="scalar"),
+                    q, k, v, causal)
+        torch.cuda.synchronize()
+
+
+def test_flash_attention_bf16_at_d48_takes_the_scalar_route(cuda):
+    """bf16 at a head dim the wgmma route has no instance for (48) runs on
+    the scalar route, and the wgmma route refuses it."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as K
+
+    gen = torch.Generator(device=cuda).manual_seed(48)
+    q, k, v = (torch.randn((1, 300, hh, 48), generator=gen,
+                           device=cuda).to(torch.bfloat16)
+               for hh in (16, 8, 8))
+    assert K.pick_route(q) == "scalar"
+    with _build.capture_launches() as cap:
+        out = K.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert [launch.route for launch in cap] == ["scalar"]
+    _flash_gate(K, out, q, k, v, True)
+    with pytest.raises(ValueError, match="wgmma route takes bf16"):
+        K.flash_attention_cuda(q, k, v, True, route="wgmma")
+
+
+@pytest.mark.parametrize("pv", [False, True])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_wgmma_tile_descriptors_match_matmul(cuda, d, pv):
+    """One tile through the wgmma route's shared-memory layouts (TMA boxes,
+    128- or 64-byte swizzle) and descriptors, alone: QK^T's K-major A and
+    B (a b^T, 64 x 64 over D) and PV's register A with an MN-major B
+    through the transpose bit (p v, p split in three bf16 terms), against
+    torch.matmul in f32 at rtol = atol = 1e-5 (f32 sums in another
+    order). A wrong stride or swizzle field gives wrong numbers, not an
+    error."""
+    from repro_torch.kernels import flash_attention as K
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda).manual_seed(d + pv)
+    a = torch.randn((64, d), generator=gen, device=cuda).to(torch.bfloat16)
+    b = torch.randn((64, d), generator=gen, device=cuda).to(torch.bfloat16)
+    if pv:
+        p = torch.rand((64, 64), generator=gen, device=cuda)
+        got, want = K.wgmma_tile_cuda(a, b, p), p @ b.float()
+    else:
+        got, want = K.wgmma_tile_cuda(a, b), a.float() @ b.float().T
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
 def test_flash_attention_kernel_refuses_what_it_cannot_take(cuda):
@@ -708,6 +816,11 @@ def test_flash_attention_kernel_refuses_what_it_cannot_take(cuda):
     q = torch.zeros((1, 8, 2, 16), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError, match="f32 or bf16"):
         K.flash_attention(q, q, q)
+    q = torch.zeros((1, 8, 2, 64), device=cuda)
+    with pytest.raises(ValueError, match="wgmma route takes bf16"):
+        K.flash_attention_cuda(q, q, q, route="wgmma")
+    with pytest.raises(ValueError, match="not one of"):
+        K.flash_attention_cuda(q, q, q, route="tile")
 
 
 def _direct_softmax(model, params, prompt, chunk, max_new, dev):
