@@ -184,7 +184,8 @@ SRC = ROOT / "src"
 # tensor cores (IEEE f32 is what parity with the reference needs) and the
 # bf16 tensor-core rate (f32 accumulation), at which a bf16 K9 call's work
 # is priced (``flash_ops_ms``): QK^T of the bf16 q and k once, and PV, whose
-# f32 weights p split exactly into three bf16 terms, three times
+# f32 weights p split exactly into three bf16 terms, three times; and dw's
+# (``ops_ms``): x^T g with g split the same way, three times
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 PEAK_BF16_TC_OPS_PER_S = 989e12
@@ -664,10 +665,12 @@ def check_dw(torch, K, args, parity: Parity, label: str) -> None:
     few thousand terms, do not describe it: each element is held instead
     against the product in f64 to the statistical size of the rounding of
     the kernel's own chain of f32 adds, |dw - exact| <= DW_C sqrt(n) u
-    (|x|ᵀ|g|), n the longest chain of adds into one output (a CTA's run of
-    rows plus the partials), u = 2^-24 (the products x*g are exact: x is
-    0 or 1). Sound launches read at most about a sixth of that limit, and
-    one dropped or doubled 128-row block of x exceeds it many times over.
+    (|x|ᵀ|g|), n the longest chain of adds into one output as the
+    wrapper's plan cuts it (``dw_plan(...).chain``: a 16-row slice's three
+    tensor-core accumulations, the run's adds of its slices' sums, the
+    two warpgroups' sum, the partials), u = 2^-24 (the products of x and
+    g's exact bf16 terms are exact: x is 0 or 1). One dropped or doubled
+    128-row block of x exceeds the limit many times over.
     Also: the same bits on a second launch; and the g rows of every
     all-silent 128-row block of x never enter: NaN written there changes
     no bit of dw. ``max_abs_err`` is against the f32 plain version. A
@@ -682,15 +685,18 @@ def check_dw(torch, K, args, parity: Parity, label: str) -> None:
                 f"{row} {label}: not the int8 launch's bits")
     ref = K.spike_matmul_dw_ref(x, g, vld)
     err = float((dw - ref).abs().max()) if dw.numel() else 0.0
-    splits, per = K.dw_splits(x.shape[0], x.shape[1], g.shape[1])
+    chain = K.dw_plan(x.shape[0], x.shape[1], g.shape[1]).chain
     x64, g64 = x.to(torch.float64), g.to(torch.float64)
     exact = x64.T @ g64
-    limit = DW_C * math.sqrt(per * 128 + splits) * 2.0 ** -24 * (
+    limit = DW_C * math.sqrt(chain) * 2.0 ** -24 * (
         x64.abs().T @ g64.abs())
     excess = (dw.to(torch.float64) - exact).abs() - limit
+    used = float(((dw.to(torch.float64) - exact).abs()
+                  / limit.clamp_min(1e-300)).max()) if dw.numel() else 0.0
     require(not bool((excess > 0).any()),
             f"{row} {label}: {int((excess > 0).sum())} elements "
-            f"beyond its limit (max abs err vs plain {err})")
+            f"beyond its limit, the worst {used:.3e} of it (n = {chain}; "
+            f"max abs err vs plain {err})")
     require(torch.equal(dw, K.spike_matmul_dw_cuda(*args)),
             f"{row} {label}: a second launch gave other bits")
     silent = (vld == 0).all(dim=1).repeat_interleave(128)[:x.shape[0]]
@@ -699,11 +705,9 @@ def check_dw(torch, K, args, parity: Parity, label: str) -> None:
     require(torch.equal(dw, K.spike_matmul_dw_cuda(xa, g_nan, vld)),
             f"{row} {label}: a silent tile contributed")
     parity.note(row, err)
-    used = float(((dw.to(torch.float64) - exact).abs()
-                  / limit.clamp_min(1e-300)).max()) if dw.numel() else 0.0
     say(f"[parity] {row} {label}: max abs err vs plain {err:.3e}; "
         f"worst error {used:.3e} of its limit (n = "
-        f"{per * 128 + splits}); bit-equal across launches; silent x blocks "
+        f"{chain}); bit-equal across launches; silent x blocks "
         f"{int((vld == 0).sum())}/{vld.numel()} contribute exactly 0")
 
 
@@ -1152,9 +1156,9 @@ def check_gated_dw(torch, K, x, g, skip: str, parity: Parity,
     err = float((dw - ref).abs().max()) if dw.numel() else 0.0
     require(torch.equal(dw, K.spike_matmul_dw_cuda(x, g, vld)),
             f"{row} {label}: not bit-equal to the int8 dense skip")
-    splits, per = K.dw_splits(x.shape[0], x.shape[1], g.shape[1])
+    chain = K.dw_plan(x.shape[0], x.shape[1], g.shape[1]).chain
     x64, g64 = x.to(torch.float64), g.to(torch.float64)
-    limit = DW_C * math.sqrt(per * 128 + splits) * 2.0 ** -24 * (
+    limit = DW_C * math.sqrt(chain) * 2.0 ** -24 * (
         x64.abs().T @ g64.abs())
     require(not bool(((dw.to(torch.float64) - x64.T @ g64).abs()
                       > limit).any()),
@@ -2458,11 +2462,12 @@ def bound(torch, K, name: str, args, inputs) -> tuple[float, float, float]:
         (m, n), k = g.shape, w.shape[0]
         # g (and v) read, w read, dx (and dv) written; the product is
         # dense in g: 2 * M * N * K operations (the surrogate adds a few an
-        # element of g); the kernel computes over its 128x128 tiles of dx
+        # element of g); the kernel computes over its planned tiles of dx
         nbytes = 4.0 * (m * n + k * n + m * k) + (8.0 * m * n if v is not None
                                                   else 0.0)
         ops = 2.0 * m * n * k + (6.0 * m * n if v is not None else 0.0)
-        tiles = -(-m // 128) * 128 * -(-k // 128) * 128
+        plan = K.dx_plan(m, n, k)
+        tiles = plan.mtiles * 128 * plan.ktiles * plan.block_k
         return nbytes, ops, 2.0 * tiles * n + ops - 2.0 * m * n * k
     if name == "spike_matmul_dw_gated":
         x, g, _ = args
@@ -2489,7 +2494,7 @@ def bound(torch, K, name: str, args, inputs) -> tuple[float, float, float]:
         g_rows = float((rows * (active.sum(dim=1) > 0)).sum())
         nbytes = x_bytes + 4.0 * g_rows * n + 4.0 * k * n + 4.0 * vld.numel()
         nnz = int((x != 0).sum())
-        block_ops = 2.0 * float(active.sum()) * 128 * 128 * (-(-n // 128) * 128)
+        block_ops = 2.0 * float(active.sum()) * 128 * 128 * (-(-n // 64) * 64)
         return nbytes, 2.0 * nnz * n, block_ops
     if name == "flash_attention":
         return flash_bound(*args[:4])
@@ -2557,6 +2562,25 @@ def flash_bound(q, k, v, causal) -> tuple[float, float, float]:
     pairs = s * (s + 1) / 2 if causal else float(s * s)
     ops = 4.0 * b * h * d * pairs
     return nbytes, ops, ops
+
+
+# the kernels whose products run on the tensor cores as three bf16 terms
+# of an exact split (``ops_ms``)
+DW_KERNELS = ("spike_matmul_dw", "spike_matmul_dw_gated")
+
+
+def ops_ms(name: str, args, ops: float) -> float:
+    """The least time, in ms, of a launch's ``ops`` operations at the
+    card's peak for their types: K9's as ``flash_ops_ms``; dw's products
+    of 0/1 spikes and f32 g keep g exact on the tensor cores only as three
+    products, one a term of g's split into three bf16 values, so 3 x
+    ``ops`` at the bf16 tensor-core rate; every other kernel's at the f32
+    rate outside the tensor cores (IEEE f32, which parity needs)."""
+    if name == "flash_attention":
+        return flash_ops_ms(args[0], ops)
+    if name in DW_KERNELS:
+        return 3 * ops / PEAK_BF16_TC_OPS_PER_S * 1e3
+    return ops / PEAK_F32_OPS_PER_S * 1e3
 
 
 def flash_ops_ms(q, ops: float) -> float:
@@ -2780,9 +2804,8 @@ def phase_timing(torch, K, snn_cnn, models, images, paths, parity: Parity,
                                    reps=5)
             nbytes, ops, block_ops = bound(torch, K, name, targs, inputs)
             t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-            t_ops = (flash_ops_ms(args[0], ops) if name == "flash_attention"
-                     else ops / PEAK_F32_OPS_PER_S * 1e3)
-            t_block = block_ops / PEAK_F32_OPS_PER_S * 1e3
+            t_ops = ops_ms(name, args, ops)
+            t_block = ops_ms(name, args, block_ops)
             lib = library_call(torch, K, name, args, inputs)
             lib_ms = None if lib is None else device_time(torch, lib, reps=10)
             lib_name = "SDPA" if name == "flash_attention" else "torch.matmul"
@@ -2823,7 +2846,7 @@ def phase_timing(torch, K, snn_cnn, models, images, paths, parity: Parity,
                 f"{ms:.4f} ms, bound "
                 f"{max(t_bytes, t_ops):.4f} ms "
                 f"({'bytes' if t_bytes >= t_ops else 'operations'}), its "
-                f"unskipped blocks at the f32 peak {t_block:.4f} ms, plain "
+                f"unskipped blocks at the peak {t_block:.4f} ms, plain "
                 f"{plain_ms:.4f} ms"
                 + ("" if lib_ms is None else f", {lib_name} {lib_ms:.4f} ms")
                 + ("" if twin_ms is None
@@ -2859,7 +2882,7 @@ def phase_timing(torch, K, snn_cnn, models, images, paths, parity: Parity,
                 f"{tot['ms'] / tot['bound_ms']:.2f}x its bound")
         say(f"[timing] {row}: {out['ms']:.4f} ms per {policy} pass in "
             f"{out['launches']} launches; bound {out['bound_ms']:.4f} ms "
-            f"({out['bound_by']}); unskipped blocks at the f32 peak "
+            f"({out['bound_by']}); unskipped blocks at the peak "
             f"{tot['block_ms']:.4f} ms; plain {out['plain_ms']:.4f} ms; "
             f"library {out['library_ms']}; positions near v_th "
             f"{parity.near_vth.get(row, 0)}"
@@ -3720,7 +3743,9 @@ def kernels_namespace(torch):
         spike_matmul_dw_cuda=spike_matmul.spike_matmul_dw_cuda,
         spike_matmul_dw_ref=spike_matmul.spike_matmul_dw_ref,
         vld_map=spike_matmul.vld_map,
-        dw_splits=spike_matmul.dw_splits,
+        dw_plan=spike_matmul.dw_plan,
+        dx_plan=spike_matmul.dx_plan,
+        spike_matmul_dw_split_ref=spike_matmul.spike_matmul_dw_split_ref,
         qk_attention_cuda=qk_attention.qk_attention_cuda,
         flash_attention_cuda=flash_attention.flash_attention_cuda,
         flash_pick_route=flash_attention.pick_route,

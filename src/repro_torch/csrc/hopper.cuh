@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks written in PTX: mbarriers, TMA tile
-// loads through a CUtensorMap, wgmma shared-memory descriptors and the
-// bf16 wgmma shapes the flash attention route issues, setmaxnreg, and the
-// host-side encoding of a 4-D bf16 tensor map. Used by
-// flash_attention_wgmma.cu.
+// loads through a CUtensorMap, cp.async, wgmma shared-memory descriptors
+// and the bf16 wgmma shapes that the flash attention route and the dw
+// kernel run, setmaxnreg, and the host-side encoding of a 4-D bf16 tensor
+// map.
+// Used by flash_attention_wgmma.cu and spike_matmul_dw.cu.
 //
 // Shared-memory layouts are the canonical swizzled ones that TMA writes
 // and wgmma reads: a tile of R rows by W bf16 columns (W = 64 with the
@@ -84,6 +85,37 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
       : "memory");
+}
+
+// ---------------------------------------------------------------- cp.async
+// 16 (or 4) bytes from global `src` to shared `dst`; when !full, zeros are
+// written and nothing is read (src must still be a valid address)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(full ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(full ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// until at most `Pending` of this thread's newest groups are in flight
+template <int Pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
+}
+
+// orders this thread's generic-proxy shared-memory writes before later
+// async-proxy reads of them (a wgmma operand written with st.shared)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ------------------------------------------------------------------- wgmma
@@ -213,11 +245,12 @@ struct Wgmma<128> {
         : WG_D16(0), WG_D16(16), WG_D16(32), WG_D16(48)
         : "l"(a), "l"(b), "r"(scale_d));
   }
-  // d += A B, A [64 x 16] in registers (four bf16 pairs a thread), B
-  // [16 x 128] MN-major in shared memory (the transpose bit)
+  // d (+)= A B, A [64 x 16] in registers (four bf16 pairs a thread), B
+  // [16 x 128] MN-major in shared memory (the transpose bit); scale_d 0
+  // overwrites d
   static __device__ __forceinline__ void rs(float (&d)[64],
                                             const uint32_t (&a)[4],
-                                            uint64_t b) {
+                                            uint64_t b, int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -231,7 +264,7 @@ struct Wgmma<128> {
         "%56, %57, %58, %59, %60, %61, %62, %63"
         "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
         : WG_D16(0), WG_D16(16), WG_D16(32), WG_D16(48)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
   }
 };
 

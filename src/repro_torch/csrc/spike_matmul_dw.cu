@@ -2,154 +2,416 @@
 // kernels of repro/kernels/spike_matmul/backward.py, spike_matmul_dw_pallas
 // (skip="dense") and spike_matmul_dw_gated_pallas (skip="gated" and
 // "two_level", with gating.py::accum_tile_t), for int8 x and for bit-packed
-// x (packed_in: int32 words of 32 spikes): dw[K, N] = x^T @ g over M. The dense skip leaves out every 128 x 128 (m, k) block of x whose
-// forward vld_cnt is zero; the gated walk visits, for each k block, only
-// the compacted list mmap[kb, 0 .. nact_t[kb]) of its non-silent m blocks
-// (core/events.py::compact_kmap of the transposed vld map); the two-level
-// walk also leaves out, inside a visited block, the 32 output rows of dw
-// that a silent 32-column stripe of x (a clear occ bit) never feeds. A
-// silent block's spikes are all zero, so every skip is exact. x is [M, K]
-// int8 spikes, g is [M, N] f32, both row-major and unpadded (loads check
-// their bounds); vld and occ are x's [ceil(M/128), ceil(K/128)] maps. A
-// packed x is the words [Mp, Kp/32] of the map packed on the 128 x 128
-// grid (Mp, Kp: M, K rounded up to 128); a tile row's 128 columns are
-// four words, and each thread stores its element's bit as 0.f/1.f in the
-// same f32 shared tile the int8 load fills with the same values, so the
-// FMAs, their order and dw are the int8 launch's bits.
+// x (packed_in: int32 words of 32 spikes): dw[K, N] = x^T @ g over M, on
+// the tensor cores (wgmma), exact in every product.
 //
-// The TPU grid reduces over M inside one output tile. On the card that
-// gives far too few CTAs (at resblock 1, K x N = 576 x 64 is 5 tiles of
-// 128 x 128 for M = 262144 rows), so M is cut into S contiguous runs of
-// 128-row blocks: CTA (n block, k block, s) sums its run into a f32
-// partial [S, Kp, Np], and a second kernel of this source adds the S
-// partials of each output in the order s = 0 .. S-1. S depends only on the
-// shape (the wrapper picks it), and no float atomics are used, so dw is
-// the same bits on every run. The gated walk keeps the runs: mmap is
-// ascending, so a CTA visits the non-silent blocks of its run in the order
-// the dense skip does, and a run with none writes a zero partial, as the
-// dense skip does: the partials and dw are the same bits under every skip.
-// The two-level skip leaves out FMAs whose x is 0, exact zeros wherever g
-// is finite; a stripe is 32 rows of the CTA's tile, the rows of two warps,
-// so the skip is warp-uniform.
+// The skips. The dense skip leaves out every 128 x 128 (m, k) block of x
+// whose forward vld_cnt is zero; the gated walk visits, for each k block,
+// only the compacted list mmap[kb, 0 .. nact_t[kb]) of its non-silent m
+// blocks (core/events.py::compact_kmap of the transposed vld map). Both
+// visit the same blocks in the same ascending order, so they give the same
+// bits. The two-level skip (x's occ bits: silent 32-column stripes inside
+// a visited block) walks as the gated one does: a stripe is 32 of the 128
+// columns of one wgmma, which cannot leave part of its N out, and the FMAs
+// the stripe skip once left out only ever added exact zeros. A silent
+// block's spikes are all zero, so every skip is exact, and the g rows of a
+// block no CTA visits are never read.
 //
-// Bound on the H100: the data needs 2 * nnz(x) * N operations over the
-// blocks it keeps, against reading x and g once and writing dw; at the
-// training path's spike rates the f32 operations bind at 67 TFLOP/s
-// outside the tensor cores. Each kept block costs the dense 2*128*128*128
-// product, in the register-tiled FMA loop of event_gemm.cuh (8 x 8 outputs
-// a thread, 32-deep steps through shared memory); the partials add
-// 4 * S * Kp * Np bytes written and read once. A packed x is read as an
-// eighth of the int8 bytes (each 4-byte word loaded once a warp).
+// Arithmetic. x is 0/1 (any int8 value is exact in bf16) and g is f32. g
+// is split exactly into three bf16 terms, g = g1 + g2 + g3: g1 is g with
+// its low 16 bits cleared, g2 the same of r = g - g1, g3 = bf16_rn(r -
+// g2); each difference is exact in f32 and 8 + 8 + 8 bits hold g's 24, so
+// the sum is g wherever the terms stay in bf16's range (|g| >= 2^-110;
+// below, within 2^-134). The first two terms round toward zero, unlike
+// K9's split of p (which is at most 1): no finite g, and no partial sum
+// g1 + g2, overflows. A 16-row slice of M is then three bf16 wgmmas, each
+// of exact products, into a fresh f32 tile, which joins the run's f32 sum
+// with one correctly rounded add (kernels/spike_matmul/ref.py::
+// split_g_bf16x3 and spike_matmul_dw_split_ref are the plain twins). The
+// tensor cores' own accumulation rounds toward zero: a long chain of it
+// drifts where a column of g keeps its sign (on the training step's
+// operands a block's twelve chained products read 0.82 of the statistical
+// sqrt(n) gate of chip_smoke.check_dw), so it chains three. The split happens in registers, from a staged f32 g
+// tile: three bf16 copies of g are never written (they would be 6 bytes
+// an element of g, written and read again), and each CTA splits only the
+// g columns it multiplies.
+//
+// Operands. The CTA computes dw^T's tile, D[n, k] = g^T[n, m] x[m, k]: g^T
+// is the A operand from registers (a thread's fragment is eight f32 of the
+// staged tile, split into three fragments of four bf16 pairs), x the B
+// operand from shared memory, MN-major (its rows are x's rows, k
+// contiguous: x as it lies in memory), read through the transpose bit, as
+// V is in flash_attention_wgmma.cu. So the tensor cores read only x's bf16
+// tile from shared memory (4 KB a m64n128k16 wgmma, 64 bytes a clock at
+// the full rate), not a second operand. (x as the A operand from shared
+// memory and g's three terms as B would read both from shared memory,
+// twice the bytes a product, and write the terms there first.)
+//
+// Dataflow. One CTA of 256 threads (two warpgroups) owns the 128 x 64 tile
+// dw[kb * 128 .., nb * 64 ..] and one run of the 128-row blocks of M (M is
+// cut into S runs so that the CTAs fill the card: the wrapper's plan,
+// backward.py::dw_plan, from the shape alone). The n tile is 64, so N = 64
+// (res1) is not padded; the k tile is one vld column block, so a block is
+// skipped or visited whole. For each visited block, in a ring of three
+// cp.async stages filled two blocks ahead: the block's f32 g rows [128 x
+// 64] (16-byte copies, zero outside M and N) and its x [128 x 128] (int8,
+// 16 KB, or four words a row, 2 KB). Then all threads write x as bf16 0/1
+// into one of two 128-byte-swizzled tiles (fence.proxy.async, sync), and
+// warpgroup w takes the four 16-row slices of rows 64 w .. 64 w + 63:
+// three wgmmas m64n128k16 a slice, while the next slice's fragments are
+// loaded and split, then the slice's add into the run's sum. Each
+// warpgroup keeps its own sum over its half of every block; the epilogue
+// adds the two (acc0 + acc1) in shared memory and stores the tile's f32
+// partial [S, Kp, Np] with float4s. A second kernel adds the S partials of
+// each output in order s = 0 .. S-1. No float atomics: dw is the same bits
+// on every launch, under every skip, and for a packed x (its bits become
+// the same bf16 tile as the int8 x).
+//
+// Bound on the H100: the data needs 2 * nnz(x) * N operations, three times
+// over in bf16 at 989 TFLOP/s, against reading the kept x blocks and the g
+// rows they need once and writing dw; on the training step's operands the
+// two are close and, summed over the step's launches, the bytes bind. The
+// kernel does the dense product of each visited block (2 * 128 * 128 * 64
+// a CTA, three times) and re-reads g from the L2 for each k tile; what
+// holds it above that is the CUDA-core work between the slices' wgmmas
+// (x to bf16, g's split, a slice's add, for which the slice waits), which
+// the tensor cores sit out. Measured times are in PERF.md.
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "event_gemm.cuh"
+#include "hopper.cuh"
 
-using namespace repro;
+using namespace hopper;
 
 namespace {
 
-// one m block of the CTA's run: acc += x[mb, kb tile]^T @ g[mb, nb tile],
-// leaving out the output rows of the stripes whose bit of `bits` is clear.
-// x is int8 [m, k] or, Packed, int32 words [Mp, kw]
-template <bool Packed>
-__device__ __forceinline__ void dw_block(
-    const void* __restrict__ x, const float* __restrict__ g, int m, int k, int n,
-    int kw, int mb, int col_k, int col_n, unsigned bits, float (&a)[kStep][kTile],
-    float (&b)[kStep][kTile], float (&acc)[kSub][kSub]) {
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  // thread rows ty*8 .. ty*8+7 of the k tile lie in stripe ty / 4
-  const bool rows_on = (bits >> (ty / 4)) & 1u;
-  for (int ms = 0; ms < kTile; ms += kStep) {
-    const int m0 = mb * kTile + ms;
-#pragma unroll 4
-    for (int i = 0; i < kTile * kStep / kThreads; ++i) {
-      const int idx = tid + i * kThreads;
-      const int r = idx / kTile, c = idx % kTile;  // a warp reads one row
-      const int row = m0 + r;
-      const bool row_ok = row < m;
-      float xv = 0.f;
-      if (row_ok && col_k + c < k) {
-        if constexpr (Packed) {  // a warp's 32 columns lie in one word
-          const unsigned word = static_cast<unsigned>(static_cast<const int*>(x)[
-              static_cast<size_t>(row) * kw + (col_k + c) / 32]);
-          xv = ((word >> ((col_k + c) % 32)) & 1u) ? 1.f : 0.f;
-        } else {
-          xv = static_cast<float>(
-              static_cast<const int8_t*>(x)[static_cast<size_t>(row) * k + col_k + c]);
+using repro::kDense;
+using repro::kGated;
+using repro::kTwoLevel;
+
+constexpr int kMB = 128;             // rows of M a block (the vld grid's)
+constexpr int kKT = 128;             // dw rows a CTA (one vld column block)
+constexpr int kNT = 64;              // dw columns a CTA
+constexpr int kThreads = 256;        // two warpgroups, one half of M each
+constexpr int kStages = 3;
+constexpr int kGPitch = kNT + 4;     // floats a staged g row (conflict-free fragment reads)
+constexpr int kGBytes = kMB * kGPitch * 4;
+constexpr int kXBytes = kMB * kKT;   // an int8 block; a packed one uses 2 KB of it
+constexpr int kXbBytes = kMB * kKT * 2;
+constexpr int kAtomBytes = kMB * 128;  // 64 bf16 columns of all 128 rows
+constexpr int kGOff = 2 * kXbBytes;
+constexpr int kXOff = kGOff + kStages * kGBytes;
+constexpr int kSmem = kXOff + kStages * kXBytes + 1024;
+static_assert(kKT * kGPitch * 4 <= kGBytes, "the epilogue tile fits a g stage");
+
+struct Args {
+  const void* x;
+  const float* g;
+  const int* vld;
+  const int* nact_t;
+  const int* mmap;
+  float* partial;
+  int m, k, n, kw, gm, gk, np, kp, per;
+  bool g_vec;   // n % 4 == 0 and g 16-byte aligned: 16-byte copies
+  int x_vec;    // int8 x: 16 (k % 16 == 0, aligned), 4 (k % 4 == 0) or 1
+};
+
+// the visited m blocks of one run, ascending
+struct Walker {
+  const int* vld;
+  const int* list;
+  int gk, kb, mb, end, t, nact;
+
+  template <int Skip>
+  __device__ __forceinline__ int next() {
+    if constexpr (Skip == kDense) {
+      while (mb < end) {
+        const int b = mb++;
+        if (vld[b * gk + kb] != 0) return b;
+      }
+      return -1;
+    } else {
+      if (t < nact) {
+        const int b = list[t];
+        if (b < end) {
+          ++t;
+          return b;
         }
       }
-      a[r][c] = xv;
-      b[r][c] = (row_ok && col_n + c < n) ? g[static_cast<size_t>(row) * n + col_n + c]
-                                          : 0.f;
+      return -1;
     }
-    __syncthreads();
-    if (rows_on) {
+  }
+};
+
+// block mb's g rows and x tile into stage st, asynchronously (the 1-byte x
+// path of a ragged k stores synchronously)
+template <bool Packed>
+__device__ __forceinline__ void stage_block(uint32_t smem, uint8_t* smem_p, int st, int mb,
+                                            const Args& a, int col_k, int col_n) {
+  const int tid = threadIdx.x;
+  const int row0 = mb * kMB;
+  const uint32_t gs = smem + kGOff + st * kGBytes;
+  if (a.g_vec) {
 #pragma unroll
-      for (int mm = 0; mm < kStep; ++mm) {
-        const float4 a0 = *reinterpret_cast<const float4*>(&a[mm][ty * kSub]);
-        const float4 a1 = *reinterpret_cast<const float4*>(&a[mm][ty * kSub + 4]);
-        const float4 b0 = *reinterpret_cast<const float4*>(&b[mm][tx * kSub]);
-        const float4 b1 = *reinterpret_cast<const float4*>(&b[mm][tx * kSub + 4]);
-        const float av[kSub] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float bv[kSub] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    for (int i = 0; i < kMB * kNT / 4 / kThreads; ++i) {
+      const int c = tid + i * kThreads;            // 16 copies a row
+      const int r = c / 16, q = c % 16;
+      const int row = row0 + r, col = col_n + 4 * q;
+      const bool in = row < a.m && col < a.n;
+      cp_async16(gs + (r * kGPitch + 4 * q) * 4,
+                 in ? a.g + static_cast<size_t>(row) * a.n + col : a.g, in);
+    }
+  } else {
+#pragma unroll 4
+    for (int i = 0; i < kMB * kNT / kThreads; ++i) {
+      const int c = tid + i * kThreads;
+      const int r = c / kNT, q = c % kNT;
+      const int row = row0 + r, col = col_n + q;
+      const bool in = row < a.m && col < a.n;
+      cp_async4(gs + (r * kGPitch + q) * 4,
+                in ? a.g + static_cast<size_t>(row) * a.n + col : a.g, in);
+    }
+  }
+  const uint32_t xs = smem + kXOff + st * kXBytes;
+  if constexpr (Packed) {
+    // the words lie on the 128 x 128 grid: a row's 128 columns are 4 words
+    if (tid < kMB)
+      cp_async16(xs + tid * 16,
+                 static_cast<const int*>(a.x) + static_cast<size_t>(row0 + tid) * a.kw +
+                     col_k / 32,
+                 true);
+  } else {
+    const int8_t* x = static_cast<const int8_t*>(a.x);
+    if (a.x_vec == 16) {
 #pragma unroll
-        for (int i = 0; i < kSub; ++i)
-#pragma unroll
-          for (int j = 0; j < kSub; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      for (int i = 0; i < kMB * kKT / 16 / kThreads; ++i) {
+        const int c = tid + i * kThreads;          // 8 copies a row
+        const int r = c / 8, q = c % 8;
+        const int row = row0 + r, col = col_k + 16 * q;
+        const bool in = row < a.m && col < a.k;
+        cp_async16(xs + r * kKT + 16 * q, in ? x + static_cast<size_t>(row) * a.k + col : x,
+                   in);
+      }
+    } else if (a.x_vec == 4) {
+#pragma unroll 4
+      for (int i = 0; i < kMB * kKT / 4 / kThreads; ++i) {
+        const int c = tid + i * kThreads;
+        const int r = c / 32, q = c % 32;
+        const int row = row0 + r, col = col_k + 4 * q;
+        const bool in = row < a.m && col < a.k;
+        cp_async4(xs + r * kKT + 4 * q, in ? x + static_cast<size_t>(row) * a.k + col : x,
+                  in);
+      }
+    } else {
+      int8_t* dst = reinterpret_cast<int8_t*>(smem_p + kXOff + st * kXBytes);
+      for (int i = 0; i < kMB * kKT / kThreads; ++i) {
+        const int c = tid + i * kThreads;
+        const int r = c / kKT, q = c % kKT;
+        const int row = row0 + r, col = col_k + q;
+        dst[r * kKT + q] =
+            (row < a.m && col < a.k) ? x[static_cast<size_t>(row) * a.k + col] : int8_t{0};
       }
     }
-    __syncthreads();
+  }
+}
+
+__device__ __forceinline__ uint32_t bf16_pair(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+// the bf16 of two int8 values, exact
+__device__ __forceinline__ uint32_t int8_pair(uint32_t word, int byte) {
+  const float lo = static_cast<float>(static_cast<int8_t>(word >> (8 * byte)));
+  const float hi = static_cast<float>(static_cast<int8_t>(word >> (8 * byte + 8)));
+  return bf16_pair(__float2bfloat16_rn(lo), __float2bfloat16_rn(hi));
+}
+
+// bf16 1.0 or 0.0 for bits i and i + 1 of a packed word
+__device__ __forceinline__ uint32_t bit_pair(uint32_t word, int i) {
+  return ((word >> i) & 1u) * 0x3F80u | ((word >> (i + 1)) & 1u) * 0x3F800000u;
+}
+
+// 8 bf16 of row r, columns col .. col + 7 (col % 8 == 0) of the swizzled
+// x tile: 64-column atoms of 128 rows, 16-byte chunks XOR-ed by r % 8
+__device__ __forceinline__ void store_chunk(uint8_t* xb, int r, int col, uint4 v) {
+  const int chunk = (col % 64) / 8;
+  *reinterpret_cast<uint4*>(xb + (col / 64) * kAtomBytes + r * 128 +
+                            ((chunk ^ (r % 8)) << 4)) = v;
+}
+
+// the staged x of stage st as bf16 0/1 into the swizzled tile xb
+template <bool Packed>
+__device__ __forceinline__ void convert_block(const uint8_t* xs, uint8_t* xb) {
+  const int tid = threadIdx.x;
+  if constexpr (Packed) {
+#pragma unroll
+    for (int i = 0; i < kMB * 4 / kThreads; ++i) {
+      const int c = tid + i * kThreads;            // row c / 4, word c % 4
+      const int r = c / 4, wq = c % 4;
+      const uint32_t word = reinterpret_cast<const uint32_t*>(xs)[r * 4 + wq];
+#pragma unroll
+      for (int ch = 0; ch < 4; ++ch)
+        store_chunk(xb, r, 32 * wq + 8 * ch,
+                    make_uint4(bit_pair(word, 8 * ch), bit_pair(word, 8 * ch + 2),
+                               bit_pair(word, 8 * ch + 4), bit_pair(word, 8 * ch + 6)));
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kMB * kKT / 8 / kThreads; ++i) {
+      const int c = tid + i * kThreads;            // row c / 16, chunk c % 16
+      const int r = c / 16, ch = c % 16;
+      const uint2 raw = *reinterpret_cast<const uint2*>(xs + r * kKT + 8 * ch);
+      store_chunk(xb, r, 8 * ch,
+                  make_uint4(int8_pair(raw.x, 0), int8_pair(raw.x, 2), int8_pair(raw.y, 0),
+                             int8_pair(raw.y, 2)));
+    }
+  }
+}
+
+// g = g1 + g2 + g3 exactly, each a bf16 (see the head note), for the pair
+// (x0, y0) of one A-fragment register (x0 the low half)
+__device__ __forceinline__ void split_g_bf16x3(float x0, float y0, uint32_t& p1,
+                                             uint32_t& p2, uint32_t& p3) {
+  const uint32_t xb = __float_as_uint(x0), yb = __float_as_uint(y0);
+  p1 = __byte_perm(xb, yb, 0x7632);
+  const float xr = __fsub_rn(x0, __uint_as_float(xb & 0xFFFF0000u));
+  const float yr = __fsub_rn(y0, __uint_as_float(yb & 0xFFFF0000u));
+  const uint32_t xrb = __float_as_uint(xr), yrb = __float_as_uint(yr);
+  p2 = __byte_perm(xrb, yrb, 0x7632);
+  const float x3 = __fsub_rn(xr, __uint_as_float(xrb & 0xFFFF0000u));
+  const float y3 = __fsub_rn(yr, __uint_as_float(yrb & 0xFFFF0000u));
+  p3 = bf16_pair(__float2bfloat16_rn(x3), __float2bfloat16_rn(y3));
+}
+
+// slice q's A fragments: rows (n) r, r + 8 and columns (m) 16 q + c, + 1,
+// + 8, + 9 of the staged g tile gs [128 m][kGPitch], split in three
+__device__ __forceinline__ void slice_fragments(const float* gs, int q, int r, int c,
+                                                uint32_t (&f)[3][4]) {
+  const float* p = gs + (16 * q + c) * kGPitch + r;
+  const float v[8] = {p[0],               p[kGPitch],               p[8],
+                      p[kGPitch + 8],     p[8 * kGPitch],           p[9 * kGPitch],
+                      p[8 * kGPitch + 8], p[9 * kGPitch + 8]};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    split_g_bf16x3(v[2 * i], v[2 * i + 1], f[0][i], f[1][i], f[2][i]);
+}
+
+// acc += g^T x over warpgroup wg's four 16-row slices of one block, x the
+// swizzled bf16 tile at xb_addr. A slice's three products go to a fresh
+// tile, blk (the first overwrites it), which joins acc with a correctly
+// rounded add: the tensor cores' own accumulation (rounding toward zero)
+// chains at most three products. The next slice's fragments are split
+// while a slice's wgmmas run.
+__device__ __forceinline__ void multiply_block(float (&acc)[64], float (&blk)[64],
+                                               const float* gs, uint32_t xb_addr, int wg,
+                                               int warp, int lane) {
+  const int r = 16 * warp + lane / 4;          // the fragment's n rows r, r + 8
+  const int c = 2 * (lane % 4);                // and m columns c, c + 1, c + 8, c + 9
+  uint32_t f[2][3][4];
+  slice_fragments(gs, 4 * wg, r, c, f[0]);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int q = 4 * wg + kk;                 // rows 16 q .. 16 q + 15 of the block
+    const uint64_t b = smem_desc(xb_addr + q * 16 * 128, kAtomBytes, 8 * 128, kSwizzle128);
+    wgmma_fence();
+    Wgmma<128>::rs(blk, f[kk % 2][0], b, 0);
+    Wgmma<128>::rs(blk, f[kk % 2][1], b);
+    Wgmma<128>::rs(blk, f[kk % 2][2], b);
+    wgmma_commit();
+    if (kk < 3) slice_fragments(gs, q + 1, r, c, f[(kk + 1) % 2]);
+    wgmma_wait<0>();
+    fence_regs(blk);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = __fadd_rn(acc[i], blk[i]);
   }
 }
 
 template <int Skip, bool Packed>
-__global__ void __launch_bounds__(kThreads)
-spike_matmul_dw_kernel(const void* __restrict__ x, const float* __restrict__ g,
-                       const int* __restrict__ vld, const int* __restrict__ nact_t,
-                       const int* __restrict__ mmap, const int* __restrict__ occ,
-                       float* __restrict__ partial, int m, int k, int n,
-                       int blocks_per_split) {
-  __shared__ __align__(16) float a[kStep][kTile];  // x tile: a[m][k]
-  __shared__ __align__(16) float b[kStep][kTile];  // g tile: b[m][n]
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+__global__ void __launch_bounds__(kThreads, 1)
+spike_matmul_dw_kernel(const __grid_constant__ Args a) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  uint8_t* base_p = smem_raw + (base - smem_u32(smem_raw));
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
   const int nb = blockIdx.x, kb = blockIdx.y, s = blockIdx.z;
-  const int gk = (k + kTile - 1) / kTile, gm = (m + kTile - 1) / kTile;
-  const int kp = gk * kTile, np = gridDim.x * kTile, kw = kp / 32;
-  const int col_k = kb * kTile, col_n = nb * kTile;
-  const int mb_begin = s * blocks_per_split;
-  const int mb_end = min(gm, mb_begin + blocks_per_split);
+  const int col_k = kb * kKT, col_n = nb * kNT;
+  const int mb_begin = s * a.per, mb_end = min(a.gm, mb_begin + a.per);
 
-  float acc[kSub][kSub];
-#pragma unroll
-  for (int i = 0; i < kSub; ++i)
-#pragma unroll
-    for (int j = 0; j < kSub; ++j) acc[i][j] = 0.f;
-
-  if constexpr (Skip == kDense) {
-    for (int mb = mb_begin; mb < mb_end; ++mb) {
-      if (vld[mb * gk + kb] == 0) continue;  // event skip (uniform)
-      dw_block<Packed>(x, g, m, k, n, kw, mb, col_k, col_n, 0xffffffffu, a, b, acc);
+  Walker walk{a.vld, nullptr, a.gk, kb, mb_begin, mb_end, 0, 0};
+  if constexpr (Skip != kDense) {
+    // the run's first entry of the ascending list: a lower bound
+    walk.list = a.mmap + static_cast<size_t>(kb) * a.gm;
+    walk.nact = a.nact_t[kb];
+    int lo = 0, hi = walk.nact;
+    while (lo < hi) {
+      const int mid = (lo + hi) / 2;
+      if (walk.list[mid] < mb_begin) lo = mid + 1; else hi = mid;
     }
-  } else {
-    // the non-silent m blocks of k block kb, ascending: those of this run
-    const int* list = mmap + static_cast<size_t>(kb) * gm;
-    for (int t = 0; t < nact_t[kb]; ++t) {
-      const int mb = list[t];
-      if (mb < mb_begin) continue;
-      if (mb >= mb_end) break;
-      unsigned bits = 0xffffffffu;
-      if constexpr (Skip == kTwoLevel) bits = static_cast<unsigned>(occ[mb * gk + kb]);
-      dw_block<Packed>(x, g, m, k, n, kw, mb, col_k, col_n, bits, a, b, acc);
-    }
+    walk.t = lo;
   }
 
-  float* out = partial + static_cast<size_t>(s) * kp * np;
+  float acc[64], blk[64];
 #pragma unroll
-  for (int i = 0; i < kSub; ++i) {
-    float* op = out + static_cast<size_t>(col_k + ty * kSub + i) * np + col_n + tx * kSub;
-    *reinterpret_cast<float4*>(op) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    *reinterpret_cast<float4*>(op + 4) = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  int cur = walk.next<Skip>();
+  int nxt = -1;
+  if (cur >= 0) stage_block<Packed>(base, base_p, 0, cur, a, col_k, col_n);
+  cp_async_commit();
+  if (cur >= 0) {
+    nxt = walk.next<Skip>();
+    if (nxt >= 0) stage_block<Packed>(base, base_p, 1, nxt, a, col_k, col_n);
+  }
+  cp_async_commit();
+
+  for (int j = 0; cur >= 0; ++j) {
+    const int st = j % kStages;
+    cp_async_wait<1>();
+    __syncthreads();   // block j staged; every thread is past block j - 1
+    const int after = nxt >= 0 ? walk.next<Skip>() : -1;
+    if (after >= 0) stage_block<Packed>(base, base_p, (j + 2) % kStages, after, a, col_k, col_n);
+    cp_async_commit();
+    uint8_t* xb = base_p + (j % 2) * kXbBytes;
+    convert_block<Packed>(base_p + kXOff + st * kXBytes, xb);
+    fence_proxy_async();
+    __syncthreads();
+    multiply_block(acc, blk, reinterpret_cast<const float*>(base_p + kGOff + st * kGBytes),
+                   base + (j % 2) * kXbBytes, wg, warp, lane);
+    cur = nxt;
+    nxt = after;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // acc0 + acc1 through a [128 k][kGPitch] f32 tile over g's stage 0;
+  // register 4 j + e is n = 16 warp + lane / 4 + 8 (e / 2), k = 8 j +
+  // 2 (lane % 4) + e % 2
+  float* tile = reinterpret_cast<float*>(base_p + kGOff);
+  const int n0 = 16 * warp + lane / 4, k0 = 2 * (lane % 4);
+  if (wg == 1) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i)
+      tile[(8 * (i / 4) + k0 + i % 2) * kGPitch + n0 + 8 * ((i / 2) % 2)] = acc[i];
+  }
+  __syncthreads();
+  if (wg == 0) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      float* t = tile + (8 * (i / 4) + k0 + i % 2) * kGPitch + n0 + 8 * ((i / 2) % 2);
+      *t = __fadd_rn(acc[i], *t);
+    }
+  }
+  __syncthreads();
+  float* out = a.partial + (static_cast<size_t>(s) * a.kp + col_k) * a.np + col_n;
+#pragma unroll
+  for (int i = 0; i < kKT * kNT / 4 / kThreads; ++i) {
+    const int c = tid + i * kThreads;              // 16 float4s a row
+    const int r = c / 16, q = c % 16;
+    *reinterpret_cast<float4*>(out + static_cast<size_t>(r) * a.np + 4 * q) =
+        *reinterpret_cast<const float4*>(tile + r * kGPitch + 4 * q);
   }
 }
 
@@ -166,45 +428,60 @@ __global__ void dw_sum_kernel(const float* __restrict__ partial, float* __restri
   dw[i] = s;
 }
 
-template <bool Packed>
-void launch_dw(const void* x, const float* g, const int* vld, const int* nact_t,
-               const int* mmap, const int* occ, float* partial, int m, int k, int n,
-               int blocks_per_split, int skip, dim3 grid, cudaStream_t stream) {
-  if (skip == kDense)
-    spike_matmul_dw_kernel<kDense, Packed><<<grid, kThreads, 0, stream>>>(
-        x, g, vld, nact_t, mmap, occ, partial, m, k, n, blocks_per_split);
-  else if (skip == kGated)
-    spike_matmul_dw_kernel<kGated, Packed><<<grid, kThreads, 0, stream>>>(
-        x, g, vld, nact_t, mmap, occ, partial, m, k, n, blocks_per_split);
-  else
-    spike_matmul_dw_kernel<kTwoLevel, Packed><<<grid, kThreads, 0, stream>>>(
-        x, g, vld, nact_t, mmap, occ, partial, m, k, n, blocks_per_split);
+template <int Skip, bool Packed>
+int launch_dw(const Args& a, dim3 grid, cudaStream_t stream) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        spike_matmul_dw_kernel<Skip, Packed>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attr_set = true;
+  }
+  spike_matmul_dw_kernel<Skip, Packed><<<grid, kThreads, kSmem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
+
+template <bool Packed>
+int launch_skip(const Args& a, int skip, dim3 grid, cudaStream_t stream) {
+  if (skip == kDense) return launch_dw<kDense, Packed>(a, grid, stream);
+  // the two-level walk is the gated one (see the head note)
+  return launch_dw<kGated, Packed>(a, grid, stream);
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 
-// x [m, k] int8 or, packed != 0, [mp, kp/32] int32 words (mp: m rounded
-// up to 128), g [m, n] f32, partial [splits, kp, np] f32 scratch (kp, np:
-// k, n rounded up to 128) -> dw [k, n] f32. CTA s covers the 128-row
+// x [m, k] int8 or, packed != 0, [mp, kp/32] int32 words (mp, kp: m, k
+// rounded up to 128), g [m, n] f32, partial [splits, kp, np] f32 scratch
+// (np: n rounded up to 64) -> dw [k, n] f32. CTA s covers the 128-row
 // blocks [s * blocks_per_split, (s + 1) * blocks_per_split). The route
 // (skip, see event_gemm.cuh): kDense reads vld [gm, gk] (gm, gk: m, k
-// over 128, rounded up); kGated nact_t [gk] and mmap [gk, gm], the
-// compacted transposed vld map; kTwoLevel also occ [gm, gk].
+// over 128, rounded up); kGated and kTwoLevel nact_t [gk] and mmap [gk,
+// gm], the compacted transposed vld map (kTwoLevel walks as kGated: see
+// the head note). partial and the words are 16-byte aligned.
 extern "C" int repro_spike_matmul_dw(const void* x, const float* g, const int* vld,
-                                     const int* nact_t, const int* mmap, const int* occ,
-                                     float* partial, float* dw, int m, int k, int n,
-                                     int splits, int blocks_per_split, int skip,
-                                     int packed, cudaStream_t stream) {
-  if (skip < kDense || skip > kTwoLevel) return static_cast<int>(cudaErrorInvalidValue);
+                                     const int* nact_t, const int* mmap, float* partial,
+                                     float* dw, int m, int k, int n, int splits,
+                                     int blocks_per_split, int skip, int packed,
+                                     cudaStream_t stream) {
+  if (skip < kDense || skip > kTwoLevel || !aligned16(partial) ||
+      (packed && !aligned16(x)))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (k > 0 && n > 0) {
-    const int kp = (k + kTile - 1) / kTile * kTile, np = (n + kTile - 1) / kTile * kTile;
-    const dim3 grid(np / kTile, kp / kTile, splits);
-    if (packed)
-      launch_dw<true>(x, g, vld, nact_t, mmap, occ, partial, m, k, n, blocks_per_split,
-                      skip, grid, stream);
-    else
-      launch_dw<false>(x, g, vld, nact_t, mmap, occ, partial, m, k, n, blocks_per_split,
-                       skip, grid, stream);
+    const int gm = (m + kMB - 1) / kMB, gk = (k + kKT - 1) / kKT;
+    const int kp = gk * kKT, np = (n + kNT - 1) / kNT * kNT;
+    // an int8 x's copies: 16 bytes, 4, or one at a time (a ragged k)
+    int x_vec = 1;
+    if (k % 16 == 0 && aligned16(x)) x_vec = 16;
+    else if (k % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0) x_vec = 4;
+    Args a{x, g, vld, nact_t, mmap, partial, m, k, n, kp / 32, gm, gk, np, kp,
+           blocks_per_split, n % 4 == 0 && aligned16(g), x_vec};
+    const dim3 grid(np / kNT, gk, splits);
+    const int err = packed ? launch_skip<true>(a, skip, grid, stream)
+                           : launch_skip<false>(a, skip, grid, stream);
+    if (err != 0) return err;
     const size_t total = static_cast<size_t>(k) * n;
     dw_sum_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(
         partial, dw, k, n, kp, np, splits);

@@ -59,8 +59,8 @@ _SIGNATURES = {
     "repro_w2ttfs_pool": [_VOID_P] * 4 + [_I] * 6 + [_F, _VOID_P],
     "repro_pack_spikes": [_VOID_P] * 4 + [_I] * 5 + [_VOID_P],
     "repro_unpack_spikes": [_VOID_P] * 2 + [_LL, _VOID_P],
-    "repro_spike_matmul_dx": [_VOID_P] * 5 + [_I] * 4 + [_F] * 5 + [_VOID_P],
-    "repro_spike_matmul_dw": [_VOID_P] * 8 + [_I] * 7 + [_VOID_P],
+    "repro_spike_matmul_dx": [_VOID_P] * 5 + [_I] * 5 + [_F] * 5 + [_VOID_P],
+    "repro_spike_matmul_dw": [_VOID_P] * 7 + [_I] * 7 + [_VOID_P],
     "repro_qk_attention": [_VOID_P] * 3 + [_LL, _I, _F, _I, _VOID_P],
     "repro_flash_attention": [_VOID_P] * 4 + [_I] * 5 + [_F, _I, _I, _VOID_P],
     "repro_flash_attention_wgmma": [_VOID_P] * 4 + [_I] * 5

@@ -13,10 +13,14 @@ the reference's ``kernels/spike_matmul/backward.py`` entry points:
 
 Both take unpadded operands (the kernels check their bounds; packed words
 come padded to the grid). The kernels run on CUDA tensors, the plain
-versions (``ref.py``) on CPU tensors.
+versions (``ref.py``) on CPU tensors. Each kernel's cut of the work is
+planned here, from the shape alone: ``dx_plan`` picks the width of dx's
+tiles, ``dw_plan`` the runs of M that dw's CTAs sum apart and the length
+of the chain of f32 adds into one output that follows from them.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional, Union
 
@@ -34,10 +38,90 @@ from .ref import (spike_matmul_dw_gated_ref, spike_matmul_dw_ref,
 TILE = 128
 # the surrogate argument of repro_spike_matmul_dx (0: dv = g)
 SURROGATE_IDS = {"atan": 1, "sigmoid": 2, "triangle": 3, "rect": 4}
-# dw cuts M into runs so that about this many CTAs are in flight (4 on
-# each of the H100's 132 SMs); a constant, so the cut, and with it the
-# order of the f32 sums, depends on the shape alone
-DW_TARGET_CTAS = 4 * 132
+# the H100's SMs: the plans assume them (a constant, so a plan, and with
+# it the order of dw's f32 sums, depends on the shape alone)
+SMS = 132
+# dx: a tile is 128 rows by block_k columns; per width, the warps of a
+# CTA (8 x 8 outputs a thread at 64 and 128, 8 x 12 at 192), the CTAs one
+# SM holds at once (their registers), and the per-element cost, in FMAs,
+# of forming a step's dv tile (surrogate, transposed store) that every k
+# tile of a row block pays
+DX_BLOCK_K = (192, 128, 64)
+DX_WARPS = {64: 4, 128: 8, 192: 8}
+DX_RESIDENT = {64: 2, 128: 1, 192: 1}
+DX_STEP_COST = 16
+# dw: a CTA's tile is 128 rows (one vld column block) by 64 columns of dw;
+# one CTA an SM (its shared memory); a warpgroup takes 64 rows of each
+# visited 128-row block in 16-row slices, whose three products (g's three
+# bf16 terms) the tensor cores chain before a correctly rounded add joins
+# them to the run's sum
+DW_TILE_K, DW_TILE_N = 128, 64
+DW_TC_ADDS = 3
+DW_SLICES = TILE // 2 // 16
+# a CTA's fixed cost (pipeline fill, epilogue, partial) in blocks
+DW_CTA_BLOCKS = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class DxPlan:
+    """dx's cut: tiles of 128 rows by ``block_k`` columns, ``ktiles`` of
+    them across K and ``mtiles`` down M."""
+    block_k: int
+    mtiles: int
+    ktiles: int
+
+
+def dx_plan(m: int, n: int, k: int) -> DxPlan:
+    """The dx tile width for an [M, N] @ [K, N]^T launch: the least
+    estimated time over 64, 128 and 192 (ties to the wider), where a
+    width's time is its tiles an SM (the grid is persistent) times a
+    tile's work, ``block_k + DX_STEP_COST`` FMAs a (row, n), over how well
+    that many CTAs fill an SM (8 warps do). K = 576 .. 4608 (multiples of
+    192) take 192-wide tiles with no padded column."""
+    mtiles = max(1, -(-m // TILE))
+    best = None
+    for bk in DX_BLOCK_K:
+        ktiles = max(1, -(-k // bk))
+        per_sm = -(-mtiles * ktiles // SMS)
+        warps = min(per_sm, DX_RESIDENT[bk]) * DX_WARPS[bk]
+        cost = per_sm * (bk + DX_STEP_COST) / min(1.0, warps / 8)
+        if best is None or cost < best[0]:
+            best = (cost, DxPlan(bk, mtiles, ktiles))
+    return best[1]
+
+
+@dataclasses.dataclass(frozen=True)
+class DwPlan:
+    """dw's cut: M's 128-row blocks in ``splits`` runs of ``per`` blocks
+    (the last may be shorter), each summed by its own CTAs into an f32
+    partial; the partials are added in order. ``chain`` is the longest
+    chain of f32 adds into one output: a slice's tensor-core
+    accumulations (``DW_TC_ADDS``), the run's correctly rounded adds of
+    its slices' sums (``DW_SLICES`` a block), the two warpgroups' sum,
+    then the partials."""
+    splits: int
+    per: int
+    chain: int
+
+
+def dw_plan(m: int, k: int, n: int) -> DwPlan:
+    """The dw kernel's cut of M for x [M, K] and g [M, N]: the run length
+    that minimises the estimated time, the waves of CTAs (one an SM) times
+    a CTA's blocks plus its fixed cost (ties to fewer runs)."""
+    mblocks = max(1, -(-m // TILE))
+    tiles = -(-k // DW_TILE_K) * -(-n // DW_TILE_N)
+    best = None
+    for per in range(1, mblocks + 1):
+        splits = -(-mblocks // per)
+        if splits * per - mblocks >= per:
+            continue                   # the same cut as a shorter run
+        waves = -(-max(tiles, 1) * splits // SMS)
+        cost = waves * (per + DW_CTA_BLOCKS)
+        if best is None or cost < best[0] or (cost == best[0]
+                                               and splits < best[1]):
+            best = (cost, splits, per)
+    _, splits, per = best
+    return DwPlan(splits, per, DW_TC_ADDS + DW_SLICES * per + 1 + splits)
 
 
 def _check_dx_args(g, w, v, surrogate):
@@ -67,6 +151,7 @@ def spike_matmul_dx_cuda(g: torch.Tensor, w: torch.Tensor,
     _build.require(w, "w", torch.float32, (k, n), dev, align=4)
     if v is not None:
         _build.require(v, "v", torch.float32, (m, n), dev, align=4)
+    plan = dx_plan(m, n, k)
     dx = torch.empty((m, k), dtype=torch.float32, device=dev)
     dv = (torch.empty((m, n), dtype=torch.float32, device=dev)
           if v is not None else None)
@@ -74,9 +159,10 @@ def spike_matmul_dx_cuda(g: torch.Tensor, w: torch.Tensor,
     # f32 once, as JAX rounds a Python float meeting an f32 array
     err = _build.library().repro_spike_matmul_dx(
         _build.ptr(g), _build.ptr(v), _build.ptr(w), _build.ptr(dx),
-        _build.ptr(dv), m, n, k, SURROGATE_IDS[surrogate] if v is not None
-        else 0, alpha, math.pi / 2.0 * alpha, alpha * alpha, 0.5 / alpha,
-        v_th, _build.stream(g))
+        _build.ptr(dv), m, n, k,
+        SURROGATE_IDS[surrogate] if v is not None else 0, plan.block_k, alpha,
+        math.pi / 2.0 * alpha, alpha * alpha, 0.5 / alpha, v_th,
+        _build.stream(g))
     _build.check(err, "repro_spike_matmul_dx")
     return dx, (g if v is None else dv)
 
@@ -110,15 +196,6 @@ def vld_map(x: torch.Tensor) -> torch.Tensor:
     """int32 [ceil(M/128), ceil(K/128)] spike count per 128x128 block of an
     unpadded [M, K] map."""
     return block_count_map_2d(pad_to_blocks(x, TILE, TILE), TILE, TILE)
-
-
-def dw_splits(m: int, k: int, n: int) -> tuple[int, int]:
-    """(splits, 128-row blocks per split) of the dw kernel's cut of M."""
-    mblocks = max(1, -(-m // TILE))
-    tiles = -(-k // TILE) * -(-n // TILE)
-    want = max(1, min(mblocks, -(-DW_TARGET_CTAS // max(tiles, 1))))
-    per = -(-mblocks // want)
-    return -(-mblocks // per), per
 
 
 SpikeX = Union[torch.Tensor, PackedSpikes]
@@ -158,7 +235,7 @@ def _dw_launch(x: SpikeX, g: torch.Tensor, vld: Optional[torch.Tensor],
     gm, gk = -(-m // TILE), -(-k // TILE)
     if packed:
         _build.require(xt, "x words", torch.int32,
-                       (gm * TILE, gk * TILE // LANE_BITS), dev, align=4)
+                       (gm * TILE, gk * TILE // LANE_BITS), dev, align=16)
     else:
         _build.require(xt, "x", torch.int8, (m, k), dev, align=1)
     _build.require(g, "g", torch.float32, (m, n), dev, align=4)
@@ -166,21 +243,22 @@ def _dw_launch(x: SpikeX, g: torch.Tensor, vld: Optional[torch.Tensor],
         _build.require(vld, "vld_cnt", torch.int32, (gm, gk), dev, align=4)
         skip = "dense"
     else:
+        # a two-level gate's occ is the plain version's: the kernel walks
+        # it as the gated one (csrc/spike_matmul_dw.cu's note)
         _build.require(gate.nact, "nact_t", torch.int32, (gk,), dev, align=4)
         _build.require(gate.kmap, "mmap", torch.int32, (gk, gm), dev, align=4)
-        if gate.occ is not None:
-            _build.require(gate.occ, "occ", torch.int32, (gm, gk), dev,
-                           align=4)
         skip = gate.skip
-    splits, per = dw_splits(m, k, n)
-    kp, np_ = gk * TILE, -(-n // TILE) * TILE
-    partial = torch.empty((splits, kp, np_), dtype=torch.float32, device=dev)
+    plan = dw_plan(m, k, n)
+    kp, np_ = gk * TILE, -(-n // DW_TILE_N) * DW_TILE_N
+    partial = torch.empty((plan.splits, kp, np_), dtype=torch.float32,
+                          device=dev)
     dw = torch.empty((k, n), dtype=torch.float32, device=dev)
-    nact_t, mmap, occ = gate if gate is not None else (None, None, None)
+    nact_t, mmap = (gate.nact, gate.kmap) if gate is not None else (None, None)
     err = _build.library().repro_spike_matmul_dw(
         _build.ptr(xt), _build.ptr(g), _build.ptr(vld), _build.ptr(nact_t),
-        _build.ptr(mmap), _build.ptr(occ), _build.ptr(partial), _build.ptr(dw),
-        m, k, n, splits, per, SKIP_IDS[skip], int(packed), _build.stream(g))
+        _build.ptr(mmap), _build.ptr(partial), _build.ptr(dw),
+        m, k, n, plan.splits, plan.per, SKIP_IDS[skip], int(packed),
+        _build.stream(g))
     _build.check(err, "repro_spike_matmul_dw")
     return dw
 
@@ -196,8 +274,9 @@ def spike_matmul_dw_cuda(x: SpikeX, g: torch.Tensor,
 
 def spike_matmul_dw_gated_cuda(x: SpikeX, g: torch.Tensor,
                                gate: Gate) -> torch.Tensor:
-    """Launch the gated (with ``gate.occ``, two-level) dw kernel on the
-    walk of ``dw_gate``. Returns dw [K, N] f32. Does not count."""
+    """Launch the gated dw kernel on the walk of ``dw_gate`` (a two-level
+    gate's walk is the gated one's). Returns dw [K, N] f32. Does not
+    count."""
     return _dw_launch(x, g, None, gate)
 
 

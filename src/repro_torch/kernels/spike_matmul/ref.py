@@ -1,5 +1,6 @@
 """Plain versions of the event-driven spike matmul and of its backward
-(the data- and weight-gradient kernels)."""
+(the data- and weight-gradient kernels), and the plain twin of the dw
+kernel's arithmetic: g split into three bf16 terms, three products."""
 from __future__ import annotations
 
 from typing import Optional
@@ -122,3 +123,36 @@ def spike_matmul_dw_gated_ref(x, g: torch.Tensor, gate) -> torch.Tensor:
                                               device=occ.device)
                                  .expand(gm, gk), occ, (gm * 128, gk * 128))
     return (x.to(torch.float32) * mask[:m, :k]).T @ g.to(torch.float32)
+
+
+def split_g_bf16x3(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """f32 g as three bf16 terms, the split the dw kernel makes of g before
+    its tensor-core products: g1 is g with its low 16 bits cleared, g2 the
+    same of r = g - g1, g3 = r - g2 rounded to nearest (each difference is
+    exact in f32). The first two round toward zero, so no finite g, and no
+    partial sum g1 + g2, overflows. g1 + g2 + g3 == g for every finite f32
+    with |g| >= 2**-110, where every term's bits lie within bf16's range;
+    below, the sum is within 2**-134 (half of bf16's least step) of g."""
+    g = g.to(torch.float32)
+
+    def high(t):
+        return (t.view(torch.int32) & -65536).view(torch.float32)
+
+    g1 = high(g)
+    r = g - g1
+    g2 = high(r)
+    return (g1.to(torch.bfloat16), g2.to(torch.bfloat16),
+            (r - g2).to(torch.bfloat16))
+
+
+def spike_matmul_dw_split_ref(x, g: torch.Tensor,
+                              vld: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """dw the way the kernel forms it: ``spike_matmul_dw_ref`` as the sum
+    of three products, x^T g1 + x^T g2 + x^T g3 over ``split_g_bf16x3(g)``
+    (each product of 0/1 and a bf16 is exact; the sums are f32)."""
+    g1, g2, g3 = split_g_bf16x3(g)
+    return ((spike_matmul_dw_ref(x, g1.float(), vld)
+             + spike_matmul_dw_ref(x, g2.float(), vld))
+            + spike_matmul_dw_ref(x, g3.float(), vld))

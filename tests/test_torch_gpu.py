@@ -300,6 +300,71 @@ def test_spike_matmul_dw_kernel_matches_plain(cuda, density, m, n, k):
     assert not bool(dw[:128].any())
 
 
+# (M, K, N) of the KD step's dx and dw launches (QKFResNet-11 at batch
+# 256: the fused PE passes, then the shortcut matmuls) and ragged ones: M
+# not a multiple of 128, K % 4 != 0 (dx's scalar stores, dw's byte-wise x
+# copies), K % 16 != 0 (dw's 4-byte copies), N % 4 != 0 (scalar loads)
+BACKWARD_SHAPES = [(262144, 576, 64), (65536, 576, 128), (65536, 1152, 128),
+                   (16384, 1152, 256), (16384, 2304, 256), (4096, 2304, 512),
+                   (4096, 4608, 512), (4096, 512, 512), (65536, 64, 128),
+                   (16384, 128, 256), (4096, 256, 512), (4059, 500, 300),
+                   (4059, 200, 300), (300, 201, 150), (1000, 130, 66)]
+
+
+@pytest.mark.parametrize("surrogate", ["atan", "sigmoid", "triangle", "rect",
+                                       None])
+@pytest.mark.parametrize("m,k,n", BACKWARD_SHAPES)
+def test_dx_kernel_at_path_shapes(cuda, m, k, n, surrogate):
+    """dx and dv within rtol 1e-5, atol 1e-4 of the plain version at every
+    tile width the planner picks, for the four surrogates and without v."""
+    from repro_torch.kernels import spike_matmul as K
+
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    g = torch.randn((m, n), generator=gen, device=cuda)
+    w = torch.randn((k, n), generator=gen, device=cuda) * (2.0 / k ** 0.5)
+    v = None if surrogate is None else \
+        1.0 + 0.5 * torch.randn((m, n), generator=gen, device=cuda)
+    surr = surrogate or "atan"
+    dx, dv = K.spike_matmul_dx_cuda(g, w, v, surr, 2.0, 1.0)
+    rdx, rdv = K.spike_matmul_dx_ref(g, w, v, surrogate=surr, alpha=2.0,
+                                     v_th=1.0)
+    torch.testing.assert_close(dx, rdx, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(dv, rdv, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("m,k,n", BACKWARD_SHAPES)
+def test_dw_kernel_at_path_shapes(cuda, m, k, n):
+    """dw within the f64 gate of chip_smoke.check_dw (3 sqrt(n) u |x|^T|g|,
+    n the plan's chain of adds); the same bits on a second launch, under
+    the gated and two-level walks, and for packed x under every skip; NaN
+    in the g rows of wholly silent row blocks changes no bit."""
+    from repro_torch.kernels import spike_matmul as K
+    from repro_torch.kernels.packed import pack_spikes
+
+    gen = torch.Generator(device=cuda).manual_seed(m + 2 * k + 3 * n)
+    x = _spikes(gen, m, k, 0.2, cuda)
+    x[:, 128:256] = 0                             # a silent column block
+    g = torch.randn((m, n), generator=gen, device=cuda)
+    vld = K.vld_map(x)
+    dw = K.spike_matmul_dw_cuda(x, g, vld)
+    x64, g64 = x.to(torch.float64), g.to(torch.float64)
+    limit = 3.0 * K.dw_plan(m, k, n).chain ** 0.5 * 2.0 ** -24 * (
+        x64.abs().T @ g64.abs())
+    assert bool(((dw.to(torch.float64) - x64.T @ g64).abs() <= limit).all())
+    assert torch.equal(dw, K.spike_matmul_dw_cuda(x, g, vld))
+    for skip in ("gated", "two_level"):
+        gate = K.dw_gate(x, vld, skip)
+        assert torch.equal(dw, K.spike_matmul_dw_gated_cuda(x, g, gate))
+    xp = pack_spikes(x)
+    for skip in ("dense", "gated", "two_level"):
+        assert torch.equal(dw, K.spike_matmul_dw(xp, g, skip=skip))
+    silent = (vld == 0).all(dim=1).repeat_interleave(128)[:m]
+    if bool(silent.any()):
+        g_nan = g.clone()
+        g_nan[silent] = float("nan")
+        assert torch.equal(dw, K.spike_matmul_dw_cuda(x, g_nan, vld))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
 @pytest.mark.parametrize("threshold", [1.0, 3.0])
 def test_qk_attention_kernel_bit_equal(cuda, dtype, threshold):
