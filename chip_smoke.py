@@ -10,13 +10,17 @@ Phases, in order; any failure raises and the script exits non-zero:
              paths with the same sums give the same gradient bits.
 2. build   — nvcc builds the kernels from ``src/repro_torch/csrc`` (one
              process per source, all started together); prints the build
-             seconds and each kernel's registers, shared memory and spills.
+             seconds and each kernel's registers, shared memory and spills,
+             and from the SASS the highest register and local memory
+             operations of each K9 wgmma and fused PE instance.
 3. parity  — each kernel's launcher against its plain PyTorch version on
              the card, on seeded spike maps at densities {0, 0.1, 0.5} with
              silent row blocks, at the main paths' shapes plus ragged ones:
              the int8 (``fused_dense``) operands, then the packed ones of
              ``fused_packed`` (pack and unpack bit-equal, round trip exact;
-             the packed fused PE and spike-matmul variants), then the fused
+             the packed fused PE and spike-matmul variants, each packed
+             fused PE launch bit-equal to the int8 one; every spike-x
+             fused PE launch also launched again, bit-equal), then the fused
              PE's LIF state (T > 1) at every int8 pass shape: v_prev ~
              randn, s_prev ~ Bernoulli(0.5), hard and soft reset, tau 0.5
              and 0.7, int8 and packed x / spike residual / q / out, with and
@@ -112,7 +116,11 @@ Phases, in order; any failure raises and the script exits non-zero:
              so a wrapper's host work does not show), beside its bound
              (no row may read below it), its plain version, its
              dense-skip twin (a gated route) and, where one PyTorch call
-             does the same product, that call; for the LM rows also the
+             does the same product, that call; the worst share of the
+             RTOL/ATOL gate that a spike-x fused PE launch's current and
+             membrane potential use on each path's own operands, and the
+             largest gap beside the kernel's near-threshold recheck band
+             (``[gate share]``); for the LM rows also the
              route they took, the 128-row tile's time on the same
              operands and the host clock; the median step time of each
              training path with its forward/backward split and peak
@@ -420,49 +428,78 @@ def phase_build(build_mod) -> None:
         f"(load {time.perf_counter() - t0:.1f} s in all)")
     for line in info.ptxas_log.splitlines():
         if ("Compiling entry" in line or "Used" in line or "spill" in line
-                or line.startswith("==")):
+                or "wgmma" in line or line.startswith("==")):
             say(f"[build]   {line.strip()}")
-    sass_registers(build_mod, info.path, "flash_wgmma_kernel")
+    sass_registers(build_mod, info.path, ("flash_wgmma_kernel",
+                                          "fused_pe_kernel"))
 
 
-def sass_registers(build_mod, lib, kernel: str) -> None:
-    """For each instance of ``kernel`` in the built library, from its SASS
-    (``cuobjdump -sass``): the highest register it names and its local
-    memory (spill) loads and stores, apart before the first setmaxnreg,
-    from there to the second (a warp-specialised kernel's first branch),
-    and after it. Information only: ptxas's "Used N registers" is the
-    launch's count, not what a branch raised by setmaxnreg may use."""
+def sass_registers(build_mod, lib, kernels: tuple) -> None:
+    """For each instance of each of ``kernels`` in the built library (named
+    by its mangled template arguments: for ``fused_pe_kernel`` ILi<x kind:
+    0 int8, 1 packed, 2 f32, 3 bf16>ELb<emit_current>ELi<skip>ELb<
+    with_state>), from its SASS (``cuobjdump -sass``, run once): the highest
+    register it names and its local memory (spill) loads and stores, apart
+    before the first setmaxnreg, from there to the second (a
+    warp-specialised kernel's first branch), and after it. Information
+    only: ptxas's "Used N registers" is the launch's count, not what a
+    branch raised by setmaxnreg may use."""
     tool = Path(build_mod._nvcc()).with_name("cuobjdump")
     text = subprocess.run([str(tool), "-sass", str(lib)], check=True,
                           capture_output=True, text=True).stdout
+    reg, local = re.compile(r"\bR(\d+)\b"), re.compile(r"\b(?:LDL|STL)\b")
     for fn in text.split("Function : ")[1:]:
         name = fn.split(None, 1)[0]
-        if kernel not in name:
+        kernel = next((k for k in kernels if k in name), None)
+        if kernel is None:
             continue
-        spans = [[0, 0]]                           # [highest R, local ops]
-        for ins in re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", fn):
-            if ins.startswith("USETMAXREG"):
-                spans.append([0, 0])
-            regs = [int(r) for r in re.findall(r"\bR(\d+)\b", ins)]
-            spans[-1][0] = max([spans[-1][0], *regs])
-            op = re.sub(r"^@!?U?P\w+\s+", "", ins).split(None, 1)[0]
-            spans[-1][1] += op.split(".")[0] in ("LDL", "STL")
-        say(f"[build]   sass {name[-60:]}: per setmaxnreg span, highest "
-            f"register / local loads and stores: "
+        spans = [(max(map(int, reg.findall(span)), default=0),
+                  len(local.findall(span)))
+                 for span in fn.split("USETMAXREG")]
+        say(f"[build]   sass {name[name.find(kernel):][:48]}: per setmaxnreg "
+            f"span, highest register / local loads and stores: "
             + ", ".join(f"R{r} / {n}" for r, n in spans))
 
 
 # ------------------------------------------------------------------ phase 3
+# the operands the parity phase makes, as against a main path's own
+PARITY_OPERANDS = "parity operands"
+
+
 class Parity:
-    """Worst errors per kernel across every comparison made."""
+    """Worst errors per kernel across every comparison made, and the worst
+    share of the gate that a spike-x fused PE launch's current and membrane
+    potential used, per (path, row): |kernel - plain| / (ATOL + RTOL *
+    |plain|), on the phase's operands or a main path's."""
 
     def __init__(self):
         self.max_abs_err: dict[str, float] = {}
         self.near_vth: dict[str, int] = {}
+        self.gate_share: dict[tuple, list] = {}
 
     def note(self, name: str, err: float, near: int = 0) -> None:
         self.max_abs_err[name] = max(self.max_abs_err.get(name, 0.0), err)
         self.near_vth[name] = self.near_vth.get(name, 0) + near
+
+    def note_share(self, path: str, row: str, current: float,
+                   potential: float, gap: float) -> None:
+        worst = self.gate_share.setdefault((path, row), [0.0, 0.0, 0.0, 0])
+        worst[0] = max(worst[0], current)
+        worst[1] = max(worst[1], potential)
+        worst[2] = max(worst[2], gap)
+        worst[3] += 1
+
+    def print_shares(self, K, parity_operands: bool) -> None:
+        """The readings on the parity phase's operands, or on the paths'."""
+        for (path, row), (cur, pot, gap, n) in sorted(
+                self.gate_share.items()):
+            if (path == PARITY_OPERANDS) != parity_operands:
+                continue
+            say(f"[gate share] {row} on {path}: worst |kernel - plain| / "
+                f"(ATOL + RTOL |plain|) over {n} launches: current {cur:.4f},"
+                f" membrane potential before the threshold {pot:.4f}; its "
+                f"largest gap {gap:.3e} (the kernel's recheck band "
+                f"{K.RECHECK_BAND:.3e})")
 
 
 def rand_spikes(torch, gen, m: int, k: int, density: float, dev):
@@ -489,20 +526,39 @@ def fused_pe_row(args) -> str:
 
 
 def check_fused_pe(torch, K, args, parity: Parity, label: str,
-                   route: str = "tile") -> None:
+                   route: str = "tile", path: str = PARITY_OPERANDS) -> None:
     """Kernel vs plain version on one set of block-aligned operands (dense
     or packed, stateless or with the LIF state; the row is
     ``fused_pe_row``'s), launched on ``route``: spikes equal where the plain membrane potential is
     not within NEAR_VTH of v_th, v_next within RTOL/ATOL there, the
     emitted current within RTOL/ATOL and the spikes exactly that current
     (plus the decayed state, each operation rounded as the kernel rounds
-    it) thresholded and masked."""
-    k_out, k_vld, *k_rest = K.fused_pe_cuda(*args, route=route)
+    it) thresholded and masked; with a train's earlier steps, the state
+    it decided on (v_prev, but where its recheck replayed them) within
+    RTOL/ATOL of v_prev, and its operands unwritten. A spike x's launch
+    (the tensor-core tile) is also launched again, bit-equal, and, on a
+    main path's operands (``path``), with the current emitted, whose share
+    of the gate (and its membrane potential's) ``parity`` records."""
+    state = args[14]
+    held = None if state is None else (state.v_prev.clone(),
+                                       state.s_prev.clone())
+    replays = state is not None and state.x_hist is not None
+    k_first = K.fused_pe_cuda(*args, route=route, state_out=replays)
+    k_out, k_vld, *k_rest = k_first
     args = K.fused_pe_tile_operands(args)
     (xp, wp, vld, bp, rp, qp, m0, n0, v_th, qk, packing, block_n, gate,
-     heads, state) = args
+     heads, state, ws) = args
     row = fused_pe_row(args)
-    p_out, p_vld, *p_rest = K.fused_pe_block_ref(*args)
+    if held is not None:
+        require(torch.equal(held[0], state.v_prev)
+                and torch.equal(held[1], state.s_prev),
+                f"{row} {label}: the launch wrote its state operands")
+    p_out, p_vld, *p_rest = K.fused_pe_block_ref(*args, state_out=replays)
+    k_used = p_used = None
+    if replays:
+        k_used, p_used = k_rest.pop(), p_rest.pop()
+        require(torch.allclose(k_used, p_used, rtol=RTOL, atol=ATOL),
+                f"{row} {label}: the state decided on is not v_prev")
     if packing.out:
         k_spk, p_spk = K.unpack_words(k_out), K.unpack_words(p_out)
         inv = K.check_packed_invariants(K.PackedSpikes(k_out, k_vld,
@@ -518,9 +574,10 @@ def check_fused_pe(torch, K, args, parity: Parity, label: str,
         cur = cur + (K.unpack_words(rp, torch.float32) if packing.residual
                      else rp)
 
-    def decayed(c):
-        """c plus the decayed state, at the valid extent [m0, n0]."""
-        return state.tau * state.v_prev * (
+    def decayed(c, v_prev=None):
+        """c plus the decayed state (v_prev, else the launch's), at the
+        valid extent [m0, n0]."""
+        return state.tau * (state.v_prev if v_prev is None else v_prev) * (
             1.0 - state.s_prev.to(torch.float32)) + c
 
     v = cur.clone()
@@ -552,15 +609,37 @@ def check_fused_pe(torch, K, args, parity: Parity, label: str,
         err = max(err, cur_err) if state is not None else cur_err
         require(torch.allclose(k_c, p_c, rtol=RTOL, atol=ATOL),
                 f"{row} {label}: current max abs err {cur_err}")
-        # the kernel's spikes are exactly its own current (decayed state
-        # added), thresholded
-        own = (decayed(k_c) if state is not None else k_c) >= v_th
+        # the kernel's spikes are exactly its own current (the decayed
+        # state it decided on added), thresholded
+        own = (decayed(k_c, k_used) if state is not None else k_c) >= v_th
         if qp is not None:
             qd = K.unpack_words(qp) if packing.q else qp
             own &= (qd[:m0].to(torch.float32).sum(dim=1, keepdim=True)
                     >= qk)
         require(torch.equal(k_spk[:m0, :n0], own.to(torch.int8)),
                 f"{row} {label}: spikes are not its current thresholded")
+    if not xp.is_floating_point():
+        require(all(torch.equal(a, c) for a, c in zip(
+            k_first, K.fused_pe_cuda(*args))),
+            f"{row} {label}: a second launch changed a bit")
+        if packing.current:
+            k_c, p_c = k_rest[-1], p_rest[-1]
+        elif path != PARITY_OPERANDS:  # a main path's own operands
+            emit = (*args[:10], packing._replace(current=True), *args[11:])
+            k_c = K.fused_pe_cuda(*emit)[2 + (state is not None)]
+            p_c = K.fused_pe_block_ref(*emit)[2 + (state is not None)]
+        else:
+            k_c = None
+        if k_c is not None:
+            k_v, p_v = ((decayed(k_c, k_used), decayed(p_c))
+                        if state is not None else (k_c, p_c))
+
+            def share(k, p):
+                return float(((k - p).abs() / (ATOL + RTOL * p.abs())).max()
+                             ) if k.numel() else 0.0
+            gap = float((k_v - p_v).abs().max()) if k_v.numel() else 0.0
+            parity.note_share(path, row, share(k_c, p_c), share(k_v, p_v),
+                              gap)
     parity.note(row, err, int(near.sum()))
     say(f"[parity] {row} {label}: spikes equal away from v_th; "
         f"{int(near.sum())} positions within {NEAR_VTH} of v_th, {flips} of "
@@ -942,14 +1021,26 @@ def parity_fused_pe(torch, K, gen, dev, parity, shapes, packed: bool
             # Q rows are sparse enough that the mask cuts some of them
             q = (rand_spikes(torch, gen, m, n, 0.002, dev) if with_q
                  else None)
+            kw = dict(bias=b, v_th=V_TH, qk_threshold=1.0)
+            int8 = K.fused_pe_operands(
+                x, w, residual=(K.unpack_spikes_ref(r) if res == "packed"
+                                else r), q=q, **kw)
             if packed:
                 x = K.pack_spikes_ref(x)
                 q = None if q is None else K.pack_spikes_ref(q)
             args = K.fused_pe_operands(
-                x, w, bias=b, residual=r, q=q, v_th=V_TH, qk_threshold=1.0,
-                out_format="packed" if packed else "dense")
-            check_fused_pe(torch, K, args, parity,
-                           f"{label} [{m}x{k}x{n}] density {p}")
+                x, w, residual=r, q=q,
+                out_format="packed" if packed else "dense", **kw)
+            tag = f"{label} [{m}x{k}x{n}] density {p}"
+            check_fused_pe(torch, K, args, parity, tag)
+            if packed:   # the packed launch gives the int8 launch's bits
+                k_p, k_i = K.fused_pe_cuda(*args), K.fused_pe_cuda(*int8)
+                require(torch.equal(K.unpack_words(k_p[0]), k_i[0])
+                        and torch.equal(k_p[1], k_i[1]),
+                        f"fused_pe_packed {tag}: not the int8 launch's "
+                        f"spikes and vld_next")
+                say(f"[parity] fused_pe_packed {tag}: spikes and vld_next "
+                    f"bit-equal to the int8 launch")
 
 
 # the LIF state (T > 1) at every pass shape of the int8 main path: (soft
@@ -1358,6 +1449,7 @@ def phase_parity(torch, K, dev) -> Parity:
     parity_lm_pe(torch, K, gen, dev, parity)
     parity_lm_matmul(torch, K, gen, dev, parity)
     torch.cuda.synchronize()
+    parity.print_shares(K, True)
     return parity
 
 
@@ -2569,17 +2661,31 @@ def flash_bound(q, k, v, causal) -> tuple[float, float, float]:
 DW_KERNELS = ("spike_matmul_dw", "spike_matmul_dw_gated")
 
 
+def spike_tile(name: str, args) -> bool:
+    """A fused PE launch of a spike x (int8 or packed words), which takes
+    the tensor-core tile (csrc/event_wgmma.cuh)."""
+    return name in ("fused_pe", "fused_pe_gated") and \
+        not args[0].is_floating_point()
+
+
 def ops_ms(name: str, args, ops: float) -> float:
     """The least time, in ms, of a launch's ``ops`` operations at the
     card's peak for their types: K9's as ``flash_ops_ms``; dw's products
     of 0/1 spikes and f32 g keep g exact on the tensor cores only as three
     products, one a term of g's split into three bf16 values, so 3 x
-    ``ops`` at the bf16 tensor-core rate; every other kernel's at the f32
-    rate outside the tensor cores (IEEE f32, which parity needs)."""
+    ``ops`` at the bf16 tensor-core rate; a spike-x fused PE's product the
+    same with w split (``bound`` counts it as 2 nnz(x) N), and its
+    epilogue's operations (``bound``'s 3 or, with the LIF state, 9 an
+    output element) at the f32 rate; every other kernel's at the f32 rate
+    outside the tensor cores (IEEE f32, which parity needs)."""
     if name == "flash_attention":
         return flash_ops_ms(args[0], ops)
     if name in DW_KERNELS:
         return 3 * ops / PEAK_BF16_TC_OPS_PER_S * 1e3
+    if spike_tile(name, args):
+        epilogue = (9.0 if args[14] is not None else 3.0) * args[6] * args[7]
+        return (3 * (ops - epilogue) / PEAK_BF16_TC_OPS_PER_S
+                + epilogue / PEAK_F32_OPS_PER_S) * 1e3
     return ops / PEAK_F32_OPS_PER_S * 1e3
 
 
@@ -2641,8 +2747,9 @@ def library_call(torch, K, name: str, args, inputs):
     """One PyTorch call computing the launch's product on the same data,
     or None: torch.matmul of the caller's x (int8 cast to f32, a packed x
     unpacked to its logical f32 map) by w; for dx, dv @ wᵀ (dv as the
-    plain version forms it); for dw, xᵀ @ g with x cast to f32. No single
-    call packs or unpacks, masks QK rows, or emits a fused PE's current."""
+    plain version forms it); for dw, xᵀ @ g with x cast to f32; for a fused
+    PE launch (with or without the emitted current) its product. No single
+    call packs or unpacks, or masks QK rows."""
     if name == "spike_matmul_dx":
         g, w, v, surrogate, alpha, v_th = args
         _, dv = K.spike_matmul_dx_ref(g, w, v, surrogate=surrogate,
@@ -2655,8 +2762,7 @@ def library_call(torch, K, name: str, args, inputs):
         xf = dense_x(K, x).to(torch.float32)
         return lambda: torch.matmul(xf.T, g)
     if name not in ("fused_pe", "spike_matmul", "fused_pe_gated",
-                    "spike_matmul_gated") or (
-            name.startswith("fused_pe") and args[10].current):
+                    "spike_matmul_gated"):
         return None
     x, w = inputs[:2]
     # (a dense activation x: torch.matmul(x.float(), w) on the same data)
@@ -2797,7 +2903,9 @@ def phase_timing(torch, K, snn_cnn, models, images, paths, parity: Parity,
                 continue        # other path's launch, which is timed there
             # the main path's own operands: kernel vs plain version again
             CHECKS[name](torch, K, args, parity, f"main-path launch {i}",
-                         **({} if route == "tile" else {"route": route}))
+                         **({} if route == "tile" else {"route": route}),
+                         **({"path": policy} if CHECKS[name] is check_fused_pe
+                            else {}))
             targs = tile_args(K, name, args)
             ms = device_time(torch, relaunch(launch_fn, launch), reps=20)
             plain_ms = device_time(torch, lambda: plain_fn[name](*targs),
@@ -2853,6 +2961,7 @@ def phase_timing(torch, K, snn_cnn, models, images, paths, parity: Parity,
                    else f", its dense-skip twin {twin_ms:.4f} ms"))
             i += 1
     torch.cuda.synchronize()
+    parity.print_shares(K, False)
 
     rows = []
     for row, tot in totals.items():
@@ -3724,6 +3833,7 @@ def kernels_namespace(torch):
     return types.SimpleNamespace(
         fused_pe_cuda=fused_pe.fused_pe_cuda,
         fused_pe_block_ref=fused_pe.fused_pe_block_ref,
+        RECHECK_BAND=fused_pe.RECHECK_BAND,
         fused_pe_operands=fused_pe.fused_pe_operands,
         fused_pe_tile_operands=fused_pe.fused_pe_tile_operands,
         spike_matmul_tile_operands=spike_matmul.spike_matmul_tile_operands,

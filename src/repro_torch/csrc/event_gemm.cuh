@@ -1,7 +1,11 @@
-// Event-gated tile product shared by fused_pe.cuh and spike_matmul.cu — the
-// Hopper counterpart of repro/kernels/gating.py::accum_tile, for the three
-// byte-skip strategies of the reference (kernels/spike_matmul/ops.py
-// SKIP_MODES):
+// Event-gated scalar tile product — the Hopper counterpart of
+// repro/kernels/gating.py::accum_tile, for the three byte-skip strategies
+// of the reference (kernels/spike_matmul/ops.py SKIP_MODES). It runs the
+// spike matmul (spike_matmul.cu: K3 and K4, int8 or packed x) and the fused
+// PE of a dense f32 or bf16 activation x (the LM's projections, whose
+// decode route, decode_gemm.cuh, must stay bit-equal to it); a fused PE
+// launch of a spike x takes the tensor-core tile of event_wgmma.cuh
+// instead. The skips:
 //
 //   kDense    — walk every k block of the row and skip the ones whose
 //               vld_cnt is zero (spike_matmul_pallas, fused_pe skip="dense");
@@ -16,8 +20,10 @@
 // 128 rows by bk columns of k, bk 128 or 256 (the autotuner may tile a
 // layer's output 256 wide, and the next layer's k then inherits that
 // grid), so the skip is uniform across the CTA (no divergence). 256
-// threads, each accumulating an 8x8 sub-tile in registers in IEEE f32 (no
-// tensor cores: parity with the plain version rules out TF32). K is walked
+// threads, each accumulating an 8x8 sub-tile in registers in IEEE f32 on
+// the CUDA cores (67 TFLOP/s on the H100: TF32 would break parity with the
+// plain version, and a float x has no exact bf16 split cheaper than its
+// three-term one, which this tile's callers have not taken). K is walked
 // in 32-deep steps through shared memory: w arrives as f32 (four float4
 // per thread); x (the XKind) as int8 spikes (16 bytes per thread,
 // converted to f32 on the store), as int32 words of 32 spikes (kXPacked: a

@@ -28,7 +28,10 @@ Launch pick(int x_kind, bool emit, bool state, int skip, bool decode, int m_vali
 }  // namespace
 
 // x [mp, kp] int8 (no dtype flag), f32 (kF32X) or bf16 (kBF16X), or
-// [mp, kp/32] int32 words (kPackedX); w [kp, np] f32. The route (skip, see
+// [mp, kp/32] int32 words (kPackedX); w [kp, np] f32, and for a spike x
+// (int8 or words) ws [3, kp, np] bf16, w's exact split into three terms
+// (event_wgmma.cuh), 16-byte aligned, which its tile reads in w's stead
+// (a float x's may be null). The route (skip, see
 // event_gemm.cuh): kDense reads vld [mp/128, kp/bk]; kGated nact [mp/128]
 // and kmap [mp/128, kp/bk]; kTwoLevel also occ [mp/128, kp/bk]; a float x
 // takes kDense only. May be null: bias [np] f32; residual [mp, np] f32 or
@@ -50,7 +53,16 @@ Launch pick(int x_kind, bool emit, bool state, int skip, bool decode, int m_vali
 // multiple of 128), vld may be null (every block kept), vld_next needs no
 // zeroing, and counts is the stream's count scratch, np / bn int32 that
 // are zero (and left zero).
-extern "C" int repro_fused_pe(const void* x, const float* w, const int* vld,
+//
+// A stateful launch of step t of a train whose state began at zeros may
+// pass its earlier steps (hist_steps = t): x_hist holds steps 0 .. t-1 of
+// x and r_hist of the residual (when the launch has one), each in this
+// launch's layout, x_hist_step and r_hist_step bytes apart; the
+// near-threshold recheck replays them (fused_pe.cuh) into the state its
+// spikes are decided on. 0 and null without. v_used [m_valid, n_valid] f32
+// (may be null; only with the state) receives that state: v_prev, but
+// where the recheck replayed the earlier steps. No input is written.
+extern "C" int repro_fused_pe(const void* x, const float* w, const void* ws, const int* vld,
                               const int* nact, const int* kmap, const int* occ,
                               const float* bias, const void* residual,
                               const void* q, int dq, void* spikes,
@@ -60,12 +72,16 @@ extern "C" int repro_fused_pe(const void* x, const float* w, const int* vld,
                               int bn, int m_valid, int n_valid, float v_th,
                               float qk_threshold, float tau, int head_dim,
                               int flags, int skip, int route, int* counts,
-                              cudaStream_t stream) {
+                              const void* x_hist, const void* r_hist,
+                              long long x_hist_step, long long r_hist_step,
+                              int hist_steps, float* v_used, cudaStream_t stream) {
   const int x_kind = (flags & kPackedX) ? kXPacked
                      : (flags & kF32X)  ? kXF32
                      : (flags & kBF16X) ? kXBF16
                                         : kXInt8;
   const bool float_x = x_kind == kXF32 || x_kind == kXBF16;
+  // a spike x's tile reads w's three bf16 terms
+  const bool split_ok = float_x || (ws != nullptr && reinterpret_cast<uintptr_t>(ws) % 16 == 0);
   const bool state = v_prev != nullptr;
   const bool decode = route == kRouteDecode;
   if (skip < kDense || skip > kTwoLevel || (bn != kTile && bn != 2 * kTile) ||
@@ -76,14 +92,19 @@ extern "C" int repro_fused_pe(const void* x, const float* w, const int* vld,
       (decode && (!float_x || residual != nullptr || current != nullptr ||
                   m_valid < 0 || m_valid > kDecodeRows || m_valid > mp ||
                   np % kDecodeCols || counts == nullptr)) ||
-      (!decode && vld == nullptr && skip == kDense))
+      (!decode && vld == nullptr && skip == kDense) || !split_ok || hist_steps < 0 ||
+      (hist_steps > 0 && (!state || float_x || x_hist == nullptr ||
+                          (residual != nullptr && r_hist == nullptr))) ||
+      (v_used != nullptr && !state))
     return static_cast<int>(cudaErrorInvalidValue);
   if (mp > 0 && np > 0) {
     const Launch fn = pick(x_kind, current != nullptr, state, skip, decode, m_valid);
     const Route r{vld, nact, kmap, occ, bk};
-    const State st{v_prev, s_prev, v_next, tau, counts};
-    fn(x, w, r, bias, residual, q, dq, spikes, vld_next, current, st, mp, kp, np,
-       bn, m_valid, n_valid, v_th, qk_threshold, head_dim, flags, stream);
+    const State st{v_prev, s_prev, v_next, v_used, tau, counts,
+                   History{x_hist, r_hist, x_hist_step, r_hist_step, hist_steps}};
+    fn(x, w, static_cast<const uint16_t*>(ws), r, bias, residual, q, dq, spikes, vld_next,
+       current, st, mp, kp, np, bn, m_valid, n_valid, v_th, qk_threshold, head_dim, flags,
+       stream);
   }
   return static_cast<int>(cudaGetLastError());
 }

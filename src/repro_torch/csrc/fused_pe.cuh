@@ -12,7 +12,9 @@
 // x takes no LIF state (the LM runs T = 1).
 //
 // Per 128x128 output tile, in one pass: the event-gated f32 product
-// x @ w (event_gemm.cuh), then in registers
+// x @ w (event_wgmma.cuh for a spike x, event_gemm.cuh for a float x; see
+// "The product" below), then (in registers, or for a spike x in shared
+// memory)
 //   cur   = (acc + bias) + residual          (the reference's order)
 //   v     = cur                              (T=1: no state)
 //   v     = tau * v_prev * (1 - s_prev) + cur  (WithState, each op rounded)
@@ -50,39 +52,96 @@
 // differentiates from; the spikes are the same compare on that same value.
 //
 // The packed forms read and write 1/8 of the int8 bytes and never widen a
-// spike map in device memory: packed x is expanded to 0/1 floats in shared
-// memory (event_gemm.cuh); a packed Q row sum is __popc over the row's
+// spike map in device memory: packed x becomes bf16 0/1 fragments in
+// registers (event_wgmma.cuh); a packed Q row sum is __popc over the row's
 // words; a packed residual (the identity shortcut) is the thread's 8 bits
 // of one word, added as 0.f/1.f where the f32 residual is; a packed output
 // word is the 8-bit rows of four neighbouring threads, combined with
 // __shfl_xor_sync and stored by one of them. The f32 sums are the same as
 // the int8 path's, so both give the same spikes.
 //
-// Bound on the H100: the kernel runs the dense f32 product over every
-// 128x128 block the route does not skip, 2*128*128*Np operations per
-// block, so the 67 TFLOP/s f32 rate outside the tensor cores bounds it
-// (parity with the reference rules out TF32). The data needs less: one add
-// per spike and output column, a quarter to a half of that at the main
-// path's spike rates, and a layer with N < 128 (resblock 1, N = 64)
-// computes a half-empty tile. A packed patch matrix pads each 3x3 tap's
+// The product. A spike x (int8, or packed words: every launch of the SNN
+// CNNs, forward and training, stateless or with the LIF state, under each
+// skip) takes the tensor-core tile of event_wgmma.cuh: w split exactly into
+// three bf16 terms (the wrapper's ws operand, made once a weight), each
+// 32-deep k step's three products of exact bf16 terms into a fresh f32
+// tile joined to the sum with one rounded add, restaged into shared
+// memory. A dense f32 or bf16 activation x (the LM's projections) keeps
+// event_gemm.cuh's scalar f32 tile, bit-equal to its decode route, and its
+// epilogue as it was: the sums in registers, bias and residual added row by
+// row.
+//
+// A spike x's epilogue, in shared memory (kEpi*: over the wgmma ring once
+// the product is done). The LIF state (v_prev, s_prev) of the CTA's tile
+// is requested with cp.async before the sums are restaged, so that its
+// loads overlap the restage: the tile runs one CTA an SM (its ring and
+// epilogue take 218 KB), so nothing else hides them, and the state read
+// row by row, behind the recheck's calls, cost more than the product at
+// res1 (PERF.md). Then each thread, for its 8 x 8 outputs, adds bias and
+// residual (the residual of its 8 rows requested before any is used) to
+// the sums in place, the currents, writes the membrane potentials in the
+// state's place, and marks in a bitmap every valid output whose potential
+// lies within kRecheckBand of v_th; the warps then recheck the marked
+// outputs (below), writing their currents and potentials in place; and the
+// per-row epilogue (threshold, reset, QK gate, packed output, vld_next)
+// reads both from shared memory.
+//
+// The near-threshold recheck. The tensor cores' sum is as close to the
+// exact one as the scalar tile's ascending f32 chain is (each within about
+// 1e-5 at K = 4608 on the H100), but it is another rounding, and whether a
+// spike fires is decided on it: a membrane potential within that of v_th
+// may fall on the other side. A spiking network's gradient is not
+// continuous in those decisions (a flipped QK q spike gates a whole token
+// row), so the KD step, whose reference sums in the scalar tile's order,
+// moved by 5e-2 of its stem conv's gradient (the gate is 1e-3) with no
+// recheck. So for every marked output (kRecheckBand = 2^-15: the gap
+// between the two sums measured at most 5.2e-6 on the main paths' operands
+// and 1.14e-5 on random ones at K = 4608, on the H100) a warp forms its
+// product again as the scalar tile's chain, fmaf over k in ascending order
+// (event_wgmma.cuh: sequential_sum), and the current, the potential, the
+// spike, v_next and the emitted current are all that sum's. Outside the
+// band the two sums give the same spike. A stateful launch carries the
+// same gap in v_prev, the tensor cores' sums of the steps before: the T =
+// 4 KD step moved by 2.8e-2 of a gradient leaf with the recheck of the
+// step's own sum alone. So where the wrapper passes the train's earlier
+// steps (History: their x and residual operands, views of the train's one
+// padded copy; the state began at zeros), the recheck replays them through
+// the scalar tile's sums and the same LIF update to the state they
+// carried, and the output is decided on it, where the exact sum's
+// potential still lies within the band. That state is written to v_used
+// (v_prev elsewhere) when the caller asks: the check of the spikes against
+// the emitted current and the backward's recomputed step read it. No
+// operand is written. Each marked output needs one chain a step (its own
+// and, replayed, each earlier one's); the eight warps share the chains of
+// up to kRecheckChains at a time, each chain walking K once with the lanes
+// loading x two chunks ahead and gathering the nonzero x's weights while
+// one lane adds, and then one thread an output combines its chains. About
+// 5e-5 of a layer's outputs lie in the band on the main paths (chip_smoke
+// prints the count within 1e-4 of v_th a launch).
+//
+// Bound on the H100: for a spike x, three bf16 products of the data's work
+// (3 * 2 * nnz(x) * N at 989 TFLOP/s) or the bytes, whichever is larger;
+// the tile computes every step the route keeps densely (a quarter to a
+// half of it is spikes at the main path's rates), N = 64 (res1) half-fills
+// the 128-wide tile, and each CTA streams its w terms from the L2 (6 bytes
+// a weight), which with the joins between the wgmmas holds it above that
+// bound (event_wgmma.cuh). A packed patch matrix pads each 3x3 tap's
 // channels to whole 128-wide blocks, so at C = 64 its K is twice the int8
 // one (1152, not 576): the padding is zeros the block skip cannot see, and
-// the stripe skip (two_level) can, where an occ map comes with x. The
-// design keeps 64 accumulators per thread in registers and stages x and w
-// through 32 KB of shared memory so each loaded value feeds 8 FMAs; the
-// skip removes both the loads and the FMAs of a silent block. A dense
-// activation x is a full f32 product, 2*M*K*N operations; at the LM's
-// decode (M = a few to a few dozen slots, padded to the 128-row tile) the
-// padded rows multiply zeros, and the grid is only N/128 CTAs a row block,
-// so the f32 weight stream and the padding bound it. The LIF state adds
-// 9 bytes an output element (v_prev and v_next f32, s_prev int8), read and
-// written once at the valid extent, against the 2 K operations of its
-// product. A dense activation x of at most kDecodeRows live rows without
-// residual, state or emitted current (the LM's projections at its decode
-// ticks and prefill chunks) takes the decode route instead
-// (fused_pe_decode_kernel, decode_gemm.cuh): 16-column CTAs over the live
-// rows only, the same sums and the same epilogue. wgmma, TMA and a tile
-// for N = 64 are later work.
+// the stripe skip (two_level) can, where an occ map comes with x. A dense
+// activation x is a full f32 product, 2*M*K*N operations at the 67 TFLOP/s
+// f32 rate outside the tensor cores (parity with the reference rules out
+// TF32); at the LM's decode (M = a few to a few dozen slots, padded to the
+// 128-row tile) the padded rows multiply zeros, and the grid is only N/128
+// CTAs a row block, so the f32 weight stream and the padding bound it. The
+// LIF state adds 9 bytes an output element (v_prev and v_next f32, s_prev
+// int8), read and written once at the valid extent. A dense activation x
+// of at most kDecodeRows live rows without residual, state or emitted
+// current (the LM's projections at its decode ticks and prefill chunks)
+// takes the decode route instead (fused_pe_decode_kernel, decode_gemm.cuh):
+// 16-column CTAs over the live rows only, the same sums and the same
+// epilogue. A tile for N = 64 and the float x on the tensor cores are later
+// work.
 #pragma once
 
 #include <cstdint>
@@ -90,6 +149,7 @@
 
 #include "decode_gemm.cuh"
 #include "event_gemm.cuh"
+#include "event_wgmma.cuh"
 
 namespace repro {
 
@@ -101,8 +161,104 @@ constexpr int kF32X = 16, kBF16X = 32;
 constexpr int kSoftReset = 64;
 
 // the (row, head) gates of one tile: at most 128 / dh + 2 heads, stored as
-// bytes over the GEMM tiles once the product is done
+// bytes over the GEMM tiles (a float x) or the chains' scratch (a spike x)
+// once the product and the recheck are done with them
 constexpr int kMaxGateBytes = static_cast<int>(sizeof(GemmSmem));
+
+// a spike x (int8, or packed words) takes the tensor-core product
+template <int XKind>
+constexpr bool kSpikeX = XKind == kXInt8 || XKind == kXPacked;
+
+// A spike x's epilogue in shared memory, over the wgmma ring once the
+// product is done (byte offsets): the currents, [kTile][kRestagePitch] f32
+// (the restaged sums, then with bias and residual); the LIF state, v_prev
+// f32 and s_prev int8 [kTile][kTile] each, requested before the restage so
+// that their loads overlap it; the near-threshold map, one bit an output,
+// and the recheck's index of it and its sums; the warps' chain scratch,
+// which the gate bytes take after the recheck.
+constexpr int kEpiVPrev = kRestageBytes;
+constexpr int kEpiSPrev = kEpiVPrev + kTile * kTile * 4;
+constexpr int kEpiNear = kEpiSPrev + kTile * kTile;
+constexpr int kEpiBase = kEpiNear + kTile * kTile / 8;
+constexpr int kRecheckChains = 256;  // the recheck's chains a round
+constexpr int kEpiSums = kEpiBase + (kTile * kTile / 32 + 4) * 4;
+constexpr int kEpiChain = kEpiSums + kRecheckChains * 4;
+constexpr int kEpiBytes = kEpiChain + kThreads / 32 * kChainFloats * 4;
+constexpr int kSpikeSmemBytes =
+    (kEpiBytes > kWStages * kWStageBytes ? kEpiBytes : kWStages * kWStageBytes) + 1024;
+static_assert(kMaxGateBytes <= kThreads / 32 * kChainFloats * 4,
+              "the gate bytes fit the chains' scratch");
+static_assert(kSpikeSmemBytes <= 227 * 1024, "a CTA's shared memory on the H100");
+
+// this thread's 8 values (columns 8 tx ..) of row rl of an f32 tile of
+// `pitch` floats a row; lanes with tx % 8 >= 4 move their upper four first,
+// so that a quarter-warp's float4 accesses do not conflict on the banks
+__device__ __forceinline__ void tile_get8(const float* t, int pitch, int rl, int tx,
+                                          float (&v)[kSub]) {
+  const float* src = t + rl * pitch + tx * kSub;
+  const bool swap = (tx >> 2) & 1;
+  const float4 u = *reinterpret_cast<const float4*>(src + (swap ? 4 : 0));
+  const float4 z = *reinterpret_cast<const float4*>(src + (swap ? 0 : 4));
+  const float4 lo = swap ? z : u, hi = swap ? u : z;
+  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+  v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+}
+
+__device__ __forceinline__ void tile_put8(float* t, int pitch, int rl, int tx,
+                                          const float (&v)[kSub]) {
+  float* dst = t + rl * pitch + tx * kSub;
+  const bool swap = (tx >> 2) & 1;
+  const float4 lo = make_float4(v[0], v[1], v[2], v[3]), hi = make_float4(v[4], v[5], v[6], v[7]);
+  *reinterpret_cast<float4*>(dst + (swap ? 4 : 0)) = swap ? hi : lo;
+  *reinterpret_cast<float4*>(dst + (swap ? 0 : 4)) = swap ? lo : hi;
+}
+
+// The earlier timesteps of a stateful launch's train, which its
+// near-threshold recheck replays (the state began at zeros): steps x and
+// residual operands, each laid out as this launch's, `x_step` and
+// `residual_step` bytes apart; steps 0 without them.
+struct History {
+  const void* x;
+  const void* residual;
+  long long x_step, residual_step;
+  int steps;
+};
+
+// residual[row, col] of an f32 [mp, np] or packed [mp, np/32] operand
+__device__ __forceinline__ float residual_at(const void* r, bool packed, int row, int col,
+                                             int np) {
+  if (packed)
+    return ((static_cast<const unsigned*>(r)[static_cast<size_t>(row) * (np / 32) + col / 32] >>
+             (col % 32)) & 1u) ? 1.f : 0.f;
+  return static_cast<const float*>(r)[static_cast<size_t>(row) * np + col];
+}
+
+// The scalar tile's sum of output (row, col) of x (this step's, or an
+// earlier one's) for the near-threshold recheck (fused_pe_kernel), in a
+// function of its own: one copy in the kernel. Every lane of the warp
+// calls it and gets the result.
+template <int XKind>
+__device__ __noinline__ float recheck_sum(const void* __restrict__ x,
+                                          const float* __restrict__ w, int kp, int np, int row,
+                                          int col, int lane, float* scratch) {
+  return sequential_sum<XKind>(x, w, kp, np, row, col, lane, scratch);
+}
+
+// The marked output of index i in the near-threshold map's order (base[wd]
+// of them in the words before wd): its (row, column) in the tile.
+__device__ __forceinline__ int2 near_item(const unsigned* near_map, const int* base, int i) {
+  int lo = 0, hi = kTile * kTile / 32 - 1;  // the last word whose base is <= i
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (base[mid] <= i)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  unsigned bits = near_map[lo];
+  for (int k = i - base[lo]; k > 0; --k) bits &= bits - 1u;
+  return make_int2(lo / (kTile / 32), lo % (kTile / 32) * 32 + __ffs(bits) - 1);
+}
 
 // The QK row sum of row `row` over q's columns [lo, hi): one warp, the
 // lanes striding the int8 values (16 at a time where the range is
@@ -170,14 +326,16 @@ __device__ __forceinline__ int qk_quarter_sum(const void* __restrict__ q, int dq
 template <int XKind, bool EmitCurrent, int Skip, bool WithState>
 __global__ void __launch_bounds__(kThreads)
 fused_pe_kernel(const void* __restrict__ x, const float* __restrict__ w,
-                Route route, const float* __restrict__ bias,
+                const uint16_t* __restrict__ ws, Route route, History hist,
+                const float* __restrict__ bias,
                 const void* __restrict__ residual, const void* __restrict__ q,
                 int dq, void* __restrict__ spikes, int* __restrict__ vld_next,
                 float* __restrict__ current, const float* __restrict__ v_prev,
                 const int8_t* __restrict__ s_prev, float* __restrict__ v_next,
-                int kp, int np, int bn, int m_valid, int n_valid, float v_th,
-                float qk_threshold, float tau, int head_dim, int flags) {
-  __shared__ GemmSmem sm;
+                float* __restrict__ v_used, int kp, int np, int bn, int m_valid,
+                int n_valid, float v_th, float qk_threshold, float tau, int head_dim,
+                int flags) {
+  static_assert(!WithState || kSpikeX<XKind>, "the LIF state takes a spike x");
   __shared__ int warp_count[kThreads / 32];
   const int row_blk = blockIdx.y, col0 = blockIdx.x * kTile;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
@@ -185,15 +343,250 @@ fused_pe_kernel(const void* __restrict__ x, const float* __restrict__ w,
   const bool packed_q = flags & kPackedQ, packed_res = flags & kPackedResidual;
   const bool packed_out = flags & kPackedOut;
   const bool soft_reset = flags & kSoftReset;
-
-  float acc[kSub][kSub];
-#pragma unroll
-  for (int i = 0; i < kSub; ++i)
-#pragma unroll
-    for (int j = 0; j < kSub; ++j) acc[i][j] = 0.f;
-  event_gemm_tile<XKind, Skip>(x, w, route, kp, np, row_blk, col0, sm, acc);
-
   const int c0 = col0 + tx * kSub;
+  const int words_per_row = np / 32;
+  // output (row, c0 ..) lies at row * n_valid + c0 in the state and the
+  // current; its 8 move 16 bytes at a time where all lie in the valid
+  // extent and the bases are aligned
+  auto whole_row = [&](int row) {
+    const bool aligned =
+        (reinterpret_cast<uintptr_t>(v_prev) | reinterpret_cast<uintptr_t>(v_next) |
+         reinterpret_cast<uintptr_t>(current) | reinterpret_cast<uintptr_t>(v_used)) % 16 ==
+            0 &&
+        reinterpret_cast<uintptr_t>(s_prev) % 8 == 0;
+    return aligned && row < m_valid && c0 + kSub <= n_valid &&
+           (static_cast<size_t>(row) * n_valid + c0) % kSub == 0;
+  };
+  // this thread's 8 values of row `row` into dst [m_valid, n_valid] (the
+  // current, v_next, the state decided on), inside the valid extent
+  auto store_row = [&](float* dst, int row, const float (&vals)[kSub]) {
+    const size_t at0 = static_cast<size_t>(row) * n_valid + c0;
+    if (whole_row(row)) {
+      *reinterpret_cast<float4*>(dst + at0) = make_float4(vals[0], vals[1], vals[2], vals[3]);
+      *reinterpret_cast<float4*>(dst + at0 + 4) = make_float4(vals[4], vals[5], vals[6], vals[7]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kSub; ++j)
+        if (row < m_valid && c0 + j < n_valid) dst[at0 + j] = vals[j];
+    }
+  };
+
+  // The product: a spike x on the tensor cores (event_wgmma.cuh), whose
+  // sums become the currents in shared memory, each within kRecheckBand of
+  // v_th formed again on the scalar tile's chain ("The near-threshold
+  // recheck" above); a dense activation x on the scalar tile
+  // (event_gemm.cuh), whose sums stay in registers. Then the gate bytes
+  // reuse shared memory the product no longer needs.
+  float acc[kSub][kSub];
+  unsigned char* gate;
+  uint8_t* smem = nullptr;      // a spike x: the epilogue's (kEpi* offsets)
+  float* cur_tile = nullptr;    // the currents [kTile][kRestagePitch]
+  float* vp_tile = nullptr;     // with the state: v_prev [kTile][kTile]
+  int8_t* sp_tile = nullptr;    // and s_prev [kTile][kTile]
+  if constexpr (kSpikeX<XKind>) {
+    extern __shared__ uint8_t fused_pe_wgmma_smem[];
+    smem = wgmma_smem(fused_pe_wgmma_smem);
+    float sum[64];
+    event_wgmma_tile<XKind, Skip>(x, ws, route, kp, np, row_blk, col0, smem, sum);
+    cur_tile = reinterpret_cast<float*>(smem);
+    vp_tile = reinterpret_cast<float*>(smem + kEpiVPrev);
+    sp_tile = reinterpret_cast<int8_t*>(smem + kEpiSPrev);
+    unsigned* near_map = reinterpret_cast<unsigned*>(smem + kEpiNear);
+    for (int i = tid; i < kTile * kTile / 32; i += kThreads) near_map[i] = 0u;
+    if constexpr (WithState) {
+      // this thread's 8 x 8 of the state, requested now and read after the
+      // restage; zeros past the valid extent, where none fires
+#pragma unroll
+      for (int i = 0; i < kSub; ++i) {
+        const int rl = ty * kSub + i, row = row_blk * kTile + rl;
+        const size_t at0 = static_cast<size_t>(row) * n_valid + c0;
+        float* dv = vp_tile + rl * kTile + tx * kSub;
+        int8_t* ds = sp_tile + rl * kTile + tx * kSub;
+        if (whole_row(row)) {
+          hopper::cp_async16(hopper::smem_u32(dv), v_prev + at0, true);
+          hopper::cp_async16(hopper::smem_u32(dv + 4), v_prev + at0 + 4, true);
+          hopper::cp_async4(hopper::smem_u32(ds), s_prev + at0, true);
+          hopper::cp_async4(hopper::smem_u32(ds + 4), s_prev + at0 + 4, true);
+        } else {
+#pragma unroll
+          for (int j = 0; j < kSub; ++j) {
+            const bool valid = row < m_valid && c0 + j < n_valid;
+            dv[j] = valid ? v_prev[at0 + j] : 0.f;
+            ds[j] = valid ? s_prev[at0 + j] : static_cast<int8_t>(0);
+          }
+        }
+      }
+      hopper::cp_async_commit();
+    }
+    restage_sum(sum, cur_tile);
+  } else {
+    __shared__ GemmSmem sm;
+#pragma unroll
+    for (int i = 0; i < kSub; ++i)
+#pragma unroll
+      for (int j = 0; j < kSub; ++j) acc[i][j] = 0.f;
+    event_gemm_tile<XKind, Skip>(x, w, route, kp, np, row_blk, col0, sm, acc);
+    gate = reinterpret_cast<unsigned char*>(&sm);
+  }
+
+  float b[kSub];
+#pragma unroll
+  for (int j = 0; j < kSub; ++j) b[j] = 0.f;
+  if (bias != nullptr) {
+    const float4 b0 = *reinterpret_cast<const float4*>(bias + c0);
+    const float4 b1 = *reinterpret_cast<const float4*>(bias + c0 + 4);
+    b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
+    b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
+  }
+  if constexpr (kSpikeX<XKind>) {
+    unsigned* near_map = reinterpret_cast<unsigned*>(smem + kEpiNear);  // [kTile][kTile / 32]
+    if constexpr (WithState) hopper::cp_async_wait<0>();  // this thread's own state
+    // the currents in fused_pe_ref's order ((sum + bias) + residual), in
+    // place, and the map of the valid outputs whose membrane potential lies
+    // within kRecheckBand of v_th; the residual of all 8 rows is requested
+    // before any is used
+    float rr[kSub][kSub];
+#pragma unroll
+    for (int i = 0; i < kSub; ++i) {
+      const size_t row = static_cast<size_t>(row_blk) * kTile + ty * kSub + i;
+#pragma unroll
+      for (int j = 0; j < kSub; ++j) rr[i][j] = 0.f;
+      if (residual != nullptr && packed_res) {  // this thread's 8 bits of a word
+        const unsigned word = static_cast<unsigned>(
+            static_cast<const int*>(residual)[row * words_per_row + c0 / 32]);
+#pragma unroll
+        for (int j = 0; j < kSub; ++j) rr[i][j] = ((word >> (c0 % 32 + j)) & 1u) ? 1.f : 0.f;
+      } else if (residual != nullptr) {
+        const float* rp = static_cast<const float*>(residual) + row * np + c0;
+        const float4 r0 = *reinterpret_cast<const float4*>(rp);
+        const float4 r1 = *reinterpret_cast<const float4*>(rp + 4);
+        rr[i][0] = r0.x; rr[i][1] = r0.y; rr[i][2] = r0.z; rr[i][3] = r0.w;
+        rr[i][4] = r1.x; rr[i][5] = r1.y; rr[i][6] = r1.z; rr[i][7] = r1.w;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kSub; ++i) {
+      const int rl = ty * kSub + i;
+      const int row = row_blk * kTile + rl;
+      const bool row_on = row < m_valid;
+      float cv[kSub], vps[kSub] = {}, sps[kSub] = {}, pot[kSub];
+      tile_get8(cur_tile, kRestagePitch, rl, tx, cv);
+      if constexpr (WithState) {
+        tile_get8(vp_tile, kTile, rl, tx, vps);
+        const uint2 s8 = *reinterpret_cast<const uint2*>(sp_tile + rl * kTile + tx * kSub);
+#pragma unroll
+        for (int j = 0; j < kSub; ++j)
+          sps[j] = static_cast<float>(static_cast<int8_t>((j < 4 ? s8.x : s8.y) >> (8 * (j % 4))));
+      }
+      unsigned near = 0u;
+#pragma unroll
+      for (int j = 0; j < kSub; ++j) {
+        if (bias != nullptr) cv[j] = __fadd_rn(cv[j], b[j]);
+        if (residual != nullptr) cv[j] = __fadd_rn(cv[j], rr[i][j]);
+        pot[j] = cv[j];
+        if constexpr (WithState)
+          pot[j] = __fadd_rn(__fmul_rn(__fmul_rn(tau, vps[j]), __fsub_rn(1.f, sps[j])), cv[j]);
+        if (row_on && c0 + j < n_valid && fabsf(pot[j] - v_th) < kRecheckBand) near |= 1u << j;
+      }
+      tile_put8(cur_tile, kRestagePitch, rl, tx, cv);
+      if constexpr (WithState) {
+        // the membrane potential takes the state's place; the state decided
+        // on goes out now (the recheck rewrites those it replays)
+        tile_put8(vp_tile, kTile, rl, tx, pot);
+        if (v_used != nullptr) store_row(v_used, row, vps);
+      }
+      if (near != 0u) atomicOr(near_map + rl * (kTile / 32) + tx / 4, near << (8 * (tx % 4)));
+    }
+    __syncthreads();
+    // the recheck: each marked output's sum formed again as the scalar
+    // tile's chain, and with earlier steps theirs too, one chain a warp,
+    // the warps sharing the chains of a round of outputs (indexed in the
+    // map's order: base[wd] of them in the words before wd); then one
+    // thread an output takes its current from its chain and, where the
+    // exact sum's potential still lies within the band, its state from the
+    // earlier steps' chains, replayed from zeros
+    constexpr int kWords = kTile * kTile / 32;
+    int* base = reinterpret_cast<int*>(smem + kEpiBase);  // [kWords + 1]
+    float* sums = reinterpret_cast<float*>(smem + kEpiSums);
+    float* scratch = reinterpret_cast<float*>(smem + kEpiChain) + warp * kChainFloats;
+    if (warp == 0) {
+      constexpr int kPer = kWords / 32;
+      int n = 0;
+#pragma unroll
+      for (int q = 0; q < kPer; ++q) n += __popc(near_map[kPer * lane + q]);
+      int at = n;  // inclusive prefix over the lanes, then exclusive
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int t = __shfl_up_sync(0xffffffffu, at, off);
+        if (lane >= off) at += t;
+      }
+      if (lane == 31) base[kWords] = at;
+      at -= n;
+#pragma unroll
+      for (int q = 0; q < kPer; ++q) {
+        base[kPer * lane + q] = at;
+        at += __popc(near_map[kPer * lane + q]);
+      }
+    }
+    __syncthreads();
+    const int items = base[kWords];
+    const int chains = WithState ? hist.steps + 1 : 1;  // an output's: one a step
+    const int round = max(1, kRecheckChains / chains);
+    for (int r0 = 0; r0 < items; r0 += round) {
+      const int n = min(round, items - r0);
+      for (int u = warp; u < n * chains; u += kThreads / 32) {
+        const int2 at = near_item(near_map, base, r0 + u / chains);
+        const int st = u % chains;  // chains - 1: this step; else an earlier one
+        const void* xs =
+            st == chains - 1 ? x : static_cast<const char*>(hist.x) + st * hist.x_step;
+        const float sum = recheck_sum<XKind>(xs, w, kp, np, row_blk * kTile + at.x,
+                                             col0 + at.y, lane, scratch);
+        if (lane == 0) sums[u] = sum;
+      }
+      __syncthreads();
+      for (int i = tid; i < n; i += kThreads) {
+        const int2 at = near_item(near_map, base, r0 + i);
+        const int rl = at.x, cl = at.y, row = row_blk * kTile + rl, col = col0 + cl;
+        const float* chain = sums + i * chains;
+        float cur = chain[chains - 1];
+        if (bias != nullptr) cur = __fadd_rn(cur, bias[col]);
+        if (residual != nullptr)
+          cur = __fadd_rn(cur, residual_at(residual, packed_res, row, col, np));
+        if constexpr (WithState) {
+          const size_t at = static_cast<size_t>(row) * n_valid + col;
+          const float sp = s_prev[at];
+          float vp = v_prev[at];
+          float v = __fadd_rn(__fmul_rn(__fmul_rn(tau, vp), __fsub_rn(1.f, sp)), cur);
+          if (chains > 1 && fabsf(v - v_th) < kRecheckBand) {
+            float vv = 0.f, ss = 0.f;
+            for (int h = 0; h < chains - 1; ++h) {
+              float c = chain[h];
+              if (bias != nullptr) c = __fadd_rn(c, bias[col]);
+              if (residual != nullptr)
+                c = __fadd_rn(c, residual_at(static_cast<const char*>(hist.residual) +
+                                                 h * hist.residual_step,
+                                             packed_res, row, col, np));
+              const float vh =
+                  __fadd_rn(__fmul_rn(__fmul_rn(tau, vv), __fsub_rn(1.f, ss)), c);
+              const float f = vh >= v_th ? 1.f : 0.f;
+              vv = soft_reset ? __fsub_rn(vh, __fmul_rn(v_th, f))
+                              : __fmul_rn(vh, __fsub_rn(1.f, f));
+              ss = f;
+            }
+            vp = vv;
+            v = __fadd_rn(__fmul_rn(__fmul_rn(tau, vp), __fsub_rn(1.f, sp)), cur);
+            if (v_used != nullptr) v_used[at] = vp;
+          }
+          vp_tile[rl * kTile + cl] = v;
+        }
+        cur_tile[rl * kRestagePitch + cl] = cur;
+      }
+      __syncthreads();
+    }
+    __syncthreads();
+    gate = smem + kEpiChain;
+  }
+
   // the heads this tile touches: [h_first, h_first + n_heads); the whole-row
   // mask is one "head" over all of q's columns
   int h_first = 0, n_heads = 1;
@@ -207,7 +600,7 @@ fused_pe_kernel(const void* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
   for (int j = 0; j < kSub; ++j)
     gate_of[j] = (c0 + j >= n_valid) ? -1 : head_dim > 0 ? (c0 + j) / head_dim - h_first : 0;
-  unsigned char* gate = reinterpret_cast<unsigned char*>(&sm);  // [kTile][n_heads]
+  // gate: [kTile][n_heads]
   if (q != nullptr) {  // one warp per (row, head): integer row sums of Q spikes
     const int q_cols = packed_q ? dq * 32 : dq;
     for (int g = warp; g < kTile * n_heads; g += kThreads / 32) {
@@ -221,64 +614,60 @@ fused_pe_kernel(const void* __restrict__ x, const float* __restrict__ w,
     __syncthreads();
   }
 
-  const int words_per_row = np / 32;
-  float b[kSub];
-#pragma unroll
-  for (int j = 0; j < kSub; ++j) b[j] = 0.f;
-  if (bias != nullptr) {
-    const float4 b0 = *reinterpret_cast<const float4*>(bias + c0);
-    const float4 b1 = *reinterpret_cast<const float4*>(bias + c0 + 4);
-    b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
-    b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
-  }
   int count = 0;
 #pragma unroll
   for (int i = 0; i < kSub; ++i) {
     const int rl = ty * kSub + i;
     const int row = row_blk * kTile + rl;
-    float r[kSub] = {};
-    if (residual != nullptr && packed_res) {  // this thread's 8 bits of a word
-      const unsigned word = static_cast<unsigned>(static_cast<const int*>(residual)[
-          static_cast<size_t>(row) * words_per_row + c0 / 32]);
-      const unsigned bits = (word >> (c0 % 32)) & 0xffu;
-#pragma unroll
-      for (int j = 0; j < kSub; ++j) r[j] = ((bits >> j) & 1u) ? 1.f : 0.f;
-    } else if (residual != nullptr) {
-      const float* rp = static_cast<const float*>(residual) + static_cast<size_t>(row) * np + c0;
-      const float4 r0 = *reinterpret_cast<const float4*>(rp);
-      const float4 r1 = *reinterpret_cast<const float4*>(rp + 4);
-      r[0] = r0.x; r[1] = r0.y; r[2] = r0.z; r[3] = r0.w;
-      r[4] = r1.x; r[5] = r1.y; r[6] = r1.z; r[7] = r1.w;
-    }
     const bool row_on = row < m_valid;
+    // this row's currents and membrane potentials: a spike x's from shared
+    // memory (with the state, the potential in the state's place); a float
+    // x's product sums with bias and residual (f32 only: the LM's residual
+    // stream), which take no state
+    float cur_in[kSub], pot[kSub];
+    if constexpr (kSpikeX<XKind>) {
+      tile_get8(cur_tile, kRestagePitch, rl, tx, cur_in);
+      if constexpr (WithState)
+        tile_get8(vp_tile, kTile, rl, tx, pot);
+    } else {
+      float r[kSub] = {};
+      if (residual != nullptr && packed_res) {  // this thread's 8 bits of a word
+        const unsigned word = static_cast<unsigned>(static_cast<const int*>(residual)[
+            static_cast<size_t>(row) * words_per_row + c0 / 32]);
+        const unsigned bits = (word >> (c0 % 32)) & 0xffu;
+#pragma unroll
+        for (int j = 0; j < kSub; ++j) r[j] = ((bits >> j) & 1u) ? 1.f : 0.f;
+      } else if (residual != nullptr) {
+        const float* rp =
+            static_cast<const float*>(residual) + static_cast<size_t>(row) * np + c0;
+        const float4 r0 = *reinterpret_cast<const float4*>(rp);
+        const float4 r1 = *reinterpret_cast<const float4*>(rp + 4);
+        r[0] = r0.x; r[1] = r0.y; r[2] = r0.z; r[3] = r0.w;
+        r[4] = r1.x; r[5] = r1.y; r[6] = r1.z; r[7] = r1.w;
+      }
+#pragma unroll
+      for (int j = 0; j < kSub; ++j) {
+        cur_in[j] = acc[i][j];
+        if (bias != nullptr) cur_in[j] = __fadd_rn(cur_in[j], b[j]);
+        if (residual != nullptr) cur_in[j] = __fadd_rn(cur_in[j], r[j]);
+      }
+    }
+    if constexpr (!WithState) {
+#pragma unroll
+      for (int j = 0; j < kSub; ++j) pot[j] = cur_in[j];
+    }
+    float v_out[kSub];
     uint64_t bytes = 0;
     unsigned bits = 0;
 #pragma unroll
     for (int j = 0; j < kSub; ++j) {
-      float cur = acc[i][j];
-      if (bias != nullptr) cur = __fadd_rn(cur, b[j]);
-      if (residual != nullptr) cur = __fadd_rn(cur, r[j]);
-      const bool valid = row_on && c0 + j < n_valid;
-      const size_t at = static_cast<size_t>(row) * n_valid + c0 + j;
-      if constexpr (EmitCurrent) {
-        if (valid) current[at] = cur;
-      }
-      float v = cur;
-      if constexpr (WithState) {
-        float vp = 0.f, sp = 0.f;
-        if (valid) {
-          vp = v_prev[at];
-          sp = static_cast<float>(s_prev[at]);
-        }
-        v = __fadd_rn(__fmul_rn(__fmul_rn(tau, vp), __fsub_rn(1.f, sp)), cur);
-      }
+      const float v = pot[j];
       // the layer's own spike, before the QK gate and the padding mask
       const bool fire = v >= v_th;
       if constexpr (WithState) {
         const float f = fire ? 1.f : 0.f;
-        if (valid)
-          v_next[at] = soft_reset ? __fsub_rn(v, __fmul_rn(v_th, f))
-                                  : __fmul_rn(v, __fsub_rn(1.f, f));
+        v_out[j] = soft_reset ? __fsub_rn(v, __fmul_rn(v_th, f))
+                              : __fmul_rn(v, __fsub_rn(1.f, f));
       }
       const bool on = row_on && gate_of[j] >= 0 &&
                       (q == nullptr || gate[rl * n_heads + gate_of[j]] != 0);
@@ -287,6 +676,9 @@ fused_pe_kernel(const void* __restrict__ x, const float* __restrict__ w,
       bytes |= static_cast<uint64_t>(s) << (8 * j);
       bits |= static_cast<unsigned>(s) << j;
     }
+    // the emitted current and v_next, inside the valid extent
+    if constexpr (EmitCurrent) store_row(current, row, cur_in);
+    if constexpr (WithState) store_row(v_next, row, v_out);
     if (packed_out) {
       // lanes 4g..4g+3 hold columns 32g'..32g'+31 of one row (tx = 4g'..),
       // each 8 of them: shift each byte into place and OR the four
@@ -477,37 +869,48 @@ fused_pe_decode_kernel(const void* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// the state operands of one launch (all null without state), and the
-// decode route's count scratch
+// the state operands of one launch (all null without state; v_used, the
+// state its spikes were decided on, may be null), the decode route's count
+// scratch, and the earlier steps a stateful launch's recheck replays
 struct State {
   const float* v_prev;
   const int8_t* s_prev;
   float* v_next;
+  float* v_used;
   float tau;
   int* counts;
+  History hist;
 };
 
 template <int XKind, bool EmitCurrent, int Skip, bool WithState>
-void launch(const void* x, const float* w, const Route& route, const float* bias,
-            const void* residual, const void* q, int dq, void* spikes,
+void launch(const void* x, const float* w, const uint16_t* ws, const Route& route,
+            const float* bias, const void* residual, const void* q, int dq, void* spikes,
             int* vld_next, float* current, const State& st, int mp, int kp,
             int np, int bn, int m_valid, int n_valid, float v_th,
             float qk_threshold, int head_dim, int flags, cudaStream_t stream) {
+  const auto kernel = fused_pe_kernel<XKind, EmitCurrent, Skip, WithState>;
+  int smem = 0;
+  if constexpr (kSpikeX<XKind>) {
+    smem = kSpikeSmemBytes;
+    static const cudaError_t attr =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    (void)attr;  // a refusal shows as the launch's own error
+  }
   const dim3 grid(np / kTile, mp / kTile);
-  fused_pe_kernel<XKind, EmitCurrent, Skip, WithState><<<grid, kThreads, 0, stream>>>(
-      x, w, route, bias, residual, q, dq, spikes, vld_next, current, st.v_prev,
-      st.s_prev, st.v_next, kp, np, bn, m_valid, n_valid, v_th, qk_threshold,
+  kernel<<<grid, kThreads, smem, stream>>>(
+      x, w, ws, route, st.hist, bias, residual, q, dq, spikes, vld_next, current, st.v_prev,
+      st.s_prev, st.v_next, st.v_used, kp, np, bn, m_valid, n_valid, v_th, qk_threshold,
       st.tau, head_dim, flags);
 }
 
 // the decode route's launch (route.vld may be null: every chunk kept; the
 // C entry refuses a residual, a state and the current on this route)
 template <int XKind, int RM>
-void launch_decode(const void* x, const float* w, const Route& route, const float* bias,
-                   const void*, const void* q, int dq, void* spikes, int* vld_next,
-                   float*, const State& st, int mp, int kp, int np, int bn, int m_valid,
-                   int n_valid, float v_th, float qk_threshold, int head_dim, int flags,
-                   cudaStream_t stream) {
+void launch_decode(const void* x, const float* w, const uint16_t*, const Route& route,
+                   const float* bias, const void*, const void* q, int dq, void* spikes,
+                   int* vld_next, float*, const State& st, int mp, int kp, int np, int bn,
+                   int m_valid, int n_valid, float v_th, float qk_threshold, int head_dim,
+                   int flags, cudaStream_t stream) {
   const auto kernel = fused_pe_decode_kernel<XKind, RM>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDecodeMaxSmem);

@@ -36,6 +36,7 @@ import torch.nn.functional as F
 
 from ...core.events import (LANE_BITS, PackedSpikes, block_count_map_2d,
                             pad_to_blocks, popcount_block_map, vld_or_compute)
+from ...tree import derived
 from .. import _build
 from ..packed.ops import pack_spikes, unpack_spikes
 from ..spike_matmul.ops import (DECODE_ROWS, ROUTE_IDS, SKIP_IDS, TILE, Gate,
@@ -43,7 +44,7 @@ from ..spike_matmul.ops import (DECODE_ROWS, ROUTE_IDS, SKIP_IDS, TILE, Gate,
                                 check_width, make_gate, packed_operand,
                                 row_vld, rows_padded, weight_operand,
                                 x_occupancy)
-from .ref import LIFState, Packing, fused_pe_block_ref, head_gate
+from .ref import LIFState, Packing, fused_pe_block_ref, head_gate, split_weight
 
 Spikes = Union[torch.Tensor, PackedSpikes]
 
@@ -149,12 +150,20 @@ def fused_pe_cuda(xp: torch.Tensor, wp: torch.Tensor,
                   packing: Packing = Packing(), block_n: int = TILE,
                   gate: Optional[Gate] = None,
                   heads: Optional[tuple[int, int]] = None,
-                  state: Optional[LIFState] = None, *,
-                  route: str = "tile") -> tuple:
+                  state: Optional[LIFState] = None,
+                  ws: Optional[torch.Tensor] = None, *,
+                  route: str = "tile", state_out: bool = False) -> tuple:
     """Launch the kernel on block-aligned CUDA operands (see
     ``fused_pe_block_ref`` for the contract and the outputs): the dense
     skip on ``vld``, or the gated walk of ``gate`` (spike x only), with the
-    LIF ``state`` (spike x only) or without. ``route="decode"`` launches
+    LIF ``state`` (spike x only) or without. A spike x's tile multiplies on
+    the tensor cores by ``ws``, w's exact split into three bf16 terms
+    ([3, Kp, Np], ``split_weight``), which it needs. With ``state_out``
+    and a state that carries its train's earlier steps (``state.x_hist``)
+    the launch also returns, last, the state the spikes were decided on:
+    v_prev, but where the near-threshold recheck replayed those steps. No
+    operand is written.
+    ``route="decode"`` launches
     the decode route (a dense activation x of at most 64 rows on the dense
     skip, without residual, state or emitted current): x and q need only
     their first m_valid rows, ``vld`` may be None (every block kept), and
@@ -199,6 +208,10 @@ def fused_pe_cuda(xp: torch.Tensor, wp: torch.Tensor,
     else:
         _build.require(xp, "x", torch.int8, (rows, kp), dev)
     _build.require(wp, "w", torch.float32, (kp, np_), dev)
+    if xp.dtype not in FLOAT_X_FLAGS:
+        if ws is None:
+            raise ValueError("a spike x's tile needs ws, w's bf16 split")
+        _build.require(ws, "ws", torch.bfloat16, (3, kp, np_), dev)
     grid = (mp // TILE, kp // bk)
     if vld is not None:
         _build.require(vld, "vld_cnt", torch.int32, grid, dev, align=4)
@@ -241,11 +254,26 @@ def fused_pe_cuda(xp: torch.Tensor, wp: torch.Tensor,
         mp, np_, m_valid, n_valid, packing, block_n, state is not None,
         route, dev)
     nact, kmap, occ = gate if gate is not None else (None, None, None)
+    x_hist = r_hist = v_used = None
+    if state is not None and state.x_hist is not None:
+        if state_out:
+            v_used = torch.empty_like(state.v_prev)
+        x_hist, r_hist = state.x_hist, state.r_hist
+        steps = x_hist.shape[0]
+        _build.require(x_hist, "x_hist", xp.dtype, (steps, *xp.shape), dev,
+                       align=4)
+        if (rp is None) != (r_hist is None):
+            raise ValueError("r_hist goes with a residual, and only with one")
+        if rp is not None:
+            _build.require(r_hist, "r_hist", rp.dtype, (steps, *rp.shape),
+                           dev, align=4)
     stream = _build.stream(xp)
     counts = (count_scratch(dev, stream, np_ // block_n) if decode
               else None)
     err = _build.library().repro_fused_pe(
-        _build.ptr(xp), _build.ptr(wp), _build.ptr(vld), _build.ptr(nact),
+        _build.ptr(xp), _build.ptr(wp),
+        _build.ptr(ws if xp.dtype not in FLOAT_X_FLAGS else None),
+        _build.ptr(vld), _build.ptr(nact),
         _build.ptr(kmap), _build.ptr(occ), _build.ptr(bp), _build.ptr(rp),
         _build.ptr(qp), dq, _build.ptr(spikes), _build.ptr(vld_next),
         _build.ptr(current),
@@ -255,13 +283,18 @@ def fused_pe_cuda(xp: torch.Tensor, wp: torch.Tensor,
         qk_threshold, 0.0 if state is None else state.tau,
         0 if heads is None else heads[1], flags,
         SKIP_IDS["dense" if gate is None else gate.skip], ROUTE_IDS[route],
-        _build.ptr(counts), stream)
+        _build.ptr(counts), _build.ptr(x_hist), _build.ptr(r_hist),
+        0 if x_hist is None else x_hist.stride(0) * x_hist.element_size(),
+        0 if r_hist is None else r_hist.stride(0) * r_hist.element_size(),
+        0 if x_hist is None else x_hist.shape[0], _build.ptr(v_used), stream)
     _build.check(err, "repro_fused_pe")
     out = (spikes, vld_next)
     if state is not None:
         out = (*out, v_next)
     if packing.current:
         out = (*out, current)
+    if v_used is not None:
+        out = (*out, v_used)
     return out
 
 
@@ -278,7 +311,8 @@ def fused_pe_operands(x: Spikes, w: torch.Tensor, *,
                       v_prev: Optional[torch.Tensor] = None,
                       s_prev: Optional[torch.Tensor] = None,
                       tau: float = 0.5, soft_reset: bool = False,
-                      route: str = "tile") -> tuple:
+                      route: str = "tile",
+                      train: Optional[tuple] = None) -> tuple:
     """The block-aligned operands of one launch, in the order
     ``fused_pe_cuda`` and ``fused_pe_block_ref`` take them: x (int8, f32 or
     bf16, or a packed x's words), w padded to x's padded K and to
@@ -287,9 +321,19 @@ def fused_pe_operands(x: Spikes, w: torch.Tensor, *,
     reference wrapper casts it, or a packed one's words), q (int8 padded to
     128 columns, or words), then the valid extent, the thresholds, the
     ``Packing``, ``block_n``, the ``Gate`` (None for the dense skip),
-    ``heads`` (None for the whole-row mask) and the ``LIFState`` (None
+    ``heads`` (None for the whole-row mask), the ``LIFState`` (None
     without ``v_prev``: v_prev as f32 and s_prev as int8, as the reference
-    wrapper casts them, zeros for a missing s_prev, all unpadded).
+    wrapper casts them, zeros for a missing s_prev, all unpadded) and, for
+    a spike x, ws: the padded w's exact split into three bf16 terms
+    ([3, Kp, Np], ``split_weight``), which the spike-x tile multiplies by,
+    made once per weight (``weight_split``; None for a float x).
+
+    ``train=(xh, rh, t)``, with the state, makes this launch step t of a
+    train whose state began at zeros, laid out once by ``train_operands``:
+    x's operand is the view ``xh[t]`` and an f32 residual's ``rh[t]``
+    (nothing is padded again), and the steps before it, ``xh[:t]`` and
+    ``rh[:t]``, ride in the ``LIFState`` for the kernel's near-threshold
+    recheck (none at t = 0).
 
     ``route="decode"`` gives the decode route's operands (a dense
     activation x without residual, state or emitted current), in the same
@@ -319,7 +363,8 @@ def fused_pe_operands(x: Spikes, w: torch.Tensor, *,
         xp, vld = packed_operand(x, vld_cnt, "fused_pe x", block_k)
         kp = xp.shape[1] * LANE_BITS
     else:
-        xp = pad_to_blocks(spike_operand(x), bm, block_k).contiguous()
+        xp = (train_step(train, 0, (m0, k0), block_k) if train is not None
+              else pad_to_blocks(spike_operand(x), bm, block_k).contiguous())
         if xp.dtype in FLOAT_X_FLAGS:
             if skip != "dense":
                 raise ValueError(f"a dense activation x takes skip='dense', "
@@ -350,8 +395,10 @@ def fused_pe_operands(x: Spikes, w: torch.Tensor, *,
         if tuple(residual.shape) != (m0, n0):
             raise ValueError(f"residual {tuple(residual.shape)} is not "
                              f"[{m0}, {n0}]")
-        rp = pad_to_blocks(residual.to(torch.float32), TILE,
-                           block_n).contiguous()
+        rp = (train_step(train, 1, (m0, n0), block_n)
+              if train is not None and train[1] is not None
+              else pad_to_blocks(residual.to(torch.float32), TILE,
+                                 block_n).contiguous())
     if isinstance(q, PackedSpikes):
         if q.block_m != TILE:
             raise ValueError(f"fused_pe q was packed on block_m={q.block_m} "
@@ -382,10 +429,37 @@ def fused_pe_operands(x: Spikes, w: torch.Tensor, *,
                                  f"[{m0}, {n0}]")
         sp = (torch.zeros((m0, n0), dtype=torch.int8, device=xp.device)
               if s_prev is None else s_prev.to(torch.int8))
+        hist = ()
+        if train is not None and train[2] > 0:
+            xh, rh, t = train
+            hist = (xh[:t], None if rh is None else rh[:t])
         state = LIFState(v_prev.to(torch.float32).contiguous(),
-                         sp.contiguous(), float(tau), bool(soft_reset))
+                         sp.contiguous(), float(tau), bool(soft_reset), *hist)
+    elif train is not None:
+        raise ValueError("a train's step goes with the LIF state")
+    ws = (None if xp.dtype in FLOAT_X_FLAGS
+          else weight_split(w, wp, block_k, block_n))
     return (xp, wp, vld, bp, rp, qp, m0, n0, v_th, qk_threshold, packing,
-            block_n, gate, heads, state)
+            block_n, gate, heads, state, ws)
+
+
+def weight_split(w: torch.Tensor, wp: torch.Tensor, block_k: int,
+                 block_n: int) -> torch.Tensor:
+    """``split_weight(wp)`` of ``wp``, the padded operand of the caller's
+    ``w``, made once while the tensor w views lives unmodified
+    (``tree.derived`` on that tensor, the caller's parameter where w is a
+    reshape of it, and its ``_version``, with the view and the padding):
+    a parameter is split once, and an in-place update makes a new split.
+    Keyed on the parameter, not on wp or a view of it, which are new
+    tensors each call."""
+    root = w
+    while root._base is not None:
+        root = root._base
+    view = (tuple(w.shape), w.stride(), w.storage_offset())
+    with torch.no_grad():
+        return derived(root, ("fused_pe bf16x3", view, tuple(wp.shape),
+                              block_k, block_n),
+                       lambda: split_weight(wp.detach()))
 
 
 def fused_pe_tile_operands(args: tuple) -> tuple:
@@ -414,9 +488,12 @@ def fused_pe(x: Spikes, w: torch.Tensor, *,
              heads: Optional[tuple[int, int]] = None,
              v_prev: Optional[torch.Tensor] = None,
              s_prev: Optional[torch.Tensor] = None,
-             tau: float = 0.5, soft_reset: bool = False) -> tuple:
+             tau: float = 0.5, soft_reset: bool = False,
+             train: Optional[tuple] = None) -> tuple:
     """One fused PE layer: stateless (the deployed T=1 form), or one step
-    of a T>1 train with the LIF state ``v_prev`` / ``s_prev`` [M, N].
+    of a T>1 train with the LIF state ``v_prev`` / ``s_prev`` [M, N] (and,
+    where the state began at zeros, ``train``: the train's operands and
+    this step's index, as ``fused_pe_operands`` takes them).
 
     x [M, K] int8 spikes, a 2-D PackedSpikes or a dense f32 / bf16
     activation, w [K, N]; optional bias [N], residual [M, N] (f32 current,
@@ -447,7 +524,8 @@ def fused_pe(x: Spikes, w: torch.Tensor, *,
                              emit_current=emit_current, block_n=block_n,
                              block_k=block_k, skip=skip, heads=heads,
                              v_prev=v_prev, s_prev=s_prev, tau=tau,
-                             soft_reset=soft_reset, route=route)
+                             soft_reset=soft_reset, route=route,
+                             train=train)
     if dev.type == "cpu":
         outs = fused_pe_block_ref(*args)
     elif dev.type == "cuda":
@@ -464,6 +542,40 @@ def fused_pe(x: Spikes, w: torch.Tensor, *,
     else:
         spikes = spikes[:m0, :n0]
     return (spikes, vld_next, *outs[2:])
+
+
+def train_operands(x: Spikes, residual: Optional[Spikes], block_k: int,
+                   block_n: int) -> tuple:
+    """A [T, M, K] spike train x (int8 / bool / 0-1 float, or a 3-D
+    PackedSpikes) and its [T, M, N] residual (or None) in the layouts of
+    one step's launch operands, padded once for the whole train: (int8
+    [T, Mp, Kp] or words, f32 [T, Mp, Np] or words, or None). Step t's
+    launch takes ``(xh, rh, t)`` as its ``train``: its operands are views
+    of these, and so are the steps before it that its recheck replays."""
+    if isinstance(x, PackedSpikes):
+        xh = x.words.contiguous()
+    else:
+        xh = pad_to_blocks(x.to(torch.int8), TILE, block_k).contiguous()
+    if residual is None:
+        return xh, None
+    if isinstance(residual, PackedSpikes):
+        return xh, residual.words.contiguous()
+    return xh, pad_to_blocks(residual.to(torch.float32), TILE,
+                             block_n).contiguous()
+
+
+def train_step(train: tuple, which: int, shape: tuple,
+               block: int) -> torch.Tensor:
+    """Step ``train[2]`` of the train's x (``which`` 0) or residual (1)
+    operand, checked to be the padded layout of a [M, K] (or [M, N])
+    operand of ``shape`` on ``block``-wide column blocks."""
+    op = train[which][train[2]]
+    rows, cols = shape
+    want = (-(-rows // TILE) * TILE, -(-cols // block) * block)
+    if tuple(op.shape) != want:
+        raise ValueError(f"the train's step {tuple(op.shape)} is not the "
+                         f"padded {want}")
+    return op
 
 
 def _at(t, i: int):
@@ -507,7 +619,10 @@ def fused_pe_layer(x: Spikes, w: torch.Tensor, *,
     T=1 is one stateless launch (the deployed form). T>1 scans the
     stateful launch over time, carrying (v, s) from zeros, as
     ``core.lif.lif_multistep`` does: ``s`` is the kernel's pre-mask int8
-    spike map. With q the kernel runs unmasked and the whole-row (or,
+    spike map; the train is laid out once (``train_operands``), each
+    step's launch reads its own step and the steps before it, which its
+    near-threshold recheck replays, as views of that one copy.
+    With q the kernel runs unmasked and the whole-row (or,
     with ``heads``, per-head) mask gates its spikes outside, a packed q
     unpacked for it, and the step's vld map is recounted on the masked
     map. A packed output is packed after the scan, every step in one pack
@@ -528,11 +643,13 @@ def fused_pe_layer(x: Spikes, w: torch.Tensor, *,
     dev = (x.words if isinstance(x, PackedSpikes) else x).device
     v = torch.zeros((m, n), dtype=torch.float32, device=dev)
     s = torch.zeros((m, n), dtype=torch.int8, device=dev)
+    xh, rh = train_operands(x, residual, block_k, block_n)
     spikes_ts, vld_ts = [], []
     for ti in range(t):
         spk, vld, v = fused_pe(
             x[ti], w, residual=_at(residual, ti), vld_cnt=_at(vld_cnt, ti),
-            v_prev=v, s_prev=s, tau=tau, soft_reset=soft_reset, **kw)
+            v_prev=v, s_prev=s, tau=tau, soft_reset=soft_reset,
+            train=(xh, rh, ti), **kw)
         s = spk                                   # the pre-mask carry
         q_t = _at(q, ti)
         if q_t is not None:

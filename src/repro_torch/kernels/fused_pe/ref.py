@@ -9,6 +9,12 @@ kernel itself, on the same block-aligned operands: it honours the input
 exactly as the kernel does. Its packed variants unpack
 their packed operands, run the dense plain version, and pack its spikes,
 so the dense plain version is the one definition of the function.
+
+``split_product`` is the plain twin of the kernel's product for a spike x
+(``csrc/event_wgmma.cuh``): w split exactly into three bf16 terms, and the
+32-deep k steps its route keeps (``k_steps``) each summed as three products
+into a fresh tile that joins the running f32 sum; ``fused_pe_block_ref(...,
+split=True)`` runs the layer on it.
 """
 from __future__ import annotations
 
@@ -20,7 +26,16 @@ from ...core.events import (block_count_map_2d, pack_words, pad_to_blocks,
                             unpack_words)
 from ..lif_update.ref import lif_update_ref
 from ..qk_attention.ref import qk_attention_ref
-from ..spike_matmul.ref import block_skip_mask, gated_mask, spike_matmul_ref
+from ..spike_matmul.ref import (block_skip_mask, gated_mask, spike_matmul_ref,
+                                split_g_bf16x3)
+
+# the k depth of one step of the spike-x tile: one packed word a row, one
+# occ bit
+STEP = 32
+# the spike-x tile decides the spikes whose membrane potential lies within
+# this of v_th on the scalar tile's ascending f32 chain (the kernel's
+# kRecheckBand, 2^-15)
+RECHECK_BAND = 2.0 ** -15
 
 
 def head_gate(q: torch.Tensor, heads: tuple[int, int],
@@ -80,11 +95,19 @@ class LIFState(NamedTuple):
     at the valid extent [m_valid, n_valid]: the membrane potential
     ``v_prev`` f32 and the previous step's pre-mask spikes ``s_prev`` int8
     in, decayed by ``tau``; the reset is ``v - v_th * s`` with
-    ``soft_reset``, else ``v * (1 - s)``."""
+    ``soft_reset``, else ``v * (1 - s)``. ``x_hist`` and ``r_hist`` are the
+    earlier steps of a train whose state began at zeros, [steps, ...] in
+    the launch's x and residual operand layouts (None for none): the
+    kernel's near-threshold recheck replays them into the state it decides
+    on, which a launch asked for it returns last (``state_out``); the
+    plain version, which sums each step as one f32 product, reads none of
+    them and returns ``v_prev`` there."""
     v_prev: torch.Tensor
     s_prev: torch.Tensor
     tau: float = 0.5
     soft_reset: bool = False
+    x_hist: Optional[torch.Tensor] = None
+    r_hist: Optional[torch.Tensor] = None
 
 
 class Packing(NamedTuple):
@@ -105,13 +128,77 @@ class Packing(NamedTuple):
                 | int(self.out) << 3)
 
 
+def split_weight(wp: torch.Tensor) -> torch.Tensor:
+    """The spike-x tile's weight operand: f32 wp [Kp, Np] as its exact
+    three-term bf16 split (``split_g_bf16x3``), one [3, Kp, Np] bf16
+    tensor."""
+    return torch.stack(split_g_bf16x3(wp)).contiguous()
+
+
+def k_steps(vld: torch.Tensor, gate, bk: int, row_blk: int) -> list[int]:
+    """The first k column of each 32-deep step the spike-x tile of row block
+    ``row_blk`` runs, in its order (the kernel's ``StepWalk``): every step
+    of each block whose vld count is nonzero (the dense skip) or, with a
+    ``gate`` (nact, kmap, occ), of each block of the compacted list, and
+    with occ only the steps whose bit is set."""
+    per = bk // STEP
+    if gate is None:
+        blocks = (vld[row_blk] != 0).nonzero().flatten().tolist()
+        bits = [-1] * len(blocks)
+    else:
+        nact, kmap, occ = gate
+        blocks = kmap[row_blk, :int(nact[row_blk])].tolist()
+        bits = ([-1] * len(blocks) if occ is None
+                else [int(occ[row_blk, kb]) for kb in blocks])
+    return [kb * bk + s * STEP for kb, b in zip(blocks, bits)
+            for s in range(per) if (b >> s) & 1]
+
+
+def split_product(x: torch.Tensor, wp: torch.Tensor, vld: torch.Tensor,
+                  gate=None, ws: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """The spike-x tile's product in its order: per 128-row block, over
+    ``k_steps``, a fresh tile ``(x_s @ w1_s + x_s @ w2_s) + x_s @ w3_s`` of
+    the step's 32 columns, each product exact (0/1 times a bf16 term),
+    added to the running f32 sum. ``ws`` is the split (``split_weight(wp)``
+    when None). Returns [Mp, Np] f32."""
+    w1, w2, w3 = (t.to(torch.float32)
+                  for t in (split_weight(wp) if ws is None else ws))
+    bk = wp.shape[0] // vld.shape[1]
+    out = torch.zeros((x.shape[0], wp.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    for rb in range(x.shape[0] // 128):
+        rows = slice(128 * rb, 128 * rb + 128)
+        for k0 in k_steps(vld, gate, bk, rb):
+            xs = x[rows, k0:k0 + STEP].to(torch.float32)
+            ks = slice(k0, k0 + STEP)
+            out[rows] += (xs @ w1[ks] + xs @ w2[ks]) + xs @ w3[ks]
+    return out
+
+
+def sequential_product(x: torch.Tensor, wp: torch.Tensor,
+                       mask: torch.Tensor) -> torch.Tensor:
+    """x @ w as the scalar tile forms it: each output one f32 sum, over k
+    ascending, of the products the route keeps (``mask``); for 0/1 spikes
+    each product is exact and each add rounds once, as its fmaf does.
+    Returns [Mp, Np] f32."""
+    xm = (x * mask).to(torch.float32)
+    acc = torch.zeros((x.shape[0], wp.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    for k in range(x.shape[1]):
+        acc = acc + xm[:, k:k + 1] * wp[k]
+    return acc
+
+
 def fused_pe_block_ref(xp: torch.Tensor, wp: torch.Tensor, vld: torch.Tensor,
                        bp: Optional[torch.Tensor], rp: Optional[torch.Tensor],
                        qp: Optional[torch.Tensor], m_valid: int, n_valid: int,
                        v_th: float, qk_threshold: float,
                        packing: Packing = Packing(), block_n: int = 128,
                        gate=None, heads: Optional[tuple[int, int]] = None,
-                       state: Optional[LIFState] = None) -> tuple:
+                       state: Optional[LIFState] = None,
+                       ws: Optional[torch.Tensor] = None, *,
+                       split: bool = False, state_out: bool = False) -> tuple:
     """The kernel's function on block-aligned operands: x [Mp, Kp] int8
     spikes or a dense f32 / bf16 activation, w [Kp, Np] f32, vld [Mp/128,
     Kp/bk] (bk the k width of x's metadata blocks), bias [Np], residual
@@ -121,28 +208,52 @@ def fused_pe_block_ref(xp: torch.Tensor, wp: torch.Tensor, vld: torch.Tensor,
     gated walk reads it. ``heads=(h, dh)`` (``h*dh == n_valid``) makes the
     q mask head-blocked. ``state`` makes the launch stateful: v = tau *
     v_prev * (1 - s_prev) + cur, and the reset of v_next comes from the
-    pre-mask spike. Returns (spikes [Mp, Np] int8, or [Mp, Np/32] words
+    pre-mask spike. ``ws``, the kernel's split of w for a spike x, is read
+    only with ``split=True``, which forms a spike x's product as the kernel
+    does (``split_product``) instead of as one f32 product, and, as the
+    kernel does, forms again as the scalar tile's chain
+    (``sequential_product``) every valid output whose membrane potential
+    lies within ``RECHECK_BAND`` of v_th. Returns
+    (spikes [Mp, Np] int8, or [Mp, Np/32] words
     with ``packing.out``, and vld_next [Mp/128, Np/block_n] int32), then
     with ``state`` v_next [m_valid, n_valid] f32, and with
     ``packing.current`` the f32 current [m_valid, n_valid] the spikes were
-    thresholded from."""
+    thresholded from, and with ``state_out`` and a ``state`` that carries
+    its train's earlier steps the state the spikes were decided on
+    (``v_prev`` here: the plain version replays nothing)."""
     x = unpack_words(xp) if packing.x else xp
     r = unpack_words(rp, torch.float32) if packing.residual else rp
     q = unpack_words(qp) if packing.q else qp
     mask = (block_skip_mask(vld, x.shape) if gate is None
             else gated_mask(*gate, x.shape))
-    # the sums in fused_pe_ref's order: product, bias, residual
-    cur = spike_matmul_ref(x * mask, wp)
-    if bp is not None:
-        cur = cur + bp.reshape(1, -1).to(torch.float32)
-    if r is not None:
-        cur = cur + r.to(torch.float32)
-    vp, sp = torch.zeros_like(cur), torch.zeros_like(cur)
+    vp = torch.zeros((x.shape[0], wp.shape[1]), dtype=torch.float32,
+                     device=x.device)
+    sp = torch.zeros_like(vp)
     tau, soft_reset = 0.5, False
     if state is not None:     # zeros past the valid extent, where none fires
         vp[:m_valid, :n_valid] = state.v_prev
         sp[:m_valid, :n_valid] = state.s_prev.to(torch.float32)
         tau, soft_reset = state.tau, state.soft_reset
+
+    def current(prod):
+        """The sums in fused_pe_ref's order: product, bias, residual."""
+        if bp is not None:
+            prod = prod + bp.reshape(1, -1).to(torch.float32)
+        if r is not None:
+            prod = prod + r.to(torch.float32)
+        return prod
+
+    if split and not x.is_floating_point():
+        cur = current(split_product(x, wp, vld, gate, ws))
+        v = cur if state is None else tau * vp * (1.0 - sp) + cur
+        near = (v - v_th).abs() < RECHECK_BAND
+        near[m_valid:] = False
+        near[:, n_valid:] = False
+        if bool(near.any()):
+            cur = torch.where(near, current(sequential_product(x, wp, mask)),
+                              cur)
+    else:
+        cur = current(spike_matmul_ref(x * mask, wp))
     spk, v_next = lif_update_ref(cur, vp, sp, tau=tau, v_th=v_th,
                                  soft_reset=soft_reset)
     if heads is not None and q is not None:
@@ -158,4 +269,6 @@ def fused_pe_block_ref(xp: torch.Tensor, wp: torch.Tensor, vld: torch.Tensor,
         out = (*out, v_next[:m_valid, :n_valid].contiguous())
     if packing.current:
         out = (*out, cur[:m_valid, :n_valid].contiguous())
+    if state_out and state is not None and state.x_hist is not None:
+        out = (*out, state.v_prev.clone())
     return out

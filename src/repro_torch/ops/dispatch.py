@@ -27,6 +27,7 @@ import torch
 
 from ..core.events import DEFAULT_BLOCKS
 from ..core.lif import LIFConfig
+from ..tree import derived
 from .policy import ExecutionPolicy, PolicyLike, as_policy
 from .registry import lookup
 from .spike_tensor import SpikeTensor, Spikes
@@ -226,7 +227,13 @@ def conv_matmul_weights(w: torch.Tensor, patches: Spikes) -> torch.Tensor:
 
     st = SpikeTensor.wrap(patches)
     kh, kw = w.shape[:2]
-    return nn.conv_weights_as_matmul_packed(w, st.k // (kh * kw))
+    c_padded = st.k // (kh * kw)
+    if torch.is_grad_enabled() and w.requires_grad:
+        return nn.conv_weights_as_matmul_packed(w, c_padded)
+    # outside autograd, one matrix per parameter (and so one bf16 split of
+    # it for the fused PE's spike-x tile, made once a weight)
+    return derived(w, ("conv matmul", c_padded),
+                   lambda: nn.conv_weights_as_matmul_packed(w, c_padded))
 
 
 def qk_mask(q: Spikes, k: Spikes, *, threshold: float = 1.0,

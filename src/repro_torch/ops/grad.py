@@ -45,11 +45,11 @@ import torch
 from ..core.events import DEFAULT_BLOCKS
 from ..core.lif import LIFConfig
 from ..core.qk_attention import qk_token_mask
-from ..core.surrogate import spike
+from ..core.surrogate import spike, surrogate_grad
 from ..core.w2ttfs import w2ttfs_classifier
 # the registry is where the kernel wrappers are bound, so it imports them
 # neurallint: disable=NL-REGISTRY-BYPASS
-from ..kernels.fused_pe import fused_pe
+from ..kernels.fused_pe import fused_pe, train_operands
 # neurallint: disable=NL-REGISTRY-BYPASS
 from ..kernels.lif_update import lif_update
 # neurallint: disable=NL-REGISTRY-BYPASS
@@ -112,14 +112,36 @@ class _RecomputeVJP(torch.autograd.Function):
         return (None, None, *out)
 
 
+class _SpikeAs(torch.autograd.Function):
+    """The spike map ``fired`` a forward already decided, with the
+    registered pseudo-derivative of ``v - v_th`` as its gradient (the
+    backward of ``core.surrogate.spike``)."""
+
+    @staticmethod
+    def forward(ctx, v_minus_vth, fired, surrogate: str, alpha: float):
+        ctx.save_for_backward(v_minus_vth)
+        ctx.surrogate, ctx.alpha = surrogate, alpha
+        return fired.view_as(fired)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (v,) = ctx.saved_tensors
+        grad = surrogate_grad(v, ctx.surrogate, ctx.alpha).to(g.dtype)
+        return g * grad, None, None, None
+
+
 def _lif_step(cur: torch.Tensor, v_prev: Optional[torch.Tensor],
-              s_prev: Optional[torch.Tensor], cfg: LIFConfig
+              s_prev: Optional[torch.Tensor], cfg: LIFConfig,
+              fired: Optional[torch.Tensor] = None
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """The surrogate LIF body in the kernel's state convention (reset by
-    ``s_prev`` on entry, by the emitted spike on exit)."""
+    ``s_prev`` on entry, by the emitted spike on exit). ``fired``, where
+    given, is the forward's own spike map, which the step takes for its
+    spikes' values (their surrogate gradient still flows through v)."""
     v = cur if v_prev is None else \
         cfg.tau * v_prev * (1.0 - (0.0 if s_prev is None else s_prev)) + cur
-    s = spike(v - cfg.v_th, cfg.surrogate, cfg.alpha)
+    s = (spike(v - cfg.v_th, cfg.surrogate, cfg.alpha) if fired is None
+         else _SpikeAs.apply(v - cfg.v_th, fired, cfg.surrogate, cfg.alpha))
     v_next = v - cfg.v_th * s if cfg.soft_reset else v * (1.0 - s)
     return s, v_next
 
@@ -302,7 +324,8 @@ class _FusedPEState(torch.autograd.Function):
     (a packed output is unpacked by the unpack kernel); returns the spikes
     (QK-masked when q is given) and v_next, reset by the pre-mask spike.
     Backward: the elementwise tail (``_lif_step`` from the cached current,
-    then the mask) differentiated by autograd gives ``dcur`` and the
+    past a train's first step on the forward's own spikes, then the mask)
+    differentiated by autograd gives ``dcur`` and the
     gradients into ``v_prev``, ``s_prev`` and q; then ``dx = dcur @ wᵀ``
     on the dx kernel without a surrogate (its plain transposed form) and
     ``dw = xᵀ @ dcur`` on the dw kernel; the bias gradient is the column
@@ -310,33 +333,42 @@ class _FusedPEState(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, bias, residual, q, v_prev, s_prev, cfg: LIFConfig,
-                qk_threshold: float, fmt: str, skip: str, blocks: tuple):
+                qk_threshold: float, fmt: str, skip: str, blocks: tuple,
+                train: Optional[tuple] = None):
         x8 = x.to(torch.int8)                               # exact on {0,1}
         vld = vld_map(x8)
         _, block_n, block_k = blocks
+        if train is not None and q is not None:
+            raise ValueError("a train's step runs unmasked (q is applied "
+                             "outside the scan)")
         spikes, _, v_next, cur = fused_pe(
             x8, w, bias=bias, residual=residual, q=q,
             vld_cnt=_forward_vld(vld, block_k), v_prev=v_prev,
             s_prev=s_prev, tau=cfg.tau, v_th=cfg.v_th,
             soft_reset=cfg.soft_reset, qk_threshold=qk_threshold,
             out_format=fmt, emit_current=True, block_n=block_n,
-            block_k=block_k, skip=skip)
+            block_k=block_k, skip=skip, train=train)
         if fmt == "packed":
             spikes = unpack_spikes(spikes)
-        ctx.save_for_backward(x8, vld, w, q, v_prev, s_prev, cur)
+        spikes = spikes.to(torch.float32)
+        # past a train's first step the kernel may decide a spike near v_th
+        # on the state its earlier steps' scalar sums carried, not on
+        # v_prev: the backward's step takes the forward's spikes
+        fired = spikes if train is not None and train[2] > 0 else None
+        ctx.save_for_backward(x8, vld, w, q, v_prev, s_prev, cur, fired)
         ctx.cfg, ctx.qk_threshold, ctx.skip = cfg, qk_threshold, skip
         ctx.has_bias, ctx.has_residual = bias is not None, residual is not None
-        return spikes.to(torch.float32), v_next
+        return spikes, v_next
 
     @staticmethod
     def backward(ctx, gs: torch.Tensor, gv: torch.Tensor):
-        x8, vld, w, q, v_prev, s_prev, cur = ctx.saved_tensors
+        x8, vld, w, q, v_prev, s_prev, cur, fired = ctx.saved_tensors
         cfg = ctx.cfg
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_(True)
                       for t in (cur, v_prev, s_prev)]
             q_ = None if q is None else q.detach().requires_grad_(True)
-            spk, v_next = _lif_step(*leaves, cfg)
+            spk, v_next = _lif_step(*leaves, cfg, fired=fired)
             spk = _row_masked(spk, q_, cfg, ctx.qk_threshold)
             wrt = leaves + ([] if q_ is None else [q_])
             grads = torch.autograd.grad((spk, v_next), wrt, (gs, gv),
@@ -350,18 +382,22 @@ class _FusedPEState(torch.autograd.Function):
         dbias = dcur.sum(dim=0) if ctx.has_bias else None
         dres = dcur if ctx.has_residual else None
         return (dx, dw, dbias, dres, dq, dv_prev, ds_prev, None, None, None,
-                None, None)
+                None, None, None)
 
 
 def _pe_step(kernels: str, x, w, bias, residual, q, v_prev, s_prev,
              cfg: LIFConfig, qk_threshold: float, fmt: str, skip: str,
-             blocks: tuple) -> tuple[torch.Tensor, torch.Tensor]:
+             blocks: tuple, train: Optional[tuple] = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
     """One stateful step: (spikes, v_next), the spikes QK-masked when q is
-    given; plain autograd under ``"reference"``, the kernels otherwise."""
+    given; plain autograd under ``"reference"``, the kernels otherwise
+    (where the state began at zeros, on ``train``, the train's operands
+    and the step: ``kernels.fused_pe.train_operands``)."""
     if kernels != "reference":
         _check_blocks(*blocks)
         return _FusedPEState.apply(x, w, bias, residual, q, v_prev, s_prev,
-                                   cfg, qk_threshold, fmt, skip, blocks)
+                                   cfg, qk_threshold, fmt, skip, blocks,
+                                   train)
     return _pe_reference(x, w, bias, residual, q, cfg, qk_threshold, v_prev,
                          s_prev)
 
@@ -436,11 +472,16 @@ def _stateful_layer(kernels: str, st, w, bias, residual, q, qk_threshold,
     m, n = x.shape[1], w_.shape[1]
     v = torch.zeros((m, n), dtype=torch.float32, device=x.device)
     s = torch.zeros_like(v)
+    # the kernels' operands of the whole train, laid out once
+    ops = (None if kernels == "reference" else
+           train_operands(x.detach(), None if res is None else res.detach(),
+                          blocks[2], blocks[1]))
     spikes = []
     for ti in range(x.shape[0]):
         spk, v = _pe_step(kernels, x[ti], w_, b,
                           None if res is None else res[ti], None, v, s, cfg,
-                          qk_threshold, fmt, skip, blocks)
+                          qk_threshold, fmt, skip, blocks,
+                          None if ops is None else (*ops, ti))
         s = spk
         spikes.append(_row_masked(spk, None if q_ is None else q_[ti], cfg,
                                   qk_threshold))

@@ -125,9 +125,10 @@ def test_fused_pe_decode_operands_pad_back_to_the_tiles(m, x_kind, q_kind,
               heads=None if q is None else (h, dh))
     dec = F.fused_pe_operands(x, w, route="decode", **kw)
     tile = F.fused_pe_operands(x, w, **kw)
-    assert len(dec) == len(tile) == 15
+    assert len(dec) == len(tile) == 16
     xp, vld, qp = dec[0], dec[2], dec[5]
     assert xp.shape[0] == m and vld is None and dec[4] is None
+    assert dec[15] is None and tile[15] is None    # a float x has no split
     if qp is not None:
         assert qp.shape[0] == (128 if q_kind == "packed" else m)
     back = F.fused_pe_tile_operands(dec)

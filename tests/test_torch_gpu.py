@@ -1209,3 +1209,216 @@ def test_wrappers_take_the_decode_route_by_shape(cuda, m, skip):
     torch.testing.assert_close(out.cpu(), S.spike_matmul(x.cpu(), w.cpu(),
                                                          skip=skip),
                                rtol=1e-5, atol=1e-4)
+
+
+# K2's spike-x tile on the tensor cores (csrc/event_wgmma.cuh): every fused
+# PE pass of the int8 main path at batch 256 (M, K, N; res1 has N = 64),
+# the packed path's K where it differs, and ragged extents
+SPIKE_TILE_SHAPES = [
+    (262144, 576, 64), (262144, 1152, 64), (65536, 576, 128),
+    (65536, 1152, 128), (16384, 1152, 256), (16384, 2304, 256),
+    (4096, 2304, 512), (4096, 4608, 512), (4096, 512, 512), (4059, 500, 300),
+    (130, 33, 70),
+]
+
+
+def _spike_tile_launches(K, x, w, pack, **kw):
+    """The int8 launch's operands and outputs, and the packed launch's on
+    the same spikes (spikes unpacked)."""
+    from repro_torch.core.events import unpack_words
+    from repro_torch.kernels.packed import pack_spikes_ref
+
+    outs = []
+    for packed in (False, True) if pack else (False,):
+        xx = pack_spikes_ref(x, block_k=kw.get("block_k", 128)) if packed \
+            else x
+        args = K.fused_pe_operands(xx, w, out_format="packed" if packed
+                                   else "dense", **kw)
+        out = K.fused_pe_cuda(*args)
+        outs.append((args, (unpack_words(out[0]) if packed else out[0],
+                            *out[1:])))
+    return outs
+
+
+@pytest.mark.parametrize("m,k,n", SPIKE_TILE_SHAPES)
+def test_spike_x_tile_at_path_shapes(cuda, m, k, n):
+    """At each pass shape, with a residual and the emitted current: the
+    current within rtol 1e-5 / atol 1e-4 of the plain version's, the spikes
+    exactly that current thresholded, padding silent, vld_next the count of
+    its own spikes; a second launch bit-equal; the packed launch bit-equal
+    to the int8 one."""
+    from repro_torch.core.events import block_count_map_2d
+    from repro_torch.kernels import fused_pe as K
+
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = _spikes(gen, m, k, 0.3, cuda)
+    w = torch.randn((k, n), generator=gen, device=cuda) * (2.0 / k ** 0.5)
+    b = 0.3 + 0.3 * torch.randn((n,), generator=gen, device=cuda)
+    r = 0.5 * torch.randn((m, n), generator=gen, device=cuda)
+    (args, out), (_, packed_out) = _spike_tile_launches(
+        K, x, w, True, bias=b, residual=r, emit_current=True)
+    spk, vld, cur = out
+    ref_cur = K.fused_pe_block_ref(*args)[2]
+    torch.testing.assert_close(cur, ref_cur, rtol=1e-5, atol=1e-4)
+    assert torch.equal(spk[:m, :n], (cur >= 1.0).to(torch.int8))
+    assert not bool(spk[m:].any()) and not bool(spk[:, n:].any())
+    assert torch.equal(vld, block_count_map_2d(spk, 128, 128))
+    again = K.fused_pe_cuda(*args)
+    assert all(torch.equal(a, c) for a, c in zip(out, again))
+    assert all(torch.equal(a, c) for a, c in zip(out, packed_out))
+
+
+@pytest.mark.parametrize("skip", ["gated", "two_level"])
+@pytest.mark.parametrize("block_n,block_k", [(128, 128), (256, 128),
+                                             (128, 256), (256, 256)])
+@pytest.mark.parametrize("state", [None, "hard", "soft"])
+def test_spike_x_tile_skips_widths_and_state(cuda, skip, block_n, block_k,
+                                             state):
+    """A gated or two-level launch bit-equal to the dense skip's, at 128- and
+    256-wide blocks, stateless and with a hard or soft reset; v_next and
+    the current within the plain version's gates away from v_th; the
+    packed launch bit-equal to the int8 one."""
+    from repro_torch.kernels import fused_pe as K
+
+    gen = torch.Generator(device=cuda).manual_seed(block_n + block_k)
+    m, k, n = 4059, 1100, 300
+    x = _gated_spikes(gen, m, k, 0.5, block_k, cuda)
+    w = torch.randn((k, n), generator=gen, device=cuda) * (2.0 / k ** 0.5)
+    b = 0.3 + 0.3 * torch.randn((n,), generator=gen, device=cuda)
+    kw = dict(bias=b, emit_current=True, block_n=block_n, block_k=block_k)
+    if state is not None:
+        kw.update(v_prev=torch.randn((m, n), generator=gen, device=cuda),
+                  s_prev=(torch.rand((m, n), generator=gen, device=cuda)
+                          < 0.5).to(torch.int8),
+                  tau=0.7, soft_reset=state == "soft")
+    (args, out), (_, packed_out) = _spike_tile_launches(
+        K, x, w, True, skip=skip, **kw)
+    (_, dense_out), = _spike_tile_launches(K, x, w, False, **kw)
+    assert all(torch.equal(a, c) for a, c in zip(out, dense_out))
+    assert all(torch.equal(a, c) for a, c in zip(out, packed_out))
+    ref = K.fused_pe_block_ref(*args)
+    torch.testing.assert_close(out[-1], ref[-1], rtol=1e-5, atol=1e-4)
+    if state is not None:
+        v = args[14].tau * args[14].v_prev * (
+            1.0 - args[14].s_prev.float()) + ref[-1]
+        far = (v - 1.0).abs() >= 1e-4
+        torch.testing.assert_close(out[2][far], ref[2][far], rtol=1e-5,
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("skip", ["dense", "two_level"])
+def test_spike_x_tile_rechecks_near_threshold_on_the_scalar_chain(cuda, packed,
+                                                                  skip):
+    """v_th set to one output's own potential: every output within the
+    recheck band of it takes the scalar tile's ascending f32 chain
+    (``sequential_product``) bit for bit, the rest the tensor-core sum;
+    the spikes are the emitted current thresholded."""
+    from repro_torch.core.events import unpack_words
+    from repro_torch.kernels import fused_pe as K
+    from repro_torch.kernels.packed import pack_spikes_ref
+    from repro_torch.kernels.spike_matmul.ref import block_skip_mask
+
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    m, k, n = 300, 1100, 150
+    x = _spikes(gen, m, k, 0.3, cuda)
+    w = torch.randn((k, n), generator=gen, device=cuda) * (2.0 / k ** 0.5)
+    b = 0.3 * torch.randn((n,), generator=gen, device=cuda)
+    xx = pack_spikes_ref(x) if packed else x
+    fmt = "packed" if packed else "dense"
+    # v_th far from every potential: no recheck, the tensor-core sums
+    args = K.fused_pe_operands(xx, w, bias=b, emit_current=True, skip=skip,
+                               out_format=fmt, v_th=1e30)
+    first = K.fused_pe_cuda(*args)[-1]
+    v_th = float(first[7, 11])
+    args = K.fused_pe_operands(xx, w, bias=b, emit_current=True, skip=skip,
+                               out_format=fmt, v_th=v_th)
+    spk, _, cur = K.fused_pe_cuda(*args)
+    xp, wp, vld = K.fused_pe_operands(x, w)[:3]
+    seq = (K.sequential_product(xp, wp, block_skip_mask(vld, xp.shape))
+           + args[3])[:m, :n]
+    near = (first - v_th).abs() < K.RECHECK_BAND
+    assert bool(near[7, 11])
+    assert torch.equal(cur[near], seq[near])
+    assert torch.equal(cur[~near], first[~near])
+    spk = (unpack_words(spk) if packed else spk)[:m, :n]
+    assert torch.equal(spk, (cur >= v_th).to(torch.int8))
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("soft", [False, True])
+def test_spike_x_tile_train_matches_the_scalar_chain(cuda, packed, soft):
+    """A T = 4 scan through the stateful launch, each step's recheck
+    replaying the steps before it: every step's spikes equal those of the
+    plain recurrence on the scalar tile's chain (``sequential_product``),
+    bit for bit."""
+    from repro_torch.core.events import unpack_words
+    from repro_torch.kernels import fused_pe as K
+    from repro_torch.kernels.packed import pack_spikes_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(41)
+    t, m, k, n = 4, 2048, 512, 256
+    x = torch.stack([_spikes(gen, m, k, 0.3, cuda) for _ in range(t)])
+    w = torch.randn((k, n), generator=gen, device=cuda) * (2.0 / k ** 0.5)
+    b = 0.3 * torch.randn((n,), generator=gen, device=cuda)
+    r = 0.3 * torch.randn((t, m, n), generator=gen, device=cuda)
+    spk, _ = K.fused_pe_layer(pack_spikes_ref(x) if packed else x, w,
+                              bias=b, residual=r, tau=0.7, soft_reset=soft,
+                              out_format="packed" if packed else "dense")
+    if packed:
+        spk = unpack_words(spk.words)[:, :m, :n]
+    xp, wp = K.fused_pe_operands(x[0], w)[:2]
+    v = torch.zeros((m, n), device=cuda)
+    s = torch.zeros_like(v)
+    for ti in range(t):
+        xt = K.fused_pe_operands(x[ti], w)[0]
+        prod = K.sequential_product(xt, wp,
+                                    torch.ones_like(xt, dtype=torch.bool))
+        cur = (prod[:m, :n] + b) + r[ti]
+        v = 0.7 * v * (1.0 - s) + cur
+        fire = (v >= 1.0).float()
+        assert torch.equal(spk[ti], fire.to(torch.int8)), f"step {ti}"
+        v = v - fire if soft else v * (1.0 - fire)
+        s = fire
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_spike_x_tile_train_step_writes_no_operand(cuda, packed):
+    """The steps of a T = 4 train launched one by one on views of one
+    padded copy (``train_operands``), each replaying the steps before it
+    near v_th: no launch writes an operand; the spikes are the emitted
+    current plus the decayed state the launch returns last (v_prev, but
+    where it replayed; asked for with ``state_out``) thresholded, and that
+    state lies within rtol 1e-5, atol 1e-4 of v_prev."""
+    from repro_torch.core.events import unpack_words
+    from repro_torch.kernels import fused_pe as K
+    from repro_torch.kernels.packed import pack_spikes_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(43)
+    t, m, k, n = 4, 2048, 512, 256
+    x = torch.stack([_spikes(gen, m, k, 0.3, cuda) for _ in range(t)])
+    w = torch.randn((k, n), generator=gen, device=cuda) * (2.0 / k ** 0.5)
+    b = 0.3 * torch.randn((n,), generator=gen, device=cuda)
+    r = 0.3 * torch.randn((t, m, n), generator=gen, device=cuda)
+    xx = pack_spikes_ref(x) if packed else x
+    xh, rh = K.train_operands(xx, r, 128, 128)
+    held = (xh.clone(), rh.clone())
+    v = torch.zeros((m, n), device=cuda)
+    s = torch.zeros((m, n), dtype=torch.int8, device=cuda)
+    for ti in range(t):
+        args = K.fused_pe_operands(xx[ti], w, bias=b, residual=r[ti],
+                                   v_prev=v, s_prev=s, tau=0.7,
+                                   emit_current=True, train=(xh, rh, ti),
+                                   out_format="packed" if packed else "dense")
+        v0, s0 = v.clone(), s.clone()
+        outs = K.fused_pe_cuda(*args, state_out=True)
+        assert torch.equal(v, v0) and torch.equal(s, s0)
+        assert torch.equal(xh, held[0]) and torch.equal(rh, held[1])
+        spk, _, v_next, cur = outs[:4]
+        used = outs[4] if ti else v
+        assert len(outs) == 4 + (ti > 0)
+        torch.testing.assert_close(used, v, rtol=1e-5, atol=1e-4)
+        spk = (unpack_words(spk) if packed else spk)[:m, :n]
+        own = (0.7 * used * (1.0 - s.float()) + cur) >= 1.0
+        assert torch.equal(spk, own.to(torch.int8)), f"step {ti}"
+        v, s = v_next, spk
