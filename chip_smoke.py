@@ -43,6 +43,11 @@ Phases, in order; any failure raises and the script exits non-zero:
              the LM's head-blocked, dense-activation fused PE pass and K3
              on its wo at the decode route (16 and 64 rows), each against
              its plain version and bit for bit against the 128-row tile.
+             Every K3 and K4 launch, here and on each main path's own
+             operands in the timing phase, is also held bit for bit to the
+             ascending f32 chain (``spike_matmul_chain_ref``: one sum from
+             +0 over the k its route keeps) and launched again into an
+             output filled with NaN, which must come back with none.
    constants — the cost model's constants measured on the card (the values
              ``launch/roofline.py`` carries): the f32 FMA rate of the
              dense-skip spike matmul, a 1 GiB copy's rate, one launch,
@@ -116,12 +121,14 @@ Phases, in order; any failure raises and the script exits non-zero:
              so a wrapper's host work does not show), beside its bound
              (no row may read below it), its plain version, its
              dense-skip twin (a gated route) and, where one PyTorch call
-             does the same product, that call; the worst share of the
-             RTOL/ATOL gate that a spike-x fused PE launch's current and
-             membrane potential use on each path's own operands, and the
-             largest gap beside the kernel's near-threshold recheck band
-             (``[gate share]``); for the LM rows also the
-             route they took, the 128-row tile's time on the same
+             does the same product, that call (the unfused KD step's 16
+             spike matmul launches are the row ``spike_matmul_unfused``;
+             each K3 and K4 launch line names the tile its planner chose);
+             the worst share of the RTOL/ATOL gate that a spike-x fused PE
+             launch's current and membrane potential use on each path's
+             own operands, and the largest gap beside the kernel's
+             near-threshold recheck band (``[gate share]``); for the LM
+             rows also the route they took, the 128-row tile's time on the same
              operands and the host clock; the median step time of each
              training path with its forward/backward split and peak
              memory, and the profiler's top kernels of one
@@ -184,6 +191,7 @@ import sys
 import time
 import types
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -293,6 +301,12 @@ ROWS = {
     "qk_attention": ("qk_attention", "train unfused fused_dense+grad",
                      "src/repro_torch/csrc/qk_attention.cu",
                      "src/repro/kernels/qk_attention/qk_attention.py:52"),
+    # every conv after the stem and every QKFormer linear of the unfused
+    # step: 16 launches, up to 4096 x 4608 x 512
+    "spike_matmul_unfused": ("spike_matmul", "train unfused fused_dense+grad",
+                             "src/repro_torch/csrc/spike_matmul.cu",
+                             "src/repro/kernels/spike_matmul/"
+                             "spike_matmul.py:83"),
     # the gated routes: their path is the first of GATED_PATHS that
     # launched them (resolved at run time)
     "fused_pe_gated": ("fused_pe_gated", None,
@@ -431,7 +445,8 @@ def phase_build(build_mod) -> None:
                 or "wgmma" in line or line.startswith("==")):
             say(f"[build]   {line.strip()}")
     sass_registers(build_mod, info.path, ("flash_wgmma_kernel",
-                                          "fused_pe_kernel"))
+                                          "fused_pe_kernel",
+                                          "spike_matmul_tile_kernel"))
 
 
 def sass_registers(build_mod, lib, kernels: tuple) -> None:
@@ -655,18 +670,42 @@ def check_fused_pe(torch, K, args, parity: Parity, label: str,
     return k_spk
 
 
+def check_chain(torch, K, out, relaunch_into, targs, what: str) -> None:
+    """K3's (or K4's) output ``out`` bit-equal to the ascending f32 chain
+    on the launch's tile operands ``targs`` (``spike_matmul_chain_ref``:
+    each output one sum from +0 over the k its route keeps, the chain
+    cuBLAS's product and K2's recheck form); the same launch into a buffer
+    filled with NaN (``relaunch_into(buf)``) writes every element, with
+    the same bits."""
+    chain = K.spike_matmul_chain_ref(*targs)
+    require(torch.equal(out, chain),
+            f"{what}: {int((out != chain).sum())} of {out.numel()} outputs "
+            f"are not the ascending f32 chain's bits")
+    buf = torch.full_like(out, float("nan"))
+    relaunch_into(buf)
+    require(not bool(buf.isnan().any()),
+            f"{what}: {int(buf.isnan().sum())} outputs of a NaN-filled "
+            f"buffer left unwritten")
+    require(torch.equal(buf, out), f"{what}: a second launch differs")
+
+
 def check_spike_matmul(torch, K, args, parity: Parity, label: str,
-                       route: str = "tile") -> None:
-    row = "spike_matmul_packed" if args[3] else "spike_matmul"
+                       route: str = "tile", row: Optional[str] = None
+                       ) -> None:
+    row = row or ("spike_matmul_packed" if args[3] else "spike_matmul")
     out = K.spike_matmul_cuda(*args, route=route)
-    args = K.spike_matmul_tile_operands(args)
-    ref = K.spike_matmul_block_ref(*args)
-    err = float((out - ref).abs().max())
+    targs = tile_args(K, "spike_matmul", args, route)
+    ref = K.spike_matmul_block_ref(*targs)
+    err = float((out - ref).abs().max()) if out.numel() else 0.0
     require(torch.allclose(out, ref, rtol=RTOL, atol=ATOL),
             f"{row} {label}: max abs err {err}")
+    check_chain(torch, K, out,
+                lambda buf: K.spike_matmul_cuda(*args, route=route, out=buf),
+                targs, f"{row} {label}")
     parity.note(row, err)
-    say(f"[parity] {row} {label}: max abs err {err:.3e}; silent x "
-        f"blocks {int((args[2] == 0).sum())}/{args[2].numel()}")
+    say(f"[parity] {row} {label}: max abs err {err:.3e}; bit-equal to the "
+        f"ascending f32 chain, every output written; silent x blocks "
+        f"{int((args[2] == 0).sum())}/{args[2].numel()}")
 
 
 def check_pack(torch, K, args, parity: Parity, label: str) -> None:
@@ -803,14 +842,19 @@ def check_qk(torch, K, args, parity: Parity, label: str) -> None:
 
 def check_spike_matmul_gated(torch, K, args, parity: Parity, label: str
                              ) -> None:
-    """A main-path gated launch: against its plain version."""
+    """A main-path gated launch: against its plain version, and bit-equal
+    to the ascending f32 chain."""
     out = K.spike_matmul_gated_cuda(*args)
     ref = K.spike_matmul_gated_block_ref(*args)
     err = float((out - ref).abs().max()) if out.numel() else 0.0
     require(torch.allclose(out, ref, rtol=RTOL, atol=ATOL),
             f"spike_matmul_gated {label}: max abs err {err}")
+    check_chain(torch, K, out,
+                lambda buf: K.spike_matmul_gated_cuda(*args, out=buf), args,
+                f"spike_matmul_gated {label}")
     parity.note("spike_matmul_gated", err)
-    say(f"[parity] spike_matmul_gated {label}: max abs err {err:.3e}")
+    say(f"[parity] spike_matmul_gated {label}: max abs err {err:.3e}; "
+        f"bit-equal to the ascending f32 chain")
 
 
 def check_dw_gated(torch, K, args, parity: Parity, label: str) -> None:
@@ -1195,8 +1239,9 @@ def gated_spikes(torch, gen, m: int, k: int, silent: float, block_k: int,
 
 def check_gated_matmul(torch, K, x, w, block_n: int, block_k: int, skip: str,
                        parity: Parity, label: str) -> None:
-    """The gated route against its plain version, and bit-equal to the
-    dense-skip route on the same operands."""
+    """The gated route against its plain version, bit-equal to the
+    ascending f32 chain, and bit-equal to the dense-skip route on the same
+    operands."""
     args = K.spike_matmul_operands(x, w, block_n=block_n, block_k=block_k,
                                    skip=skip)
     dense = K.spike_matmul_operands(x, w, block_n=block_n, block_k=block_k)
@@ -1205,14 +1250,17 @@ def check_gated_matmul(torch, K, x, w, block_n: int, block_k: int, skip: str,
     err = float((out - ref).abs().max()) if out.numel() else 0.0
     require(torch.allclose(out, ref, rtol=RTOL, atol=ATOL),
             f"spike_matmul_gated {label}: max abs err {err}")
+    check_chain(torch, K, out,
+                lambda buf: K.spike_matmul_gated_cuda(*args, out=buf), args,
+                f"spike_matmul_gated {label}")
     require(torch.equal(out, K.spike_matmul_cuda(*dense)),
             f"spike_matmul_gated {label}: not bit-equal to the dense skip")
     parity.note("spike_matmul_gated", err)
     gate = args[2]
     say(f"[parity] spike_matmul_gated {label}: max abs err {err:.3e}; "
-        f"bit-equal to the dense skip; active blocks "
-        f"{int(gate.nact.sum())}/{gate.kmap.numel()}, rows with nact = 0 "
-        f"{int((gate.nact == 0).sum())}")
+        f"bit-equal to the ascending f32 chain and to the dense skip; "
+        f"active blocks {int(gate.nact.sum())}/{gate.kmap.numel()}, rows "
+        f"with nact = 0 {int((gate.nact == 0).sum())}")
 
 
 def check_gated_fused_pe(torch, K, fused_kw: dict, parity: Parity,
@@ -2474,11 +2522,13 @@ def device_time(torch, fn, reps: int, warmup: int = 2) -> float:
     return sum(start.elapsed_time(end) for start, end in events) / reps
 
 
-def tile_args(K, name: str, args) -> tuple:
-    """A launch's operands on the 128-row tile route: a fused PE or spike
-    matmul launch's padded back (``*_tile_operands``, which leaves a tile
-    launch's as they were), any other as it is. The plain versions, the
+def tile_args(K, name: str, args, route: str = "decode") -> tuple:
+    """A launch's operands on the tile route: a decode-route fused PE or
+    spike matmul launch's padded back to whole 128-row blocks
+    (``*_tile_operands``), any other as it is. The plain versions, the
     bounds and the checks read these."""
+    if route != "decode":
+        return args
     if name == "fused_pe":
         return K.fused_pe_tile_operands(args)
     if name == "spike_matmul":
@@ -2608,7 +2658,7 @@ def bound(torch, K, name: str, args, inputs) -> tuple[float, float, float]:
     if xp.is_floating_point():   # a dense activation: the full product
         nnz = m0 * k0
     active = (vld > 0).to(torch.float64).cpu()
-    bk = wp.shape[0] // active.shape[1]          # 128, or 256 when planned
+    bk = K.block_width(wp.shape[0], active.shape[1])   # 128, or 256
     rows = valid_extent(torch, m0, active.shape[0])
     cols = valid_extent(torch, k0, active.shape[1], bk)
     x_bytes = float((active * rows[:, None] * cols[None, :]).sum())
@@ -2620,6 +2670,15 @@ def bound(torch, K, name: str, args, inputs) -> tuple[float, float, float]:
     nbytes = x_bytes + 4.0 * w_rows * n_prod + 4.0 * vld.numel()
     block_ops = 2.0 * float(active.sum()) * 128 * bk * np_
     if name == "spike_matmul":
+        # the tile's work: each kept block's 32-deep steps below K, over
+        # its planned tiles' columns
+        kw = wp.shape[0]
+        plan = K.tile_plan(xp.shape[0], wp.shape[1], kw)
+        depth = torch.ceil((kw - torch.arange(active.shape[1],
+                                              dtype=torch.float64) * bk)
+                           .clamp(0, bk) / 32) * 32
+        block_ops = (2.0 * 128 * float((active * depth[None, :]).sum())
+                     * plan.ntiles * plan.block_n)
         return nbytes + 4.0 * m0 * n0, 2.0 * nnz * n0, block_ops
     bias, residual, q = inputs[2:5]
     packing = args[10]
@@ -2905,8 +2964,9 @@ def phase_timing(torch, K, snn_cnn, models, images, paths, parity: Parity,
             CHECKS[name](torch, K, args, parity, f"main-path launch {i}",
                          **({} if route == "tile" else {"route": route}),
                          **({"path": policy} if CHECKS[name] is check_fused_pe
-                            else {}))
-            targs = tile_args(K, name, args)
+                            else {"row": row}
+                            if CHECKS[name] is check_spike_matmul else {}))
+            targs = tile_args(K, name, args, route)
             ms = device_time(torch, relaunch(launch_fn, launch), reps=20)
             plain_ms = device_time(torch, lambda: plain_fn[name](*targs),
                                    reps=5)
@@ -2946,6 +3006,12 @@ def phase_timing(torch, K, snn_cnn, models, images, paths, parity: Parity,
                         "spike_matmul_dw", "fused_pe_gated",
                         "spike_matmul_gated", "spike_matmul_dw_gated"):
                 shape += f" @ {args[1].shape[0]}x{args[1].shape[1]}"
+            if name in ("spike_matmul", "spike_matmul_gated") and \
+                    route == "tile":
+                plan = K.tile_plan(args[0].shape[0], args[1].shape[1],
+                                   args[1].shape[0])
+                shape += (f"; tile 128x{plan.block_n}, "
+                          f"{plan.mtiles * plan.ntiles} tiles")
             routes[row].add(route)
             say(f"[timing] launch {i} {row} [{shape}]"
                 + (f" ({route} route)" if name in ("fused_pe", "spike_matmul",
@@ -3837,6 +3903,9 @@ def kernels_namespace(torch):
         fused_pe_operands=fused_pe.fused_pe_operands,
         fused_pe_tile_operands=fused_pe.fused_pe_tile_operands,
         spike_matmul_tile_operands=spike_matmul.spike_matmul_tile_operands,
+        tile_plan=spike_matmul.tile_plan,
+        block_width=spike_matmul.block_width,
+        spike_matmul_chain_ref=spike_matmul.spike_matmul_chain_ref,
         DECODE_ROWS=spike_matmul.DECODE_ROWS,
         spike_matmul_cuda=spike_matmul.spike_matmul_cuda,
         spike_matmul_block_ref=spike_matmul.spike_matmul_block_ref,

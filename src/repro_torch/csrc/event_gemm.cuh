@@ -1,11 +1,11 @@
 // Event-gated scalar tile product — the Hopper counterpart of
 // repro/kernels/gating.py::accum_tile, for the three byte-skip strategies
 // of the reference (kernels/spike_matmul/ops.py SKIP_MODES). It runs the
-// spike matmul (spike_matmul.cu: K3 and K4, int8 or packed x) and the fused
-// PE of a dense f32 or bf16 activation x (the LM's projections, whose
+// fused PE of a dense f32 or bf16 activation x (the LM's projections, whose
 // decode route, decode_gemm.cuh, must stay bit-equal to it); a fused PE
-// launch of a spike x takes the tensor-core tile of event_wgmma.cuh
-// instead. The skips:
+// launch of a spike x takes the tensor-core tile of event_wgmma.cuh, and
+// the spike matmul (K3 and K4) its own pipelined tile (spike_matmul.cu),
+// which forms the same ascending chain. The skips:
 //
 //   kDense    — walk every k block of the row and skip the ones whose
 //               vld_cnt is zero (spike_matmul_pallas, fused_pe skip="dense");
@@ -25,17 +25,14 @@
 // plain version, and a float x has no exact bf16 split cheaper than its
 // three-term one, which this tile's callers have not taken). K is walked
 // in 32-deep steps through shared memory: w arrives as f32 (four float4
-// per thread); x (the XKind) as int8 spikes (16 bytes per thread,
-// converted to f32 on the store), as int32 words of 32 spikes (kXPacked: a
-// 32-deep step needs exactly one word per tile row, so threads 0..127 each
-// load their row's word and store its 32 bits as 0.f/1.f), or as dense
-// activations, f32 (kXF32, four float4 per thread) or bf16 (kXBF16, two
-// 16-byte loads of 8 values per thread; a bf16 value is the top half of
-// its f32, so the widening is a 16-bit shift and exact). Every kind lands
-// in the same f32 shared tile and the FMAs run over k in the same order,
-// so a packed operand gives the same f32 sums as the int8 one (its zero
-// pad columns add exact zeros), and a bf16 operand the same sums as its
-// f32 widening (the reference's x.astype(f32) @ w).
+// per thread); x (the XKind) as dense activations, f32 (kXF32, four
+// float4 per thread) or bf16 (kXBF16, two 16-byte loads of 8 values per
+// thread; a bf16 value is the top half of its f32, so the widening is a
+// 16-bit shift and exact). Both land in the same f32 shared tile and the
+// FMAs run over k in the same order, so a bf16 operand gives the same sums
+// as its f32 widening (the reference's x.astype(f32) @ w). The spike kinds
+// (kXInt8, kXPacked) are named here for decode_gemm.cuh and the fused PE's
+// spike-x tile, which load them their own way.
 //
 // The three strategies give the same bits. kmap lists the non-silent
 // blocks in ascending order, so kGated meets the same k values in the same
@@ -48,8 +45,8 @@
 // and the stripe skip saves a quarter or an eighth of a block's loads and
 // FMAs per clear bit.
 //
-// The caller guarantees: x is [Mp, Kp] int8, f32 or bf16, or [Mp, Kp/32]
-// int32 row-major, w is [Kp, Np] f32 row-major, the maps are [Mp/128, Kp/bk]
+// The caller guarantees: x is [Mp, Kp] f32 or bf16 row-major, w is [Kp,
+// Np] f32 row-major, the maps are [Mp/128, Kp/bk]
 // int32 (nact [Mp/128]), Mp/Kp/Np are multiples of 128 and Kp of bk, and
 // the base pointers are 16-byte aligned.
 #pragma once
@@ -92,14 +89,8 @@ __device__ __forceinline__ void gemm_step(
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
   const int a_row = tid >> 1, a_col = (tid & 1) * 16;  // 16 values a thread
-  if constexpr (XKind == kXPacked) {
-    if (tid < kTile) {  // one word per row: bit b is column k0 + b
-      const int* xw = static_cast<const int*>(x);
-      const unsigned word = static_cast<unsigned>(xw[(row0 + tid) * (kp / 32) + k0 / 32]);
-#pragma unroll
-      for (int b = 0; b < kStep; ++b) sm.a[b][tid] = ((word >> b) & 1u) ? 1.f : 0.f;
-    }
-  } else if constexpr (XKind == kXF32) {
+  static_assert(XKind == kXF32 || XKind == kXBF16, "the scalar tile takes a float x");
+  if constexpr (XKind == kXF32) {
     const float* xr = static_cast<const float*>(x) + (row0 + a_row) * kp + k0 + a_col;
 #pragma unroll
     for (int v = 0; v < 4; ++v) {
@@ -109,7 +100,7 @@ __device__ __forceinline__ void gemm_step(
       sm.a[a_col + 4 * v + 2][a_row] = f.z;
       sm.a[a_col + 4 * v + 3][a_row] = f.w;
     }
-  } else if constexpr (XKind == kXBF16) {
+  } else {
     const uint16_t* xr = static_cast<const uint16_t*>(x) + (row0 + a_row) * kp + k0 + a_col;
 #pragma unroll
     for (int v = 0; v < 2; ++v) {
@@ -121,12 +112,6 @@ __device__ __forceinline__ void gemm_step(
         sm.a[a_col + 8 * v + 2 * i + 1][a_row] = __uint_as_float(h[i] & 0xffff0000u);
       }
     }
-  } else {
-    const int8_t* xt = static_cast<const int8_t*>(x);
-    const int4 v = *reinterpret_cast<const int4*>(xt + (row0 + a_row) * kp + k0 + a_col);
-    const int8_t* e = reinterpret_cast<const int8_t*>(&v);
-#pragma unroll
-    for (int i = 0; i < 16; ++i) sm.a[a_col + i][a_row] = static_cast<float>(e[i]);
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {

@@ -56,7 +56,8 @@ _SIGNATURES = {
     "repro_fused_pe": [_VOID_P] * 10 + [_I] + [_VOID_P] * 6
     + [_I] * 7 + [_F, _F, _F, _I, _I, _I, _I, _VOID_P, _VOID_P, _VOID_P,
                   _LL, _LL, _I, _VOID_P, _VOID_P],
-    "repro_spike_matmul": [_VOID_P] * 7 + [_I] * 8 + [_VOID_P],
+    "repro_spike_matmul": [_VOID_P] * 7 + [_I] * 9 + [_VOID_P],
+    "repro_spike_matmul_decode": [_VOID_P] * 4 + [_I] * 6 + [_VOID_P],
     "repro_w2ttfs_pool": [_VOID_P] * 4 + [_I] * 6 + [_F, _VOID_P],
     "repro_pack_spikes": [_VOID_P] * 4 + [_I] * 5 + [_VOID_P],
     "repro_unpack_spikes": [_VOID_P] * 2 + [_LL, _VOID_P],

@@ -26,7 +26,8 @@ from ...core.events import (block_count_map_2d, pack_words, pad_to_blocks,
                             unpack_words)
 from ..lif_update.ref import lif_update_ref
 from ..qk_attention.ref import qk_attention_ref
-from ..spike_matmul.ref import (block_skip_mask, gated_mask, spike_matmul_ref,
+from ..spike_matmul.ref import (block_skip_mask, gated_mask,
+                                sequential_product, spike_matmul_ref,
                                 split_g_bf16x3)
 
 # the k depth of one step of the spike-x tile: one packed word a row, one
@@ -174,20 +175,6 @@ def split_product(x: torch.Tensor, wp: torch.Tensor, vld: torch.Tensor,
             ks = slice(k0, k0 + STEP)
             out[rows] += (xs @ w1[ks] + xs @ w2[ks]) + xs @ w3[ks]
     return out
-
-
-def sequential_product(x: torch.Tensor, wp: torch.Tensor,
-                       mask: torch.Tensor) -> torch.Tensor:
-    """x @ w as the scalar tile forms it: each output one f32 sum, over k
-    ascending, of the products the route keeps (``mask``); for 0/1 spikes
-    each product is exact and each add rounds once, as its fmaf does.
-    Returns [Mp, Np] f32."""
-    xm = (x * mask).to(torch.float32)
-    acc = torch.zeros((x.shape[0], wp.shape[1]), dtype=torch.float32,
-                      device=x.device)
-    for k in range(x.shape[1]):
-        acc = acc + xm[:, k:k + 1] * wp[k]
-    return acc
 
 
 def fused_pe_block_ref(xp: torch.Tensor, wp: torch.Tensor, vld: torch.Tensor,

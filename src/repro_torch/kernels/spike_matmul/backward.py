@@ -31,16 +31,13 @@ from ...core.events import (LANE_BITS, PackedSpikes, block_count_map_2d,
                             word_occupancy_map_dense)
 from ...core.surrogate import available_surrogates
 from .. import _build
-from .ops import SKIP_IDS, Gate, check_block_contract, check_skip
+from .ops import SMS, SKIP_IDS, Gate, check_block_contract, check_skip
 from .ref import (spike_matmul_dw_gated_ref, spike_matmul_dw_ref,
                   spike_matmul_dx_ref)
 
 TILE = 128
 # the surrogate argument of repro_spike_matmul_dx (0: dv = g)
 SURROGATE_IDS = {"atan": 1, "sigmoid": 2, "triangle": 3, "rect": 4}
-# the H100's SMs: the plans assume them (a constant, so a plan, and with
-# it the order of dw's f32 sums, depends on the shape alone)
-SMS = 132
 # dx: a tile is 128 rows by block_k columns; per width, the warps of a
 # CTA (8 x 8 outputs a thread at 64 and 128, 8 x 12 at 192), the CTAs one
 # SM holds at once (their registers), and the per-element cost, in FMAs,

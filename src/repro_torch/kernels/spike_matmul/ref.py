@@ -46,25 +46,101 @@ def gated_mask(nact: torch.Tensor, kmap: torch.Tensor,
             .repeat_interleave(LANE_BITS, 1))
 
 
+def block_width(k: int, gk: int) -> int:
+    """The k width of a metadata block, 128 or 256, of a map with ``gk``
+    block columns over a K-deep operand: 128 where ceil(K / 128) == gk,
+    else 256 where ceil(K / 256) == gk. (Both hold only for one block of
+    K <= 128, where either width walks the same steps.)"""
+    for bk in (128, 256):
+        if -(-k // bk) == gk:
+            return bk
+    raise ValueError(f"a map of {gk} block columns tiles no K = {k} on "
+                     f"128- or 256-wide blocks")
+
+
+def x_map(xp: torch.Tensor, packed_x: bool, k: int) -> torch.Tensor:
+    """A launch's x as its first K columns of spikes: an int8 x's as they
+    are, packed words unpacked."""
+    return (unpack_words(xp) if packed_x else xp)[:, :k]
+
+
+def launch_mask(rows: int, k: int, vld: Optional[torch.Tensor] = None,
+                gate=None) -> torch.Tensor:
+    """[rows, K] bool: where a launch reads x, from its dense-skip ``vld``
+    map or its ``gate`` (nact, kmap, occ) on x's (128, bk) grid."""
+    grid = tuple((vld if gate is None else gate[1]).shape)
+    shape = grid[0] * 128, grid[1] * block_width(k, grid[1])
+    mask = (block_skip_mask(vld, shape) if gate is None
+            else gated_mask(*gate, shape))
+    return mask[:rows, :k]
+
+
+def tile_steps(k: int, rb: int, vld: Optional[torch.Tensor] = None,
+               gate=None) -> list[int]:
+    """The k0 of every 32-deep step the tile walks for row block ``rb``,
+    in its order (the twin of ``csrc/spike_matmul.cu``'s ``Walk``): the
+    blocks its skip keeps (vld != 0 in ascending k, or kmap[rb, :nact[rb]]),
+    in each the stripes below K (with ``gate.occ``, only those whose occ
+    bit is set)."""
+    gk = (vld if gate is None else gate[1]).shape[1]
+    bk = block_width(k, gk)
+    if gate is None:
+        blocks = [kb for kb in range(gk) if int(vld[rb, kb]) != 0]
+        bits = [-1] * len(blocks)
+    else:
+        nact, kmap, occ = gate
+        blocks = kmap[rb, :int(nact[rb])].tolist()
+        bits = ([-1] * len(blocks) if occ is None
+                else [int(occ[rb, kb]) for kb in blocks])
+    return [kb * bk + 32 * j for kb, b in zip(blocks, bits)
+            for j in range(bk // 32) if kb * bk + 32 * j < k and (b >> j) & 1]
+
+
+def sequential_product(x: torch.Tensor, wp: torch.Tensor,
+                       mask: torch.Tensor) -> torch.Tensor:
+    """x @ w as the spike matmul's tile (and the scalar tile) forms it: each
+    output one f32 sum, over k ascending, of the products the route keeps
+    (``mask``); for 0/1 spikes each product is exact and each add rounds
+    once, as its fmaf does. Returns [Mp, Np] f32."""
+    xm = (x * mask).to(torch.float32)
+    acc = torch.zeros((x.shape[0], wp.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    for k in range(x.shape[1]):
+        acc = acc + xm[:, k:k + 1] * wp[k]
+    return acc
+
+
+def spike_matmul_chain_ref(xp: torch.Tensor, wp: torch.Tensor, route,
+                           packed_x: bool = False) -> torch.Tensor:
+    """The kernel's own arithmetic on its operands (those of
+    ``spike_matmul_block_ref``, or of the gated one with a gate as
+    ``route``): ``sequential_product`` of x's first K columns, w and the
+    launch's mask, which the kernel matches bit for bit."""
+    x = x_map(xp, packed_x, wp.shape[0])
+    kw = dict(vld=route) if isinstance(route, torch.Tensor) else dict(
+        gate=route)
+    return sequential_product(x, wp, launch_mask(*x.shape, **kw))
+
+
 def spike_matmul_block_ref(xp: torch.Tensor, wp: torch.Tensor,
                            vld: torch.Tensor, packed_x: bool = False
                            ) -> torch.Tensor:
-    """The kernel's function on block-aligned operands: x [Mp, Kp] int8
-    (or, with ``packed_x``, its [Mp, Kp/32] int32 words, unpacked here),
-    w [Kp, Np] f32, vld [Mp/128, Kp/128]; blocks with a zero count
-    contribute nothing. Returns out [Mp, Np] f32."""
-    x = unpack_words(xp) if packed_x else xp
-    return spike_matmul_ref(x * block_skip_mask(vld, x.shape), wp)
+    """The kernel's function on its operands: x [M, Kx] int8 with Kx >= K
+    (or, with ``packed_x``, its [M, Kx/32] int32 words, unpacked here),
+    w [K, N] f32, vld [ceil(M/128), ceil(K/bk)] on x's (128, bk) grid, bk
+    128 or 256; the blocks with a zero count contribute nothing, nor do
+    x's columns past K. Returns out [M, N] f32."""
+    x = x_map(xp, packed_x, wp.shape[0])
+    return spike_matmul_ref(x * launch_mask(*x.shape, vld=vld), wp)
 
 
 def spike_matmul_gated_block_ref(xp: torch.Tensor, wp: torch.Tensor, gate,
                                  packed_x: bool = False) -> torch.Tensor:
-    """The gated kernel's function on block-aligned operands: as
+    """The gated kernel's function on its operands: as
     ``spike_matmul_block_ref``, with x read only where the ``gate``
     (nact, kmap and, for ``"two_level"``, occ) walk reads it."""
-    x = unpack_words(xp) if packed_x else xp
-    nact, kmap, occ = gate
-    return spike_matmul_ref(x * gated_mask(nact, kmap, occ, x.shape), wp)
+    x = x_map(xp, packed_x, wp.shape[0])
+    return spike_matmul_ref(x * launch_mask(*x.shape, gate=gate), wp)
 
 
 def spike_matmul_dx_ref(g: torch.Tensor, w: torch.Tensor,

@@ -166,8 +166,9 @@ def test_spike_matmul_decode_operands_pad_back_to_the_tiles(m, packed,
                                                             given_vld):
     """(x, w, vld, packed) in the tile's order: an int8 x at its own rows,
     its count map on the 128-row grid (computed, or a producer's, checked);
-    a packed x's first m rows of words; padded back, the tile's
-    operands."""
+    a packed x's first m rows of words; padded back to whole 128-row
+    blocks, operands of the tile, whose function on them is the tile
+    operands' (x at its own K, w read as given) on the first m rows."""
     rng = np.random.default_rng(100 + m)
     x = _spikes(rng, m, 300)
     x[:, 128:256] = 0
@@ -178,11 +179,14 @@ def test_spike_matmul_decode_operands_pad_back_to_the_tiles(m, packed,
                                   vld_cnt=vld, route="decode")
     assert len(dec) == 4 and dec[0].shape[0] == m and dec[3] == packed
     assert torch.equal(dec[2], tile[2]) and int(dec[2][0, 1]) == 0
-    assert _same(S.spike_matmul_tile_operands(dec), tile)
-    assert _same(S.spike_matmul_tile_operands(tile), tile)
-    out = S.spike_matmul_block_ref(*S.spike_matmul_tile_operands(dec))
-    torch.testing.assert_close(out[:m, :100], x.float() @ w, rtol=1e-5,
-                               atol=1e-4)
+    padded = S.spike_matmul_tile_operands(dec)
+    assert padded[0].shape[0] == 128 and torch.equal(padded[0][:m], dec[0])
+    assert not bool(padded[0][m:].any()) and _same(padded[1:], dec[1:])
+    assert tile[1] is w
+    out = S.spike_matmul_block_ref(*padded)
+    assert out.shape == (128, 128) and not bool(out[m:].any())
+    for got in (out[:m, :100], S.spike_matmul_block_ref(*tile)[:m]):
+        torch.testing.assert_close(got, x.float() @ w, rtol=1e-5, atol=1e-4)
 
 
 def test_spike_matmul_decode_operands_check_the_vld_grid():

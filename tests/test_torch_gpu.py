@@ -497,6 +497,74 @@ def _gated_spikes(gen, m, k, silent, block_k, dev):
 GATED_BLOCKS = [(128, 128), (256, 256), (256, 128)]
 
 
+# -------------------------------------------- the spike matmul's tile (K3/K4)
+def _launch_checked(K, args, gated: bool):
+    """A launch into a NaN-filled buffer: every output written, and the
+    same bits as a launch into a fresh one."""
+    launch = K.spike_matmul_gated_cuda if gated else K.spike_matmul_cuda
+    out = launch(*args)
+    buf = torch.full_like(out, float("nan"))
+    assert launch(*args, out=buf) is buf
+    assert not bool(buf.isnan().any())
+    assert torch.equal(buf, out)
+    return out
+
+
+# (M, K, N, block_k): ragged M, K and N, K = 64 under a 128-wide block, K
+# not a multiple of 16, N of 4, 64 or 192, and 256-wide blocks
+TILE_SHAPES = [(4059, 200, 300, 128), (1000, 1200, 512, 256),
+               (300, 64, 100, 128), (129, 37, 5, 128), (700, 576, 64, 128),
+               (520, 640, 192, 256)]
+
+
+@pytest.mark.parametrize("m,k,n,block_k", TILE_SHAPES)
+@pytest.mark.parametrize("skip", ["dense", "gated", "two_level"])
+def test_spike_matmul_tile_bit_equal_to_the_chain(cuda, m, k, n, block_k,
+                                                  skip):
+    """K3 (dense skip) and K4 (gated, two-level) on int8 and packed x:
+    bit-equal to the ascending f32 chain, packed bits equal to int8 bits,
+    the gated walks equal to the dense skip, NaN-filled outputs fully
+    written."""
+    from repro_torch.core.events import pack_spikes_ref
+    from repro_torch.kernels import spike_matmul as K
+
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = _gated_spikes(gen, m, k, 0.5, block_k, cuda)
+    w = torch.randn((k, n), generator=gen, device=cuda)
+    blocks = dict(block_k=block_k)
+    gated = skip != "dense"
+    outs = []
+    for xx in (x, pack_spikes_ref(x, block_k=block_k)):
+        args = K.spike_matmul_operands(xx, w, skip=skip, **blocks)
+        assert args[1] is w
+        out = _launch_checked(K, args, gated)
+        assert torch.equal(out, K.spike_matmul_chain_ref(*args))
+        outs.append(out[:m])
+    assert torch.equal(outs[0], outs[1])
+    dense = K.spike_matmul_cuda(*K.spike_matmul_operands(x, w, **blocks))
+    assert torch.equal(outs[0], dense)
+
+
+def test_spike_matmul_tile_at_an_lm_prefill(cuda):
+    """A 248-row launch at K = N = 2048 (the LM's wo over a prefill): the
+    tile, bit-equal to the chain and to the decode route on its first 64
+    rows."""
+    from repro_torch.kernels import spike_matmul as K
+
+    gen = torch.Generator(device=cuda).manual_seed(248)
+    x = (torch.rand((248, 2048), generator=gen, device=cuda) < 0.1).to(
+        torch.int8)
+    x[:, 256:512] = 0
+    w = torch.randn((2048, 2048), generator=gen, device=cuda)
+    assert K.pick_route(248, "dense") == "tile"
+    args = K.spike_matmul_operands(x, w)
+    out = _launch_checked(K, args, False)
+    assert torch.equal(out, K.spike_matmul_chain_ref(*args))
+    dec = K.spike_matmul_operands(x[:64], w, route="decode")
+    assert torch.equal(K.spike_matmul_cuda(*dec, route="decode")[:64],
+                       out[:64])
+
+
 @pytest.mark.parametrize("skip", ["gated", "two_level"])
 @pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("block_n,block_k", GATED_BLOCKS)
@@ -1173,6 +1241,7 @@ def test_decode_route_spike_matmul_bit_equal_to_tile(cuda, m, packed,
     out = K.spike_matmul_cuda(*args, route="decode")
     ref = K.spike_matmul_cuda(*tile)
     assert torch.equal(out, ref)
+    assert torch.equal(out, K.spike_matmul_chain_ref(*tile))
     assert not bool(out[m:].any())
     torch.testing.assert_close(out, K.spike_matmul_block_ref(*tile),
                                rtol=1e-5, atol=1e-4)
