@@ -18,6 +18,9 @@ Phases, in order; any failure raises and the script exits non-zero:
              silent row blocks, at the main paths' shapes plus ragged ones:
              the int8 (``fused_dense``) operands, then the packed ones of
              ``fused_packed`` (pack and unpack bit-equal, round trip exact;
+             the pack on the stem's map, on [4, M, N] trains at N 64, 128,
+             256 and 512 and on ragged maps, each also 16-byte misaligned
+             and into outputs filled with a sentinel, every entry written;
              the packed fused PE and spike-matmul variants, each packed
              fused PE launch bit-equal to the int8 one; every spike-x
              fused PE launch also launched again, bit-equal), then the fused
@@ -103,7 +106,8 @@ Phases, in order; any failure raises and the script exits non-zero:
              52, spike matmul 12, LIF 4, head 4; packed also 14 packs and 5
              unpacks) against ``reference`` (spike totals 0.1 %, top-1 >=
              99 %, packed equal to dense), median forwards at T = 4 beside
-             T = 1, the profiler's breakdown of a fused_dense forward; three
+             T = 1, the profiler's breakdown of a fused_dense and a
+             fused_packed forward; three
              folded KD steps per path under ``reference+grad``,
              ``fused_dense+grad`` and ``fused_packed+grad`` (launches
              asserted: dx and dw 64 a step), step 1 held to the training
@@ -115,9 +119,12 @@ Phases, in order; any failure raises and the script exits non-zero:
 6. timing  — CUDA events: median forward time of each policy at both
              regimes, the host time the tuner's metadata reads add to an
              auto forward, the profiler's device breakdown of both kernel
-             paths, and each kernel's device time at the operands its path
-             gave it (``device_time``: each call bracketed by events after
-             a 256 MB write evicts the L2, all queued behind long matmuls,
+             paths, the launch floor (an empty kernel's launch, timed as
+             the rows are; a row whose bound lies under its launches times
+             it says so), and each kernel's device time at the operands
+             its path gave it (``device_time``: each call bracketed by
+             events after a 256 MB write evicts the L2, all queued behind
+             long matmuls,
              so a wrapper's host work does not show), beside its bound
              (no row may read below it), its plain version, its
              dense-skip twin (a gated route) and, where one PyTorch call
@@ -369,8 +376,9 @@ ROWS.update({
                                "flash_attention.py:80"),
 })
 # the T = 4 baseline: the fused PE's LIF state (with_state) on the forward
-# paths and the folded training step, and the dw kernel's packed x
-# (packed_in), launched on the packed training step's dw operands
+# paths and the folded training step, the pack and the head on the forward
+# paths, and the dw kernel's packed x (packed_in), launched on the packed
+# training step's dw operands
 ROWS.update({
     "fused_pe_state": ("fused_pe", T_FORWARD["fused_dense"],
                        "src/repro_torch/csrc/fused_pe_state.cu",
@@ -383,6 +391,14 @@ ROWS.update({
                             f"train fold fused_dense+grad T={T_STEPS}",
                             "src/repro_torch/csrc/fused_pe_state.cu",
                             "src/repro/kernels/fused_pe/fused_pe.py:362"),
+    # the stem's pack and each stateful pass's pack of its four steps (14
+    # launches), and the head once a step (4)
+    "pack_spikes_state": ("pack_spikes", T_FORWARD["fused_packed"],
+                          "src/repro_torch/csrc/pack_spikes.cu",
+                          "src/repro/kernels/packed/packed.py:66"),
+    "w2ttfs_pool_state": ("w2ttfs_pool", T_FORWARD["fused_dense"],
+                          "src/repro_torch/csrc/w2ttfs_pool.cu",
+                          "src/repro/kernels/w2ttfs_pool/w2ttfs_pool.py:49"),
     "spike_matmul_dw_packed": ("spike_matmul_dw", PACKED_DW_PATH,
                                "src/repro_torch/csrc/spike_matmul_dw.cu",
                                "src/repro/kernels/spike_matmul/"
@@ -708,22 +724,41 @@ def check_spike_matmul(torch, K, args, parity: Parity, label: str,
         f"{int((args[2] == 0).sum())}/{args[2].numel()}")
 
 
+PACK_SENTINEL = 0x7F7F7F7F     # an output entry the kernel left unwritten
+
+
+def misaligned(torch, x):
+    """x's values in a contiguous view one byte past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 16, dtype=x.dtype, device=x.device)
+    view = buf[1:1 + x.numel()].view(x.shape)
+    view.copy_(x)
+    return view
+
+
 def check_pack(torch, K, args, parity: Parity, label: str) -> None:
-    """Words, vld_cnt and occ bit-equal to the plain pack; the unpack
-    kernel restores x exactly."""
+    """Words, vld_cnt and occ bit-equal to the plain pack, on x and on a
+    16-byte-misaligned copy of it (the byte loop), each launched into
+    outputs filled with a sentinel, so that every entry must be written;
+    the unpack kernel restores x exactly."""
     (x3,) = args
-    words, vld, occ = K.pack_spikes_cuda(x3)
     ref = K.pack_spikes_ref(x3, with_occ=True)
-    bad = int((words != ref.words).sum() + (vld != ref.vld_cnt).sum()
-              + (occ != ref.occ).sum())
-    require(bad == 0, f"pack_spikes {label}: {bad} words or map entries "
-                      f"differ")
-    back = K.unpack_spikes_cuda(words)[:, :x3.shape[1], :x3.shape[2]]
+    m, k = x3.shape[1:]
+    for how, xx in (("aligned", x3), ("misaligned", misaligned(torch, x3))):
+        out = tuple(torch.full(t.shape, PACK_SENTINEL, dtype=torch.int32,
+                               device=x3.device)
+                    for t in (ref.words, ref.vld_cnt, ref.occ))
+        words, vld, occ = K.pack_spikes_cuda(xx, out=out)
+        bad = int((words != ref.words).sum() + (vld != ref.vld_cnt).sum()
+                  + (occ != ref.occ).sum())
+        require(bad == 0, f"pack_spikes {label} ({how}): {bad} words or map "
+                          f"entries differ or were left unwritten")
+    back = K.unpack_spikes_cuda(words)[:, :m, :k]
     lost = int((back != (x3 != 0).to(torch.int8)).sum())
     require(lost == 0, f"pack_spikes {label}: round trip lost {lost}")
     parity.note("pack_spikes", float(bad))
-    say(f"[parity] pack_spikes {label}: words, vld_cnt and occ bit-equal; "
-        f"round trip exact; words with bit 31 set "
+    say(f"[parity] pack_spikes {label}: words, vld_cnt and "
+        f"occ bit-equal, aligned and 16-byte misaligned, every entry "
+        f"written over a sentinel; round trip exact; words with bit 31 set "
         f"{int((words < 0).sum())}; spikes {int(ref.vld_cnt.sum())}")
 
 
@@ -1041,10 +1076,16 @@ SPIKE_MATMUL_PACKED_SHAPES = [
     ("res4.sc", 4096, 256, 512), ("ragged", 4059, 200, 300),
 ]
 # [items, M, K] spike maps packed on the main path (the first LIF's
-# tokens, batch 256 at 32x32x64) and ragged ones
-PACK_SHAPES = [("first LIF", 1, 262144, 64), ("ragged", 2, 4059, 300),
-               ("ragged", 3, 130, 33)]
+# tokens, batch 256 at 32x32x64; at T = 4 a stateful pass's four steps at
+# each width) and ragged ones
+PACK_SHAPES = [("first LIF", 1, 262144, 64), ("res1 T=4", 4, 262144, 64),
+               ("res2 T=4", 4, 65536, 128), ("res3 T=4", 4, 16384, 256),
+               ("res4 T=4", 4, 4096, 512), ("ragged", 2, 4059, 300),
+               ("ragged", 3, 130, 33), ("ragged", 2, 129, 640)]
 DENSITIES = (0.0, 0.1, 0.5)
+# (images, H = W, C, window, classes) of the head: the main path's, a
+# CIFAR-100 head on it, and a small one
+HEAD_SHAPES = ((256, 4, 512, 4, 10), (256, 4, 512, 4, 100), (5, 8, 64, 4, 10))
 
 
 def parity_fused_pe(torch, K, gen, dev, parity, shapes, packed: bool
@@ -1481,16 +1522,17 @@ def phase_parity(torch, K, dev) -> Parity:
                   ).to(torch.float32)
             check_lif(torch, K, (cur, vp, sp, 0.5, V_TH, False), parity,
                       f"n={numel} s_prev density {p}")
-    for b, h, c, window, classes in ((256, 4, 512, 4, 10),
-                                     (5, 8, 64, 4, 10)):
+    for b, h, c, window, classes in HEAD_SHAPES:
         for p in DENSITIES:
             spikes = (torch.rand((b, h, h, c), generator=gen, device=dev)
-                      < p).to(torch.float32)
+                      < p)
             feats = (h // window) ** 2 * c
             fc_w = torch.randn((feats, classes), generator=gen, device=dev)
             fc_b = torch.randn((classes,), generator=gen, device=dev)
-            check_w2ttfs(torch, K, (spikes, fc_w, fc_b, window), parity,
-                         f"[{b},{h},{h},{c}] window {window} density {p}")
+            for dtype in (torch.int8, torch.bfloat16, torch.float32):
+                check_w2ttfs(torch, K, (spikes.to(dtype), fc_w, fc_b, window),
+                             parity, f"[{b},{h},{h},{c}] {dtype} window "
+                                     f"{window} {classes} classes density {p}")
     parity_state(torch, K, gen, dev, parity)
     parity_training(torch, K, gen, dev, parity)
     parity_gated(torch, K, gen, dev, parity)
@@ -2247,10 +2289,10 @@ def phase_timesteps(torch, M, build_mod, dev, images, batch: int) -> dict:
     (launch counts reset just before and read just after each) against
     reference: spike totals within 0.1 %, top-1 >= 99 %, packed spike
     totals equal to dense; median forwards at T = 4 beside T = 1 on the
-    same weights and images; the device breakdown of a fused_dense
-    forward. Then three folded KD steps per training path from one state,
-    step 1 of each kernel path held to the training gates against
-    reference+grad, packed losses and gradients bit-equal to dense, every
+    same weights and images; the device breakdown of a fused_dense and a
+    fused_packed forward. Then three folded KD steps per training path
+    from one state, step 1 of each kernel path held to the training gates
+    against reference+grad, packed losses and gradients bit-equal to dense, every
     step's launches asserted, and the median step with its split and peak
     memory. Returns the kernel paths by name, for the kernels line."""
     snn_cnn = M.snn_cnn
@@ -2313,9 +2355,9 @@ def phase_timesteps(torch, M, build_mod, dev, images, batch: int) -> dict:
             f"{m1:.3f} vs {mt:.3f} ms over {ITERS}, {batch / m1 * 1e3:.1f} vs "
             f"{batch / mt * 1e3:.1f} images/s; T={T_STEPS} / T=1 "
             f"{mt / m1:.3f}")
-    phase_profile(torch, snn_cnn, cfg, fused, images, "fused_dense",
-                  medians["fused_dense", T_STEPS],
-                  tag=f"fused_dense T={T_STEPS}")
+    for policy in ("fused_dense", "fused_packed"):
+        phase_profile(torch, snn_cnn, cfg, fused, images, policy,
+                      medians[policy, T_STEPS], tag=f"{policy} T={T_STEPS}")
 
     tcfg, tvar, batches = kd_setup(torch, M, dev, batch)
     tpaths = {}
@@ -2937,6 +2979,11 @@ def phase_timing(torch, K, snn_cnn, models, images, paths, parity: Parity,
                     q, k, threshold=t),
                 "flash_attention": lambda q, k, v, c: K.attention_ref(
                     q, k, v, causal=c)}
+    card = gpu_name_and_power()
+    floor = device_time(torch, K.launch_empty, reps=50)
+    say(f"[timing] launch floor ({card}): {floor:.4f} ms, one launch of an "
+        f"empty kernel timed as the rows are (device_time); a row whose "
+        f"bound lies under its launches times this reads against it")
     rows_map = {}
     for row, (kernel, policy, source, replaces) in ROWS.items():
         if policy is None:        # a gated route: the first path that ran it
@@ -3061,6 +3108,9 @@ def phase_timing(torch, K, snn_cnn, models, images, paths, parity: Parity,
             f"{tot['block_ms']:.4f} ms; plain {out['plain_ms']:.4f} ms; "
             f"library {out['library_ms']}; positions near v_th "
             f"{parity.near_vth.get(row, 0)}"
+            + (f"; bound under the launch floor ({out['launches']} x "
+               f"{floor:.4f} ms)"
+               if out["bound_ms"] < out["launches"] * floor else "")
             + (f"; dense-skip twin {tot['twin_ms']:.4f} ms"
                if tot["twin_ms"] else ""))
         rows.append(out)
@@ -3888,6 +3938,7 @@ def phase_softmax(torch, S, K, build_mod, dev, parity: Parity) -> dict:
 def kernels_namespace(torch):
     """The launchers, plain versions and helpers the phases call."""
     from repro_torch.core import events
+    from repro_torch.kernels import _build
     import repro_torch.kernels.flash_attention as flash_attention
     import repro_torch.kernels.fused_pe as fused_pe
     import repro_torch.kernels.lif_update as lif_update
@@ -3896,7 +3947,12 @@ def kernels_namespace(torch):
     import repro_torch.kernels.spike_matmul as spike_matmul
     import repro_torch.kernels.w2ttfs_pool as w2ttfs_pool
 
+    def launch_empty():
+        _build.check(_build.library().repro_empty(
+            torch.cuda.current_stream().cuda_stream), "repro_empty")
+
     return types.SimpleNamespace(
+        launch_empty=launch_empty,
         fused_pe_cuda=fused_pe.fused_pe_cuda,
         fused_pe_block_ref=fused_pe.fused_pe_block_ref,
         RECHECK_BAND=fused_pe.RECHECK_BAND,

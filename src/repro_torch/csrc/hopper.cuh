@@ -3,7 +3,8 @@
 // and the bf16 wgmma shapes that the flash attention route and the dw
 // kernel run, setmaxnreg, and the host-side encoding of a 4-D bf16 tensor
 // map.
-// Used by flash_attention_wgmma.cu and spike_matmul_dw.cu.
+// Used by flash_attention_wgmma.cu, spike_matmul.cu, spike_matmul_dw.cu,
+// event_wgmma.cuh and (cp.async alone) w2ttfs_pool.cu.
 //
 // Shared-memory layouts are the canonical swizzled ones that TMA writes
 // and wgmma reads: a tile of R rows by W bf16 columns (W = 64 with the

@@ -58,8 +58,9 @@ _SIGNATURES = {
                   _LL, _LL, _I, _VOID_P, _VOID_P],
     "repro_spike_matmul": [_VOID_P] * 7 + [_I] * 9 + [_VOID_P],
     "repro_spike_matmul_decode": [_VOID_P] * 4 + [_I] * 6 + [_VOID_P],
-    "repro_w2ttfs_pool": [_VOID_P] * 4 + [_I] * 6 + [_F, _VOID_P],
-    "repro_pack_spikes": [_VOID_P] * 4 + [_I] * 5 + [_VOID_P],
+    "repro_w2ttfs_pool": [_VOID_P] * 4 + [_I] * 7 + [_F] + [_I] * 3
+    + [_VOID_P],
+    "repro_pack_spikes": [_VOID_P] * 4 + [_I] * 7 + [_VOID_P],
     "repro_unpack_spikes": [_VOID_P] * 2 + [_LL, _VOID_P],
     "repro_spike_matmul_dx": [_VOID_P] * 5 + [_I] * 5 + [_F] * 5 + [_VOID_P],
     "repro_spike_matmul_dw": [_VOID_P] * 7 + [_I] * 7 + [_VOID_P],
@@ -68,6 +69,7 @@ _SIGNATURES = {
     "repro_flash_attention_wgmma": [_VOID_P] * 4 + [_I] * 5
     + [_F, _I, _VOID_P],
     "repro_wgmma_probe": [_VOID_P] * 4 + [_I, _I, _VOID_P],
+    "repro_empty": [_VOID_P],
 }
 
 

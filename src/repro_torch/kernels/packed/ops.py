@@ -8,6 +8,8 @@ checks, and the device split.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ...core.events import LANE_BITS, PackedSpikes
@@ -20,25 +22,41 @@ def _padded(n: int) -> int:
     return -(-n // TILE) * TILE
 
 
-def pack_spikes_cuda(x: torch.Tensor
+def pack_plan(k: int) -> int:
+    """Segments of 16 columns a row of a 128-column block in the pack
+    kernel's lane map: 2 for k <= 32, 4 for k <= 64 (a warp then covers 8
+    rows and no lane falls on the padding), else 8. A unit of 16 / that
+    row blocks is then 2048 segments: 8 loads for each of a CTA's 256
+    threads."""
+    return 2 if k <= 32 else 4 if k <= 64 else 8
+
+
+def pack_spikes_cuda(x: torch.Tensor, *, out: Optional[tuple] = None
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the pack kernel on int8 CUDA spikes [nb, m, k] (unpadded).
-    Returns (words [nb, mp, kp/32], vld_cnt and occ [nb, mp/128, kp/128])
-    with mp, kp the 128-padded extents. Does not count."""
+    """Launch the pack kernel on int8 CUDA spikes [nb, m, k] (unpadded;
+    contiguous, at any alignment: 16-byte loads where k % 16 == 0 and x is
+    16-byte aligned, a byte loop otherwise). Returns (words [nb, mp, kp/32],
+    vld_cnt and occ [nb, mp/128, kp/128]) with mp, kp the 128-padded
+    extents, into ``out`` when given (every entry is written). Does not
+    count."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"pack_spikes_cuda needs CUDA tensors, got {dev}")
     nb, m, k = x.shape
     _build.require(x, "x", torch.int8, (nb, m, k), dev, align=1)
     mp, kp = _padded(m), _padded(k)
-    words = torch.empty((nb, mp, kp // LANE_BITS), dtype=torch.int32,
-                        device=dev)
-    vld = torch.empty((nb, mp // TILE, kp // TILE), dtype=torch.int32,
-                      device=dev)
-    occ = torch.empty_like(vld)
+    shapes = ((nb, mp, kp // LANE_BITS), (nb, mp // TILE, kp // TILE),
+              (nb, mp // TILE, kp // TILE))
+    if out is None:
+        out = tuple(torch.empty(s, dtype=torch.int32, device=dev)
+                    for s in shapes)
+    for t, name, s in zip(out, ("words", "vld", "occ"), shapes):
+        _build.require(t, name, torch.int32, s, dev)
+    words, vld, occ = out
+    vector = k % 16 == 0 and x.data_ptr() % 16 == 0
     err = _build.library().repro_pack_spikes(
         _build.ptr(x), _build.ptr(words), _build.ptr(vld), _build.ptr(occ),
-        nb, m, k, mp, kp, _build.stream(x))
+        nb, m, k, mp, kp, pack_plan(k), int(vector), _build.stream(x))
     _build.check(err, "repro_pack_spikes")
     return words, vld, occ
 

@@ -559,7 +559,9 @@ def forward(variables, images: torch.Tensor, cfg: SNNCNNConfig, *,
             else:
                 fc_w, fc_b = _qw(p["fc"]["w"], cfg), p["fc"]["b"]
             xd = ops.unpack(st, policy=pol) if event else st.data
-            xd = xd.to(cfg.dtype).reshape(t, b, h, w_, c)
+            if not (event and cfg.head == "w2ttfs"):
+                xd = xd.to(cfg.dtype)     # the fused head reads the int8 map
+            xd = xd.reshape(t, b, h, w_, c)
 
             def head_one(s_t):
                 if cfg.head == "w2ttfs":

@@ -1491,3 +1491,132 @@ def test_spike_x_tile_train_step_writes_no_operand(cuda, packed):
         own = (0.7 * used * (1.0 - s.float()) + cur) >= 1.0
         assert torch.equal(spk, own.to(torch.int8)), f"step {ti}"
         v, s = v_next, spk
+
+
+# ------------------------------------------- the pack kernel and the head
+SENTINEL = 0x7F7F7F7F
+
+
+def _pack_into_sentinel(P, x3):
+    """The pack kernel's words and maps, launched into outputs filled with
+    a sentinel: a word or map entry left unwritten stays 0x7f7f7f7f."""
+    nb, m, k = x3.shape
+    mp, kp = -(-m // 128) * 128, -(-k // 128) * 128
+    out = tuple(torch.full(s, SENTINEL, dtype=torch.int32, device=x3.device)
+                for s in ((nb, mp, kp // 32), (nb, mp // 128, kp // 128),
+                          (nb, mp // 128, kp // 128)))
+    return P.pack_spikes_cuda(x3, out=out)
+
+
+def _misaligned(x):
+    """x's values in a contiguous view whose data pointer is 16-byte
+    misaligned (one byte past an aligned start)."""
+    buf = torch.empty(x.numel() + 16, dtype=x.dtype, device=x.device)
+    view = buf[1:1 + x.numel()].view(x.shape)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 1
+    return view
+
+
+@pytest.mark.parametrize("n", [64, 128, 256, 512])
+@pytest.mark.parametrize("density", [0.0, 0.1, 1.0])
+def test_pack_kernel_bit_equal_on_trains(cuda, n, density):
+    """A [4, M, N] train (the T = 4 launches' shape) at each main-path
+    width, aligned and 16-byte misaligned (the byte loop): words, vld_cnt
+    and occ bit-equal to the plain pack, every entry written."""
+    from repro_torch.kernels import packed as P
+
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = _ragged_spikes(gen, (4, 4096 + 64, n), density, cuda)
+    ref = P.pack_spikes_ref(x, with_occ=True)
+    for xx in (x, _misaligned(x)):
+        words, vld, occ = _pack_into_sentinel(P, xx)
+        assert torch.equal(words, ref.words)
+        assert torch.equal(vld, ref.vld_cnt) and torch.equal(occ, ref.occ)
+
+
+@pytest.mark.parametrize("shape", [(2, 4059, 300), (3, 130, 33),
+                                   (1, 200, 48), (2, 129, 640)])
+def test_pack_kernel_bit_equal_on_ragged_operands(cuda, shape):
+    """Ragged k and m (the byte loop where k % 16 != 0), k % 32 == 16, and
+    a k whose segments round up past its last block: bit-equal, every
+    entry written, aligned and misaligned."""
+    from repro_torch.kernels import packed as P
+
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x = _ragged_spikes(gen, shape, 0.3, cuda)
+    ref = P.pack_spikes_ref(x, with_occ=True)
+    for xx in (x, _misaligned(x)):
+        words, vld, occ = _pack_into_sentinel(P, xx)
+        assert torch.equal(words, ref.words)
+        assert torch.equal(vld, ref.vld_cnt) and torch.equal(occ, ref.occ)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16,
+                                   torch.float32])
+@pytest.mark.parametrize("b,h,c,window,classes", [(256, 4, 512, 4, 10),
+                                                  (256, 4, 512, 4, 100),
+                                                  (5, 8, 64, 4, 10),
+                                                  (6, 4, 32, 2, 10),
+                                                  (4, 2, 64, 1, 10),
+                                                  (7, 6, 40, 3, 10),
+                                                  (9, 2, 24, 1, 3),
+                                                  (301, 4, 64, 4, 10),
+                                                  (1100, 4, 64, 4, 10)])
+def test_w2ttfs_kernel_dtypes_match_plain(cuda, dtype, b, h, c, window,
+                                          classes):
+    """The head on int8, bf16 and f32 maps within rtol 1e-5, atol 1e-4 of
+    its plain version, and the same logits bit for bit whatever the
+    dtype; 5, 256, 301 and 1100 images take 1, 2, 3 and 8 a CTA (301 a
+    partial last CTA); window 3 and channels not a multiple of 16 bytes
+    take the general loops; an int8 map of any values (not only
+    spikes) within rtol 1e-5, atol 1e-3 (its logits are up to 127 times
+    larger)."""
+    from repro_torch.kernels import w2ttfs_pool as K
+
+    gen = torch.Generator(device=cuda).manual_seed(b + c + classes)
+    s = torch.rand((b, h, h, c), generator=gen, device=cuda) < 0.3
+    feats = (h // window) ** 2 * c
+    fc_w = torch.randn((feats, classes), generator=gen, device=cuda)
+    fc_b = torch.randn((classes,), generator=gen, device=cuda)
+    sd = s.to(dtype)
+    out = K.w2ttfs_pool_cuda(sd, fc_w, fc_b, window)
+    torch.testing.assert_close(out, K.w2ttfs_pool_fc_ref(sd, fc_w, fc_b,
+                                                         window),
+                               rtol=1e-5, atol=1e-4)
+    assert torch.equal(out, K.w2ttfs_pool_cuda(s.to(torch.int8), fc_w, fc_b,
+                                               window))
+    if dtype == torch.int8:       # any int8 value: the biased integer sums
+        v = torch.randint(-128, 128, s.shape, generator=gen, device=cuda,
+                          dtype=torch.int8)
+        torch.testing.assert_close(K.w2ttfs_pool_cuda(v, fc_w, fc_b, window),
+                                   K.w2ttfs_pool_fc_ref(v, fc_w, fc_b, window),
+                                   rtol=1e-5, atol=1e-3)
+
+
+def test_packed_forward_at_four_steps_launch_counts(cuda):
+    """QKFResNet-11 at T = 4 under fused_packed: the stem packs once and
+    each of the 13 stateful passes packs its four steps in one launch;
+    the K pass's q is unpacked once a step and the head's map once; the
+    head runs once a step on the int8 map; logits equal fused_dense's."""
+    from repro_torch.kernels import _build
+    from repro_torch.models import snn_cnn
+
+    cfg = snn_cnn.SNNCNNConfig(arch="qkfresnet11", width_mult=0.125,
+                               image_size=16, timesteps=4)
+    fused = snn_cnn.fuse_model(
+        snn_cnn.init(torch.Generator().manual_seed(0), cfg), cfg)
+    img = torch.rand((2, 16, 16, 3), device=cuda)
+    dense, _, _ = snn_cnn.forward(fused, img, cfg, policy="fused_dense")
+    _build.reset_launches()
+    with _build.capture_launches() as captured:
+        logits, _, _ = snn_cnn.forward(fused, img, cfg,
+                                       policy="fused_packed")
+        torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {
+        "lif_update": 4, "fused_pe": 52, "spike_matmul": 12,
+        "w2ttfs_pool": 4, "pack_spikes": 14, "unpack_spikes": 5,
+        **NO_BACKWARD}
+    heads = [a for name, a, _, _ in captured if name == "w2ttfs_pool"]
+    assert all(a[0].dtype == torch.int8 for a in heads)
+    assert torch.equal(logits, dense)
