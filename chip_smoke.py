@@ -21,8 +21,12 @@ Phases, in order; any failure raises and the script exits non-zero:
              the pack on the stem's map, on [4, M, N] trains at N 64, 128,
              256 and 512 and on ragged maps, each also 16-byte misaligned
              and into outputs filled with a sentinel, every entry written;
-             the packed fused PE and spike-matmul variants, each packed
-             fused PE launch bit-equal to the int8 one; every spike-x
+             the unpack of the same words in int8, bf16 and f32 at the
+             logical extent, into 16-byte aligned and misaligned outputs
+             inside buffers filled with a sentinel: every element written,
+             none past the extent; the packed fused PE and spike-matmul
+             variants, each packed fused PE launch bit-equal to the int8
+             one; every spike-x
              fused PE launch also launched again, bit-equal), then the fused
              PE's LIF state (T > 1) at every int8 pass shape: v_prev ~
              randn, s_prev ~ Bernoulli(0.5), hard and soft reset, tau 0.5
@@ -172,12 +176,15 @@ Phases, in order; any failure raises and the script exits non-zero:
              route of each launch checked, and each launch again on every
              route it can take against the plain version; the K9 sweep (H /
              Hkv 16/8, 16/16, 16/1, D 128/64/32, S 64/300/2048, causal and
-             full, f32 and bf16, bf16 on both routes, bf16 at D 48 on the
-             scalar route; q scaled by 8, f32 and bf16, each route and
-             the plain version against an f64 result); K9 at S 512 / 2048
-             / 8192 by device time on every route beside its plain
-             version, SDPA, its bound (none below it) and the one-pass
-             floor.
+             full, f32 and bf16, bf16 on both routes; D 96/112/48 (bf16 on
+             the wgmma route at a padded instance, and on the scalar route)
+             and 37 (the scalar route's general instance), f32 and bf16;
+             q scaled by 8, f32 and bf16, each route and the plain version
+             against an f64 result); K9 at S 248 / 512 / 2048 / 8192 by
+             device time on every route beside its plain version, SDPA, its
+             bound (none below it), the f32 targets and the one-pass floor,
+             and bf16 at D 96 and 112 at S 2048 on both routes beside SDPA
+             and the bound.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Without a
@@ -268,6 +275,10 @@ T_FORWARD = {policy: f"forward {policy} T={T_STEPS}"
              for policy in ("fused_dense", "fused_packed")}
 # the explicit packed-x dw launches (on the packed training step's operands)
 PACKED_DW_PATH = "explicit packed dw"
+# the folded fused_packed+grad step: its 13 unpacks (to f32) at T = 1, 52
+# at T = 4
+PACKED_STEP = "train fold fused_packed+grad"
+PACKED_STEP_T = f"{PACKED_STEP} T={T_STEPS}"
 # row of the kernels line -> (kernel, path whose launches it reports,
 # source, the TPU kernel's pallas_call it replaces)
 ROWS = {
@@ -399,6 +410,18 @@ ROWS.update({
     "w2ttfs_pool_state": ("w2ttfs_pool", T_FORWARD["fused_dense"],
                           "src/repro_torch/csrc/w2ttfs_pool.cu",
                           "src/repro/kernels/w2ttfs_pool/w2ttfs_pool.py:49"),
+    # the unpacks of the T = 4 forward (the K pass's q once a step, the
+    # head's map once) and of the packed KD step (each fused PE pass's
+    # spikes, to f32), at T = 1 and T = 4
+    "unpack_spikes_state": ("unpack_spikes", T_FORWARD["fused_packed"],
+                            "src/repro_torch/csrc/unpack_spikes.cu",
+                            "src/repro/kernels/packed/packed.py:96"),
+    "unpack_spikes_step": ("unpack_spikes", PACKED_STEP,
+                           "src/repro_torch/csrc/unpack_spikes.cu",
+                           "src/repro/kernels/packed/packed.py:96"),
+    "unpack_spikes_step_t4": ("unpack_spikes", PACKED_STEP_T,
+                              "src/repro_torch/csrc/unpack_spikes.cu",
+                              "src/repro/kernels/packed/packed.py:96"),
     "spike_matmul_dw_packed": ("spike_matmul_dw", PACKED_DW_PATH,
                                "src/repro_torch/csrc/spike_matmul_dw.cu",
                                "src/repro/kernels/spike_matmul/"
@@ -752,7 +775,7 @@ def check_pack(torch, K, args, parity: Parity, label: str) -> None:
                   + (occ != ref.occ).sum())
         require(bad == 0, f"pack_spikes {label} ({how}): {bad} words or map "
                           f"entries differ or were left unwritten")
-    back = K.unpack_spikes_cuda(words)[:, :m, :k]
+    back = K.unpack_spikes_cuda(words, m, k)
     lost = int((back != (x3 != 0).to(torch.int8)).sum())
     require(lost == 0, f"pack_spikes {label}: round trip lost {lost}")
     parity.note("pack_spikes", float(bad))
@@ -762,13 +785,38 @@ def check_pack(torch, K, args, parity: Parity, label: str) -> None:
         f"{int((words < 0).sum())}; spikes {int(ref.vld_cnt.sum())}")
 
 
+# a float output element the unpack kernel left unwritten, or wrote past
+# the extent: NaN (int8: 127, no spike value)
+UNPACK_SENTINEL = {"torch.int8": 127, "torch.bfloat16": float("nan"),
+                   "torch.float32": float("nan")}
+
+
 def check_unpack(torch, K, args, parity: Parity, label: str) -> None:
-    (words,) = args
-    bad = int((K.unpack_spikes_cuda(words) != K.unpack_words(words)).sum())
-    require(bad == 0, f"unpack_spikes {label}: {bad} bytes differ")
+    """The unpacker's launch ``args`` (words, m, k, dtype) into outputs
+    inside buffers filled with a sentinel, 16-byte aligned and one element
+    past that (the element-wise path): the extent bit-equal to the plain
+    version (every element written), the buffer around it untouched."""
+    words, m, k, dtype = args
+    ref = K.unpack_words(words, dtype)[..., :m, :k]
+    n, pad = ref.numel(), 16
+    bad = 0
+    for how, off in (("aligned", pad), ("misaligned", pad + 1)):
+        buf = torch.full((n + 2 * pad,), UNPACK_SENTINEL[str(dtype)],
+                         dtype=dtype, device=words.device)
+        out = buf[off:off + n].view(ref.shape)
+        K.unpack_spikes_cuda(words, m, k, dtype, out=out)
+        rest = torch.cat([buf[:off], buf[off + n:]])
+        kept = (bool((rest == 127).all()) if dtype == torch.int8
+                else bool(rest.isnan().all()))
+        bad += int((out != ref).sum())     # a NaN sentinel differs too
+        require(kept, f"unpack_spikes {label} {dtype} ({how}): wrote past "
+                      f"the extent")
+        require(bad == 0, f"unpack_spikes {label} {dtype} ({how}): {bad} "
+                          f"elements differ or were left unwritten")
     parity.note("unpack_spikes", float(bad))
-    say(f"[parity] unpack_spikes {label}: bytes equal ({words.numel()} "
-        f"words)")
+    say(f"[parity] unpack_spikes {label} {str(dtype)[6:]}: [{m}x{k}] of "
+        f"{tuple(words.shape)} words bit-equal, aligned and misaligned, "
+        f"every element written over a sentinel, none past the extent")
 
 
 def check_lif(torch, K, args, parity: Parity, label: str) -> None:
@@ -1003,7 +1051,7 @@ def check_flash_scaled(torch, K, gen, dev) -> None:
 
 
 def flash_routes(K, q) -> tuple:
-    """The routes K9 can take for q: at bf16 and D 32, 64 or 128 both
+    """The routes K9 can take for q: at bf16 and D % 8 == 0 both
     (``pick_route``'s, the wgmma route, first), else the scalar route."""
     return (("wgmma", "scalar") if K.flash_pick_route(q) == "wgmma"
             else ("scalar",))
@@ -1512,8 +1560,10 @@ def phase_parity(torch, K, dev) -> Parity:
                 x[..., 31::32] = 1          # every word's sign bit
             check_pack(torch, K, (x,), parity,
                        f"{label} [{items}x{m}x{k}] density {p}")
-            check_unpack(torch, K, (K.pack_spikes_ref(x).words,), parity,
-                         f"{label} [{items}x{m}x{k}] density {p}")
+            for dtype in (torch.int8, torch.bfloat16, torch.float32):
+                check_unpack(torch, K, (K.pack_spikes_ref(x).words, m, k,
+                                        dtype), parity,
+                             f"{label} [{items}x{m}x{k}] density {p}")
     for numel in (262144 * 64, 1000003):
         for p in DENSITIES:
             cur = 1.0 + torch.randn((numel,), generator=gen, device=dev)
@@ -2395,7 +2445,8 @@ def phase_timesteps(torch, M, build_mod, dev, images, batch: int) -> dict:
                                        for p in tpaths.values()},
                             batch, TRAIN_ITERS, profile=False)
     profile_step(torch, dense, step_ms[graph, "fused_dense+grad"])
-    paths[dense.name] = (None, None, dense.launches[0], dense.captured)
+    for path in (dense, packed):
+        paths[path.name] = (None, None, path.launches[0], path.captured)
     return paths
 
 
@@ -2638,9 +2689,13 @@ def bound(torch, K, name: str, args, inputs) -> tuple[float, float, float]:
         # x read; words, vld_cnt and occ written; a compare per position
         return n + n / 8.0 + 8.0 * tiles, n, n
     if name == "unpack_spikes":
-        (ps,) = inputs
-        n = float(math.prod(ps.shape))
-        return n / 8.0 + n, n, n
+        # the words of the extent read (ceil(k / 32) a row, none of the
+        # padding), the map written in the launch's dtype; an operation a
+        # spike
+        words, m, k, dtype = args
+        rows = math.prod(words.shape[:-2]) * m
+        n = float(rows * k)
+        return 4.0 * rows * -(-k // 32) + n * dtype.itemsize, n, n
     if name == "spike_matmul_dx":
         g, w, v = args[:3]
         (m, n), k = g.shape, w.shape[0]
@@ -2970,7 +3025,8 @@ def phase_timing(torch, K, snn_cnn, models, images, paths, parity: Parity,
                 "spike_matmul_dw_gated": K.spike_matmul_dw_gated_ref,
                 "w2ttfs_pool": K.w2ttfs_pool_fc_ref,
                 "pack_spikes": lambda x: K.pack_spikes_ref(x, with_occ=True),
-                "unpack_spikes": K.unpack_words,
+                "unpack_spikes": lambda w, m, k, dt: K.unpack_words(
+                    w, dt)[..., :m, :k],
                 "spike_matmul_dx": lambda g, w, v, s_, a, t: (
                     K.spike_matmul_dx_ref(g, w, v, surrogate=s_, alpha=a,
                                           v_th=t)),
@@ -3561,7 +3617,18 @@ INFO_PROMPTS = 8              # prompts of the bf16 chunked-vs-blocking print
 K9_HEADS = ((16, 8), (16, 16), (16, 1))
 K9_DIMS = (128, 64, 32)
 K9_SEQS = ((64, (True, False)), (300, (True,)), (2048, (True, False)))
-K9_TIMING_S = (512, 2048, 8192)   # B 1, H 16 over Hkv 8, D 128, causal
+# B 1, H 16 over Hkv 8, D 128, causal (S 248: the f32 LM variant's prefill)
+K9_TIMING_S = (248, 512, 2048, 8192)
+# head dims the wgmma route reaches at a padded instance (bf16), and the
+# scalar route's other instances and its general one (37), each checked
+# at H 16/8, S 300 causal and S 2048 full; the padded ones also timed at S
+# 2048 beside SDPA
+K9_PADDED_DIMS = (96, 112, 48)
+K9_OTHER_DIMS = K9_PADDED_DIMS + (37,)
+# f32 targets of the scalar route (ms at S 2048 and 8192, B 1, H 16/8, D
+# 128, causal): half its bound at 8192, and a time at 2048; printed beside
+# the measurement, not gated
+K9_F32_TARGET_MS = {2048: 0.60, 8192: 8.21}
 # (s, h, hkv, d, causal): q scaled by 8 (scores up to about 40), held
 # against an f64 result; at D 128 the scale is no power of two
 K9_SCALED = ((300, 16, 8, 128, True), (2048, 16, 16, 64, False))
@@ -3703,8 +3770,10 @@ def parity_k9(torch, K, gen, dev, parity: Parity) -> None:
     """K9 against its plain version on seeded operands: causal and full,
     H / Hkv 16/8, 16/16, 16/1, D 128, 64, 32, S 64, 300 (ragged, causal)
     and 2048, f32 (the scalar route) and bf16 (the wgmma and the scalar
-    routes); then bf16 at D 48, which only the scalar route takes; then
-    q scaled by 8 (``check_flash_scaled``)."""
+    routes); then D 96, 112, 48 (bf16 on the wgmma route at a padded
+    instance, and on the scalar route) and 37 (the scalar route's general
+    instance; bf16 has no TMA stride there), f32 and bf16, H 16/8, S 300
+    causal and 2048 full; then q scaled by 8 (``check_flash_scaled``)."""
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
         for h, hkv in K9_HEADS:
@@ -3724,16 +3793,24 @@ def parity_k9(torch, K, gen, dev, parity: Parity) -> None:
                                     f"{'causal' if causal else 'full'}",
                                     route)
                         n += 1
-    q = torch.randn((1, 300, 16, 48), generator=gen, device=dev).to(
-        torch.bfloat16)
-    kv = torch.randn((1, 300, 8, 48), generator=gen, device=dev).to(
-        torch.bfloat16)
-    require(K.flash_pick_route(q) == "scalar", "bf16 at D 48 must take the "
-                                               "scalar route")
-    check_flash(torch, K, (q, kv, kv, True), parity,
-                "bf16 S 300 H 16/8 D 48 causal")
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in K9_OTHER_DIMS:
+            for s, causal in ((300, True), (2048, False)):
+                q = torch.randn((1, s, 16, d), generator=gen,
+                                device=dev).to(dtype)
+                k, v = (torch.randn((1, s, 8, d), generator=gen,
+                                    device=dev).to(dtype) for _ in range(2))
+                want = ("wgmma" if dtype == torch.bfloat16 and d % 8 == 0
+                        else "scalar")
+                require(K.flash_pick_route(q) == want,
+                        f"{dtype} at D {d} must take the {want} route")
+                for route in flash_routes(K, q):
+                    check_flash(torch, K, (q, k, v, causal), parity,
+                                f"sweep {str(dtype)[6:]} S {s} H 16/8 D {d} "
+                                f"{'causal' if causal else 'full'}", route)
+                    n += 1
     check_flash_scaled(torch, K, gen, dev)
-    say(f"[parity] flash_attention: {n + 1} sweep launches agree with the "
+    say(f"[parity] flash_attention: {n} sweep launches agree with the "
         f"plain version")
 
 
@@ -3798,8 +3875,49 @@ def time_k9(torch, K, gen, dev, parity: Parity, card: str) -> None:
                     f"reference's function) {floor:.4f} ms, for information")
             say(f"[timing] flash_attention {dt} S {s}: plain {plain_ms:.4f} "
                 f"ms; SDPA {sdpa_ms:.4f} ms, backend {backend}")
+            if dtype == torch.float32:
+                ms = times["scalar"]
+                target = K9_F32_TARGET_MS.get(s)
+                say(f"[timing] flash_attention f32 S {s} target: the scalar "
+                    f"route {ms:.4f} ms against SDPA's {sdpa_ms:.4f} "
+                    f"({'met' if ms <= sdpa_ms else 'missed'}: no slower "
+                    f"than SDPA)"
+                    + ("" if target is None else
+                       f", against {target:.2f} ms "
+                       f"({'met' if ms <= target else 'missed'})")
+                    + f"; {bound / ms:.3f} of its bound [{card}]")
             del q, k, v, args, sdpa
             torch.cuda.empty_cache()
+    for d in K9_PADDED_DIMS[:2]:
+        s = 2048
+        q = torch.randn((1, s, 16, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        k, v = (torch.randn((1, s, 8, d), generator=gen, device=dev).to(
+            torch.bfloat16) for _ in range(2))
+        args = (q, k, v, True)
+        nbytes, ops, _ = flash_bound(*args)
+        bound = max(nbytes / PEAK_BYTES_PER_S * 1e3, flash_ops_ms(q, ops))
+        times = {}
+        for route in flash_routes(K, q):
+            check_flash(torch, K, args, parity, f"timing bf16 S {s} D {d}",
+                        route)
+            times[route] = device_time(
+                torch, lambda: K.flash_attention_cuda(*args, route=route), 20)
+        sdpa_ms = device_time(torch, sdpa_call(torch, *args), 20)
+        say(f"[timing] flash_attention bf16 B 1 S {s} H 16/8 D {d} causal: "
+            f"wgmma route (at its {K.flash_wgmma_instance(d)} instance) "
+            f"{times['wgmma']:.4f} ms, scalar route {times['scalar']:.4f} ms;"
+            f" bound {bound:.4f} ms (operations: QK^T once and PV three "
+            f"times at the bf16 tensor-core rate, on D {d}), roofline share "
+            f"{bound / times['wgmma']:.3f}; SDPA {sdpa_ms:.4f} ms "
+            f"({times['wgmma'] / sdpa_ms:.2f}x SDPA's time), backend "
+            f"{sdpa_backend(torch, *args)} [{card}]")
+        for route, ms in times.items():
+            if ms < bound:
+                below.append(f"bf16 D {d} {route} route {ms:.4f} < "
+                             f"{bound:.4f} ms")
+        del q, k, v, args
+        torch.cuda.empty_cache()
     require(not below, f"K9 times below their bound: {below}")
 
 
@@ -3984,6 +4102,7 @@ def kernels_namespace(torch):
         qk_attention_cuda=qk_attention.qk_attention_cuda,
         flash_attention_cuda=flash_attention.flash_attention_cuda,
         flash_pick_route=flash_attention.pick_route,
+        flash_wgmma_instance=flash_attention.wgmma_instance,
         attention_ref=flash_attention.attention_ref,
         qk_attention_ref=qk_attention.qk_attention_ref,
         lif_update_cuda=lif_update.lif_update_cuda,
@@ -4081,6 +4200,7 @@ def main() -> int:
     paths[PACKED_DW_PATH] = phase_packed_dw(
         torch, K, _build, train_paths["fold", "fused_packed+grad"].captured)
     for tp in (train_paths["fold", "fused_dense+grad"],
+               train_paths["fold", "fused_packed+grad"],
                train_paths["unfused", "fused_dense+grad"],
                *auto_train.values()):
         paths[tp.name] = (None, None, tp.launches[0], tp.captured)

@@ -6,9 +6,14 @@
 //   out[b, i, h] = sum_j softmax_j(scale * q[b, i, h] . k[b, j, h / G]) v[b, j, h / G]
 //
 // over keys j <= i when causal, G = H / Hkv query heads a KV head. q and
-// out are [B, S, H, D], k and v [B, S, Hkv, D], all bf16, D in {32, 64,
-// 128}, read in that layout through 4-D tensor maps (no transpose, no
-// repeat of K and V: a query head reads KV head h / G in place).
+// out are [B, S, H, D], k and v [B, S, Hkv, D], all bf16, read in that
+// layout through 4-D tensor maps (no transpose, no repeat of K and V: a
+// query head reads KV head h / G in place). The kernel's instances are D
+// 32, 64 and 128; a head dim d between them (48, 96, 112, any d <= 128
+// with d % 8 == 0, so that a head's row of 2 d bytes is a TMA stride) runs
+// at the next instance: the tensor maps' extent is d, so TMA fills the
+// tile's columns d .. D - 1 with zeros, which add exact zeros to QK^T and
+// give PV zero columns, and the epilogue stores only the columns < d.
 //
 // Arithmetic: the reference's function, exact wherever it is.
 // - S = q . k^T by wgmma over the raw bf16 tiles: every product is exact in
@@ -206,7 +211,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v,
-                   __nv_bfloat16* __restrict__ out, int s_len, int heads,
+                   __nv_bfloat16* __restrict__ out, int s_len, int heads, int d,
                    int group, int n_bh, int n_qt, float scale, int causal) {
   constexpr int BN = kBlockN;
   using C = Cfg<D, BN>;
@@ -303,9 +308,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         if (row >= s_len) continue;
         const float den = fmaxf(l[r], 1e-30f);
         __nv_bfloat16* dst =
-            out + ((static_cast<size_t>(b) * s_len + row) * heads + h) * D + 2 * (lane % 4);
+            out + ((static_cast<size_t>(b) * s_len + row) * heads + h) * d + 2 * (lane % 4);
 #pragma unroll
         for (int j = 0; j < D / 8; ++j) {
+          // columns 8 j + 2 (lane % 4) and the next: both < d or neither
+          // (d % 8 == 0)
+          if (8 * j + 2 * (lane % 4) >= d) continue;
           const uint32_t pair = bf16_pair(__float2bfloat16_rn(o[4 * j + 2 * r] / den),
                                           __float2bfloat16_rn(o[4 * j + 2 * r + 1] / den));
           *reinterpret_cast<uint32_t*>(dst + 8 * j) = pair;
@@ -367,7 +375,7 @@ wgmma_probe_kernel(const __grid_constant__ CUtensorMap tm_a,
 
 template <int D>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
-           void* out, int batch, int s_len, int heads, int kv_heads, float scale,
+           void* out, int batch, int s_len, int heads, int kv_heads, int d, float scale,
            int causal, cudaStream_t stream) {
   using C = Cfg<D, kBlockN>;
   static bool attr_set = false;
@@ -380,7 +388,7 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
   const int n_qt = (s_len + kRowsQ - 1) / kRowsQ;
   const int n_bh = batch * heads;
   flash_wgmma_kernel<D><<<n_qt * n_bh, kThreads, C::kSmem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), s_len, heads, heads / kv_heads,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), s_len, heads, d, heads / kv_heads,
       n_bh, n_qt, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
@@ -397,27 +405,32 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }  // namespace
 
 // q, out: [batch, s_len, heads, d]; k, v: [batch, s_len, kv_heads, d];
-// contiguous bf16, 16-byte aligned; kv_heads divides heads; d in {32, 64,
-// 128}. Returns a CUDA error, or
-// hopper::kEncodeError + the CUresult of a failed tensor-map encode.
+// contiguous bf16, 16-byte aligned; kv_heads divides heads; d <= 128 with
+// d % 8 == 0, run at the instance D of 32, 64 or 128 that is the smallest
+// >= d. Returns a CUDA error, or hopper::kEncodeError + the CUresult of a
+// failed tensor-map encode.
 extern "C" int repro_flash_attention_wgmma(const void* q, const void* k, const void* v,
                                            void* out, int batch, int s_len, int heads,
                                            int kv_heads, int d, float scale, int causal,
                                            cudaStream_t stream) {
-  if ((d != 32 && d != 64 && d != 128) || kv_heads < 1 || heads % kv_heads != 0 || !aligned16(q) || !aligned16(k) ||
-      !aligned16(v) || !aligned16(out))
+  if (d < 8 || d > 128 || d % 8 != 0 || kv_heads < 1 || heads % kv_heads != 0 ||
+      !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out))
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0 || s_len == 0) return static_cast<int>(cudaGetLastError());
+  const int inst = d <= 32 ? 32 : d <= 64 ? 64 : 128;
   CUtensorMap tq, tk, tv;
-  int err = encode_bf16_rows(&tq, q, batch, s_len, heads, d, kRowsQ);
-  if (err == 0) err = encode_bf16_rows(&tk, k, batch, s_len, kv_heads, d, kBlockN);
-  if (err == 0) err = encode_bf16_rows(&tv, v, batch, s_len, kv_heads, d, kBlockN);
+  int err = encode_bf16_rows(&tq, q, batch, s_len, heads, d, kRowsQ, inst);
+  if (err == 0) err = encode_bf16_rows(&tk, k, batch, s_len, kv_heads, d, kBlockN, inst);
+  if (err == 0) err = encode_bf16_rows(&tv, v, batch, s_len, kv_heads, d, kBlockN, inst);
   if (err != 0) return err;
-  if (d == 32)
-    return launch<32>(tq, tk, tv, out, batch, s_len, heads, kv_heads, scale, causal, stream);
-  if (d == 64)
-    return launch<64>(tq, tk, tv, out, batch, s_len, heads, kv_heads, scale, causal, stream);
-  return launch<128>(tq, tk, tv, out, batch, s_len, heads, kv_heads, scale, causal, stream);
+  if (inst == 32)
+    return launch<32>(tq, tk, tv, out, batch, s_len, heads, kv_heads, d, scale, causal,
+                      stream);
+  if (inst == 64)
+    return launch<64>(tq, tk, tv, out, batch, s_len, heads, kv_heads, d, scale, causal,
+                      stream);
+  return launch<128>(tq, tk, tv, out, batch, s_len, heads, kv_heads, d, scale, causal,
+                     stream);
 }
 
 // a, b: [64, d] bf16 (b is V in mode 1; a unused there); p: [64, 64] f32
@@ -429,8 +442,8 @@ extern "C" int repro_wgmma_probe(const void* a, const void* b, const void* p, vo
       !aligned16(b))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap ta, tb;
-  int err = encode_bf16_rows(&ta, a, 1, 64, 1, d, 64);
-  if (err == 0) err = encode_bf16_rows(&tb, b, 1, 64, 1, d, 64);
+  int err = encode_bf16_rows(&ta, a, 1, 64, 1, d, 64, d);
+  if (err == 0) err = encode_bf16_rows(&tb, b, 1, 64, 1, d, 64, d);
   if (err != 0) return err;
   const float* pf = static_cast<const float*>(p);
   float* of = static_cast<float*>(out);

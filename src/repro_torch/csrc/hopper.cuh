@@ -311,10 +311,13 @@ inline EncodeTiled encode_tiled() {
 }
 
 // A bf16 tensor [batch, rows, heads, d], contiguous, as a 4-D map whose
-// box is one head's `box_rows` rows by min(d, 64) columns, swizzled 128
-// bytes (64 bytes when d is 32). Returns 0 or kEncodeError + the CUresult.
+// box is one head's `box_rows` rows by min(inst, 64) columns of a tile of
+// `inst` >= d columns (32, 64 or 128), swizzled 128 bytes (64 bytes when
+// inst is 32); columns d .. inst - 1 lie past the extent and are filled
+// with zeros. d * 2 bytes (a head's row) must be a multiple of 16. Returns
+// 0 or kEncodeError + the CUresult.
 inline int encode_bf16_rows(CUtensorMap* map, const void* base, int batch,
-                            int rows, int heads, int d, int box_rows) {
+                            int rows, int heads, int d, int box_rows, int inst) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return kEncodeError + CUDA_ERROR_NOT_FOUND;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
@@ -323,13 +326,13 @@ inline int encode_bf16_rows(CUtensorMap* map, const void* base, int batch,
                               static_cast<cuuint64_t>(batch)};
   const cuuint64_t row = static_cast<cuuint64_t>(d) * 2;
   const cuuint64_t strides[3] = {row, row * heads, row * heads * rows};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(d < 64 ? d : 64), 1,
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(inst < 64 ? inst : 64), 1,
                              static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t steps[4] = {1, 1, 1, 1};
   const CUresult r = fn(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
       strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      d < 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+      inst < 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(r);
 }

@@ -41,6 +41,51 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, h, s, d).transpose(1, 2)
 
 
+def flash_tile_twin(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, rows: int = 128,
+                    keys: int = 64) -> torch.Tensor:
+    """The scalar route's blocking order in plain torch on q [B,S,H,D], k
+    and v [B,S,Hkv,D] (f32 or bf16, widened): q times D**-0.5 in f32 first;
+    per q tile of ``rows`` rows (``ops.flash_plan``), key tiles of ``keys``
+    in order (causal: up to the tile's last row), masked scores -1e30,
+    m_new = max(m, the tile's row max), p = exp(s - m_new), l = l * corr +
+    the tile's sum of p, acc = acc * corr + p v; out = acc / max(l, 1e-30).
+    Returns the f32 output [B,S,H,D] (the kernel's before its rounding to
+    q's dtype; its sums within a tile run in another order)."""
+    b, s_len, h, d = q.shape
+    g = h // k.shape[2]
+
+    def heads(t, rep):
+        t = t.float().repeat_interleave(rep, dim=2)
+        return t.transpose(1, 2).reshape(b * h, s_len, d)
+
+    qh = heads(q, 1) * torch.tensor(d ** -0.5, dtype=torch.float32)
+    kh, vh = heads(k, g), heads(v, g)
+    out = torch.empty((b * h, s_len, d), dtype=torch.float32,
+                      device=q.device)
+    for q0 in range(0, s_len, rows):
+        r = torch.arange(q0, min(s_len, q0 + rows), device=q.device)
+        m = torch.full((b * h, len(r)), -1e30, device=q.device)
+        l = torch.zeros((b * h, len(r)), device=q.device)
+        acc = torch.zeros((b * h, len(r), d), device=q.device)
+        stop = min(s_len, q0 + rows) if causal else s_len
+        for k0 in range(0, stop, keys):
+            kk = torch.arange(k0, min(s_len, k0 + keys), device=q.device)
+            sc = torch.einsum("bqd,bkd->bqk", qh[:, r], kh[:, kk])
+            if causal:
+                sc = torch.where(kk[None, None] > r[None, :, None],
+                                 torch.tensor(-1e30, device=q.device), sc)
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            p = torch.exp(sc - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum("bqk,bkd->bqd", p,
+                                                       vh[:, kk])
+            m = m_new
+        out[:, r] = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(b, h, s_len, d).transpose(1, 2)
+
+
 def split_bf16x3(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
                                            torch.Tensor]:
     """f32 p as three bf16 terms, each rounded to nearest from what the

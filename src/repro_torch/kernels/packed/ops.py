@@ -4,10 +4,12 @@ checks, and the device split.
 
 ``pack_spikes``   — spikes [..., M, K] -> PackedSpikes (words, vld_cnt and
                     occ from one pass).
-``unpack_spikes`` — PackedSpikes -> dense int8 at the logical shape.
+``unpack_spikes`` — PackedSpikes -> dense 0/1 at the logical shape, in the
+                    caller's dtype (int8, bf16 or f32) from one pass.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -87,35 +89,74 @@ def pack_spikes(x: torch.Tensor, *, block_m: int = TILE,
                         TILE, TILE, occ.reshape(*lead, *occ.shape[1:]))
 
 
-def unpack_spikes_cuda(words: torch.Tensor) -> torch.Tensor:
-    """Launch the unpack kernel on int32 CUDA words [..., W]. Returns the
-    int8 0/1 map [..., W*32]. Does not count."""
+# the unpack kernel's output dtypes, by the kind its C entry takes
+UNPACK_KINDS = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
+
+
+def unpack_plan(k: int) -> int:
+    """Columns of a segment in the unpack kernel's lane map: 128, 64 or 32,
+    the largest that divides k (a segment is one load of 4, 2 or 1 words,
+    and the segments of a row follow one another in the output), or 0 for
+    a ragged k, which takes the element-wise path. A warp's unit is 4096
+    spikes: 32 x 128 / G segments."""
+    return next((g for g in (128, 64, 32) if k % g == 0), 0)
+
+
+def unpack_segment(k: int, wpr: int, words_ptr: int, out_ptr: int) -> int:
+    """``unpack_plan(k)``, halved until the words' rows (``wpr`` words) and
+    base address hold whole aligned segments, or 0 (the element-wise path)
+    where the output is not 16-byte aligned."""
+    g = unpack_plan(k) if out_ptr % 16 == 0 else 0
+    while g and (wpr % (g // LANE_BITS) or words_ptr % (g // 8)):
+        g = g // 2 if g > LANE_BITS else 0
+    return g
+
+
+def unpack_spikes_cuda(words: torch.Tensor, m: int, k: int,
+                       dtype: torch.dtype = torch.int8, *,
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the unpack kernel on int32 CUDA words [..., mp, W] (mp >= m
+    rows, W * 32 >= k columns). Returns the 0/1 map [..., m, k] in
+    ``dtype`` (int8, bf16 or f32), into ``out`` when given (contiguous, at
+    any element alignment: 16-byte stores where it is 16-byte aligned, an
+    element loop otherwise). Reads only the words of the extent and writes
+    nothing past it. Does not count."""
     dev = words.device
     if dev.type != "cuda":
         raise ValueError(f"unpack_spikes_cuda needs CUDA tensors, got {dev}")
+    if dtype not in UNPACK_KINDS:
+        raise TypeError(f"unpack_spikes writes int8, bf16 or f32, not {dtype}")
+    *lead, mp, wpr = words.shape
+    if m > mp or k > wpr * LANE_BITS:
+        raise ValueError(f"[{m}, {k}] is past the words' extent "
+                         f"[{mp}, {wpr * LANE_BITS}]")
     _build.require(words, "words", torch.int32, tuple(words.shape), dev,
                    align=4)
-    out = torch.empty((*words.shape[:-1], words.shape[-1] * LANE_BITS),
-                      dtype=torch.int8, device=dev)
+    shape = (*lead, m, k)
+    if out is None:
+        out = torch.empty(shape, dtype=dtype, device=dev)
+    _build.require(out, "out", dtype, shape, dev, align=out.element_size())
+    g = unpack_segment(k, wpr, words.data_ptr(), out.data_ptr())
     err = _build.library().repro_unpack_spikes(
-        _build.ptr(words), _build.ptr(out), words.numel(),
-        _build.stream(words))
+        _build.ptr(words), _build.ptr(out), math.prod(lead), m, k, mp, wpr, g,
+        UNPACK_KINDS[dtype], _build.stream(words))
     _build.check(err, "repro_unpack_spikes")
     return out
 
 
 def unpack_spikes(ps: PackedSpikes, *,
                   dtype: torch.dtype = torch.int8) -> torch.Tensor:
-    """The dense 0/1 spike map at the logical (unpadded) shape: bit-exact
-    inverse of ``pack_spikes``. The kernel on CUDA tensors, the plain
-    version on CPU tensors."""
+    """The dense 0/1 spike map at the logical (unpadded) shape in ``dtype``:
+    bit-exact inverse of ``pack_spikes``. The kernel on CUDA tensors (one
+    launch writing int8, bf16 or f32 itself; another dtype is cast from
+    its int8 map), the plain version on CPU tensors."""
     dev = ps.words.device
     if dev.type == "cpu":
         return unpack_spikes_ref(ps, dtype)
     if dev.type != "cuda":
         raise ValueError(f"unpack_spikes runs on cuda or cpu, not {dev}")
-    words = ps.words.contiguous()
-    _build.count_launch("unpack_spikes", (words,), (ps,))
-    dense = unpack_spikes_cuda(words)[..., :ps.m, :ps.k]
-    return dense if dtype == torch.int8 else dense.to(dtype)
+    kind = dtype if dtype in UNPACK_KINDS else torch.int8
+    args = (ps.words.contiguous(), ps.m, ps.k, kind)
+    _build.count_launch("unpack_spikes", args, (ps,))
+    return unpack_spikes_cuda(*args).to(dtype)
 

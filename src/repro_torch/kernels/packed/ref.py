@@ -9,7 +9,10 @@ Twins of the pack kernel's own steps, in numpy, for the CPU tests:
 ``gather16_twin`` is its 16-byte-to-16-bit gather and ``pack_lanes_twin``
 its whole lane map (units, segments, shuffles, the stores of each row's
 four words of a block, the block counters), which also counts how often
-each group of words is stored.
+each group of words is stored. ``unpack_lanes_twin`` is the unpack
+kernel's lane map (segments, a warp's unit, its bit stream, each lane's
+16-byte chunks, the element-wise path), counting each word's loads and
+each element's stores.
 """
 from __future__ import annotations
 
@@ -97,5 +100,65 @@ def pack_lanes_twin(x: np.ndarray, vw: int
             stores)
 
 
+UNIT_WORDS = 128       # the unpack kernel's unit a warp: 4096 spikes
+
+
+def unpack_lanes_twin(words: np.ndarray, m: int, k: int, g: int,
+                      per_chunk: int
+                      ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The unpack kernel's lane map on words [nb, mp, wpr] int32 for the
+    extent [nb, m, k], with ``g`` columns a segment (``ops.unpack_plan``;
+    0: the element-wise path) and ``per_chunk`` elements a 16-byte store
+    (16 int8, 8 bf16, 4 f32). Segment s is row s // (k / g), its (s % (k /
+    g))-th group of g / 32 words; unit u of a warp holds segments u * 32 L
+    + [0, 32 L), L = 128 / 32 / (g / 32) a lane, lane ``l``'s i-th load
+    being segment 32 i + l of the unit, which lands at the same place of
+    the unit's bit stream; lane l's q-th store is chunk 32 q + l of the
+    unit, unless its first element lies past the extent. Returns (the
+    output bits [nb, m, k] uint8, stores per element [nb, m, k], loads per
+    word [nb, mp, wpr])."""
+    nb, mp, wpr = words.shape
+    w = words.view(np.uint32)
+    n_out = nb * m * k
+    out = np.zeros(n_out, np.uint8)
+    stores = np.zeros(n_out, np.int64)
+    loads = np.zeros(words.shape, np.int64)
+    if g == 0:
+        e = np.arange(n_out)
+        row, col = e // k, e % k
+        item, r = row // m, row % m
+        np.add.at(loads, (item, r, col // 32), 1)
+        out[:] = (w[item, r, col // 32] >> (col % 32).astype(np.uint32)) & 1
+        stores += 1
+        return out.reshape(nb, m, k), stores.reshape(nb, m, k), loads
+    seg_words = g // 32
+    n_loads = UNIT_WORDS // 32 // seg_words
+    n_seg, seg_row = n_out // g, k // g
+    lane = np.arange(32)
+    for u in range(-(-n_seg // (32 * n_loads))):
+        s0 = u * 32 * n_loads
+        stream = np.zeros(UNIT_WORDS, np.uint32)
+        for i in range(n_loads):
+            seg = s0 + lane + 32 * i
+            live = seg < n_seg
+            row, j = seg[live] // seg_row, seg[live] % seg_row
+            item, r = row // m, row % m
+            cols = j[:, None] * seg_words + np.arange(seg_words)
+            np.add.at(loads, (item[:, None], r[:, None], cols), 1)
+            at = (lane[live] + 32 * i)[:, None] * seg_words + np.arange(
+                seg_words)
+            stream[at] = w[item[:, None], r[:, None], cols]
+        e0 = s0 * g
+        for q in range(32 * UNIT_WORDS // per_chunk // 32):
+            bit = (32 * q + lane) * per_chunk
+            b = bit[e0 + bit < n_out]
+            at = e0 + b[:, None] + np.arange(per_chunk)
+            shift = (b[:, None] % 32 + np.arange(per_chunk)).astype(np.uint32)
+            out[at] = (stream[b // 32][:, None] >> shift) & 1
+            np.add.at(stores, at, 1)
+    return out.reshape(nb, m, k), stores.reshape(nb, m, k), loads
+
+
 __all__ = ["PackedSpikes", "pack_spikes_ref", "unpack_spikes_ref",
-           "unpack_words", "gather16_twin", "pack_lanes_twin"]
+           "unpack_words", "gather16_twin", "pack_lanes_twin",
+           "unpack_lanes_twin"]

@@ -558,9 +558,11 @@ def forward(variables, images: torch.Tensor, cfg: SNNCNNConfig, *,
                 fc_w, fc_b = fp["fc"]["w"], fp["fc"]["b"]
             else:
                 fc_w, fc_b = _qw(p["fc"]["w"], cfg), p["fc"]["b"]
-            xd = ops.unpack(st, policy=pol) if event else st.data
-            if not (event and cfg.head == "w2ttfs"):
-                xd = xd.to(cfg.dtype)     # the fused head reads the int8 map
+            if event:                     # the fused head reads the int8 map
+                xd = ops.unpack(st, dtype=(torch.int8 if cfg.head == "w2ttfs"
+                                           else cfg.dtype), policy=pol)
+            else:
+                xd = st.data.to(cfg.dtype)
             xd = xd.reshape(t, b, h, w_, c)
 
             def head_one(s_t):

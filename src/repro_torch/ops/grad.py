@@ -279,12 +279,13 @@ class _FusedPE(torch.autograd.Function):
             vld_cnt=_forward_vld(vld, block_k), v_th=cfg.v_th,
             qk_threshold=qk_threshold, out_format=fmt, emit_current=True,
             block_n=block_n, block_k=block_k, skip=skip)
-        if fmt == "packed":
-            spikes = unpack_spikes(spikes)
+        # a packed output unpacks straight to f32, in one launch
+        spikes = (unpack_spikes(spikes, dtype=torch.float32)
+                  if fmt == "packed" else spikes.to(torch.float32))
         ctx.save_for_backward(x8, vld, w, q, cur)
         ctx.cfg, ctx.qk_threshold, ctx.skip = cfg, qk_threshold, skip
         ctx.has_bias, ctx.has_residual = bias is not None, residual is not None
-        return spikes.to(torch.float32)
+        return spikes
 
     @staticmethod
     def backward(ctx, gs: torch.Tensor):
@@ -348,9 +349,8 @@ class _FusedPEState(torch.autograd.Function):
             soft_reset=cfg.soft_reset, qk_threshold=qk_threshold,
             out_format=fmt, emit_current=True, block_n=block_n,
             block_k=block_k, skip=skip, train=train)
-        if fmt == "packed":
-            spikes = unpack_spikes(spikes)
-        spikes = spikes.to(torch.float32)
+        spikes = (unpack_spikes(spikes, dtype=torch.float32)
+                  if fmt == "packed" else spikes.to(torch.float32))
         # past a train's first step the kernel may decide a spike near v_th
         # on the state its earlier steps' scalar sums carried, not on
         # v_prev: the backward's step takes the forward's spikes

@@ -405,10 +405,14 @@ def test_split_bf16x3_is_exact_property(exponent, mantissa):
 
 
 def test_pick_route():
+    """bf16 at a head dim TMA can address (D % 8 == 0) takes the wgmma
+    route, D 48 and 16 at a padded instance; bf16 at another D (44) and
+    every f32 call the scalar route."""
     bf = {d: torch.zeros((1, 2, 2, d), dtype=torch.bfloat16)
-          for d in (16, 32, 48, 64, 128)}
+          for d in (16, 32, 44, 48, 64, 128)}
     assert [pick_route(bf[d]) for d in (32, 64, 128)] == ["wgmma"] * 3
-    assert pick_route(bf[48]) == pick_route(bf[16]) == "scalar"
+    assert pick_route(bf[48]) == pick_route(bf[16]) == "wgmma"
+    assert pick_route(bf[44]) == "scalar"
     assert pick_route(torch.zeros((1, 2, 2, 64))) == "scalar"
 
 

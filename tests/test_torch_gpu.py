@@ -177,7 +177,9 @@ def test_pack_unpack_kernels_match_plain(cuda, shape, density):
     ref = P.pack_spikes_ref(x3, with_occ=True)
     assert torch.equal(words, ref.words)
     assert torch.equal(vld, ref.vld_cnt) and torch.equal(occ, ref.occ)
-    assert torch.equal(P.unpack_spikes_cuda(words), P.unpack_words(words))
+    m, k = shape[-2:]
+    assert torch.equal(P.unpack_spikes_cuda(words, m, k),
+                       P.unpack_words(words)[..., :m, :k])
     ps = P.pack_spikes(x)
     assert check_packed_invariants(ps)["ok"]
     assert torch.equal(P.unpack_spikes(ps), x)        # exact round trip
@@ -896,23 +898,160 @@ def test_flash_attention_kernel_matches_plain(cuda, s, h, hkv, d, causal,
 
 
 def test_flash_attention_bf16_at_d48_takes_the_scalar_route(cuda):
-    """bf16 at a head dim the wgmma route has no instance for (48) runs on
-    the scalar route, and the wgmma route refuses it."""
+    """bf16 at a head dim the wgmma route has no instance for: at 48 (a
+    row TMA can address) it now runs on the wgmma route's 64 instance, the
+    columns past 48 zero-filled; at 44 (88-byte rows, no TMA stride) on
+    the scalar route, which the wgmma route refuses."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as K
 
     gen = torch.Generator(device=cuda).manual_seed(48)
-    q, k, v = (torch.randn((1, 300, hh, 48), generator=gen,
-                           device=cuda).to(torch.bfloat16)
-               for hh in (16, 8, 8))
-    assert K.pick_route(q) == "scalar"
-    with _build.capture_launches() as cap:
-        out = K.flash_attention(q, k, v, causal=True)
-    torch.cuda.synchronize()
-    assert [launch.route for launch in cap] == ["scalar"]
-    _flash_gate(K, out, q, k, v, True)
+    for d, route in ((48, "wgmma"), (44, "scalar")):
+        q, k, v = (torch.randn((1, 300, hh, d), generator=gen,
+                               device=cuda).to(torch.bfloat16)
+                   for hh in (16, 8, 8))
+        assert K.pick_route(q) == route
+        with _build.capture_launches() as cap:
+            out = K.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        assert [launch.route for launch in cap] == [route]
+        _flash_gate(K, out, q, k, v, True)
     with pytest.raises(ValueError, match="wgmma route takes bf16"):
         K.flash_attention_cuda(q, k, v, True, route="wgmma")
+
+
+# (S, H, Hkv): the scalar route's three row plans (32, 64 and 128 rows a
+# CTA: 300 x 4 heads, 1000 x 16, 2100 x 16), ragged against its 64-key
+# tiles and its q tiles; D 32 / 64 / 96 / 112 / 128 (the 16-byte copies'
+# instances), 48 (the 64 instance, columns past 48 zero) and 37 (the
+# general instance, 4-byte copies), f32 and bf16, causal and full
+SCALAR_SEQS = [(300, 4, 2), (1000, 16, 8), (2100, 16, 4)]
+SCALAR_DIMS = [32, 64, 96, 112, 128, 48, 37]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", SCALAR_DIMS)
+@pytest.mark.parametrize("s,h,hkv", SCALAR_SEQS)
+def test_flash_scalar_route_matches_plain(cuda, s, h, hkv, d, dtype,
+                                          causal):
+    """The scalar route against its plain version (``_flash_gate``) on
+    each row plan (``flash_plan``), at every instance of D, f32 and bf16
+    (widened on load), causal and full, ragged S, grouped KV."""
+    from repro_torch.kernels import flash_attention as K
+
+    gen = torch.Generator(device=cuda).manual_seed(s + d + h)
+    q = torch.randn((1, s, h, d), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((1, s, hkv, d), generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    out = K.flash_attention_cuda(q, k, v, causal, route="scalar")
+    torch.cuda.synchronize()
+    _flash_gate(K, out, q, k, v, causal)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_scalar_route_takes_misaligned_f32(cuda, d):
+    """f32 operands 4 bytes past a 16-byte boundary take the general
+    instance's 4-byte copies, against the plain version."""
+    from repro_torch.kernels import flash_attention as K
+
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    shapes = ((1, 500, 16, d), (1, 500, 8, d), (1, 500, 8, d))
+    ops = []
+    for shape in shapes:
+        n = 1
+        for x in shape:
+            n *= x
+        buf = torch.randn((n + 1,), generator=gen, device=cuda)
+        ops.append(buf[1:].view(shape))
+    assert ops[0].data_ptr() % 16
+    out = K.flash_attention_cuda(*ops, True, route="scalar")
+    torch.cuda.synchronize()
+    _flash_gate(K, out, *ops, True)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [48, 96, 112])
+def test_flash_wgmma_route_at_a_padded_head_dim(cuda, d, causal):
+    """bf16 at D 48, 96 and 112 on the wgmma route (the 64 and 128
+    instances, TMA filling the columns past D with zeros, the epilogue
+    storing only D), one counted launch, against the plain version; the
+    output's bytes past each row's D are the next row's, so a stray store
+    shows as a wrong value."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as K
+
+    gen = torch.Generator(device=cuda).manual_seed(d + causal)
+    q = torch.randn((2, 700, 16, d), generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn((2, 700, 8, d), generator=gen,
+                        device=cuda).to(torch.bfloat16) for _ in range(2))
+    assert K.pick_route(q) == "wgmma"
+    _build.reset_launches()
+    with _build.capture_launches() as cap:
+        out = K.flash_attention(q, k, v, causal=causal, q_block=700,
+                                kv_block=700)
+    torch.cuda.synchronize()
+    assert [launch.route for launch in cap] == ["wgmma"]
+    _flash_gate(K, out, q, k, v, causal)
+
+
+# the unpacker at the packed KD step's maps (res1 to res4 and the QKFormer,
+# at T = 1 and as the T = 4 trains), the head's map, and ragged ones
+UNPACK_SHAPES = [(262144, 64), (65536, 128), (16384, 256), (4096, 512),
+                 (4, 262144, 64), (4, 4096, 512), (3, 300, 200), (130, 33),
+                 (2, 77, 640)]
+UNPACK_SENTINEL = {torch.int8: 127, torch.bfloat16: float("nan"),
+            torch.float32: float("nan")}
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16,
+                                   torch.float32])
+@pytest.mark.parametrize("shape", UNPACK_SHAPES)
+def test_unpack_kernel_writes_the_extent(cuda, shape, dtype, aligned):
+    """The unpacker in each dtype into an output inside a buffer filled
+    with a sentinel, 16-byte aligned or one element past it (the
+    element-wise path): the extent bit-equal to the plain version (every
+    element written), every byte around it untouched."""
+    from repro_torch.kernels import packed as P
+
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x = _ragged_spikes(gen, shape, 0.3, cuda)
+    ps = P.pack_spikes_ref(x.reshape(-1, *shape[-2:]))
+    m, k = shape[-2:]
+    ref = P.unpack_spikes_ref(ps, dtype)
+    n, pad = ref.numel(), 16
+    buf = torch.full((n + 2 * pad,), UNPACK_SENTINEL[dtype], dtype=dtype,
+                     device=cuda)
+    off = pad if aligned else pad + 1
+    out = buf[off:off + n].view(ref.shape)
+    got = P.unpack_spikes_cuda(ps.words, m, k, dtype, out=out)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == out.data_ptr()
+    assert torch.equal(out, ref)
+    rest = torch.cat([buf[:off], buf[off + n:]])
+    if dtype == torch.int8:
+        assert bool((rest == 127).all())
+    else:
+        assert bool(rest.isnan().all())
+
+
+def test_unpack_spikes_writes_the_callers_dtype(cuda):
+    """``unpack_spikes(ps, dtype=)``: one counted launch, in the dtype
+    asked, equal to the plain version."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import packed as P
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = _ragged_spikes(gen, (2, 4096, 512), 0.2, cuda)
+    ps = P.pack_spikes(x)
+    for dtype in (torch.int8, torch.bfloat16, torch.float32):
+        _build.reset_launches()
+        got = P.unpack_spikes(ps, dtype=dtype)
+        assert _build.LAUNCHES["unpack_spikes"] == 1
+        assert got.dtype == dtype
+        assert torch.equal(got, x.to(dtype))
 
 
 @pytest.mark.parametrize("pv", [False, True])
