@@ -185,6 +185,39 @@ Phases, in order; any failure raises and the script exits non-zero:
              bound (none below it), the f32 targets and the one-pass floor,
              and bf16 at D 96 and 112 at S 2048 on both routes beside SDPA
              and the bound.
+9. lm train — the spiking QKFormer LM trained at qwen3-1.7b's published
+             width and depth (the serve phase's model, random weights from
+             a CUDA ``torch.Generator`` seed 0, kept in host memory between
+             runs; the earlier phases' captured launches wait in host
+             memory meanwhile): 3 steps of ``train.make_train_step``
+             (AdamW, clip 1.0, ``linear_warmup_cosine(3e-4, 10, 3)``) on 8
+             x 129-token batches of ``SyntheticTokenDataset(seed=0)`` under
+             ``"fused_dense+grad"``, ``"fused_packed+grad"`` and
+             ``"reference+grad"``: each step's launches (``fused_pe`` 56,
+             ``spike_matmul`` 28, dx 28, dw 28, packed also
+             ``unpack_spikes`` 56; none for the reference), finite losses
+             and gradient norms, packed equal to dense bit for bit (losses,
+             gradient norms, spike totals, and the state each step returns:
+             every AdamW first-moment leaf of every step, every parameter
+             leaf after the last); per policy its step time (median of
+             steps 2-3), forward / backward split and peak memory, and a
+             profiled ``fused_dense+grad`` step (device busy, idle share).
+             The 4-layer f32 variant's first gradient: each fused policy
+             against ``reference+grad`` (loss 1e-4, spike totals 0.1 %;
+             the gradients' distance printed) and ``fused_dense+grad``
+             against the same step on the kernels' plain twins with their
+             own sums (``kernels/chain.py``'s ``chain_launchers``: loss and
+             spike totals bit for bit, each gradient leaf 1e-3 relative
+             L2). One sequence-KD step
+             (``examples/torch_spiking_qkformer_lm.py``'s loss,
+             ``KDConfig(alpha=0.5, temperature=2.0)``) of the
+             ``fused_dense+grad`` student from a frozen softmax qwen3-1.7b
+             teacher. The parity phase holds K2 as this step launches it
+             (dense f32 / bf16 x of 1024 rows, ``heads``, the emitted
+             current, the grouped wk) against its plain version, and its
+             current bit for bit against the fused multiply-add chain over
+             k ascending (``fma_chain``), the kernel's own order. Its first
+             step's launches feed the timing phase's rows ``*_lm_train``.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Without a
@@ -432,6 +465,34 @@ ROWS.update({
                                      "src/repro/kernels/spike_matmul/"
                                      "backward.py:249"),
 })
+# the spiking LM's training step (phase 9): per layer two fused PE passes
+# with the emitted current (wq; wk with the head-blocked mask), K3 on wo and
+# its dx and dw, and under fused_packed+grad two unpacks to f32
+LM_TRAIN_PATH = "train lm {}"
+ROWS.update({
+    "fused_pe_lm_train": ("fused_pe", LM_TRAIN_PATH.format("fused_dense+grad"),
+                          "src/repro_torch/csrc/fused_pe.cuh",
+                          "src/repro/kernels/fused_pe/fused_pe.py:362"),
+    "spike_matmul_lm_train": ("spike_matmul",
+                              LM_TRAIN_PATH.format("fused_dense+grad"),
+                              "src/repro_torch/csrc/spike_matmul.cu",
+                              "src/repro/kernels/spike_matmul/"
+                              "spike_matmul.py:83"),
+    "unpack_spikes_lm_train": ("unpack_spikes",
+                               LM_TRAIN_PATH.format("fused_packed+grad"),
+                               "src/repro_torch/csrc/unpack_spikes.cu",
+                               "src/repro/kernels/packed/packed.py:96"),
+    "spike_matmul_dx_lm_train": ("spike_matmul_dx",
+                                 LM_TRAIN_PATH.format("fused_dense+grad"),
+                                 "src/repro_torch/csrc/spike_matmul_dx.cu",
+                                 "src/repro/kernels/spike_matmul/"
+                                 "backward.py:106"),
+    "spike_matmul_dw_lm_train": ("spike_matmul_dw",
+                                 LM_TRAIN_PATH.format("fused_dense+grad"),
+                                 "src/repro_torch/csrc/spike_matmul_dw.cu",
+                                 "src/repro/kernels/spike_matmul/"
+                                 "backward.py:162"),
+})
 # where a gated kernel's row reads its launches, in order of preference:
 # the auto paths, then the explicit-skip launches on the model's operands
 GATED_PATHS = ("auto_packed quiet", "auto quiet", "auto_packed busy",
@@ -574,8 +635,10 @@ def fused_pe_row(args) -> str:
     if state is not None:
         return ("fused_pe_state_emit" if packing.current else
                 "fused_pe_state_packed" if packing.x else "fused_pe_state")
-    return ("fused_pe_emit" if packing.current else
-            "fused_pe_heads" if heads is not None or xp.is_floating_point()
+    if packing.current:
+        return ("fused_pe_lm_train" if xp.is_floating_point()
+                else "fused_pe_emit")
+    return ("fused_pe_heads" if heads is not None or xp.is_floating_point()
             else "fused_pe_packed" if packing.x else "fused_pe")
 
 
@@ -667,9 +730,9 @@ def check_fused_pe(torch, K, args, parity: Parity, label: str,
         # state it decided on added), thresholded
         own = (decayed(k_c, k_used) if state is not None else k_c) >= v_th
         if qp is not None:
-            qd = K.unpack_words(qp) if packing.q else qp
-            own &= (qd[:m0].to(torch.float32).sum(dim=1, keepdim=True)
-                    >= qk)
+            qd = (K.unpack_words(qp) if packing.q else qp)[:m0]
+            own &= (K.head_gate(qd, heads, qk).bool() if heads is not None
+                    else qd.to(torch.float32).sum(dim=1, keepdim=True) >= qk)
         require(torch.equal(k_spk[:m0, :n0], own.to(torch.int8)),
                 f"{row} {label}: spikes are not its current thresholded")
     if not xp.is_floating_point():
@@ -791,7 +854,8 @@ UNPACK_SENTINEL = {"torch.int8": 127, "torch.bfloat16": float("nan"),
                    "torch.float32": float("nan")}
 
 
-def check_unpack(torch, K, args, parity: Parity, label: str) -> None:
+def check_unpack(torch, K, args, parity: Parity, label: str,
+                 row: str = "unpack_spikes") -> None:
     """The unpacker's launch ``args`` (words, m, k, dtype) into outputs
     inside buffers filled with a sentinel, 16-byte aligned and one element
     past that (the element-wise path): the extent bit-equal to the plain
@@ -813,8 +877,8 @@ def check_unpack(torch, K, args, parity: Parity, label: str) -> None:
                       f"the extent")
         require(bad == 0, f"unpack_spikes {label} {dtype} ({how}): {bad} "
                           f"elements differ or were left unwritten")
-    parity.note("unpack_spikes", float(bad))
-    say(f"[parity] unpack_spikes {label} {str(dtype)[6:]}: [{m}x{k}] of "
+    parity.note(row, float(bad))
+    say(f"[parity] {row} {label} {str(dtype)[6:]}: [{m}x{k}] of "
         f"{tuple(words.shape)} words bit-equal, aligned and misaligned, "
         f"every element written over a sentinel, none past the extent")
 
@@ -845,7 +909,8 @@ def check_w2ttfs(torch, K, args, parity: Parity, label: str) -> None:
     say(f"[parity] w2ttfs_pool {label}: max abs err {err:.3e}")
 
 
-def check_dx(torch, K, args, parity: Parity, label: str) -> None:
+def check_dx(torch, K, args, parity: Parity, label: str,
+             row: str = "spike_matmul_dx") -> None:
     g, w, v, surrogate, alpha, v_th = args
     dx, dv = K.spike_matmul_dx_cuda(*args)
     rdx, rdv = K.spike_matmul_dx_ref(g, w, v, surrogate=surrogate,
@@ -856,12 +921,13 @@ def check_dx(torch, K, args, parity: Parity, label: str) -> None:
             f"spike_matmul_dx {label}: dx max abs err {err}")
     require(torch.allclose(dv, rdv, rtol=RTOL, atol=ATOL),
             f"spike_matmul_dx {label}: dv max abs err {err_v}")
-    parity.note("spike_matmul_dx", max(err, err_v))
-    say(f"[parity] spike_matmul_dx {label}: dx max abs err {err:.3e}, dv "
+    parity.note(row, max(err, err_v))
+    say(f"[parity] {row} {label}: dx max abs err {err:.3e}, dv "
         f"{err_v:.3e}")
 
 
-def check_dw(torch, K, args, parity: Parity, label: str) -> None:
+def check_dw(torch, K, args, parity: Parity, label: str,
+             row: Optional[str] = None) -> None:
     """dw sums over M (up to 262144 rows), so RTOL/ATOL, set for sums of a
     few thousand terms, do not describe it: each element is held instead
     against the product in f64 to the statistical size of the rounding of
@@ -879,7 +945,8 @@ def check_dw(torch, K, args, parity: Parity, label: str) -> None:
     launch's bits on its unpacked spikes."""
     xa, g, vld = args
     x = dense_x(K, xa)
-    row = "spike_matmul_dw_packed" if x is not xa else "spike_matmul_dw"
+    row = row or ("spike_matmul_dw_packed" if x is not xa
+                  else "spike_matmul_dw")
     dw = K.spike_matmul_dw_cuda(*args)
     if x is not xa:
         require(torch.equal(dw, K.spike_matmul_dw_cuda(x, g, vld)),
@@ -1536,6 +1603,63 @@ def parity_lm_matmul(torch, K, gen, dev, parity: Parity) -> None:
                         f"{label}: differs from the 128-row tile")
 
 
+# the LM's training forward: 8 sequences of 128 tokens, qwen3-1.7b's wq
+# (16 heads of 128) and its grouped wk (8 kv heads, each repeated for the 2
+# query heads of its group)
+LM_TRAIN_ROWS = 1024
+LM_HEADS, LM_KV_HEADS, LM_DH = 16, 8, 128
+
+
+def parity_lm_train_pe(torch, K, gen, dev, parity: Parity) -> None:
+    """K2 as the LM's training forward launches it: a dense f32 or bf16 x
+    of 1024 rows with ``emit_current``, wq without q, and the grouped wk
+    expanded to the query heads with the head-blocked mask of wq's spikes
+    (a qk threshold that keeps about half the heads); int8 and packed out.
+    ``check_fused_pe``'s gates (spikes and vld_next bit-equal to the plain
+    version's away from v_th, the spikes exactly the kernel's own current
+    thresholded and masked, the current within RTOL/ATOL of the plain
+    version's, whose cuBLAS product sums in another order), the packed map
+    equal to the int8 one, and the current bit-equal to the fused
+    multiply-add chain over k ascending (``fma_chain``), the kernel's own
+    order."""
+    n = LM_HEADS * LM_DH
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((LM_TRAIN_ROWS, LM_PE_K), generator=gen,
+                        device=dev).to(dtype)
+        wq = torch.randn((LM_PE_K, n), generator=gen, device=dev) \
+            / math.sqrt(LM_PE_K)
+        wk = (torch.randn((LM_PE_K, LM_KV_HEADS, 1, LM_DH), generator=gen,
+                          device=dev) / math.sqrt(LM_PE_K)).expand(
+            LM_PE_K, LM_KV_HEADS, LM_HEADS // LM_KV_HEADS, LM_DH).reshape(
+            LM_PE_K, n).contiguous()
+        q = (x.to(torch.float32) @ wq >= V_TH).to(torch.int8)
+        for name, w, qq, heads in (("wq", wq, None, None),
+                                   ("wk", wk, q, (LM_HEADS, LM_DH))):
+            maps = []
+            for fmt in ("dense", "packed"):
+                args = K.fused_pe_operands(
+                    x, w, q=qq, v_th=V_TH, qk_threshold=20.0,
+                    out_format=fmt, emit_current=True, heads=heads)
+                label = (f"LM training {name} [{LM_TRAIN_ROWS}x{LM_PE_K}x"
+                         f"{n}] {str(dtype)[6:]} x, emitted current, {fmt} "
+                         f"out")
+                maps.append(check_fused_pe(torch, K, args, parity, label))
+            require(torch.equal(maps[0], maps[1]),
+                    f"fused_pe_lm_train {name} {dtype}: the packed output "
+                    f"is not the int8 output")
+            cur = K.fused_pe_cuda(*args)[2]
+            plain = K.fused_pe_block_ref(*args)[2]
+            off = int((cur != K.fma_chain(x, w)).sum())
+            require(off == 0, f"fused_pe_lm_train {name} {dtype}: {off} "
+                              f"currents differ from the fused multiply-add "
+                              f"chain")
+            say(f"[parity] fused_pe_lm_train {name} {str(dtype)[6:]} x: "
+                f"{int((cur != plain).sum())} of {cur.numel()} currents "
+                f"differ in some bit from the plain version's (cuBLAS), 0 "
+                f"from the fused multiply-add chain over k ascending; packed "
+                f"map equal to the int8 one")
+
+
 def phase_parity(torch, K, dev) -> Parity:
     parity = Parity()
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -1588,6 +1712,7 @@ def phase_parity(torch, K, dev) -> Parity:
     parity_gated(torch, K, gen, dev, parity)
     parity_lm_pe(torch, K, gen, dev, parity)
     parity_lm_matmul(torch, K, gen, dev, parity)
+    parity_lm_train_pe(torch, K, gen, dev, parity)
     torch.cuda.synchronize()
     parity.print_shares(K, True)
     return parity
@@ -2522,27 +2647,14 @@ def time_training(torch, M, paths, batch: int, iters: int,
 def profile_step(torch, path, step_ms: float, reps: int = 2) -> None:
     """``torch.profiler`` self device time by kernel over ``reps`` steps,
     and the device's idle share of the step's median time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     carry, data = path.carry, path.batch0
     carry, _ = path.step(carry, data)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            carry, _ = path.step(carry, data)
-        torch.cuda.synchronize()
-    rows = []
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-        if dev_us > 0:
-            rows.append((dev_us / 1e3 / reps, ev.count // reps, ev.key))
-    rows.sort(reverse=True)
+
+    def step():
+        nonlocal carry
+        carry, _ = path.step(carry, data)
+    rows = device_rows(torch, step, reps)
     busy = sum(r[0] for r in rows)
     if busy == 0:
         say(f"[profile] the profiler reported no device time: {path.name} "
@@ -2860,6 +2972,31 @@ def flash_ops_ms(q, ops: float) -> float:
     return ops / PEAK_F32_OPS_PER_S * 1e3
 
 
+def device_rows(torch, fn, reps: int) -> list:
+    """``torch.profiler`` over ``reps`` calls of ``fn``, synchronised: each
+    device kernel's self time a call, as (ms, launches a call, name),
+    largest first (kernels only: the aten ops would count twice)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            rows.append((dev_us / 1e3 / reps, ev.count // reps, ev.key))
+    rows.sort(reverse=True)
+    return rows
+
+
 def phase_profile(torch, snn_cnn, cfg, fused, images, policy: str,
                   forward_ms: float, reps: int = 3, tag: str = "") -> None:
     """Where the time of one forward of a kernel path goes on the device:
@@ -2867,26 +3004,10 @@ def phase_profile(torch, snn_cnn, cfg, fused, images, policy: str,
     forwards, and the device's idle share of the forward's median time
     (printed under ``tag``, the policy by default)."""
     tag = tag or policy
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     snn_cnn.forward(fused, images, cfg, policy=policy)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            snn_cnn.forward(fused, images, cfg, policy=policy)
-        torch.cuda.synchronize()
-    rows = []
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:     # kernels only: the aten
-            continue                              # ops would count twice
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-        if dev_us > 0:
-            rows.append((dev_us / 1e3 / reps, ev.count // reps, ev.key))
-    rows.sort(reverse=True)
+    rows = device_rows(torch, lambda: snn_cnn.forward(fused, images, cfg,
+                                                      policy=policy), reps)
     busy = sum(r[0] for r in rows)
     if busy == 0:
         say(f"[profile] the profiler reported no device time: {tag} "
@@ -3068,7 +3189,9 @@ def phase_timing(torch, K, snn_cnn, models, images, paths, parity: Parity,
                          **({} if route == "tile" else {"route": route}),
                          **({"path": policy} if CHECKS[name] is check_fused_pe
                             else {"row": row}
-                            if CHECKS[name] is check_spike_matmul else {}))
+                            if CHECKS[name] in (check_spike_matmul, check_dx,
+                                                check_dw, check_unpack)
+                            else {}))
             targs = tile_args(K, name, args, route)
             ms = device_time(torch, relaunch(launch_fn, launch), reps=20)
             plain_ms = device_time(torch, lambda: plain_fn[name](*targs),
@@ -3420,9 +3543,6 @@ def profile_tick(torch, S, build_mod, model, params, policy: str) -> None:
     """Decode ticks at 16 live slots: median ms and the tokens/s it
     implies, then ``torch.profiler`` over 3 ticks: busy and idle share,
     the top device ops, the kernels' time against the glue's."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     _, _, (fn, toks, cache) = capture_tick(torch, S, build_mod, model,
                                            params, "decode")
     times = []
@@ -3438,22 +3558,7 @@ def profile_tick(torch, S, build_mod, model, params, policy: str) -> None:
     say(f"[timing] serve {policy} decode tick at {slots} live slots: median "
         f"{med:.3f} ms (min {min(times):.3f}, max {max(times):.3f}) over "
         f"{TICK_ITERS}; {slots / med * 1e3:.1f} tokens/s")
-    reps = 3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn(params, toks, cache)
-        torch.cuda.synchronize()
-    rows = []
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-        if dev_us > 0:
-            rows.append((dev_us / 1e3 / reps, ev.count // reps, ev.key))
-    rows.sort(reverse=True)
+    rows = device_rows(torch, lambda: fn(params, toks, cache), 3)
     busy = sum(r[0] for r in rows)
     if busy == 0:
         say(f"[profile] serve {policy}: the profiler reported no device "
@@ -4053,6 +4158,423 @@ def phase_softmax(torch, S, K, build_mod, dev, parity: Parity) -> dict:
 
 
 # --------------------------------------------------------------------- main
+# ------------------------------------------------------------------ phase 9
+LM_TRAIN_POLICIES = ("fused_dense+grad", "fused_packed+grad",
+                     "reference+grad")
+LM_TRAIN_BATCH, LM_TRAIN_SEQ = 8, 128   # launch/train.py's defaults
+LM_TRAIN_STEPS = 3
+
+
+def lm_train_namespace():
+    """The data, optimizer, trainer and example entry points the LM
+    training phase drives."""
+    from repro_torch.data import SyntheticTokenDataset
+    from repro_torch.optim import (adamw_init, adamw_update,
+                                   linear_warmup_cosine)
+    from repro_torch.train import (make_grad_fn, make_train_step,
+                                   train_state_init)
+    from repro_torch.tree import tree_leaves, tree_map
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    from torch_spiking_qkformer_lm import make_kd_loss
+
+    return types.SimpleNamespace(
+        SyntheticTokenDataset=SyntheticTokenDataset, adamw_init=adamw_init,
+        adamw_update=adamw_update, linear_warmup_cosine=linear_warmup_cosine,
+        make_grad_fn=make_grad_fn, make_train_step=make_train_step,
+        train_state_init=train_state_init, make_kd_loss=make_kd_loss,
+        tree_leaves=tree_leaves, tree_map=tree_map)
+
+
+class Parking:
+    """Moves the tensors of captured launches between the card and host
+    memory, storage by storage, so that views of one buffer stay views of
+    one copy (a train's step and its earlier steps, a weight and its
+    view): the LM training phase needs the card's memory that the earlier
+    phases' captured launches hold until the timing phase replays them."""
+
+    def __init__(self, torch):
+        self.torch, self.memo = torch, {}
+
+    def move(self, obj, dev):
+        torch = self.torch
+        if isinstance(obj, torch.Tensor):
+            if obj.device.type == dev:
+                return obj
+            st = obj.untyped_storage()
+            key = (st.data_ptr(), obj.device.type)
+            new = self.memo.get(key)
+            if new is None:
+                raw = torch.empty(0, dtype=torch.uint8, device=obj.device)
+                new = self.memo[key] = raw.set_(st).to(dev).untyped_storage()
+            out = torch.empty(0, dtype=obj.dtype, device=dev)
+            return out.set_(new, obj.storage_offset(), obj.size(),
+                            obj.stride())
+        if isinstance(obj, tuple):
+            items = [self.move(v, dev) for v in obj]
+            return (type(obj)(*items) if hasattr(obj, "_fields")
+                    else tuple(items))
+        if isinstance(obj, list):
+            return [self.move(v, dev) for v in obj]
+        if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+            return dataclasses.replace(obj, **{
+                f.name: self.move(getattr(obj, f.name), dev)
+                for f in dataclasses.fields(obj) if f.init})
+        return obj
+
+    def park(self, lists: list, dev: str) -> None:
+        """Every list of captured launches in ``lists`` moved to ``dev``
+        ("cpu" or "cuda") in place, so that each holder of a list sees the
+        move."""
+        for lst in lists:
+            lst[:] = self.move(list(lst), dev)
+        self.memo.clear()
+        self.torch.cuda.synchronize()
+        self.torch.cuda.empty_cache()
+
+
+def lm_step_launches(build_mod, n_layers: int, policy: str) -> dict:
+    """Launches of one LM training step (forward and backward) under
+    ``policy``: per layer two fused PE passes, K3 on wo and its dx and dw,
+    and under a packed policy two unpacks of the spikes to f32; none under
+    the reference."""
+    want = dict.fromkeys(build_mod.KERNELS, 0)
+    if not policy.startswith("reference"):
+        want.update(fused_pe=2 * n_layers, spike_matmul=n_layers,
+                    spike_matmul_dx=n_layers, spike_matmul_dw=n_layers)
+        if "packed" in policy:
+            want["unpack_spikes"] = 2 * n_layers
+    return want
+
+
+def _leaf_names(tree, prefix: str = "") -> list:
+    """The ``_leaves`` order's paths, as "blocks.3.attn.wq.w"."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in _leaf_names(v, f"{prefix}{i}.")]
+    return [] if tree is None else [prefix[:-1]]
+
+
+def host_available_gib() -> float:
+    """MemAvailable of /proc/meminfo, in GiB (nan where it cannot be
+    read)."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) / 2 ** 20
+    except OSError:
+        pass
+    return math.nan
+
+
+def rel_l2(torch, got, want) -> float:
+    """||got - want|| / ||want|| in f64 (0 where both are zero)."""
+    d = float(torch.linalg.vector_norm((got - want).double()))
+    n = float(torch.linalg.vector_norm(want.double()))
+    return d / n if n else (0.0 if d == 0 else math.inf)
+
+
+def run_lm_policy(torch, S, T, build_mod, cfg, params_host, batches,
+                  policy: str, parking, kept=None, against=None) -> dict:
+    """``LM_TRAIN_STEPS`` steps of ``make_train_step`` under ``policy``
+    from the host parameters ``params_host`` copied to the card: per step
+    the launches (counts set to 0 just before the step and read just
+    after), the loss, grad_norm, the per-layer spike totals and the
+    host-clock time; the first step's launches captured (moved to host
+    memory by ``parking`` until the timing phase); the peak memory of the
+    later steps; then the forward alone (no autograd) for the forward /
+    backward split. After each step, outside its time, the state it
+    returned is held bit for bit: its AdamW first moments (the clipped
+    gradient's image) and, after the last step, its parameters, copied to
+    host memory into ``kept`` or compared with another run's copies
+    ``against``."""
+    model = S.LM(S.with_policy(cfg, policy))
+    step = T.make_train_step(
+        model, schedule=T.linear_warmup_cosine(3e-4, 10, LM_TRAIN_STEPS),
+        clip_norm=1.0)
+    dev = batches[0].device
+    state = T.train_state_init(T.tree_map(
+        lambda t: t.to(dev, non_blocking=True), params_host))
+    out = {"launches": [], "loss": [], "grad_norm": [], "totals": [],
+           "ms": [], "captured": None}
+    for i, toks in enumerate(batches):
+        torch.cuda.synchronize()
+        build_mod.reset_launches()
+        capture = (build_mod.capture_launches() if i == 0
+                   else contextlib.nullcontext([]))
+        t0 = time.perf_counter()
+        with capture as captured, S.spike_log() as log:
+            state, m = step(state, {"tokens": toks})
+            torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["launches"].append(dict(build_mod.LAUNCHES))
+        if i == 0:          # the peak of the steps timed, without the capture
+            out["captured"] = captured
+            if captured:
+                parking.park([captured], "cpu")
+            torch.cuda.reset_peak_memory_stats()
+        held = T.tree_leaves(state.opt_state.m) + (
+            T.tree_leaves(state.params) if i == len(batches) - 1 else [])
+        if kept is not None:
+            kept.append([t.to("cpu", copy=True) for t in held])
+        if against is not None:
+            bad = [j for j, (t, w) in enumerate(zip(held, against[i]))
+                   if not torch.equal(t.to("cpu"), w)]
+            require(len(held) == len(against[i]) and not bad,
+                    f"{policy} step {i + 1}: state leaves {bad[:8]} (AdamW "
+                    f"first moments, then parameters) differ from the kept "
+                    f"run's")
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+        out["totals"].append(S.spike_totals(log, cfg.n_layers))
+        require(math.isfinite(out["loss"][-1])
+                and math.isfinite(out["grad_norm"][-1]),
+                f"{policy} step {i + 1}: loss {out['loss'][-1]}, grad_norm "
+                f"{out['grad_norm'][-1]}")
+        say(f"[lm train] {policy} step {i + 1}"
+            f" ({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB held): loss "
+            f"{out['loss'][-1]:.6f}, grad_norm {out['grad_norm'][-1]:.6f}, "
+            f"lr {float(m['lr']):.3e}, {out['ms'][-1]:.3f} ms; launches "
+            f"{ {k: v for k, v in out['launches'][-1].items() if v} }")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    fwd = []
+    with torch.no_grad():
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.loss(state.params, {"tokens": batches[-1]})
+            torch.cuda.synchronize()
+            fwd.append((time.perf_counter() - t0) * 1e3)
+    out["fwd_ms"] = statistics.median(fwd[1:])
+    out["step"], out["state"] = step, state
+    return out
+
+
+def profile_lm_step(torch, run: dict, batch, step_ms: float) -> None:
+    """``torch.profiler`` over one more step from the run's last state:
+    device busy and idle share, the top device kernels."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = device_rows(torch, lambda: run["step"](run["state"],
+                                                  {"tokens": batch}), 1)
+    wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(r[0] for r in rows)
+    if busy == 0:
+        say("[profile] lm train: the profiler reported no device time; "
+            "busy and idle not measured")
+        return
+    ours = sum(r[0] for r in rows if any(k in r[2] for k in (
+        "fused_pe_kernel", "spike_matmul_kernel", "spike_matmul_dx",
+        "spike_matmul_dw", "unpack")))
+    say(f"[profile] lm train fused_dense+grad step: device busy {busy:.3f} "
+        f"ms of median {step_ms:.3f} ms (profiled step {wall:.3f} ms): idle "
+        f"share {max(0.0, 1 - busy / step_ms):.3f}; "
+        f"{sum(r[1] for r in rows)} device kernels; hand-written kernels "
+        f"{ours:.3f} ms, everything else {busy - ours:.3f} ms")
+    for ms, count, key in rows[:15]:
+        say(f"[profile]   lm train {ms:8.4f} ms  x{count:<5d} {key[:100]}")
+
+
+def lm_train_gates_f32(torch, S, T, K, build_mod, cfg, batch) -> None:
+    """Step 1's gradient on the 4-layer f32 variant. Each fused policy
+    against ``reference+grad``: loss within 1e-4 relative and per-layer
+    spike totals within 0.1 % (its gradients' relative L2 printed: the
+    reference's cuBLAS products sum in another order than the float-x
+    tile, a few spikes flip at v_th, and the flips carry through the later
+    layers). ``fused_dense+grad`` against the same step on the kernels'
+    plain twins with their own sums (``chain_launchers``): the same loss
+    and spike totals bit for bit, each gradient leaf within 1e-3 relative
+    L2. Packed equal to dense bit for bit."""
+    cfg4 = dataclasses.replace(cfg, n_layers=PARITY_LAYERS,
+                               dtype=torch.float32)
+    params4 = S.LM(cfg4).init(torch.Generator(device=batch.device)
+                              .manual_seed(0), device=batch.device)
+    runs = {}
+    for policy in (*LM_TRAIN_POLICIES, "chain twins"):
+        model = S.LM(S.with_policy(
+            cfg4, "fused_dense+grad" if policy == "chain twins" else policy))
+        build_mod.reset_launches()
+        swap = (K.chain_launchers() if policy == "chain twins"
+                else contextlib.nullcontext())
+        with swap, S.spike_log() as log:
+            loss, _, grads = T.make_grad_fn(model.loss)(params4,
+                                                        {"tokens": batch})
+            torch.cuda.synchronize()
+        if policy != "chain twins":
+            want = lm_step_launches(build_mod, PARITY_LAYERS, policy)
+            require(dict(build_mod.LAUNCHES) == want,
+                    f"f32 variant {policy}: launches "
+                    f"{dict(build_mod.LAUNCHES)} != {want}")
+        runs[policy] = (float(loss), T.tree_leaves(grads),
+                        S.spike_totals(log, PARITY_LAYERS))
+        names = _leaf_names(grads)
+
+    def distance(a, b):
+        (loss, grads, tot), (loss_r, grads_r, tot_r) = runs[a], runs[b]
+        rel = abs(loss - loss_r) / abs(loss_r)
+        whole = rel_l2(torch, torch.cat([g.flatten() for g in grads]),
+                       torch.cat([r.flatten() for r in grads_r]))
+        leaf = sorted(((rel_l2(torch, g, r), name) for g, r, name in
+                       zip(grads, grads_r, names)), reverse=True)
+        spikes = max(float(((tot[k].double() - t.double()).abs()
+                            / t.double().clamp_min(1.0)).max())
+                     for k, t in tot_r.items())
+        diffs = {k: (tot[k] - t).tolist() for k, t in tot_r.items()}
+        say(f"[lm train] {PARITY_LAYERS}-layer f32 {a} step 1 against {b}: "
+            f"loss {loss:.7f} vs {loss_r:.7f} (rel {rel:.2e}); gradient rel "
+            f"L2 {whole:.2e} (all {len(grads)} leaves together), worst "
+            f"leaves " + ", ".join(f"{n} {e:.2e}" for e, n in leaf[:4])
+            + f"; worst per-layer spike-total rel diff {spikes:.2e} "
+            f"(differences per layer {diffs})")
+        return rel, leaf[0][0], spikes
+
+    for policy in ("fused_dense+grad", "fused_packed+grad"):
+        rel, _, spikes = distance(policy, "reference+grad")
+        require(rel <= 1e-4, f"f32 {policy}: loss rel diff {rel}")
+        require(spikes <= 1e-3, f"f32 {policy}: spike totals {spikes}")
+    rel, worst, spikes = distance("fused_dense+grad", "chain twins")
+    require(rel == 0.0 and spikes == 0.0,
+            f"f32 fused_dense+grad: loss or spike totals differ from the "
+            f"chain twins' ({rel}, {spikes})")
+    require(worst <= 1e-3, f"f32 fused_dense+grad: a gradient leaf {worst} "
+                           f"from the chain twins'")
+    d, p = runs["fused_dense+grad"], runs["fused_packed+grad"]
+    require(d[0] == p[0] and all(torch.equal(a, b)
+                                 for a, b in zip(d[1], p[1])),
+            "f32 variant: fused_packed+grad not bit-equal to fused_dense")
+    del params4, runs
+    torch.cuda.empty_cache()
+
+
+def phase_lm_train(torch, S, T, K, build_mod, dev, parking) -> dict:
+    """The spiking QKFormer LM trained at qwen3-1.7b's published width and
+    depth (random weights from a CUDA ``torch.Generator`` seed 0): 3 steps
+    of ``make_train_step`` (AdamW, clip 1.0, ``linear_warmup_cosine(3e-4,
+    10, 3)``) on 8 x 129-token batches of ``SyntheticTokenDataset`` under
+    each policy, packed bit-equal to dense; the f32 4-layer variant against
+    the reference; one sequence-KD step from a frozen softmax teacher.
+    Returns the two kernel paths' first steps for the timing phase."""
+    cfg = S.get_config(LM_ARCH, spiking=True, attention_kind="qk_spiking")
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    params = S.LM(cfg).init(torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    # kept in pinned host memory, so that no older state stays on the card
+    # (the update holds two generations of parameters and AdamW moments)
+    params_host = T.tree_map(lambda t: t.to("cpu").pin_memory(), params)
+    del params
+    ds = T.SyntheticTokenDataset(cfg.vocab_size, LM_TRAIN_SEQ + 1)
+    batches = [torch.tensor(ds.batch(i, LM_TRAIN_BATCH), dtype=torch.int64,
+                            device=dev) for i in range(LM_TRAIN_STEPS)]
+    n_params = sum(t.numel() for t in T.tree_leaves(params_host))
+    say(f"[lm train] {LM_ARCH} spiking qk_spiking: {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{str(cfg.dtype)[6:]} activations, {n_params} f32 parameters, "
+        f"init {time.perf_counter() - t0:.1f} s; batches "
+        f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ + 1} tokens "
+        f"(SyntheticTokenDataset seed 0), {LM_TRAIN_STEPS} steps a policy; "
+        f"{held:.3f} GiB on the card from earlier phases, "
+        f"{host_available_gib():.1f} GiB of host memory available")
+    runs, kept = {}, []
+    for policy in LM_TRAIN_POLICIES:
+        # the dense path's states kept on the host, the packed path's held
+        # to them leaf by leaf
+        runs[policy] = run = run_lm_policy(
+            torch, S, T, build_mod, cfg, params_host, batches, policy,
+            parking, kept=kept if policy == "fused_dense+grad" else None,
+            against=kept if policy == "fused_packed+grad" else None)
+        if policy == "fused_dense+grad":
+            say(f"[lm train] host memory available after the dense run "
+                f"(its states kept): {host_available_gib():.1f} GiB")
+        want = lm_step_launches(build_mod, cfg.n_layers, policy)
+        for i, launches in enumerate(run["launches"]):
+            require(launches == want, f"{policy} step {i + 1}: launches "
+                                      f"{launches} != {want}")
+        if policy == "fused_packed+grad":
+            d = runs["fused_dense+grad"]
+            require(run["loss"] == d["loss"]
+                    and run["grad_norm"] == d["grad_norm"],
+                    f"fused_packed+grad losses {run['loss']} / grad norms "
+                    f"{run['grad_norm']} differ from fused_dense+grad's")
+            for a, b in zip(run["totals"], d["totals"]):
+                for kind, t in b.items():
+                    require(torch.equal(a[kind], t),
+                            f"fused_packed+grad spike totals {kind} differ")
+            say(f"[lm train] fused_packed+grad equals fused_dense+grad bit "
+                f"for bit: losses, gradient norms, the per-layer spike "
+                f"totals and every AdamW first-moment leaf of all "
+                f"{LM_TRAIN_STEPS} steps, and every parameter leaf after "
+                f"the last")
+            kept.clear()
+        med = statistics.median(run["ms"][1:])
+        tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+        say(f"[timing] lm train {policy}: step median {med:.3f} ms over "
+            f"steps 2-{LM_TRAIN_STEPS} (step 1 {run['ms'][0]:.3f}); "
+            f"{tokens / med * 1e3:.1f} tokens/s; forward {run['fwd_ms']:.3f}"
+            f" ms, backward and update {max(med - run['fwd_ms'], 0.0):.3f} "
+            f"ms; peak memory {run['peak_gib']:.3f} GiB; spikes a step q "
+            f"{int(run['totals'][0]['q'].sum())}, attn "
+            f"{int(run['totals'][0]['attn'].sum())}, mlp "
+            f"{int(run['totals'][0]['mlp'].sum())}")
+        run["median_ms"] = med
+        if policy == "fused_dense+grad":
+            profile_lm_step(torch, run, batches[-1], med)
+        del run["state"], run["step"]
+        torch.cuda.empty_cache()
+    ref = runs["reference+grad"]["median_ms"]
+    for policy in LM_TRAIN_POLICIES[:2]:
+        say(f"[timing] lm train {policy} step against reference+grad: "
+            f"{runs[policy]['median_ms']:.3f} / {ref:.3f} ms "
+            f"({ref / runs[policy]['median_ms']:.2f}x)")
+    lm_train_gates_f32(torch, S, T, K, build_mod, cfg, batches[0])
+
+    # one sequence-KD step of the spiking student (fused_dense+grad) from a
+    # frozen softmax teacher, as examples/torch_spiking_qkformer_lm.py runs
+    teacher = S.LM(S.get_config(LM_ARCH))
+    tparams = teacher.init(torch.Generator(device=dev).manual_seed(1),
+                           device=dev)
+    student = S.LM(S.with_policy(cfg, "fused_dense+grad"))
+    grad_fn = T.make_grad_fn(T.make_kd_loss(student, teacher, tparams))
+    params = T.tree_map(lambda t: t.to(dev, non_blocking=True), params_host)
+    opt = T.adamw_init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build_mod.reset_launches()
+    t0 = time.perf_counter()
+    loss, m, grads = grad_fn(params, {"tokens": batches[0]})
+    del grad_fn, tparams             # the frozen teacher is done
+    new_p, _ = T.adamw_update(grads, opt, params, lr=1e-3)
+    torch.cuda.synchronize()
+    kd_ms = (time.perf_counter() - t0) * 1e3
+    want = lm_step_launches(build_mod, cfg.n_layers, "fused_dense+grad")
+    require(dict(build_mod.LAUNCHES) == want,
+            f"KD step launches {dict(build_mod.LAUNCHES)} != {want}")
+    vals = [float(loss), float(m["ce"]), float(m["kl"])]
+    require(all(math.isfinite(v) for v in vals)
+            and all(bool(torch.isfinite(p).all())
+                    for p in T.tree_leaves(new_p)),
+            f"KD step: loss, ce, kl {vals} or the updated parameters are "
+            f"not finite")
+    say(f"[lm train] sequence-KD step (KDConfig(alpha=0.5, temperature=2.0),"
+        f" frozen softmax {LM_ARCH} teacher, fused_dense+grad student): "
+        f"loss {vals[0]:.6f} (ce {vals[1]:.6f}, kl {vals[2]:.6f}); "
+        f"{kd_ms:.3f} ms with the AdamW update; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB; launches "
+        f"equal a training step's")
+    del teacher, student, opt, grads, new_p, params, params_host
+    torch.cuda.empty_cache()
+    return {LM_TRAIN_PATH.format(policy): (
+        None, None, runs[policy]["launches"][0],
+        grouped_kv(cfg, runs[policy]["captured"]))
+        for policy in LM_TRAIN_POLICIES[:2]}
+
+
 def kernels_namespace(torch):
     """The launchers, plain versions and helpers the phases call."""
     from repro_torch.core import events
@@ -4064,6 +4586,7 @@ def kernels_namespace(torch):
     import repro_torch.kernels.qk_attention as qk_attention
     import repro_torch.kernels.spike_matmul as spike_matmul
     import repro_torch.kernels.w2ttfs_pool as w2ttfs_pool
+    from repro_torch.kernels import chain
 
     def launch_empty():
         _build.check(_build.library().repro_empty(
@@ -4080,6 +4603,9 @@ def kernels_namespace(torch):
         tile_plan=spike_matmul.tile_plan,
         block_width=spike_matmul.block_width,
         spike_matmul_chain_ref=spike_matmul.spike_matmul_chain_ref,
+        fma_chain=chain.fma_chain, chain_launchers=chain.chain_launchers,
+        head_gate=fused_pe.head_gate,
+        pack_words=events.pack_words,
         DECODE_ROWS=spike_matmul.DECODE_ROWS,
         spike_matmul_cuda=spike_matmul.spike_matmul_cuda,
         spike_matmul_block_ref=spike_matmul.spike_matmul_block_ref,
@@ -4220,6 +4746,20 @@ def main() -> int:
     paths.update(phase_softmax(torch, serve_namespace(), K, _build, dev,
                                parity))
     lap("softmax")
+    # the LM training step holds two generations of parameters and AdamW
+    # moments (48 GB): the earlier phases' captured launches wait in host
+    # memory meanwhile
+    parking = Parking(torch)
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    parking.park([p[3] for p in paths.values()], "cpu")
+    say(f"[lm train] the earlier phases' captured launches moved to host "
+        f"memory: {held:.3f} GiB on the card before, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB after")
+    paths.update(phase_lm_train(torch, serve_namespace(),
+                                lm_train_namespace(), K, _build, dev,
+                                parking))
+    parking.park([p[3] for p in paths.values()], "cuda")
+    lap("lm train")
     rows = phase_timing(torch, K, snn_cnn, models, images, paths, parity,
                         ITERS, ops.get_tuner())
     time_training(torch, M, train_paths, TRAIN_BATCH, TRAIN_ITERS)

@@ -6,8 +6,9 @@ numpy arrays: ``variables_from_jax`` for the ``{"params", "state"}`` dict of
 ``repro.models.snn_cnn.init`` (or ``ann_cnn.init``), ``fused_from_jax`` for
 the list of ``fuse_model``, ``optimizer_state_from_jax`` for the
 reference's ``SGDState`` or ``AdamWState``, so that both packages can train
-on from one state, and ``lm_params_from_jax`` for the parameters of the
-reference's ``LM``. This module imports neither JAX nor the JAX package: the
+on from one state, ``lm_params_from_jax`` for the parameters of the
+reference's ``LM``, and ``train_state_from_jax`` for the reference's LM
+``TrainState`` (step, parameters, AdamW state). This module imports neither JAX nor the JAX package: the
 caller converts leaves with ``np.asarray`` (``jax.tree_util.tree_map``).
 
 Every leaf is copied (``np.array``) before it becomes a tensor.
@@ -86,3 +87,21 @@ def _leaves(tree: Any):
             yield from _leaves(v)
     else:
         yield tree
+
+
+def train_state_from_jax(state: Any, device: DeviceLike = None):
+    """The reference's LM ``TrainState(step, params, opt_state)`` with numpy
+    leaves (its AdamW moments in the parameters' tree, the blocks stacked)
+    -> the port's ``repro_torch.train.TrainState`` on ``device``, each of
+    the three trees through ``lm_params_from_jax``."""
+    from .optim import AdamWState
+    from .train import TrainState
+
+    dev = resolve_device(device)
+    opt = state.opt_state
+    return TrainState(
+        step=_to_torch(state.step, dev).to(torch.int32),
+        params=lm_params_from_jax(state.params, device=dev),
+        opt_state=AdamWState(_to_torch(opt.step, dev).to(torch.int32),
+                             lm_params_from_jax(opt.m, device=dev),
+                             lm_params_from_jax(opt.v, device=dev)))

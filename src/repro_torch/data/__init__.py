@@ -1,0 +1,5 @@
+from .synthetic import (SyntheticImageDataset, SyntheticTokenDataset,
+                        image_batches, token_batches)
+
+__all__ = ["SyntheticImageDataset", "SyntheticTokenDataset",
+           "image_batches", "token_batches"]

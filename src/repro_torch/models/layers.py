@@ -41,6 +41,18 @@ def spike_log() -> Iterator[list]:
         _SPIKE_LOG = prev
 
 
+@contextlib.contextmanager
+def spike_log_paused() -> Iterator[None]:
+    """Note nothing inside the block (a checkpointed layer's recompute in
+    the backward pass, whose maps its forward already noted)."""
+    global _SPIKE_LOG
+    prev, _SPIKE_LOG = _SPIKE_LOG, None
+    try:
+        yield
+    finally:
+        _SPIKE_LOG = prev
+
+
 def note_spikes(kind: str, spikes) -> None:
     """Record a spike map's total (a SpikeTensor's from its metadata, a
     dense map's by a reduction) when a ``spike_log`` is open."""
@@ -76,9 +88,12 @@ def dense_init(gen: torch.Generator, din: int, dout: int, *,
 def cast_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``w.to(dtype)``, made once per weight (``tree.derived``): the
     reference casts the f32 parameters to the activation dtype inside each
-    jitted call; eager PyTorch would redo the cast every call."""
+    jitted call; eager PyTorch would redo the cast every call. A weight
+    that autograd differentiates is cast anew, in the graph."""
     if w.dtype == dtype:
         return w
+    if w.requires_grad and torch.is_grad_enabled():
+        return w.to(dtype)
     return derived(w, ("cast", dtype), lambda: w.to(dtype))
 
 

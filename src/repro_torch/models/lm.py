@@ -20,23 +20,35 @@ one preallocated tensor, never copied a tick). Under ``qk_spiking`` both
 are empty (S = 0), except that a packed policy keeps each slot's packed
 spike state in k, [L, B, 1, 1, W] int32, made anew each call.
 
+Training (``loss``): the causal next-token cross-entropy of a whole
+sequence through ``block_apply`` layer by layer (``_stack_train``), each
+layer checkpointed as ``cfg.remat`` asks: ``"full"`` recomputes the layer
+in the backward pass (``torch.utils.checkpoint``), ``"dots"`` keeps its
+matmul outputs and recomputes the rest. Under a ``"+grad"`` policy the
+spiking projections run their kernels forward and their surrogate
+gradients backward (``ops.grad``).
+
 The other families (moe, ssm, hybrid, vlm, encdec) are still to port
-(ROADMAP queue 1 item 4), and so is LM training (item 2).
+(ROADMAP queue 1 item 4).
 """
 from __future__ import annotations
 
-from typing import Any
+import contextlib
+import functools
+from typing import Any, Callable
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .. import DeviceLike, resolve_device
 from ..configs.base import ModelConfig
-from .attention import (attn_append, attn_decode, attn_init, attn_prefill,
-                        qk_spike_state_width)
+from .attention import (attn_append, attn_apply, attn_decode, attn_init,
+                        attn_prefill, qk_spike_state_width)
 from .ffn import mlp_apply, mlp_init
 from .layers import (dense_apply, dense_init, embedding_init,
                      embedding_logits, embedding_lookup, rmsnorm_apply,
-                     rmsnorm_init)
+                     rmsnorm_init, spike_log_paused)
 
 
 # ===================================================================== blocks
@@ -50,6 +62,51 @@ def block_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
 def _mlp_residual(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return x + mlp_apply(p["mlp"], cfg, rmsnorm_apply(p["ln2"], x,
                                                       cfg.rms_eps))
+
+
+def _zero_aux(device) -> dict:
+    """The MoE auxiliary terms of a block without experts: f32 zeros."""
+    return {k: torch.zeros((), dtype=torch.float32, device=device)
+            for k in ("load_balance", "router_z", "dropped_frac")}
+
+
+def block_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor, *, causal: bool = True
+                ) -> tuple[torch.Tensor, dict]:
+    """Full-sequence block forward (training): attention and the MLP, each
+    on its RMSNorm and added to the residual stream. Returns (x, the MoE
+    aux terms, zeros for the dense family)."""
+    h = attn_apply(p["attn"], cfg, rmsnorm_apply(p["ln1"], x, cfg.rms_eps),
+                   positions, causal=causal)
+    return _mlp_residual(p, cfg, x + h), _zero_aux(x.device)
+
+
+# the matmuls whose outputs a "dots" checkpoint keeps
+_DOTS = frozenset(op.default for op in (torch.ops.aten.mm,
+                                        torch.ops.aten.addmm,
+                                        torch.ops.aten.bmm,
+                                        torch.ops.aten.baddbmm))
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_contexts(remat: str) -> tuple:
+    """The forward and recompute contexts of one checkpointed layer: the
+    recompute notes no spikes (its forward did)."""
+    if remat == "dots":
+        fwd, rec = create_selective_checkpoint_contexts(_save_dots)
+    else:
+        fwd, rec = contextlib.nullcontext(), contextlib.nullcontext()
+    return fwd, _paused(rec)
+
+
+@contextlib.contextmanager
+def _paused(ctx):
+    with ctx, spike_log_paused():
+        yield
 
 
 def block_prefill(p: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -143,6 +200,54 @@ class LM:
 
     def _final(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         return rmsnorm_apply(params["final_norm"], x, self.cfg.rms_eps)
+
+    # ----------------------------------------------------------- stack (train)
+    def _stack_train(self, params: dict, x: torch.Tensor,
+                     positions: torch.Tensor) -> tuple[torch.Tensor, dict]:
+        """Every block's ``block_apply`` in turn (checkpointed per
+        ``cfg.remat``), then the final norm. Returns (x, the aux terms
+        summed over the layers)."""
+        cfg = self.cfg
+        body = self._maybe_remat(
+            lambda x_, p_l: block_apply(p_l, cfg, x_, positions))
+        aux = _zero_aux(x.device)
+        for p_l in params["blocks"]:
+            x, a = body(x, p_l)
+            aux = {k: aux[k] + a[k] for k in aux}
+        return self._final(params, x), aux
+
+    def _maybe_remat(self, fn: Callable) -> Callable:
+        """``fn`` as it is (``remat="none"``), or checkpointed: ``"full"``
+        saves only its inputs and recomputes it in the backward pass,
+        ``"dots"`` also keeps its matmul outputs (non-reentrant
+        ``torch.utils.checkpoint``)."""
+        remat = self.cfg.remat
+        if remat == "none":
+            return fn
+        if remat not in ("full", "dots"):
+            raise ValueError(f"remat={remat!r} not in ('none', 'full', "
+                             f"'dots')")
+        contexts = functools.partial(_remat_contexts, remat)
+
+        def run(*args):
+            return checkpoint(fn, *args, use_reentrant=False,
+                              context_fn=contexts)
+        return run
+
+    # ------------------------------------------------------------------ loss
+    def loss(self, params: dict, batch: dict) -> tuple[torch.Tensor, dict]:
+        """Causal next-token cross-entropy: the mean over every position t
+        < S - 1 of -log p(token t+1), the logits in f32. ``batch["tokens"]``
+        [B, S] int. Returns (loss, {"nll", "loss"})."""
+        x, positions = self._embed(params, batch)
+        x, _ = self._stack_train(params, x, positions)
+        tokens = batch["tokens"]
+        n_pred = tokens.shape[1] - 1
+        logits = self._logits(params, x[:, -n_pred - 1:-1, :])
+        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        nll = -logp.gather(-1, tokens[:, 1:, None].long())[..., 0]
+        loss = nll.mean()
+        return loss, {"nll": loss, "loss": loss}
 
     # --------------------------------------------------------------- prefill
     @torch.no_grad()
@@ -272,5 +377,5 @@ def spike_totals(log: list, n_layers: int) -> dict:
     return out
 
 
-__all__ = ["LM", "block_init", "block_prefill", "block_decode",
-           "block_append", "param_device", "spike_totals"]
+__all__ = ["LM", "block_init", "block_apply", "block_prefill",
+           "block_decode", "block_append", "param_device", "spike_totals"]

@@ -18,7 +18,8 @@ from .dispatch import (FusedOut, attention, conv_matmul_weights, dense_lif,
 from .policy import (AUTO, AUTO_PACKED, FUSED_DENSE, FUSED_PACKED, POLICIES,
                      REFERENCE, ExecutionPolicy, as_policy,
                      merge_engine_policy, with_policy)
-from .registry import implementations, lookup, register
+from .registry import (implementations, lookup, record_dispatches,
+                       register)
 from .spike_tensor import SpikeTensor, Spikes
 
 __all__ = [
@@ -27,7 +28,7 @@ __all__ = [
     "ExecutionPolicy", "POLICIES", "REFERENCE", "FUSED_DENSE",
     "FUSED_PACKED", "AUTO", "AUTO_PACKED", "as_policy",
     "merge_engine_policy", "with_policy",
-    "register", "lookup", "implementations",
+    "register", "lookup", "implementations", "record_dispatches",
     "FusedOut", "matmul", "lif", "fused_pe", "fused_pe_layer", "dense_lif",
     "pool",
     "im2col",

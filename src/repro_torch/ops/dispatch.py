@@ -299,15 +299,12 @@ def dense_lif(p: dict, x: torch.Tensor, lif_cfg: LIFConfig, *,
     ``kv_heads < h`` declares a grouped-KV projection (``w`` maps to
     ``kv_heads`` head blocks): the emitted map is the group-expanded
     [tokens, h*dh]; the fused mode repeats the weight's columns (once per
-    weight, memoised), the reference broadcasts at the mask multiply. Only
-    the inference modes are ported; ``"+grad"`` raises."""
+    weight, memoised), the reference broadcasts at the mask multiply.
+    Under a ``"+grad"`` policy the spikes leave dense f32 with their
+    surrogate gradient (``ops.grad``)."""
     flat = x.reshape(-1, x.shape[-1])
     qs = SpikeTensor.wrap(q) if q is not None else None
     pol = _non_tuned(policy)
-    if pol.differentiable:
-        raise NotImplementedError(
-            "dense_lif under a '+grad' policy (LM training through the "
-            "fused PE) is still to port (ROADMAP queue 1 item 2)")
     return lookup("dense_lif", pol.mode)(p, flat, lif_cfg, q=qs,
                                          qk_threshold=qk_threshold,
                                          fmt=pol.format, heads=heads,

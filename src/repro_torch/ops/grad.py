@@ -13,8 +13,8 @@ the deployment runs is what the KD training differentiates:
     runs the policy's kernels (int8 or packed spike output) and whose
     backward consumes residuals cached by that forward.
 
-Residual policy (the matmul-bearing ops ``matmul``, ``fused_pe`` and
-``fused_pe_layer``): the forward saves its spike operand (as int8, exact
+Residual policy (the matmul-bearing ops ``matmul``, ``fused_pe``,
+``fused_pe_layer`` and ``dense_lif``): the forward saves its spike operand (as int8, exact
 on {0,1}) with the ``vld_cnt`` map it streamed, the weight and the
 kernel-emitted membrane current (``emit_current``), and the backward
 recomputes only the elementwise tail from that current. The two transposed
@@ -26,15 +26,21 @@ tail also carries the gradients into ``v_prev`` and ``s_prev``), and
 At T>1 the layer chains one residual-cached step per timestep; the carries
 ``(v, s)`` stay in the autograd graph (``s`` the pre-mask surrogate spike
 in f32, handed to the kernel as an exact int8 copy), so BPTT flows through
-both. The elementwise ops (``lif``,
-``qk_mask``) and the small W2TTFS head keep the recompute-from-inputs vjp.
+both. ``dense_lif`` (the LM's wq and wk projections of its dense residual
+stream) saves x, w, q and the emitted current; its backward recomputes the
+surrogate spike and the (head-blocked, grouped) QK mask from them and forms
+``dx = dcur @ wᵀ`` and ``dw = xᵀ @ dcur`` as plain products, as the
+reference does outside any kernel (x is a dense activation, with no silent
+blocks to skip). The elementwise ops (``lif``, ``qk_mask``) and the small
+W2TTFS head keep the recompute-from-inputs vjp.
 
 Executor: every fused entry calls the kernel wrappers, which launch the
 hand-written kernels on CUDA tensors and run their plain versions on CPU
 tensors. Spike operands arrive dense f32 (autograd connectivity) and spike
 outputs leave dense f32; a packed-format forward packs and unpacks inside
-the primal only. The head-blocked masks and ``dense_lif`` of LM training
-(ROADMAP queue 1 item 2) are still to port and raise.
+the primal only. A head-blocked QK mask (``heads=(h, dh)``) is one
+surrogate row-sum threshold per head over q's head slice
+(``_qk_headmask_apply``).
 """
 from __future__ import annotations
 
@@ -63,7 +69,7 @@ from ..kernels.spike_matmul import (spike_matmul, spike_matmul_dw,
 from ..kernels.w2ttfs_pool import w2ttfs_pool_fc
 from ..models import nn
 from .dispatch import FusedOut
-from .impls import _check_blocks
+from .impls import _check_blocks, _dense_lif_fused, grouped_kv
 from .registry import register
 from .spike_tensor import SpikeTensor
 
@@ -153,6 +159,26 @@ def _qk_rowmask(q: torch.Tensor, threshold: float, mode: str,
     return qk_token_mask(q, mode, threshold, surrogate, alpha)
 
 
+def _qk_headmask_apply(s: torch.Tensor, q: torch.Tensor,
+                       heads: tuple[int, int], kv_heads: Optional[int],
+                       threshold: float, surrogate: str,
+                       alpha: float) -> torch.Tensor:
+    """Head-blocked surrogate write-back mask: one row-sum Heaviside (with
+    its pseudo-derivative) per head over q's head slice, gating that head's
+    dh columns of ``s``. With ``kv_heads < h`` the per-query-head mask
+    broadcasts over each kv group, so ``s`` arrives grouped ([m,
+    kv_heads * dh]) and leaves expanded ([m, h * dh]); the backward then
+    sums each group's cotangents into the shared columns."""
+    h, dh = heads
+    m = s.shape[0]
+    hkv = h if kv_heads is None else kv_heads
+    g = h // hkv
+    mask = _qk_rowmask(q.reshape(m, -1)[:, :h * dh].reshape(m, h, dh),
+                       threshold, "threshold", surrogate, alpha)
+    return (s.reshape(m, hkv, 1, dh)
+            * mask.reshape(m, hkv, g, 1)).reshape(m, h * dh)
+
+
 def _pe_current(x, w, bias, residual) -> torch.Tensor:
     cur = x @ w
     if bias is not None:
@@ -163,23 +189,29 @@ def _pe_current(x, w, bias, residual) -> torch.Tensor:
 
 
 def _row_masked(s: torch.Tensor, q: Optional[torch.Tensor],
-                cfg: LIFConfig, qk_threshold: float) -> torch.Tensor:
-    """Spikes gated by q's whole-row QK mask (as they are without q)."""
+                cfg: LIFConfig, qk_threshold: float,
+                heads: Optional[tuple[int, int]] = None) -> torch.Tensor:
+    """Spikes gated by q's QK mask, whole-row or, with ``heads``, per head
+    (as they are without q)."""
     if q is None:
         return s
+    if heads is not None:
+        return _qk_headmask_apply(s, q, heads, None, qk_threshold,
+                                  cfg.surrogate, cfg.alpha)
     return s * _qk_rowmask(q.reshape(s.shape[0], -1), qk_threshold,
                            "threshold", cfg.surrogate, cfg.alpha)
 
 
 def _pe_reference(x, w, bias, residual, q, cfg: LIFConfig,
-                  qk_threshold: float, v_prev=None, s_prev=None
+                  qk_threshold: float, v_prev=None, s_prev=None,
+                  heads: Optional[tuple[int, int]] = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """The fused PE layer as plain autograd: current, the surrogate LIF
-    step (stateless without ``v_prev``), whole-row QK mask. Returns
-    (spikes, v_next)."""
+    step (stateless without ``v_prev``), the QK mask (whole-row, or per
+    head with ``heads``). Returns (spikes, v_next)."""
     s, v_next = _lif_step(_pe_current(x, w, bias, residual), v_prev, s_prev,
                           cfg)
-    return _row_masked(s, q, cfg, qk_threshold), v_next
+    return _row_masked(s, q, cfg, qk_threshold, heads), v_next
 
 
 def _forward_vld(vld: torch.Tensor, block_k: int) -> Optional[torch.Tensor]:
@@ -262,15 +294,16 @@ class _FusedPE(torch.autograd.Function):
     current leave together; a packed output is unpacked by the unpack
     kernel). Backward, the reference's fully fused stateless form:
     ``dv = g_eff ⊙ surr'(cur - v_th)`` inside the dx kernel, where g_eff is
-    the cotangent gated by the (constant) QK row mask; the gradient into q
-    is the vjp of the mask on the spikes reconstructed as ``cur >= v_th``;
-    ``dw`` on the dw kernel; the bias gradient is the column sum of dv and
-    the residual's is dv. ``skip`` is the byte-skip strategy of the
-    forward pass and of dw."""
+    the cotangent gated by the (constant) QK mask (whole-row, or per head
+    with ``heads``); the gradient into q is the vjp of the mask on the
+    spikes reconstructed as ``cur >= v_th``; ``dw`` on the dw kernel; the
+    bias gradient is the column sum of dv and the residual's is dv.
+    ``skip`` is the byte-skip strategy of the forward pass and of dw."""
 
     @staticmethod
     def forward(ctx, x, w, bias, residual, q, cfg: LIFConfig,
-                qk_threshold: float, fmt: str, skip: str, blocks: tuple):
+                qk_threshold: float, fmt: str, skip: str, blocks: tuple,
+                heads: Optional[tuple[int, int]] = None):
         x8 = x.to(torch.int8)                               # exact on {0,1}
         vld = vld_map(x8)
         _, block_n, block_k = blocks
@@ -278,12 +311,13 @@ class _FusedPE(torch.autograd.Function):
             x8, w, bias=bias, residual=residual, q=q,
             vld_cnt=_forward_vld(vld, block_k), v_th=cfg.v_th,
             qk_threshold=qk_threshold, out_format=fmt, emit_current=True,
-            block_n=block_n, block_k=block_k, skip=skip)
+            block_n=block_n, block_k=block_k, skip=skip, heads=heads)
         # a packed output unpacks straight to f32, in one launch
         spikes = (unpack_spikes(spikes, dtype=torch.float32)
                   if fmt == "packed" else spikes.to(torch.float32))
         ctx.save_for_backward(x8, vld, w, q, cur)
         ctx.cfg, ctx.qk_threshold, ctx.skip = cfg, qk_threshold, skip
+        ctx.heads = heads
         ctx.has_bias, ctx.has_residual = bias is not None, residual is not None
         return spikes
 
@@ -295,18 +329,17 @@ class _FusedPE(torch.autograd.Function):
         if q is not None:
             q2 = q.reshape(cur.shape[0], -1)
 
-            def rowmask(q_):
-                return _qk_rowmask(q_, ctx.qk_threshold, "threshold",
-                                   cfg.surrogate, cfg.alpha)
+            def masked(s, q_):
+                return _row_masked(s, q_, cfg, ctx.qk_threshold, ctx.heads)
 
             # the primal spikes, reconstructed: a constant wrt cur; the
             # surrogate factor flows through the dx kernel instead
             s_raw = (cur >= cfg.v_th).to(gs.dtype)
             with torch.enable_grad():
                 q_ = q2.detach().requires_grad_(True)
-                (dq,) = torch.autograd.grad(s_raw * rowmask(q_), q_, gs)
+                (dq,) = torch.autograd.grad(masked(s_raw, q_), q_, gs)
             dq = dq.reshape(q.shape)
-            g_eff = gs * (torch.ones_like(gs) * rowmask(q2))
+            g_eff = gs * masked(torch.ones_like(gs), q2)
         else:
             g_eff = gs
         dx, dcur = spike_matmul_dx(g_eff, w, cur, surrogate=cfg.surrogate,
@@ -315,7 +348,7 @@ class _FusedPE(torch.autograd.Function):
             if ctx.needs_input_grad[1] else None
         dbias = dcur.sum(dim=0) if ctx.has_bias else None
         dres = dcur if ctx.has_residual else None
-        return dx, dw, dbias, dres, dq, None, None, None, None, None
+        return dx, dw, dbias, dres, dq, None, None, None, None, None, None
 
 
 class _FusedPEState(torch.autograd.Function):
@@ -335,7 +368,8 @@ class _FusedPEState(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, bias, residual, q, v_prev, s_prev, cfg: LIFConfig,
                 qk_threshold: float, fmt: str, skip: str, blocks: tuple,
-                train: Optional[tuple] = None):
+                train: Optional[tuple] = None,
+                heads: Optional[tuple[int, int]] = None):
         x8 = x.to(torch.int8)                               # exact on {0,1}
         vld = vld_map(x8)
         _, block_n, block_k = blocks
@@ -348,7 +382,7 @@ class _FusedPEState(torch.autograd.Function):
             s_prev=s_prev, tau=cfg.tau, v_th=cfg.v_th,
             soft_reset=cfg.soft_reset, qk_threshold=qk_threshold,
             out_format=fmt, emit_current=True, block_n=block_n,
-            block_k=block_k, skip=skip, train=train)
+            block_k=block_k, skip=skip, train=train, heads=heads)
         spikes = (unpack_spikes(spikes, dtype=torch.float32)
                   if fmt == "packed" else spikes.to(torch.float32))
         # past a train's first step the kernel may decide a spike near v_th
@@ -357,6 +391,7 @@ class _FusedPEState(torch.autograd.Function):
         fired = spikes if train is not None and train[2] > 0 else None
         ctx.save_for_backward(x8, vld, w, q, v_prev, s_prev, cur, fired)
         ctx.cfg, ctx.qk_threshold, ctx.skip = cfg, qk_threshold, skip
+        ctx.heads = heads
         ctx.has_bias, ctx.has_residual = bias is not None, residual is not None
         return spikes, v_next
 
@@ -369,7 +404,7 @@ class _FusedPEState(torch.autograd.Function):
                       for t in (cur, v_prev, s_prev)]
             q_ = None if q is None else q.detach().requires_grad_(True)
             spk, v_next = _lif_step(*leaves, cfg, fired=fired)
-            spk = _row_masked(spk, q_, cfg, ctx.qk_threshold)
+            spk = _row_masked(spk, q_, cfg, ctx.qk_threshold, ctx.heads)
             wrt = leaves + ([] if q_ is None else [q_])
             grads = torch.autograd.grad((spk, v_next), wrt, (gs, gv),
                                         allow_unused=True)
@@ -382,38 +417,31 @@ class _FusedPEState(torch.autograd.Function):
         dbias = dcur.sum(dim=0) if ctx.has_bias else None
         dres = dcur if ctx.has_residual else None
         return (dx, dw, dbias, dres, dq, dv_prev, ds_prev, None, None, None,
-                None, None, None)
+                None, None, None, None)
 
 
 def _pe_step(kernels: str, x, w, bias, residual, q, v_prev, s_prev,
              cfg: LIFConfig, qk_threshold: float, fmt: str, skip: str,
-             blocks: tuple, train: Optional[tuple] = None
+             blocks: tuple, train: Optional[tuple] = None,
+             heads: Optional[tuple[int, int]] = None
              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One stateful step: (spikes, v_next), the spikes QK-masked when q is
-    given; plain autograd under ``"reference"``, the kernels otherwise
-    (where the state began at zeros, on ``train``, the train's operands
-    and the step: ``kernels.fused_pe.train_operands``)."""
+    """One stateful step: (spikes, v_next), the spikes QK-masked (per head
+    with ``heads``) when q is given; plain autograd under ``"reference"``,
+    the kernels otherwise (where the state began at zeros, on ``train``,
+    the train's operands and the step: ``kernels.fused_pe.train_operands``)."""
     if kernels != "reference":
         _check_blocks(*blocks)
         return _FusedPEState.apply(x, w, bias, residual, q, v_prev, s_prev,
                                    cfg, qk_threshold, fmt, skip, blocks,
-                                   train)
+                                   train, heads)
     return _pe_reference(x, w, bias, residual, q, cfg, qk_threshold, v_prev,
-                         s_prev)
-
-
-def _no_heads(heads) -> None:
-    if heads is not None:
-        raise NotImplementedError(
-            "the differentiable head-blocked QK mask is still to port, "
-            "with LM training (ROADMAP queue 1 item 2)")
+                         s_prev, heads)
 
 
 def _fused_pe_impl(kernels: str):
     def impl(st, w, *, bias, residual, q, v_prev, s_prev, qk_threshold,
              lif_cfg, fmt, block_m, block_n, block_k, skip="dense",
              heads=None):
-        _no_heads(heads)
         if s_prev is not None and v_prev is None:
             raise ValueError("s_prev needs v_prev")
         x, w_, b = _dense_operand(st), _f32(w), _f32(bias)
@@ -425,13 +453,15 @@ def _fused_pe_impl(kernels: str):
             vp = _f32(v_prev)
             sp = torch.zeros_like(vp) if s_prev is None else _f32(s_prev)
             spk, v_next = _pe_step(kernels, x, w_, b, res, q_, vp, sp,
-                                   lif_cfg, qk_threshold, fmt, skip, blocks)
+                                   lif_cfg, qk_threshold, fmt, skip, blocks,
+                                   heads=heads)
         elif kernels == "reference":
-            spk, _ = _pe_reference(x, w_, b, res, q_, lif_cfg, qk_threshold)
+            spk, _ = _pe_reference(x, w_, b, res, q_, lif_cfg, qk_threshold,
+                                   heads=heads)
         else:
             _check_blocks(*blocks)
             spk = _FusedPE.apply(x, w_, b, res, q_, lif_cfg, qk_threshold,
-                                 fmt, skip, blocks)
+                                 fmt, skip, blocks, heads)
         return FusedOut(SpikeTensor.dense(spk, block_m=block_m,
                                           block_k=block_n), v_next, None)
     return impl
@@ -442,11 +472,10 @@ def _fused_pe_layer_impl(kernels: str):
     def impl(st, w, *, bias, residual, q, qk_threshold, lif_cfg, fmt,
              block_m, block_n, block_k, skip="dense", heads=None):
         t = st.shape[0]
-        _no_heads(heads)
         if t != 1:
             return _stateful_layer(kernels, st, w, bias, residual, q,
                                    qk_threshold, lif_cfg, fmt,
-                                   (block_m, block_n, block_k), skip)
+                                   (block_m, block_n, block_k), skip, heads)
         out = _fused_pe_impl(kernels)(
             st[0], w, bias=bias,
             residual=None if residual is None else residual[0],
@@ -461,11 +490,12 @@ def _fused_pe_layer_impl(kernels: str):
 
 
 def _stateful_layer(kernels: str, st, w, bias, residual, q, qk_threshold,
-                    cfg: LIFConfig, fmt: str, blocks: tuple, skip: str
-                    ) -> FusedOut:
+                    cfg: LIFConfig, fmt: str, blocks: tuple, skip: str,
+                    heads: Optional[tuple[int, int]] = None) -> FusedOut:
     """T>1: one stateful step per timestep, the carry (v, s) from zeros and
     in the autograd graph; ``s`` is the step's pre-mask surrogate spike,
-    and the QK mask gates each step's spikes outside the carry."""
+    and the QK mask (per head with ``heads``) gates each step's spikes
+    outside the carry."""
     x, w_, b = _dense_operand(st), _f32(w), _f32(bias)
     res = None if residual is None else _dense_operand(residual)
     q_ = None if q is None else _dense_operand(q)
@@ -484,9 +514,97 @@ def _stateful_layer(kernels: str, st, w, bias, residual, q, qk_threshold,
                           None if ops is None else (*ops, ti))
         s = spk
         spikes.append(_row_masked(spk, None if q_ is None else q_[ti], cfg,
-                                  qk_threshold))
+                                  qk_threshold, heads))
     return FusedOut(SpikeTensor.dense(torch.stack(spikes), block_m=blocks[0],
                                       block_k=blocks[1]), None, None)
+
+
+# ---------------------------------------------------------------- dense_lif
+def _dense_tail(cur: torch.Tensor, q: Optional[torch.Tensor], cfg: LIFConfig,
+                qk_threshold: float, heads: Optional[tuple[int, int]],
+                kv_heads: Optional[int]) -> torch.Tensor:
+    """Everything after the membrane current: the surrogate spike, then the
+    head-blocked (grouped) or whole-row QK mask; grouped KV without q is
+    the group broadcast alone. ``cur`` is in the grouped layout."""
+    s = spike(cur - cfg.v_th, cfg.surrogate, cfg.alpha)
+    if q is not None and heads is not None:
+        return _qk_headmask_apply(s, q, heads, kv_heads, qk_threshold,
+                                  cfg.surrogate, cfg.alpha)
+    if q is not None:
+        return s * _qk_rowmask(q.reshape(s.shape[0], -1), qk_threshold,
+                               "threshold", cfg.surrogate, cfg.alpha)
+    if grouped_kv(heads, kv_heads):
+        h, dh = heads
+        m = s.shape[0]
+        s = s.reshape(m, kv_heads, 1, dh).expand(
+            m, kv_heads, h // kv_heads, dh).reshape(m, h * dh)
+    return s
+
+
+class _DenseLIF(torch.autograd.Function):
+    """The LM's fused projection on the kernels: one fused PE pass of the
+    dense activation x with ``emit_current`` (grouped KV on the repeated
+    weight columns, its current sliced back to the grouped layout); a
+    packed output is unpacked to f32 by the unpack kernel. Backward: the
+    elementwise tail (``_dense_tail``) differentiated from the saved
+    current gives ``dcur`` and the gradient into q (the head mask's
+    surrogate); then ``dx = dcur @ wᵀ``, ``dw = xᵀ @ dcur`` and the bias
+    gradient, the column sum of dcur, all on the grouped weight."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, q, cfg: LIFConfig, qk_threshold: float,
+                fmt: str, heads: Optional[tuple[int, int]],
+                kv_heads: Optional[int]):
+        p = {"w": w} if bias is None else {"w": w, "b": bias}
+        st, cur = _dense_lif_fused(
+            p, x, cfg, q=None if q is None else SpikeTensor.dense(q),
+            qk_threshold=qk_threshold, fmt=fmt, heads=heads,
+            kv_heads=kv_heads, with_current=True)
+        spikes = (unpack_spikes(st.to_packed_spikes(), dtype=torch.float32)
+                  if st.is_packed else st.data.to(torch.float32))
+        ctx.save_for_backward(x, w, q, cur)
+        ctx.cfg, ctx.qk_threshold = cfg, qk_threshold
+        ctx.heads, ctx.kv_heads = heads, kv_heads
+        ctx.has_bias = bias is not None
+        return spikes
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, w, q, cur = ctx.saved_tensors
+        need_q = q is not None and ctx.needs_input_grad[3]
+        with torch.enable_grad():
+            cur_ = cur.detach().requires_grad_(True)
+            q_ = None if q is None else q.detach().requires_grad_(need_q)
+            s = _dense_tail(cur_, q_, ctx.cfg, ctx.qk_threshold, ctx.heads,
+                            ctx.kv_heads)
+            grads = torch.autograd.grad(s, [cur_] + ([q_] if need_q else []),
+                                        g)
+        dcur = grads[0]
+        dx = dcur @ w.T if ctx.needs_input_grad[0] else None
+        dw = x.T @ dcur if ctx.needs_input_grad[1] else None
+        db = (dcur.sum(dim=0) if ctx.has_bias and ctx.needs_input_grad[2]
+              else None)
+        return (dx, dw, db, grads[1] if need_q else None, None, None, None,
+                None, None)
+
+
+def _dense_lif_impl(kernels: str):
+    def impl(p, flat, cfg, *, q, qk_threshold, fmt, heads=None,
+             kv_heads=None):
+        x, w, b = _f32(flat), _f32(p["w"]), _f32(p.get("b"))
+        q_ = None if q is None else _dense_operand(q)
+        if q_ is not None:
+            q_ = q_.reshape(x.shape[0], -1)
+        if kernels == "reference":
+            cur = x @ w
+            if b is not None:
+                cur = cur + b
+            spk = _dense_tail(cur, q_, cfg, qk_threshold, heads, kv_heads)
+        else:
+            spk = _DenseLIF.apply(x, w, b, q_, cfg, qk_threshold, fmt, heads,
+                                  kv_heads)
+        return SpikeTensor.dense(spk)
+    return impl
 
 
 # ------------------------------------------------------------------ qk_mask
@@ -560,6 +678,7 @@ def _register_all() -> None:
         register("fused_pe", mode)(_fused_pe_impl(kernels))
         register("fused_pe_layer", mode)(_fused_pe_layer_impl(kernels))
         register("qk_mask", mode)(_qk_mask_impl(kernels))
+        register("dense_lif", mode)(_dense_lif_impl(kernels))
         register("w2ttfs_head", mode)(_w2ttfs_impl(kernels))
         register("im2col", mode)(_im2col_diff)
         register("pool", mode)(_pool_diff)

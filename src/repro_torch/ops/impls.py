@@ -255,24 +255,50 @@ def expand_group_weights(p: dict, heads: tuple[int, int],
     return out
 
 
+def grouped_kv(heads: Optional[tuple[int, int]],
+               kv_heads: Optional[int]) -> bool:
+    """Whether a projection is grouped KV: fewer kv heads than heads."""
+    return heads is not None and kv_heads is not None and kv_heads != heads[0]
+
+
 @register("dense_lif", "fused")
 def _dense_lif_fused(p: dict, flat: torch.Tensor, lif_cfg: LIFConfig, *, q,
-                     qk_threshold, fmt, heads=None, kv_heads=None):
-    if heads is not None and kv_heads is not None and kv_heads != heads[0]:
-        # once per weight: a serving model expands each layer's grouped wk
-        # once, not once a token
-        p = derived(p["w"], ("expand_group_weights", heads, kv_heads),
-                    lambda: expand_group_weights(p, heads, kv_heads),
-                    p.get("b"))
+                     qk_threshold, fmt, heads=None, kv_heads=None,
+                     with_current: bool = False):
+    """One fused PE pass of the dense activation ``flat``. With
+    ``with_current`` (the training forward) also the f32 current [tokens,
+    Dout] the spikes were thresholded from; for grouped KV in its grouped
+    layout [tokens, kv_heads * dh], one replica of each group's repeated
+    columns (they are equal bit for bit: the same weight column, summed in
+    the same order)."""
+    grouped = grouped_kv(heads, kv_heads)
+    if grouped:
+        # once per weight, from its values as they are now (the memo keys
+        # on the tensors and their in-place versions): a serving model
+        # expands each layer's grouped wk once, a training step each new
+        # parameter once; the expansion is no part of the autograd graph
+        with torch.no_grad():
+            p = derived(p["w"], ("expand_group_weights", heads, kv_heads),
+                        lambda: expand_group_weights(p, heads, kv_heads),
+                        p.get("b"))
     if q is not None and not q.is_packed:   # the [tokens, Dq] core
         q = SpikeTensor.dense(q.data.reshape(-1, q.data.shape[-1]))
-    spikes, vld = fused_pe(
+    spikes, vld, *cur = fused_pe(
         flat, p["w"], bias=p.get("b"), q=_operand(q),
         v_th=lif_cfg.v_th, qk_threshold=qk_threshold, out_format=fmt,
+        emit_current=with_current,
         # heads drives only the head-blocked mask: grouped KV without q is
         # the weight expansion alone
         heads=None if q is None else heads)
-    return _wrap_spikes(spikes, vld, fmt, DEFAULT_BLOCKS.m, DEFAULT_BLOCKS.n)
+    st = _wrap_spikes(spikes, vld, fmt, DEFAULT_BLOCKS.m, DEFAULT_BLOCKS.n)
+    if not with_current:
+        return st
+    (cur,) = cur
+    if grouped:
+        h, dh = heads
+        cur = cur.reshape(-1, kv_heads, h // kv_heads, dh)[:, :, 0, :]
+        cur = cur.reshape(-1, kv_heads * dh)
+    return st, cur
 
 
 @register("dense_lif", "reference")

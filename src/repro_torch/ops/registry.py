@@ -3,16 +3,18 @@
 ``repro_torch.ops.grad`` (the ``+grad`` modes) on first lookup.
 
 Unlike the reference there is no graceful-degradation guard around the
-fused entries: a fused mode either runs its kernel or raises. A mode still
-to port has no entry, and looking it up raises ``NotImplementedError``
-(for a ``+grad`` mode, naming the ROADMAP item that ports it).
+fused entries: a fused mode either runs its kernel or raises. A mode with
+no entry raises ``NotImplementedError`` on lookup. ``record_dispatches``
+records the ``(op, mode)`` pairs resolved inside a block.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+import contextlib
+from typing import Callable, Iterator, Optional
 
 _REGISTRY: dict[tuple[str, str], Callable] = {}
 _LOADED = False
+_DISPATCH_LOG: Optional[list] = None
 
 
 def register(op: str, mode: str) -> Callable[[Callable], Callable]:
@@ -32,21 +34,33 @@ def _ensure_loaded() -> None:
         from . import grad, impls  # noqa: F401  (register the families)
 
 
+@contextlib.contextmanager
+def record_dispatches() -> Iterator[list[tuple[str, str]]]:
+    """Record every ``(op, mode)`` this registry resolves inside the block,
+    in dispatch order (an audit of the modes a policy really executes).
+    PyTorch runs eagerly, so every call is recorded, a repeated one too."""
+    global _DISPATCH_LOG
+    prev, _DISPATCH_LOG = _DISPATCH_LOG, []
+    try:
+        yield _DISPATCH_LOG
+    finally:
+        _DISPATCH_LOG = prev
+
+
 def lookup(op: str, mode: str) -> Callable:
     _ensure_loaded()
+    if _DISPATCH_LOG is not None:
+        _DISPATCH_LOG.append((op, mode))
     try:
         return _REGISTRY[(op, mode)]
     except KeyError:
         pass
     have = sorted(m for o, m in _REGISTRY if o == op)
-    if mode.endswith("+grad"):
-        hint = (" — its differentiable form is still to port (ROADMAP "
-                "queue 1 item 2 for the LM ops)")
-    else:
-        hint = ""
+    if not have:
+        raise NotImplementedError(f"unknown op {op!r}")
     raise NotImplementedError(
         f"op {op!r} has no {mode!r} implementation in repro_torch "
-        f"(registered modes: {have}){hint}")
+        f"(registered modes: {have})")
 
 
 def implementations(op: Optional[str] = None) -> dict:

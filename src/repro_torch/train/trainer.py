@@ -1,23 +1,128 @@
-"""The paper's KD training step (twin of ``repro.train.trainer``, the KD
-half, C1): a spiking student trained against a frozen ANN teacher with the
-logit KD loss, SGD with momentum by default.
+"""Training steps (twin of ``repro.train.trainer``): the LM's causal
+training step (``make_train_step``: AdamW, global-norm clipping, optional
+gradient accumulation over microbatches) and the paper's KD step (C1,
+``make_kd_train_step``): a spiking student trained against a frozen ANN
+teacher with the logit KD loss, SGD with momentum by default.
 
-The step is eager PyTorch: autograd differentiates the student's forward,
+The steps are eager PyTorch: autograd differentiates the model's forward,
 whose ops run the policy's kernels forward and their surrogate-gradient
-backward (``repro_torch.ops.grad``). A cuDNN conv in the student (the stem)
-or the teacher reads ``torch.backends.cudnn.allow_tf32`` when it runs,
-backward included; turn it off, with ``torch.backends.cuda.matmul
-.allow_tf32``, where parity with the reference matters.
+backward (``repro_torch.ops.grad``). Each step returns a new state; nothing
+is updated in place. A cuDNN conv in the student (the stem) or the teacher
+reads ``torch.backends.cudnn.allow_tf32`` when it runs, backward included;
+turn it off, with ``torch.backends.cuda.matmul.allow_tf32``, where parity
+with the reference matters.
 """
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 import torch
 
 from ..core.kd import KDConfig, kd_loss
-from ..optim import adamw_update, sgd_update
-from ..tree import tree_leaves, tree_unflatten_like
+from ..optim import adamw_init, adamw_update, global_norm, sgd_update
+from ..optim.adamw import AdamWState
+from ..tree import tree_leaves, tree_map, tree_unflatten_like
+
+
+class TrainState(NamedTuple):
+    """The LM step's state: its step counter (int32), the parameters and
+    the AdamW state."""
+    step: torch.Tensor
+    params: Any
+    opt_state: AdamWState
+
+
+def train_state_init(params: Any) -> TrainState:
+    """Step 0, ``params`` and a fresh AdamW state on their device."""
+    device = tree_leaves(params)[0].device
+    return TrainState(step=torch.zeros((), dtype=torch.int32, device=device),
+                      params=params, opt_state=adamw_init(params))
+
+
+def _split_microbatches(batch: dict, n: int) -> list[dict]:
+    """``batch`` cut along its leading axis into ``n`` equal microbatches,
+    in order."""
+    for k, x in batch.items():
+        if x.shape[0] % n:
+            raise ValueError(f"batch[{k!r}] of {x.shape[0]} rows does not "
+                             f"split into {n} microbatches")
+    return [{k: x.reshape(n, x.shape[0] // n, *x.shape[1:])[i]
+             for k, x in batch.items()} for i in range(n)]
+
+
+def _grads_of(loss_fn: Callable, params: Any, batch: dict) -> tuple:
+    """(loss, detached metrics, the gradient of the loss with respect to
+    every leaf of ``params``) of ``loss_fn(params, batch) -> (loss,
+    metrics)``; a leaf the loss does not reach gets zeros."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    loss, metrics = loss_fn(tree_unflatten_like(params, leaves), batch)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
+    metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
+               for k, v in metrics.items()}
+    return loss.detach(), metrics, tree_unflatten_like(params, grads)
+
+
+def make_grad_fn(loss_fn: Callable) -> Callable:
+    """``fn(params, batch) -> (loss, metrics, grads)`` of ``loss_fn(params,
+    batch) -> (loss, metrics)`` (``LM.loss``, or a distillation loss)."""
+    return lambda params, batch: _grads_of(loss_fn, params, batch)
+
+
+@torch.no_grad()
+def _clip_own(grads: Any, max_norm: float) -> tuple[Any, torch.Tensor]:
+    """``clip_by_global_norm`` of gradients the step made itself, its f32
+    leaves scaled where they are: the same bits, without a second copy of
+    the gradients at full width."""
+    norm = global_norm(grads)
+    scale = torch.clamp(norm.new_tensor(max_norm)
+                        / torch.clamp(norm, min=1e-12), max=1.0)
+    f32 = [g for g in tree_leaves(grads) if g.dtype == torch.float32]
+    torch._foreach_mul_(f32, scale)
+    return tree_map(lambda g: g if g.dtype == torch.float32 else
+                    (g.to(torch.float32) * scale).to(g.dtype), grads), norm
+
+
+def make_train_step(model, *, schedule: Callable[[torch.Tensor],
+                                                 torch.Tensor],
+                    weight_decay: float = 0.1, clip_norm: float = 1.0,
+                    microbatch: int = 0) -> Callable:
+    """The LM training step: ``step(state, batch) -> (state, metrics)``.
+
+    The gradient of ``model.loss``, accumulated in f32 over ``microbatch``
+    equal slices of the batch when ``microbatch > 1`` (the metrics their
+    means), clipped to the global norm ``clip_norm``, then one AdamW update
+    at ``schedule(state.step)``. The metrics add ``grad_norm`` (before
+    clipping) and ``lr``. The state is not updated in place."""
+    grad_fn = make_grad_fn(model.loss)
+
+    def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
+        if microbatch and microbatch > 1:
+            grads = tree_map(lambda p: torch.zeros(p.shape,
+                                                   dtype=torch.float32,
+                                                   device=p.device),
+                             state.params)
+            mets = []
+            for mb in _split_microbatches(batch, microbatch):
+                _, m, g = grad_fn(state.params, mb)
+                grads = tree_map(lambda a, g_: a + g_.to(torch.float32)
+                                 / microbatch, grads, g)
+                del g
+                mets.append(m)
+            metrics = {k: torch.stack([m[k] for m in mets]).mean()
+                       for k in mets[0]}
+        else:
+            _, metrics, grads = grad_fn(state.params, batch)
+        grads, gnorm = _clip_own(grads, clip_norm)
+        lr = schedule(state.step)
+        new_p, new_o = adamw_update(grads, state.opt_state, state.params,
+                                    lr=lr, weight_decay=weight_decay)
+        del grads
+        return (TrainState(step=state.step + 1, params=new_p, opt_state=new_o),
+                dict(metrics, grad_norm=gnorm, lr=lr))
+
+    return step
 
 
 def make_kd_grad_fn(student_apply: Callable, teacher_apply: Callable,
@@ -37,26 +142,24 @@ def make_kd_grad_fn(student_apply: Callable, teacher_apply: Callable,
             return _student(params, state, images, policy=pol)
 
     def fn(params, state, batch):
-        leaves = [p.detach().requires_grad_(True)
-                  for p in tree_leaves(params)]
-        live = tree_unflatten_like(params, leaves)
-        out = student_apply(live, state, batch["images"])
-        # students return (logits, state) or (logits, state, aux); an aux
-        # with "active_frac" (snn_cnn's mean firing rate) becomes a metric
-        s_logits, new_state = out[0], out[1]
-        aux = out[2] if len(out) > 2 else None
-        with torch.no_grad():
-            t_logits = teacher_apply(teacher_params, batch["images"])
-        loss, metrics = kd_loss(s_logits, t_logits, batch["labels"], kd)
-        if isinstance(aux, dict) and "active_frac" in aux:
-            metrics = dict(metrics, active_frac=aux["active_frac"])
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(leaves, grads)]
-        metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
-                   for k, v in metrics.items()}
-        return (loss.detach(), metrics, new_state,
-                tree_unflatten_like(params, grads))
+        out = {}
+
+        def loss_fn(live, batch):
+            res = student_apply(live, state, batch["images"])
+            # students return (logits, state) or (logits, state, aux); an
+            # aux with "active_frac" (snn_cnn's mean firing rate) becomes
+            # a metric
+            s_logits, out["state"] = res[0], res[1]
+            aux = res[2] if len(res) > 2 else None
+            with torch.no_grad():
+                t_logits = teacher_apply(teacher_params, batch["images"])
+            loss, metrics = kd_loss(s_logits, t_logits, batch["labels"], kd)
+            if isinstance(aux, dict) and "active_frac" in aux:
+                metrics = dict(metrics, active_frac=aux["active_frac"])
+            return loss, metrics
+
+        loss, metrics, grads = _grads_of(loss_fn, params, batch)
+        return loss, metrics, out["state"], grads
 
     return fn
 

@@ -1759,3 +1759,119 @@ def test_packed_forward_at_four_steps_launch_counts(cuda):
     heads = [a for name, a, _, _ in captured if name == "w2ttfs_pool"]
     assert all(a[0].dtype == torch.int8 for a in heads)
     assert torch.equal(logits, dense)
+
+
+# ------------------------------------------------------------ LM training
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("grouped", [False, True])
+def test_fused_pe_heads_emit_current_on_a_dense_x(cuda, dtype, grouped):
+    """K2 as the LM's training forward launches it: a dense x of 300 rows
+    with the emitted current, and (``grouped``) a grouped wk repeated to
+    the query heads with the head-blocked mask, in both output formats:
+    the current within rtol 1e-5, atol 1e-4 of the plain version's (whose
+    cuBLAS product sums in another order), the spikes exactly the kernel's
+    own current thresholded and masked and equal to the plain version's
+    away from v_th, vld_next their block counts; and the current bit-equal
+    to the fused multiply-add chain over k ascending, the kernel's own
+    order."""
+    from repro_torch.core.events import block_count_map_2d, unpack_words
+    from repro_torch.kernels import fused_pe as K
+    from repro_torch.kernels.chain import fma_chain
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    h, hkv, dh, k = 4, 2, 64, 384
+    x = torch.randn((300, k), generator=gen, device=cuda).to(dtype)
+    if grouped:
+        w = (torch.randn((k, hkv, 1, dh), generator=gen, device=cuda)
+             / k ** 0.5).expand(k, hkv, h // hkv, dh).reshape(k, h * dh)
+        q = (torch.rand((300, h * dh), generator=gen, device=cuda)
+             < 0.1).to(torch.int8)
+        heads = (h, dh)
+    else:
+        w = torch.randn((k, h * dh), generator=gen, device=cuda) / k ** 0.5
+        q = heads = None
+    maps = []
+    for fmt in ("dense", "packed"):
+        args = K.fused_pe_operands(x, w.contiguous(), q=q, qk_threshold=6.0,
+                                   out_format=fmt, emit_current=True,
+                                   heads=heads)
+        got, want = K.fused_pe_cuda(*args), K.fused_pe_block_ref(*args)
+        assert len(got) == len(want) == 3
+        cur = got[2]
+        torch.testing.assert_close(cur, want[2], rtol=1e-5, atol=1e-4)
+        assert torch.equal(cur, fma_chain(x, w))
+        spk, ref = ((unpack_words(got[0]), unpack_words(want[0]))
+                    if fmt == "packed" else (got[0], want[0]))
+        gate = (K.head_gate(q, heads, 6.0).bool() if grouped
+                else torch.ones_like(cur, dtype=torch.bool))
+        assert torch.equal(spk[:300, :h * dh],
+                           ((cur >= 1.0) & gate).to(torch.int8))
+        near = torch.zeros_like(spk, dtype=torch.bool)
+        near[:300, :h * dh] = (want[2] - 1.0).abs() < 1e-4
+        assert not bool(((spk != ref) & ~near).any())
+        assert torch.equal(got[1], block_count_map_2d(spk, 128, 128))
+        maps.append(spk)
+    assert torch.equal(maps[0], maps[1])
+    assert 0 < float(maps[0].float().mean()) < 0.5
+
+
+def test_lm_train_step_fused_against_reference(cuda):
+    """One ``fused_dense+grad`` gradient of the spiking LM at 4 layers in
+    f32 (qwen3-1.7b's widths cut to d_model 256, 4 / 2 heads of 64) against
+    ``reference+grad`` on the card (loss within 1e-4 relative, spike totals
+    within 0.1 %) and against the same step on the kernels' plain twins
+    with their own sums (``chain_launchers``: loss and spike totals equal,
+    each gradient leaf within 1e-3 relative L2; a cuBLAS product sums in
+    another order, so a spike that flips at v_th against the reference
+    carries into the later layers' gradients); the launches of the step as
+    the code implies them."""
+    import contextlib
+    import dataclasses
+
+    from repro_torch.configs import build_model, get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.chain import chain_launchers
+    from repro_torch.models.layers import spike_log
+    from repro_torch.models.lm import spike_totals
+    from repro_torch.train import make_grad_fn
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(
+        get_config("qwen3-1.7b", spiking=True, attention_kind="qk_spiking"),
+        n_layers=4, d_model=256, n_heads=4, n_kv_heads=2, head_dim=64,
+        d_ff=512, vocab_size=1000, dtype=torch.float32)
+    params = build_model(cfg).init(
+        torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (4, 65), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    runs = {}
+    for policy, swap in (("reference+grad", contextlib.nullcontext),
+                         ("fused_dense+grad", contextlib.nullcontext),
+                         ("chain twins", chain_launchers)):
+        model = build_model(dataclasses.replace(
+            cfg, policy="fused_dense+grad" if swap is chain_launchers
+            else policy))
+        _build.reset_launches()
+        with swap(), spike_log() as log:
+            loss, _, grads = make_grad_fn(model.loss)(params,
+                                                      {"tokens": toks})
+            torch.cuda.synchronize()
+        runs[policy] = (float(loss), tree_leaves(grads),
+                        spike_totals(log, 4), dict(_build.LAUNCHES))
+    (loss_r, _, t_r, l_r), (loss, g, t, launches), (loss_c, g_c, t_c, l_c) \
+        = runs["reference+grad"], runs["fused_dense+grad"], runs["chain twins"]
+    assert not any(l_r.values()) and not any(l_c.values())
+    assert {k: v for k, v in launches.items() if v} == {
+        "fused_pe": 8, "spike_matmul": 4, "spike_matmul_dx": 4,
+        "spike_matmul_dw": 4}
+    assert abs(loss - loss_r) <= 1e-4 * abs(loss_r)
+    for kind, ref in t_r.items():
+        rel = (t[kind].double() - ref.double()).abs() / ref.double().clamp(
+            min=1.0)
+        assert float(rel.max()) <= 1e-3, kind
+    assert loss == loss_c
+    assert all(torch.equal(t[kind], ref) for kind, ref in t_c.items())
+    for a, b in zip(g, g_c):
+        d = torch.linalg.vector_norm((a - b).double())
+        n = torch.linalg.vector_norm(b.double())
+        assert float(d) <= 1e-3 * float(n)

@@ -168,19 +168,6 @@ def _unported():
         "qwen3-1.7b", spiking=True, attention_kind="qk_spiking")))
     lm_spiking_params = lm_spiking.init(torch.Generator(), device="cpu")
     return {
-        "fused_pe +grad heads": lambda: ops.fused_pe(
-            torch.ones((8, 8)), w, q=torch.ones((8, 8)), heads=(2, 4),
-            policy="fused_dense+grad"),
-        "dense_lif fused+grad lookup": lambda: ops.lookup(
-            "dense_lif", "fused+grad"),
-        "dense_lif reference+grad lookup": lambda: ops.lookup(
-            "dense_lif", "reference+grad"),
-        "dense_lif fused_dense+grad": lambda: ops.dense_lif(
-            {"w": w}, torch.ones((4, 8)), LIFConfig(),
-            policy="fused_dense+grad"),
-        "dense_lif reference+grad": lambda: ops.dense_lif(
-            {"w": w}, torch.ones((4, 8)), LIFConfig(),
-            policy="reference+grad"),
         "lm family moe": lambda: build_model(
             reduced(get_config("olmoe-1b-7b"))),
         "lm family ssm": lambda: build_model(
@@ -216,6 +203,41 @@ def test_unported_variants_raise(case):
     with pytest.raises((NotImplementedError, TypeError)) as err:
         _unported()[case]()
     assert "ROADMAP" in str(err.value)
+
+
+def _ported_with_lm_training():
+    """Variants that raised until LM training was ported: the
+    differentiable head-blocked fused PE and ``dense_lif`` now run on the
+    CPU (the plain versions) and give spikes of the expected shape, with a
+    gradient into the weight."""
+    w = torch.ones((8, 8))
+    return {
+        "fused_pe +grad heads": lambda: ops.fused_pe(
+            torch.ones((8, 8)), w, q=torch.ones((8, 8)), heads=(2, 4),
+            policy="fused_dense+grad").spikes.data,
+        "dense_lif fused+grad lookup": lambda: ops.lookup(
+            "dense_lif", "fused+grad")(
+                {"w": w}, torch.ones((4, 8)), LIFConfig(), q=None,
+                qk_threshold=1.0, fmt="dense").data,
+        "dense_lif reference+grad lookup": lambda: ops.lookup(
+            "dense_lif", "reference+grad")(
+                {"w": w}, torch.ones((4, 8)), LIFConfig(), q=None,
+                qk_threshold=1.0, fmt="dense").data,
+        "dense_lif fused_dense+grad": lambda: ops.dense_lif(
+            {"w": w}, torch.ones((4, 8)), LIFConfig(),
+            policy="fused_dense+grad").data,
+        "dense_lif reference+grad": lambda: ops.dense_lif(
+            {"w": w}, torch.ones((4, 8)), LIFConfig(),
+            policy="reference+grad").data,
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_ported_with_lm_training()))
+def test_variants_ported_with_lm_training_run(case):
+    out = _ported_with_lm_training()[case]()
+    assert isinstance(out, torch.Tensor) and out.numel() > 0
+    assert out.dtype == torch.float32
+    assert bool(((out == 0) | (out == 1)).all()) and bool(out.any())
 
 
 def _ported_with_kd_training():
@@ -380,8 +402,8 @@ def test_fp8_fake_quant_ported_runs():
 
 def test_reference_twins_stay_registered():
     """Every op of the slice has a reference mode, and a fused mode where
-    its kernel is ported; every op of the training walk has both "+grad"
-    modes."""
+    its kernel is ported; every op of the training walks (the CNNs' and
+    the LM's) has both "+grad" modes."""
     table = ops.implementations()
     for op in ("matmul", "lif", "fused_pe", "fused_pe_layer", "im2col",
                "pool", "qk_mask", "w2ttfs_head", "pack", "unpack"):
@@ -393,9 +415,9 @@ def test_reference_twins_stay_registered():
                "w2ttfs_head", "im2col", "pool"):
         for mode in ("reference+grad", "fused+grad"):
             assert (op, mode) in table, (op, mode)
-    # the LM's projection: its inference modes only (LM training waits)
-    assert {m for op, m in table if op == "dense_lif"} == {"reference",
-                                                          "fused"}
+    # the LM's projection: its inference and training modes
+    assert {m for op, m in table if op == "dense_lif"} == {
+        "reference", "fused", "reference+grad", "fused+grad"}
 
 
 # ---------------------------------------------------------------- convert
