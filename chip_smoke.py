@@ -49,7 +49,8 @@ Phases, in order; any failure raises and the script exits non-zero:
              for bit against the dense skip on the same operands; then
              the LM's head-blocked, dense-activation fused PE pass and K3
              on its wo at the decode route (16 and 64 rows), each against
-             its plain version and bit for bit against the 128-row tile.
+             its plain version and bit for bit against the tile route
+             (K2's float-x tile, K3's 128-row tile).
              Every K3 and K4 launch, here and on each main path's own
              operands in the timing phase, is also held bit for bit to the
              ascending f32 chain (``spike_matmul_chain_ref``: one sum from
@@ -139,8 +140,9 @@ Phases, in order; any failure raises and the script exits non-zero:
              launch's current and membrane potential use on each path's
              own operands, and the largest gap beside the kernel's
              near-threshold recheck band (``[gate share]``); for the LM
-             rows also the route they took, the 128-row tile's time on the same
-             operands and the host clock; the median step time of each
+             rows also the route they took, the tile route's time on the same
+             operands and the host clock, and the LM step's K2 launches per
+             projection beside ``torch.matmul``; the median step time of each
              training path with its forward/backward split and peak
              memory, and the profiler's top kernels of one
              ``fused_dense+grad`` step.
@@ -546,6 +548,7 @@ def phase_build(build_mod) -> None:
             say(f"[build]   {line.strip()}")
     sass_registers(build_mod, info.path, ("flash_wgmma_kernel",
                                           "fused_pe_kernel",
+                                          "fused_pe_float_kernel",
                                           "spike_matmul_tile_kernel"))
 
 
@@ -579,6 +582,15 @@ def sass_registers(build_mod, lib, kernels: tuple) -> None:
 # ------------------------------------------------------------------ phase 3
 # the operands the parity phase makes, as against a main path's own
 PARITY_OPERANDS = "parity operands"
+# the port's hand-written kernels, as the profiler names them
+HAND_WRITTEN = ("fused_pe_kernel", "fused_pe_float_kernel",
+                "fused_pe_decode_kernel", "spike_matmul_tile_kernel",
+                "spike_matmul_decode_kernel", "spike_matmul_dx_kernel",
+                "spike_matmul_dw_kernel", "dw_sum_kernel",
+                "pack_spikes_kernel", "unpack_spikes_kernel",
+                "lif_update_kernel", "w2ttfs_pool_kernel",
+                "qk_attention_kernel", "flash_attention_kernel",
+                "flash_wgmma_kernel")
 
 
 class Parity:
@@ -1575,7 +1587,7 @@ def parity_lm_pe(torch, K, gen, dev, parity: Parity) -> None:
                                 *dec, route="decode"),
                                 K.fused_pe_cuda(*args)),
                                     f"fused_pe_heads {label}: the decode "
-                                    f"route differs from the 128-row tile")
+                                    f"route differs from the tile route")
                     require(torch.equal(maps[0], maps[1]),
                             f"fused_pe_heads [{m}x{n}] heads {heads}: the "
                             f"packed output is not the int8 output")
@@ -1603,16 +1615,19 @@ def parity_lm_matmul(torch, K, gen, dev, parity: Parity) -> None:
                         f"{label}: differs from the 128-row tile")
 
 
-# the LM's training forward: 8 sequences of 128 tokens, qwen3-1.7b's wq
-# (16 heads of 128) and its grouped wk (8 kv heads, each repeated for the 2
-# query heads of its group)
+# the LM's training forward: 8 sequences of 128 tokens, and the step's own
+# 8 x 129 (the float-x tile's 8-row tail), qwen3-1.7b's wq (16 heads of
+# 128) and its grouped wk (8 kv heads, each repeated for the 2 query heads
+# of its group)
 LM_TRAIN_ROWS = 1024
+LM_STEP_ROWS = 8 * 129
 LM_HEADS, LM_KV_HEADS, LM_DH = 16, 8, 128
 
 
 def parity_lm_train_pe(torch, K, gen, dev, parity: Parity) -> None:
     """K2 as the LM's training forward launches it: a dense f32 or bf16 x
-    of 1024 rows with ``emit_current``, wq without q, and the grouped wk
+    of 1024 rows and of the step's own 1032 with ``emit_current``, wq
+    without q, and the grouped wk
     expanded to the query heads with the head-blocked mask of wq's spikes
     (a qk threshold that keeps about half the heads); int8 and packed out.
     ``check_fused_pe``'s gates (spikes and vld_next bit-equal to the plain
@@ -1623,9 +1638,9 @@ def parity_lm_train_pe(torch, K, gen, dev, parity: Parity) -> None:
     multiply-add chain over k ascending (``fma_chain``), the kernel's own
     order."""
     n = LM_HEADS * LM_DH
-    for dtype in (torch.float32, torch.bfloat16):
-        x = torch.randn((LM_TRAIN_ROWS, LM_PE_K), generator=gen,
-                        device=dev).to(dtype)
+    for rows, dtype in itertools.product((LM_TRAIN_ROWS, LM_STEP_ROWS),
+                                         (torch.float32, torch.bfloat16)):
+        x = torch.randn((rows, LM_PE_K), generator=gen, device=dev).to(dtype)
         wq = torch.randn((LM_PE_K, n), generator=gen, device=dev) \
             / math.sqrt(LM_PE_K)
         wk = (torch.randn((LM_PE_K, LM_KV_HEADS, 1, LM_DH), generator=gen,
@@ -1640,20 +1655,20 @@ def parity_lm_train_pe(torch, K, gen, dev, parity: Parity) -> None:
                 args = K.fused_pe_operands(
                     x, w, q=qq, v_th=V_TH, qk_threshold=20.0,
                     out_format=fmt, emit_current=True, heads=heads)
-                label = (f"LM training {name} [{LM_TRAIN_ROWS}x{LM_PE_K}x"
-                         f"{n}] {str(dtype)[6:]} x, emitted current, {fmt} "
-                         f"out")
+                label = (f"LM training {name} [{rows}x{LM_PE_K}x{n}] "
+                         f"{str(dtype)[6:]} x, emitted current, {fmt} out")
                 maps.append(check_fused_pe(torch, K, args, parity, label))
             require(torch.equal(maps[0], maps[1]),
-                    f"fused_pe_lm_train {name} {dtype}: the packed output "
-                    f"is not the int8 output")
+                    f"fused_pe_lm_train {name} {rows} {dtype}: the packed "
+                    f"output is not the int8 output")
             cur = K.fused_pe_cuda(*args)[2]
             plain = K.fused_pe_block_ref(*args)[2]
             off = int((cur != K.fma_chain(x, w)).sum())
-            require(off == 0, f"fused_pe_lm_train {name} {dtype}: {off} "
-                              f"currents differ from the fused multiply-add "
-                              f"chain")
-            say(f"[parity] fused_pe_lm_train {name} {str(dtype)[6:]} x: "
+            require(off == 0, f"fused_pe_lm_train {name} {rows} {dtype}: "
+                              f"{off} currents differ from the fused "
+                              f"multiply-add chain")
+            say(f"[parity] fused_pe_lm_train {name} {rows} rows "
+                f"{str(dtype)[6:]} x: "
                 f"{int((cur != plain).sum())} of {cur.numel()} currents "
                 f"differ in some bit from the plain version's (cuBLAS), 0 "
                 f"from the fused multiply-add chain over k ascending; packed "
@@ -2728,15 +2743,15 @@ def device_time(torch, fn, reps: int, warmup: int = 2) -> float:
 
 
 def tile_args(K, name: str, args, route: str = "decode") -> tuple:
-    """A launch's operands on the tile route: a decode-route fused PE or
-    spike matmul launch's padded back to whole 128-row blocks
-    (``*_tile_operands``), any other as it is. The plain versions, the
-    bounds and the checks read these."""
-    if route != "decode":
-        return args
+    """A launch's operands padded to whole 128-row blocks: a fused PE
+    launch's (``fused_pe_tile_operands``: a float x's, read at its own rows
+    on either route, and its all-ones vld map) and a decode-route spike
+    matmul launch's (``spike_matmul_tile_operands``), any other as it is.
+    The plain versions, the bounds and the checks read these; the tile
+    route computes the same outputs on them."""
     if name == "fused_pe":
         return K.fused_pe_tile_operands(args)
-    if name == "spike_matmul":
+    if name == "spike_matmul" and route == "decode":
         return K.spike_matmul_tile_operands(args)
     return args
 
@@ -3177,6 +3192,9 @@ def phase_timing(torch, K, snn_cnn, models, images, paths, parity: Parity,
     routes = {row: set() for row in ROWS}
     tot_host = {row: {"ms": 0.0, "lib": 0.0, "tile": 0.0}
                 for row in TILE_MS_BEFORE}
+    # the float-x tile's launches of the LM step, per projection: (device
+    # ms, torch.matmul ms) a launch
+    lm_train_pe = {"wq": [], "wk": []}
     i = 0
     for policy, (_, _, _, captured) in paths.items():
         for launch in captured:
@@ -3204,7 +3222,7 @@ def phase_timing(torch, K, snn_cnn, models, images, paths, parity: Parity,
             lib_ms = None if lib is None else device_time(torch, lib, reps=10)
             lib_name = "SDPA" if name == "flash_attention" else "torch.matmul"
             if row in TILE_MS_BEFORE:
-                # the redesigned rows: the 128-row tile on the same operands,
+                # the redesigned rows: the tile route on the same operands,
                 # and the host clock, by which the tile's time was recorded
                 host = tot_host[row]
                 host["tile"] += device_time(
@@ -3238,6 +3256,16 @@ def phase_timing(torch, K, snn_cnn, models, images, paths, parity: Parity,
                                    args[1].shape[0])
                 shape += (f"; tile 128x{plan.block_n}, "
                           f"{plan.mtiles * plan.ntiles} tiles")
+            if name == "fused_pe" and route == "tile" and \
+                    args[0].is_floating_point():
+                plan = K.float_tile_plan(args[6], args[1].shape[1],
+                                         args[1].shape[0])
+                shape += (f"; tile {plan.block_m}x{plan.block_n}, "
+                          f"{plan.mtiles * plan.ntiles} tiles, {plan.ctas} "
+                          f"CTAs, {K.FLOAT_TILE_RESIDENT} an SM")
+            if row == "fused_pe_lm_train":
+                lm_train_pe["wq" if inputs[4] is None else "wk"].append(
+                    (ms, lib_ms))
             routes[row].add(route)
             say(f"[timing] launch {i} {row} [{shape}]"
                 + (f" ({route} route)" if name in ("fused_pe", "spike_matmul",
@@ -3254,6 +3282,17 @@ def phase_timing(torch, K, snn_cnn, models, images, paths, parity: Parity,
             i += 1
     torch.cuda.synchronize()
     parity.print_shares(K, False)
+    if lm_train_pe["wq"]:
+        plan = K.float_tile_plan(LM_STEP_ROWS, LM_HEADS * LM_DH, LM_PE_K)
+        say(f"[timing] fused_pe_lm_train per launch ({card}): "
+            + "; ".join(f"{proj} {statistics.mean(t[0] for t in v):.4f} ms "
+                        f"against torch.matmul's "
+                        f"{statistics.mean(t[1] for t in v):.4f} over "
+                        f"{len(v)} launches"
+                        for proj, v in lm_train_pe.items() if v)
+            + f"; the float-x tile {plan.block_m}x{plan.block_n}: "
+            f"{plan.mtiles * plan.ntiles} tiles ({plan.full} full), "
+            f"{plan.ctas} CTAs, {K.FLOAT_TILE_RESIDENT} an SM")
 
     rows = []
     for row, tot in totals.items():
@@ -3273,7 +3312,7 @@ def phase_timing(torch, K, snn_cnn, models, images, paths, parity: Parity,
             host = tot_host[row]
             out["tile_route_ms"] = host["tile"]
             say(f"[timing] {row} ({out['gemm_route']} route): {tot['ms']:.4f}"
-                f" ms device time, {host['tile']:.4f} ms on the 128-row tile"
+                f" ms device time, {host['tile']:.4f} ms on the tile route"
                 f" (same operands, same clock; recorded before the decode "
                 f"route: {TILE_MS_BEFORE[row]:.4f} ms by the host clock); host "
                 f"clock now {host['ms']:.4f} ms against torch.matmul's "
@@ -3462,8 +3501,9 @@ def same_outputs(torch, a, b) -> bool:
 def replay_routes(torch, K, captured, label: str) -> int:
     """Every fused PE and spike matmul launch of one captured pass (all on
     the decode route) launched again on both routes: the decode route on
-    its own operands (and a fused PE's also on the 128-row tile's, whose
-    first rows it reads), against the tile on the tile's. Spikes,
+    its own operands (and a fused PE's also on the tile's padded ones,
+    whose first rows it reads), against the tile route on the padded
+    operands. Spikes,
     vld_next, packed words and K3's f32 output must be equal bit for bit,
     padded rows included. Returns the number replayed."""
     n = 0
@@ -3480,7 +3520,7 @@ def replay_routes(torch, K, captured, label: str) -> int:
             same = same and same_outputs(
                 torch, launch(*targs, route="decode"), tile)
         require(same, f"{label}: {name} launch {n}: the decode route differs "
-                      f"from the 128-row tile")
+                      f"from the tile route")
         n += 1
     return n
 
@@ -3564,10 +3604,7 @@ def profile_tick(torch, S, build_mod, model, params, policy: str) -> None:
         say(f"[profile] serve {policy}: the profiler reported no device "
             f"time; breakdown not measured")
         return
-    ours = sum(r[0] for r in rows if any(
-        k in r[2] for k in ("fused_pe_kernel", "spike_matmul_kernel",
-                            "fused_pe_decode_kernel",
-                            "spike_matmul_decode_kernel")))
+    ours = sum(r[0] for r in rows if any(k in r[2] for k in HAND_WRITTEN))
     launched = sum(r[1] for r in rows)
     say(f"[profile] serve {policy} decode tick: device busy {busy:.3f} ms "
         f"of median {med:.3f} ms in {launched} device kernels: idle share "
@@ -3645,7 +3682,7 @@ def phase_serve(torch, S, K, build_mod, dev) -> dict:
             compared += replayed
             say(f"[serve] {policy} {what}: {replayed} fused_pe and "
                 f"spike_matmul launches replayed on both routes, decode "
-                f"equal to the 128-row tile bit for bit")
+                f"equal to the tile route bit for bit")
             paths[f"serve {policy} {what}"] = (
                 None, None, launches, grouped_kv(model.cfg, captured))
         for name, args, *_ in paths[f"serve {policy} decode"][3]:
@@ -3657,7 +3694,7 @@ def phase_serve(torch, S, K, build_mod, dev) -> dict:
             if name == "spike_matmul":
                 require(args[3] is packed,
                         f"a {policy} spike_matmul launch took the wrong x")
-    say(f"[serve] decode route bit-equal to the 128-row tile on all "
+    say(f"[serve] decode route bit-equal to the tile route on all "
         f"{compared} replayed launches (a decode tick and a prefill chunk "
         f"of fused_dense and fused_packed)")
     d, p = results["fused_dense"], results["fused_packed"]
@@ -4367,9 +4404,7 @@ def profile_lm_step(torch, run: dict, batch, step_ms: float) -> None:
         say("[profile] lm train: the profiler reported no device time; "
             "busy and idle not measured")
         return
-    ours = sum(r[0] for r in rows if any(k in r[2] for k in (
-        "fused_pe_kernel", "spike_matmul_kernel", "spike_matmul_dx",
-        "spike_matmul_dw", "unpack")))
+    ours = sum(r[0] for r in rows if any(k in r[2] for k in HAND_WRITTEN))
     say(f"[profile] lm train fused_dense+grad step: device busy {busy:.3f} "
         f"ms of median {step_ms:.3f} ms (profiled step {wall:.3f} ms): idle "
         f"share {max(0.0, 1 - busy / step_ms):.3f}; "
@@ -4599,6 +4634,8 @@ def kernels_namespace(torch):
         RECHECK_BAND=fused_pe.RECHECK_BAND,
         fused_pe_operands=fused_pe.fused_pe_operands,
         fused_pe_tile_operands=fused_pe.fused_pe_tile_operands,
+        float_tile_plan=fused_pe.float_tile_plan,
+        FLOAT_TILE_RESIDENT=fused_pe.ops.FLOAT_TILE_RESIDENT,
         spike_matmul_tile_operands=spike_matmul.spike_matmul_tile_operands,
         tile_plan=spike_matmul.tile_plan,
         block_width=spike_matmul.block_width,

@@ -7,14 +7,15 @@
 // (int8) or bit-packed (int32 words of 32 spikes, the packed_in / packed_q
 // / packed_residual / packed_out flags). x may also be a dense f32 or bf16
 // activation (the LM's ops.dense_lif projections of the residual stream):
-// the same tile product over the f32 widening, on the dense route with an
-// all-ones vld map (a float operand has no silent blocks to skip); a float
-// x takes no LIF state (the LM runs T = 1).
+// its own kernel (fused_pe_float_kernel below, on the float-x tile of
+// event_gemm.cuh), read at its own rows on the dense skip, with no vld map
+// (a float operand has no silent blocks to skip) or with a given one; a
+// float x takes no LIF state (the LM runs T = 1).
 //
-// Per 128x128 output tile, in one pass: the event-gated f32 product
-// x @ w (event_wgmma.cuh for a spike x, event_gemm.cuh for a float x; see
-// "The product" below), then (in registers, or for a spike x in shared
-// memory)
+// Per output tile (128 x 128 for a spike x, 64 x 256 for a float x), in one
+// pass: the event-gated f32 product x @ w (event_wgmma.cuh for a spike x,
+// event_gemm.cuh for a float x; see "The product" below), then (in
+// registers for a float x, in shared memory for a spike x)
 //   cur   = (acc + bias) + residual          (the reference's order)
 //   v     = cur                              (T=1: no state)
 //   v     = tau * v_prev * (1 - s_prev) + cur  (WithState, each op rounded)
@@ -66,10 +67,12 @@
 // three bf16 terms (the wrapper's ws operand, made once a weight), each
 // 32-deep k step's three products of exact bf16 terms into a fresh f32
 // tile joined to the sum with one rounded add, restaged into shared
-// memory. A dense f32 or bf16 activation x (the LM's projections) keeps
-// event_gemm.cuh's scalar f32 tile, bit-equal to its decode route, and its
-// epilogue as it was: the sums in registers, bias and residual added row by
-// row.
+// memory. A dense f32 or bf16 activation x (the LM's projections) takes
+// event_gemm.cuh's float-x tile: one IEEE fmaf chain over k ascending a
+// current (kernels/chain.py::fma_chain), bit-equal to its decode route,
+// through a TMA ring on a persistent grid that fills the card; the sums stay
+// in registers, bias and residual added output by output
+// (fused_pe_float_kernel).
 //
 // A spike x's epilogue, in shared memory (kEpi*: over the wgmma ring once
 // the product is done). The LIF state (v_prev, s_prev) of the CTA's tile
@@ -130,21 +133,19 @@
 // one (1152, not 576): the padding is zeros the block skip cannot see, and
 // the stripe skip (two_level) can, where an occ map comes with x. A dense
 // activation x is a full f32 product, 2*M*K*N operations at the 67 TFLOP/s
-// f32 rate outside the tensor cores (parity with the reference rules out
-// TF32); at the LM's decode (M = a few to a few dozen slots, padded to the
-// 128-row tile) the padded rows multiply zeros, and the grid is only N/128
-// CTAs a row block, so the f32 weight stream and the padding bound it. The
+// f32 rate outside the tensor cores (its fixed chain rules out TF32 and a
+// bf16 split); event_gemm.cuh says what holds its tile above that. The
 // LIF state adds 9 bytes an output element (v_prev and v_next f32, s_prev
 // int8), read and written once at the valid extent. A dense activation x
 // of at most kDecodeRows live rows without residual, state or emitted
 // current (the LM's projections at its decode ticks and prefill chunks)
 // takes the decode route instead (fused_pe_decode_kernel, decode_gemm.cuh):
 // 16-column CTAs over the live rows only, the same sums and the same
-// epilogue. A tile for N = 64 and the float x on the tensor cores are later
-// work.
+// epilogue. A spike-x tile for N = 64 is later work.
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "decode_gemm.cuh"
@@ -160,10 +161,11 @@ constexpr int kF32X = 16, kBF16X = 32;
 // the reset of the LIF state (WithState): set, soft (v - v_th); clear, hard
 constexpr int kSoftReset = 64;
 
-// the (row, head) gates of one tile: at most 128 / dh + 2 heads, stored as
-// bytes over the GEMM tiles (a float x) or the chains' scratch (a spike x)
-// once the product and the recheck are done with them
-constexpr int kMaxGateBytes = static_cast<int>(sizeof(GemmSmem));
+// the (row, head) gates of a spike x's tile: at most 128 / dh + 2 heads,
+// stored as bytes over the chains' scratch once the product and the
+// recheck are done with them (the float-x tile has room of its own for any
+// dh, kFloatGateBytes)
+constexpr int kMaxGateBytes = 32 * 1024;
 
 // a spike x (int8, or packed words) takes the tensor-core product
 template <int XKind>
@@ -335,7 +337,7 @@ fused_pe_kernel(const void* __restrict__ x, const float* __restrict__ w,
                 float* __restrict__ v_used, int kp, int np, int bn, int m_valid,
                 int n_valid, float v_th, float qk_threshold, float tau, int head_dim,
                 int flags) {
-  static_assert(!WithState || kSpikeX<XKind>, "the LIF state takes a spike x");
+  static_assert(kSpikeX<XKind>, "a float x takes fused_pe_float_kernel");
   __shared__ int warp_count[kThreads / 32];
   const int row_blk = blockIdx.y, col0 = blockIdx.x * kTile;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
@@ -371,26 +373,19 @@ fused_pe_kernel(const void* __restrict__ x, const float* __restrict__ w,
     }
   };
 
-  // The product: a spike x on the tensor cores (event_wgmma.cuh), whose
-  // sums become the currents in shared memory, each within kRecheckBand of
-  // v_th formed again on the scalar tile's chain ("The near-threshold
-  // recheck" above); a dense activation x on the scalar tile
-  // (event_gemm.cuh), whose sums stay in registers. Then the gate bytes
-  // reuse shared memory the product no longer needs.
-  float acc[kSub][kSub];
+  // The product on the tensor cores (event_wgmma.cuh), whose sums become
+  // the currents in shared memory, each within kRecheckBand of v_th formed
+  // again on the scalar chain ("The near-threshold recheck" above). Then the
+  // gate bytes reuse shared memory the product no longer needs.
   unsigned char* gate;
-  uint8_t* smem = nullptr;      // a spike x: the epilogue's (kEpi* offsets)
-  float* cur_tile = nullptr;    // the currents [kTile][kRestagePitch]
-  float* vp_tile = nullptr;     // with the state: v_prev [kTile][kTile]
-  int8_t* sp_tile = nullptr;    // and s_prev [kTile][kTile]
-  if constexpr (kSpikeX<XKind>) {
-    extern __shared__ uint8_t fused_pe_wgmma_smem[];
-    smem = wgmma_smem(fused_pe_wgmma_smem);
+  extern __shared__ uint8_t fused_pe_wgmma_smem[];
+  uint8_t* smem = wgmma_smem(fused_pe_wgmma_smem);  // the epilogue's (kEpi* offsets)
+  float* cur_tile = reinterpret_cast<float*>(smem);  // the currents [kTile][kRestagePitch]
+  float* vp_tile = reinterpret_cast<float*>(smem + kEpiVPrev);  // with the state: v_prev
+  int8_t* sp_tile = reinterpret_cast<int8_t*>(smem + kEpiSPrev);  // and s_prev [kTile][kTile]
+  {
     float sum[64];
     event_wgmma_tile<XKind, Skip>(x, ws, route, kp, np, row_blk, col0, smem, sum);
-    cur_tile = reinterpret_cast<float*>(smem);
-    vp_tile = reinterpret_cast<float*>(smem + kEpiVPrev);
-    sp_tile = reinterpret_cast<int8_t*>(smem + kEpiSPrev);
     unsigned* near_map = reinterpret_cast<unsigned*>(smem + kEpiNear);
     for (int i = tid; i < kTile * kTile / 32; i += kThreads) near_map[i] = 0u;
     if constexpr (WithState) {
@@ -419,14 +414,6 @@ fused_pe_kernel(const void* __restrict__ x, const float* __restrict__ w,
       hopper::cp_async_commit();
     }
     restage_sum(sum, cur_tile);
-  } else {
-    __shared__ GemmSmem sm;
-#pragma unroll
-    for (int i = 0; i < kSub; ++i)
-#pragma unroll
-      for (int j = 0; j < kSub; ++j) acc[i][j] = 0.f;
-    event_gemm_tile<XKind, Skip>(x, w, route, kp, np, row_blk, col0, sm, acc);
-    gate = reinterpret_cast<unsigned char*>(&sm);
   }
 
   float b[kSub];
@@ -438,7 +425,7 @@ fused_pe_kernel(const void* __restrict__ x, const float* __restrict__ w,
     b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
     b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
   }
-  if constexpr (kSpikeX<XKind>) {
+  {
     unsigned* near_map = reinterpret_cast<unsigned*>(smem + kEpiNear);  // [kTile][kTile / 32]
     if constexpr (WithState) hopper::cp_async_wait<0>();  // this thread's own state
     // the currents in fused_pe_ref's order ((sum + bias) + residual), in
@@ -620,38 +607,11 @@ fused_pe_kernel(const void* __restrict__ x, const float* __restrict__ w,
     const int rl = ty * kSub + i;
     const int row = row_blk * kTile + rl;
     const bool row_on = row < m_valid;
-    // this row's currents and membrane potentials: a spike x's from shared
-    // memory (with the state, the potential in the state's place); a float
-    // x's product sums with bias and residual (f32 only: the LM's residual
-    // stream), which take no state
+    // this row's currents and membrane potentials, from shared memory
+    // (with the state, the potential in the state's place)
     float cur_in[kSub], pot[kSub];
-    if constexpr (kSpikeX<XKind>) {
-      tile_get8(cur_tile, kRestagePitch, rl, tx, cur_in);
-      if constexpr (WithState)
-        tile_get8(vp_tile, kTile, rl, tx, pot);
-    } else {
-      float r[kSub] = {};
-      if (residual != nullptr && packed_res) {  // this thread's 8 bits of a word
-        const unsigned word = static_cast<unsigned>(static_cast<const int*>(residual)[
-            static_cast<size_t>(row) * words_per_row + c0 / 32]);
-        const unsigned bits = (word >> (c0 % 32)) & 0xffu;
-#pragma unroll
-        for (int j = 0; j < kSub; ++j) r[j] = ((bits >> j) & 1u) ? 1.f : 0.f;
-      } else if (residual != nullptr) {
-        const float* rp =
-            static_cast<const float*>(residual) + static_cast<size_t>(row) * np + c0;
-        const float4 r0 = *reinterpret_cast<const float4*>(rp);
-        const float4 r1 = *reinterpret_cast<const float4*>(rp + 4);
-        r[0] = r0.x; r[1] = r0.y; r[2] = r0.z; r[3] = r0.w;
-        r[4] = r1.x; r[5] = r1.y; r[6] = r1.z; r[7] = r1.w;
-      }
-#pragma unroll
-      for (int j = 0; j < kSub; ++j) {
-        cur_in[j] = acc[i][j];
-        if (bias != nullptr) cur_in[j] = __fadd_rn(cur_in[j], b[j]);
-        if (residual != nullptr) cur_in[j] = __fadd_rn(cur_in[j], r[j]);
-      }
-    }
+    tile_get8(cur_tile, kRestagePitch, rl, tx, cur_in);
+    if constexpr (WithState) tile_get8(vp_tile, kTile, rl, tx, pot);
     if constexpr (!WithState) {
 #pragma unroll
       for (int j = 0; j < kSub; ++j) pot[j] = cur_in[j];
@@ -707,6 +667,272 @@ fused_pe_kernel(const void* __restrict__ x, const float* __restrict__ w,
       *dst = total;
     else
       atomicAdd(dst, total);  // the CTAs of a wide tile; integer, exact
+  }
+}
+
+// The tile of a dense f32 or bf16 activation x (the float-x tile,
+// event_gemm.cuh): a persistent CTA walks its run of 64 x 256 tiles, its
+// producer warp keeping the TMA ring filled across them. For each tile
+// the 8 consumer warps sum the QK gates of the (row, head) pairs it
+// touches into shared memory (one quarter-warp a pair, eight a warp at
+// once) while the ring fills, run the product, and then the epilogue of
+// the tile kernel without state, in registers: thread (ty, tx) of warp
+// (wm, wn) holds rows 16 wm + 2 i + ty and columns 128 wn + 64 q + 4 tx + e
+// (a thin tile: rows 2 i + ty, columns 32 warp + 2 tx + e), adds bias and
+// residual (the reference's order), thresholds, gates and masks, writes the
+// emitted current at the valid extent, its spikes (bytes, or bits of a
+// packed word joined across the word's lanes by __shfl_xor_sync), and adds
+// each warp's spike count into vld_next (zeroed by the caller) with one
+// integer atomicAdd, exact in any order. A tile in the last row of tiles
+// also writes the spikes of the rows past it (past a thin tile's 16), up
+// to mp, as zeros.
+struct FloatTileArgs {
+  CUtensorMap wmap;        // w [kp, np] f32: boxes of 32 rows by 256 columns
+  CUtensorMap xmap;        // x [m, kp]: boxes of 64 rows by 32 values, swizzled
+  const int* vld;          // x's count map [mp / 128, kp / bk], or null
+  const float* bias;       // [np] or null
+  const void* residual;    // [mp, np] f32, [mp, np / 32] words, or null
+  const void* q;           // [>= m, dq] int8 or words, or null
+  void* spikes;            // [mp, np] int8 or [mp, np / 32] words
+  int* vld_next;           // [mp / 128, np / bn], zeroed
+  float* current;          // [m, n_valid] or null
+  FloatGrid grid;
+  int m, kp, np, mp, bk, bn, n_valid, dq, head_dim, flags;
+  float v_th, qk_threshold;
+};
+
+// the consumer warps' own barrier (named barrier 1: warps 0-7, not the
+// producer warp)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory");
+}
+
+template <int XKind, bool EmitCurrent>
+__global__ void __launch_bounds__(kFloatThreads, 1)
+fused_pe_float_kernel(const __grid_constant__ FloatTileArgs a) {
+  extern __shared__ unsigned char float_smem_raw[];
+  unsigned char* const smem = wgmma_smem(float_smem_raw);   // 1024-byte aligned
+  unsigned char* const gate = smem + kFloatGates;           // [kFloatRows][n_heads]
+  // slot s's full barrier (the producer's TMA bytes) at 8 s, its empty one
+  // (the 8 consumer warps' arrivals) at 8 (kFloatStages + s)
+  const uint32_t bars = hopper::smem_u32(smem + kFloatBars);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = warp / 2, wn = warp % 2, ty = lane / 16, tx = lane % 16;
+  const bool packed_q = a.flags & kPackedQ, packed_res = a.flags & kPackedResidual;
+  const bool packed_out = a.flags & kPackedOut;
+  const int words_per_row = a.np / 32;
+  const FloatGrid& g = a.grid;
+
+  const int G = static_cast<int>(gridDim.x), c = static_cast<int>(blockIdx.x);
+  const long long cost = float_cost(g, g.full + g.ntiles);
+  const int t_begin = float_first(g, cost * c / G);
+  const int t_end = float_first(g, cost * (c + 1) / G);
+  if (t_begin >= t_end) return;
+
+  if (tid == 0) {
+    for (int s = 0; s < kFloatStages; ++s) {
+      hopper::mbar_init(bars + 8 * s, 1);
+      hopper::mbar_init(bars + 8 * (kFloatStages + s), kThreads / 32);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == kThreads / 32) {
+    // the producer warp (one lane): every step of the CTA's run, across
+    // its tiles, into slot p % kFloatStages by two TMA loads, once the 8
+    // consumer warps have released the slot's step before
+    if (lane != 0) return;
+    constexpr uint32_t kXBoxBytes = kFloatRows * kStep * (XKind == kXF32 ? 4 : 2);
+    int p = 0;
+    for (int t = t_begin; t < t_end; ++t) {
+      const int row0 = (t / g.ntiles) * kFloatRows, col0 = (t % g.ntiles) * kFloatCols;
+      FloatWalk pw;
+      pw.begin(a.vld, row0 / kTile, a.bk, a.kp, a.m);
+      for (int k0 = pw.next(); k0 >= 0; k0 = pw.next(), ++p) {
+        const int s = p % kFloatStages, use = p / kFloatStages;
+        if (use > 0) hopper::mbar_wait(bars + 8 * (kFloatStages + s), (use - 1) & 1);
+        const uint32_t bar = bars + 8 * s;
+        const uint32_t st = hopper::smem_u32(smem + s * kFloatStage);
+        hopper::mbar_expect_tx(bar, kFloatWBytes + kXBoxBytes);
+        hopper::tma_load_2d(st, &a.wmap, bar, col0, k0);
+        hopper::tma_load_2d(st + kFloatWBytes, &a.xmap, bar, k0, row0);
+      }
+    }
+    return;
+  }
+
+  int p = 0;   // the run's steps consumed
+  for (int t = t_begin; t < t_end; ++t) {
+    const int row0 = (t / g.ntiles) * kFloatRows, col0 = (t % g.ntiles) * kFloatCols;
+    const int row_blk = row0 / kTile;
+
+    // the heads this tile touches: [h_first, h_first + n_heads); the
+    // whole-row mask is one "head" over all of q's columns
+    int h_first = 0, n_heads = 1;
+    if (a.head_dim > 0) {
+      const int c_end = min(col0 + kFloatCols, a.n_valid);   // columns past it never fire
+      h_first = col0 / a.head_dim;
+      n_heads = c_end > col0 ? (c_end - 1) / a.head_dim - h_first + 1 : 0;
+    }
+    consumers_sync();   // the previous tile's epilogue is done with the gates
+    if (a.q != nullptr) {   // gate[r * n_heads + h]: rows past m never fire
+      const int q_cols = packed_q ? a.dq * 32 : a.dq;
+      const int pairs = kFloatRows * n_heads;
+      for (int pr = 8 * warp + lane / 4; pr - lane / 4 < pairs; pr += 8 * (kThreads / 32)) {
+        const int r = pr / max(n_heads, 1), hh = h_first + pr % max(n_heads, 1);
+        const bool live = pr < pairs && row0 + r < a.m;
+        int sum = 0;
+        if (live) {
+          const int lo = a.head_dim > 0 ? hh * a.head_dim : 0;
+          const int hi = a.head_dim > 0 ? lo + a.head_dim : q_cols;
+          sum = qk_quarter_sum(a.q, a.dq, packed_q, static_cast<size_t>(row0 + r), lo, hi,
+                               lane % 4);
+        }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        if (lane % 4 == 0 && pr < pairs)
+          gate[pr] = live && static_cast<float>(sum) >= a.qk_threshold ? 1 : 0;
+      }
+    }
+    consumers_sync();
+
+    FloatWalk cw;
+    cw.begin(a.vld, row_blk, a.bk, a.kp, a.m);
+    int steps = 0;
+    while (cw.next() >= 0) ++steps;
+    // a tile of at most 16 live rows takes the thin mapping (every warp on
+    // rows 0 .. 15, 32 columns each), any other the full one (warp wm, wn
+    // on rows 16 wm .., columns 128 wn ..); a warp whose rows or columns
+    // all lie past the operands' runs no FMA
+    const bool thin = a.m - row0 <= 16;
+    const int cw0 = thin ? col0 + 32 * warp : col0 + 128 * wn;   // the warp's columns
+    const bool busy = cw0 < a.np && (thin || row0 + 16 * wm < a.m);
+    float acc[kSub][kSub];
+#pragma unroll
+    for (int i = 0; i < kSub; ++i)
+#pragma unroll
+      for (int j = 0; j < kSub; ++j) acc[i][j] = 0.f;
+    for (int i = 0; i < steps; ++i, ++p) {
+      const int s = p % kFloatStages;
+      hopper::mbar_wait(bars + 8 * s, (p / kFloatStages) & 1);   // this step landed
+      if (busy) {
+        if (thin)
+          float_fmas_thin<XKind>(smem + s * kFloatStage, warp, ty, tx, acc);
+        else
+          float_fmas<XKind>(smem + s * kFloatStage, wm, wn, ty, tx, acc);
+      }
+      __syncwarp();   // the warp is done with the slot: release it
+      if (lane == 0) hopper::mbar_arrive(bars + 8 * (kFloatStages + s));
+    }
+
+    // the epilogue, NC columns c0 .. c0 + NC - 1 of tile row rl at a time
+    // (the full mapping's 4, the thin one's 2; the word of 32 columns lies
+    // in 32 / NC lanes of one row, tx's low bits)
+    int count = 0;
+    const bool cur_vec = (reinterpret_cast<uintptr_t>(a.current) % 16 == 0) &&
+                         a.n_valid % 4 == 0;
+    auto group = [&](auto nc, int rl, int c0, const float* sums) {
+      constexpr int NC = decltype(nc)::value;
+      const int row = row0 + rl;
+      const bool row_on = row < a.m;
+      float cur[NC], r[NC] = {};
+      if (a.residual != nullptr && row_on) {
+        if (packed_res) {   // this thread's NC bits of a word
+          const unsigned word = static_cast<unsigned>(static_cast<const int*>(
+              a.residual)[static_cast<size_t>(row) * words_per_row + c0 / 32]);
+#pragma unroll
+          for (int e = 0; e < NC; ++e) r[e] = ((word >> (c0 % 32 + e)) & 1u) ? 1.f : 0.f;
+        } else {
+          const float* rp = static_cast<const float*>(a.residual) +
+                            static_cast<size_t>(row) * a.np + c0;
+#pragma unroll
+          for (int e = 0; e < NC; ++e) r[e] = rp[e];
+        }
+      }
+      unsigned bits = 0;
+#pragma unroll
+      for (int e = 0; e < NC; ++e) {
+        cur[e] = sums[e];
+        if (a.bias != nullptr) cur[e] = __fadd_rn(cur[e], a.bias[c0 + e]);
+        if (a.residual != nullptr) cur[e] = __fadd_rn(cur[e], r[e]);
+        const int gs = c0 + e >= a.n_valid ? -1
+                       : a.head_dim > 0   ? (c0 + e) / a.head_dim - h_first
+                                          : 0;
+        const bool on = row_on && gs >= 0 && (a.q == nullptr || gate[rl * n_heads + gs] != 0);
+        bits |= static_cast<unsigned>(on && cur[e] >= a.v_th) << e;
+      }
+      count += __popc(bits);
+      if constexpr (EmitCurrent) {   // the current, inside the valid extent
+        if (row_on) {
+          float* dst = a.current + static_cast<size_t>(row) * a.n_valid + c0;
+          bool whole = false;
+          if constexpr (NC == 4) {
+            whole = cur_vec && c0 + 4 <= a.n_valid;
+            if (whole)
+              *reinterpret_cast<float4*>(dst) = make_float4(cur[0], cur[1], cur[2], cur[3]);
+          }
+          if (!whole) {
+#pragma unroll
+            for (int e = 0; e < NC; ++e)
+              if (c0 + e < a.n_valid) dst[e] = cur[e];
+          }
+        }
+      }
+      if (packed_out) {
+        // shift each lane's NC bits into place and OR the word's lanes
+        unsigned word = bits << (c0 % 32);
+#pragma unroll
+        for (int off = 1; off < 32 / NC; off <<= 1) word |= __shfl_xor_sync(0xffffffffu, word, off);
+        if (c0 % 32 == 0)
+          static_cast<int*>(a.spikes)[static_cast<size_t>(row) * words_per_row + c0 / 32] =
+              static_cast<int>(word);
+      } else {
+        unsigned bytes = 0;
+#pragma unroll
+        for (int e = 0; e < NC; ++e) bytes |= ((bits >> e) & 1u) << (8 * e);
+        int8_t* dst = static_cast<int8_t*>(a.spikes) + static_cast<size_t>(row) * a.np + c0;
+        if constexpr (NC == 4)
+          *reinterpret_cast<unsigned*>(dst) = bytes;
+        else
+          *reinterpret_cast<uint16_t*>(dst) = static_cast<uint16_t>(bytes);
+      }
+    };
+    if (cw0 < a.np) {
+      if (thin) {
+#pragma unroll
+        for (int i = 0; i < kSub; ++i)
+          group(std::integral_constant<int, 2>{}, 2 * i + ty, cw0 + 2 * tx, acc[i]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < kSub; ++i)
+#pragma unroll
+          for (int q = 0; q < 2; ++q)
+            group(std::integral_constant<int, 4>{}, 16 * wm + 2 * i + ty, cw0 + 64 * q + 4 * tx,
+                  &acc[i][4 * q]);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) count += __shfl_down_sync(0xffffffffu, count, off);
+      if (lane == 0 && count != 0)
+        atomicAdd(a.vld_next + row_blk * (a.np / a.bn) + cw0 / a.bn, count);
+    }
+    // the rows past the last row of tiles (and past a thin tile's 16), up
+    // to mp: no spike
+    if (t / g.ntiles == g.mtiles - 1) {
+      const int r0 = thin ? row0 + 16 : row0 + kFloatRows, cols = min(kFloatCols, a.np - col0);
+      if (packed_out) {
+        const int words = cols / 32;
+        for (int i = tid; i < (a.mp - r0) * words; i += kThreads)
+          static_cast<int*>(a.spikes)[static_cast<size_t>(r0 + i / words) * words_per_row +
+                                      col0 / 32 + i % words] = 0;
+      } else {
+        const int units = cols / 16;
+        for (int i = tid; i < (a.mp - r0) * units; i += kThreads)
+          *reinterpret_cast<uint4*>(static_cast<int8_t*>(a.spikes) +
+                                    static_cast<size_t>(r0 + i / units) * a.np + col0 +
+                                    16 * (i % units)) = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
   }
 }
 
@@ -889,15 +1115,11 @@ void launch(const void* x, const float* w, const uint16_t* ws, const Route& rout
             int np, int bn, int m_valid, int n_valid, float v_th,
             float qk_threshold, int head_dim, int flags, cudaStream_t stream) {
   const auto kernel = fused_pe_kernel<XKind, EmitCurrent, Skip, WithState>;
-  int smem = 0;
-  if constexpr (kSpikeX<XKind>) {
-    smem = kSpikeSmemBytes;
-    static const cudaError_t attr =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    (void)attr;  // a refusal shows as the launch's own error
-  }
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSpikeSmemBytes);
+  (void)attr;  // a refusal shows as the launch's own error
   const dim3 grid(np / kTile, mp / kTile);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, kSpikeSmemBytes, stream>>>(
       x, w, ws, route, st.hist, bias, residual, q, dq, spikes, vld_next, current, st.v_prev,
       st.s_prev, st.v_next, st.v_used, kp, np, bn, m_valid, n_valid, v_th, qk_threshold,
       st.tau, head_dim, flags);
@@ -939,10 +1161,14 @@ constexpr Launch pick_decode(int m_valid) {
 // route's skip, or a float x's on the decode route; each set is
 // instantiated in a source of its own, so that the nvcc processes, all
 // started together, build them in parallel: the int8 stateless launches
-// and the float x tile ones in fused_pe.cu, and
+// in fused_pe.cu, and
 Launch pick_decode_float(int x_kind, int m_valid);   // fused_pe_decode.cu
 Launch pick_packed(bool emit, int skip);             // fused_pe_packed.cu
 Launch pick_state_int8(bool emit, int skip);         // fused_pe_state.cu
 Launch pick_state_packed(bool emit, int skip);       // fused_pe_state_packed.cu
+// and the float-x tile's launch (fused_pe_float.cu): the maps encoded, the
+// persistent grid; 0, a CUDA error, or hopper::kEncodeError + a CUresult
+int launch_float_tile(int x_kind, bool emit, FloatTileArgs& a, const void* x, const float* w,
+                      cudaStream_t stream);
 
 }  // namespace repro

@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks written in PTX: mbarriers, TMA tile
 // loads through a CUtensorMap, cp.async, wgmma shared-memory descriptors
 // and the bf16 wgmma shapes that the flash attention route and the dw
-// kernel run, setmaxnreg, and the host-side encoding of a 4-D bf16 tensor
-// map.
+// kernel run, setmaxnreg, and the host-side encoding of 2-D and 4-D tensor
+// maps.
 // Used by flash_attention_wgmma.cu, spike_matmul.cu, spike_matmul_dw.cu,
-// event_wgmma.cuh and (cp.async alone) w2ttfs_pool.cu.
+// event_wgmma.cuh, event_gemm.cuh (the float-x tile) and (cp.async alone)
+// w2ttfs_pool.cu.
 //
 // Shared-memory layouts are the canonical swizzled ones that TMA writes
 // and wgmma reads: a tile of R rows by W bf16 columns (W = 64 with the
@@ -85,6 +86,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// the 2-D box of `map` at element coordinates (c0 innermost, c1) into
+// shared memory at `dst`, counted on `bar`; elements outside arrive as zeros
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -308,6 +320,24 @@ inline EncodeTiled encode_tiled() {
       fn = reinterpret_cast<EncodeTiled>(p);
   }
   return fn;
+}
+
+// A row-major 2-D tensor of `outer` rows of `inner` elements, `row_bytes`
+// apart, as a map of boxes `box_outer` rows by `box_inner` elements,
+// swizzled as `swizzle` says. Returns 0 or kEncodeError + the CUresult.
+inline int encode_2d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                     uint64_t inner, uint64_t outer, uint64_t row_bytes, uint32_t box_inner,
+                     uint32_t box_outer, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return kEncodeError + CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {box_inner, box_outer};
+  const cuuint32_t steps[2] = {1, 1};
+  const CUresult r = fn(map, type, 2, const_cast<void*>(base), dims, strides, box, steps,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(r);
 }
 
 // A bf16 tensor [batch, rows, heads, d], contiguous, as a 4-D map whose

@@ -6,8 +6,9 @@ Spike operands (x, q, residual) may be int8 maps or ``PackedSpikes``, and
 ``vld_cnt`` is the kernel's ``vld_next``; each packed operand selects the
 kernel's packed variant for it (``Packing``). x may also be a dense f32 or
 bf16 activation (``ops.dense_lif``, the LM's projections of its residual
-stream): it takes the dense route on an all-ones vld map, since a float
-operand is not recounted for silent blocks. ``skip`` is the byte-skip
+stream): it takes the dense skip, read at its own rows with no vld map (a
+float operand is not recounted for silent blocks), on the float-x tile
+that ``float_tile_plan`` cuts. ``skip`` is the byte-skip
 strategy of ``spike_matmul`` (``"dense"``, or the gated walks, launched
 with a ``Gate``), and the blocks are the autotuner's: x's metadata grid
 is 128 x ``block_k`` and the emitted ``vld_next`` tiles the output on 128 x
@@ -20,15 +21,18 @@ the spikes; a dense activation x takes no state. ``emit_current=True``
 thresholded from. ``fused_pe_layer`` runs a [T, M, K] spike train: one
 stateless launch at T=1, the stateful kernel scanned over time otherwise.
 
-On the card a launch takes the route ``pick_route`` gives it: the 128-row
-tile, or for a dense activation x of at most 64 rows on the dense skip,
-without residual, state or emitted current (the LM's projections at its
-decode ticks and prefill chunks), the decode route, which gives the same
-bits and reads x and q at their own rows, unpadded, and x without a vld
-map (``fused_pe_operands(..., route="decode")``).
+On the card a launch takes the route ``pick_route`` gives it: the tile
+(a spike x's 128 x 128 tensor-core tile, or the float-x tile), or for a
+dense activation x of at most 64 rows on the dense skip, without residual,
+state or emitted current (the LM's projections at its decode ticks and
+prefill chunks), the decode route, which gives the float-x tile's bits. A
+float x's operands are the same on both routes: x and q at their own rows,
+x without a vld map; ``fused_pe_tile_operands`` pads them to whole 128-row
+blocks for the plain version.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Union
 
 import torch
@@ -39,12 +43,12 @@ from ...core.events import (LANE_BITS, PackedSpikes, block_count_map_2d,
 from ...tree import derived
 from .. import _build
 from ..packed.ops import pack_spikes, unpack_spikes
-from ..spike_matmul.ops import (DECODE_ROWS, ROUTE_IDS, SKIP_IDS, TILE, Gate,
-                                check_block_contract, check_route,
+from ..spike_matmul.ops import (DECODE_ROWS, ROUTE_IDS, SKIP_IDS, SMS, TILE,
+                                Gate, check_block_contract, check_route,
                                 check_width, make_gate, packed_operand,
-                                row_vld, rows_padded, weight_operand,
-                                x_occupancy)
-from .ref import LIFState, Packing, fused_pe_block_ref, head_gate, split_weight
+                                row_vld, weight_operand, x_occupancy)
+from .ref import (LIFState, Packing, fused_pe_block_ref,
+                  fused_pe_tile_operands, head_gate, split_weight)
 
 Spikes = Union[torch.Tensor, PackedSpikes]
 
@@ -53,6 +57,71 @@ Spikes = Union[torch.Tensor, PackedSpikes]
 FLOAT_X_FLAGS = {torch.float32: 16, torch.bfloat16: 32}
 # the flag bit of a soft reset (a stateful launch)
 SOFT_RESET_FLAG = 64
+# the float-x tile (csrc/event_gemm.cuh): 64 rows by 256 columns, one CTA
+# an SM (its ring takes 160 KB of shared memory)
+FLOAT_TILE_M, FLOAT_TILE_N = 64, 256
+FLOAT_TILE_RESIDENT = 1
+# a tile of at most this many live rows takes the thin mapping
+FLOAT_TILE_THIN = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class FloatTilePlan:
+    """The float-x tile's cut of an [M, K] @ [K, N] launch: ``mtiles`` x
+    ``ntiles`` tiles of ``block_m`` x ``block_n``, n fastest; the first
+    ``full`` cost two halves of a tile's time each, those of the last row
+    ``tail`` each (1 where that row has at most 16 live rows: the kernel's
+    thin mapping spreads them over every warp); ``ctas`` persistent CTAs,
+    each a run of tiles of about one full tile's cost
+    (``float_tile_runs``)."""
+    block_m: int
+    block_n: int
+    mtiles: int
+    ntiles: int
+    full: int
+    tail: int
+    ctas: int
+
+    def cost(self, t: int) -> int:
+        """Halves of a tile's time of tiles [0, t)."""
+        return (2 * t if t <= self.full
+                else 2 * self.full + self.tail * (t - self.full))
+
+    def first(self, c: int) -> int:
+        """The first tile whose cumulative cost reaches ``c`` halves."""
+        if c <= 2 * self.full:
+            return (c + 1) // 2
+        return self.full + -(-(c - 2 * self.full) // self.tail)
+
+
+def float_tile_plan(m: int, n: int, k: int) -> FloatTilePlan:
+    """The float-x tile's plan for an [M, K] @ [K, N] launch (N the padded
+    output's columns; K, common to every tile, shapes nothing): 64 x 256
+    tiles, and ceil(cost / 2) persistent CTAs, at most the ``SMS`` x
+    ``FLOAT_TILE_RESIDENT`` the card holds at once, so a launch of at most
+    that many tiles' cost runs one balanced wave. The C twin is
+    ``float_grid`` and the launch in ``csrc/fused_pe_float.cu``. At the LM
+    step's 1032 rows by 2048: 128 full tiles and 8 thin tiles of 8 live
+    rows, 132 CTAs."""
+    mtiles = max(1, -(-m // FLOAT_TILE_M))
+    ntiles = -(-n // FLOAT_TILE_N)
+    full = (mtiles - 1) * ntiles
+    tail = 2 if m - (mtiles - 1) * FLOAT_TILE_M > FLOAT_TILE_THIN else 1
+    total = 2 * full + tail * ntiles
+    ctas = max(1, min(SMS * FLOAT_TILE_RESIDENT, -(-total // 2)))
+    return FloatTilePlan(FLOAT_TILE_M, FLOAT_TILE_N, mtiles, ntiles, full, tail,
+                         ctas)
+
+
+def float_tile_runs(plan: FloatTilePlan) -> list[range]:
+    """Each CTA's run of tiles (``t // ntiles`` the row, ``t % ntiles`` the
+    column of tile t): CTA c takes the tiles whose cumulative cost starts
+    in [C c / G, C (c + 1) / G), C the launch's cost and G its CTAs (the
+    kernel's own split)."""
+    total = plan.cost(plan.full + plan.ntiles)
+    return [range(plan.first(total * c // plan.ctas),
+                  plan.first(total * (c + 1) // plan.ctas))
+            for c in range(plan.ctas)]
 
 
 def spike_operand(x: torch.Tensor) -> torch.Tensor:
@@ -119,20 +188,21 @@ def count_scratch(device, stream: int, tiles: int) -> torch.Tensor:
 
 def launch_outputs(mp: int, np_: int, m_valid: int, n_valid: int,
                    packing: Packing, block_n: int, stateful: bool,
-                   route: str, device) -> tuple:
+                   route: str, device, *, float_x: bool = False) -> tuple:
     """The outputs one launch writes, allocated: spikes [mp, np_] int8 or
     [mp, np_/32] words, vld_next [mp/128, np_/block_n] int32, and v_next
     and the current at the valid extent (None where the launch has none).
-    The kernel writes every spike position, padded rows included; the tile
-    route's 256-wide count tiles add their two CTAs' counts into a zeroed
-    vld_next (integer atomics, exact in any order); the decode route writes
-    vld_next whole (``count_scratch``)."""
+    The kernel writes every spike position, padded rows included. On the
+    tile route, a spike x's 256-wide count tiles and every tile of a float
+    x (``float_x``) add their counts into a zeroed vld_next (integer
+    atomics, exact in any order); the decode route writes vld_next whole
+    (``count_scratch``), and so does a spike x's 128-wide count tile."""
+    added = route == "tile" and (block_n != TILE or float_x)
     if packing.out:
         spikes = torch.empty((mp, np_ // LANE_BITS), dtype=torch.int32,
                              device=device)
     else:
         spikes = torch.empty((mp, np_), dtype=torch.int8, device=device)
-    added = route == "tile" and block_n != TILE
     vld_next = (torch.zeros if added else torch.empty)(
         (mp // TILE, np_ // block_n), dtype=torch.int32, device=device)
     v_next = (torch.empty((m_valid, n_valid), dtype=torch.float32,
@@ -162,10 +232,9 @@ def fused_pe_cuda(xp: torch.Tensor, wp: torch.Tensor,
     and a state that carries its train's earlier steps (``state.x_hist``)
     the launch also returns, last, the state the spikes were decided on:
     v_prev, but where the near-threshold recheck replayed those steps. No
-    operand is written.
-    ``route="decode"`` launches
-    the decode route (a dense activation x of at most 64 rows on the dense
-    skip, without residual, state or emitted current): x and q need only
+    operand is written. A dense activation x (the float-x tile, or with
+    ``route="decode"`` the decode route: at most 64 rows on the dense skip,
+    without residual, state or emitted current) needs x and q only at
     their first m_valid rows, ``vld`` may be None (every block kept), and
     the outputs have x's rows padded to 128. Does not count."""
     dev = xp.device
@@ -173,19 +242,21 @@ def fused_pe_cuda(xp: torch.Tensor, wp: torch.Tensor,
         raise ValueError(f"fused_pe_cuda needs CUDA tensors, got {dev}")
     check_route(route, "dense" if gate is None else gate.skip)
     decode = route == "decode"
+    float_x = not packing.x and xp.dtype in FLOAT_X_FLAGS
     rows = xp.shape[0]
-    mp = -(-rows // TILE) * TILE if decode else rows
+    mp = -(-rows // TILE) * TILE if float_x else rows
     kp, np_ = wp.shape
     check_width("block_n", block_n)
     gk = None if vld is None else vld.shape[1]
     if mp % TILE or kp % TILE or np_ % block_n or (gk and kp % gk):
         raise ValueError(f"operands must be {TILE}-aligned: x {tuple(xp.shape)}"
                          f", w {tuple(wp.shape)}, block_n {block_n}")
-    if gk is None and not decode:
-        raise ValueError("the tile route reads a vld map")
+    if gk is None and not float_x:
+        raise ValueError("a spike x's tile reads a vld map")
     bk = kp // gk if gk else TILE
     check_width("block_k", bk)
-    if not (0 <= m_valid <= mp and 0 <= n_valid <= np_):
+    if not (0 <= m_valid <= mp and 0 <= n_valid <= np_) or (
+            float_x and m_valid > rows):
         raise ValueError(f"valid extent ({m_valid}, {n_valid}) outside the "
                          f"padded [{mp}, {np_}]")
     if decode and (xp.dtype not in FLOAT_X_FLAGS or rp is not None
@@ -231,8 +302,8 @@ def fused_pe_cuda(xp: torch.Tensor, wp: torch.Tensor,
     dq = 0
     if qp is not None:
         dq = qp.shape[1]                  # words per row when packed
-        # the decode route reads q's first m_valid rows
-        q_rows = qp.shape[0] if decode and qp.shape[0] >= m_valid else mp
+        # a float x's routes read q's first m_valid rows
+        q_rows = qp.shape[0] if float_x and qp.shape[0] >= m_valid else mp
         if packing.q:
             _build.require(qp, "q", torch.int32, (q_rows, dq), dev, align=4)
         else:
@@ -252,7 +323,7 @@ def fused_pe_cuda(xp: torch.Tensor, wp: torch.Tensor,
             flags |= SOFT_RESET_FLAG
     spikes, vld_next, v_next, current = launch_outputs(
         mp, np_, m_valid, n_valid, packing, block_n, state is not None,
-        route, dev)
+        route, dev, float_x=float_x)
     nact, kmap, occ = gate if gate is not None else (None, None, None)
     x_hist = r_hist = v_used = None
     if state is not None and state.x_hist is not None:
@@ -316,7 +387,7 @@ def fused_pe_operands(x: Spikes, w: torch.Tensor, *,
     """The block-aligned operands of one launch, in the order
     ``fused_pe_cuda`` and ``fused_pe_block_ref`` take them: x (int8, f32 or
     bf16, or a packed x's words), w padded to x's padded K and to
-    ``block_n``, the vld map (all ones for a float x without one), bias
+    ``block_n``, the vld map (None for a float x without one), bias
     padded to Np, the residual (f32, an int8 binary shortcut cast as the
     reference wrapper casts it, or a packed one's words), q (int8 padded to
     128 columns, or words), then the valid extent, the thresholds, the
@@ -335,12 +406,13 @@ def fused_pe_operands(x: Spikes, w: torch.Tensor, *,
     ``rh[:t]``, ride in the ``LIFState`` for the kernel's near-threshold
     recheck (none at t = 0).
 
-    ``route="decode"`` gives the decode route's operands (a dense
-    activation x without residual, state or emitted current), in the same
-    order: x and q at their own rows (only their columns padded; packed
-    words come padded), and no vld map without one (the route then keeps
-    every block). ``fused_pe_tile_operands`` pads them back to the
-    tile's."""
+    A dense activation x's operands are the same on both routes (the
+    float-x tile, and ``route="decode"``, which takes one without residual,
+    state or emitted current): x and q at their own rows (only their
+    columns padded; packed words come padded; x copied only where its K is
+    not a whole number of blocks or it is not 16-byte aligned), and no vld
+    map without one (the routes then keep every block).
+    ``fused_pe_tile_operands`` pads them to whole 128-row blocks."""
     if out_format not in ("dense", "packed"):
         raise ValueError(f"out_format={out_format!r} not in "
                          f"('dense', 'packed')")
@@ -348,7 +420,8 @@ def fused_pe_operands(x: Spikes, w: torch.Tensor, *,
     check_width("block_k", block_k)
     check_route(route, skip)
     decode = route == "decode"
-    bm = 1 if decode else TILE          # the row padding of dense operands
+    float_x = not isinstance(x, PackedSpikes) and x.dtype in FLOAT_X_FLAGS
+    bm = 1 if float_x else TILE         # the row padding of dense operands
     m0, k0 = x.shape
     n0 = w.shape[1]
     if w.shape[0] != k0:
@@ -365,15 +438,13 @@ def fused_pe_operands(x: Spikes, w: torch.Tensor, *,
     else:
         xp = (train_step(train, 0, (m0, k0), block_k) if train is not None
               else pad_to_blocks(spike_operand(x), bm, block_k).contiguous())
-        if xp.dtype in FLOAT_X_FLAGS:
+        if float_x:
             if skip != "dense":
                 raise ValueError(f"a dense activation x takes skip='dense', "
                                  f"not {skip!r}")
-            if vld_cnt is None and not decode:  # no silent blocks to find:
-                vld_cnt = torch.ones((xp.shape[0] // TILE,  # never recount
-                                      xp.shape[1] // block_k),
-                                     dtype=torch.int32, device=xp.device)
-        if decode:
+            if xp.data_ptr() % 16:      # the routes load 16 bytes at a time
+                xp = xp.clone()
+            # no silent blocks to find: every block kept, never recounted
             vld = None if vld_cnt is None else row_vld(xp, vld_cnt, block_k)
         else:
             vld = vld_or_compute(xp, vld_cnt, TILE, block_k).contiguous()
@@ -460,20 +531,6 @@ def weight_split(w: torch.Tensor, wp: torch.Tensor, block_k: int,
         return derived(root, ("fused_pe bf16x3", view, tuple(wp.shape),
                               block_k, block_n),
                        lambda: split_weight(wp.detach()))
-
-
-def fused_pe_tile_operands(args: tuple) -> tuple:
-    """The 128-row tile's operands of a launch's operands (either route's):
-    x and q with their rows zero-padded to whole 128-row blocks, and the
-    all-ones vld map of a float x read without one, on which the tile route
-    computes the decode route's outputs."""
-    xp, wp, vld, bp, rp, qp, *rest = args
-    xp = rows_padded(xp)
-    if vld is None:
-        vld = torch.ones((xp.shape[0] // TILE, wp.shape[0] // TILE),
-                         dtype=torch.int32, device=xp.device)
-    return (xp, wp, vld, bp, rp, None if qp is None else rows_padded(qp),
-            *rest)
 
 
 def fused_pe(x: Spikes, w: torch.Tensor, *,

@@ -177,6 +177,23 @@ def split_product(x: torch.Tensor, wp: torch.Tensor, vld: torch.Tensor,
     return out
 
 
+def fused_pe_tile_operands(args: tuple) -> tuple:
+    """A launch's operands (``fused_pe_operands``'s, either route's) padded
+    to whole 128-row blocks, as the plain versions read them: a float x and
+    its q, read at their own rows, zero-padded, and the all-ones vld map of
+    a float x without one; a spike x's operands as they are. The float-x
+    tile computes the same outputs on these as on the unpadded ones (it
+    never reads x's rows past m_valid)."""
+    xp, wp, vld, bp, rp, qp, *rest = args
+    xp = pad_to_blocks(xp, 128, 1).contiguous()
+    if vld is None:
+        vld = torch.ones((xp.shape[0] // 128, wp.shape[0] // 128),
+                         dtype=torch.int32, device=xp.device)
+    if qp is not None:
+        qp = pad_to_blocks(qp, 128, 1).contiguous()
+    return (xp, wp, vld, bp, rp, qp, *rest)
+
+
 def fused_pe_block_ref(xp: torch.Tensor, wp: torch.Tensor, vld: torch.Tensor,
                        bp: Optional[torch.Tensor], rp: Optional[torch.Tensor],
                        qp: Optional[torch.Tensor], m_valid: int, n_valid: int,
@@ -207,7 +224,11 @@ def fused_pe_block_ref(xp: torch.Tensor, wp: torch.Tensor, vld: torch.Tensor,
     ``packing.current`` the f32 current [m_valid, n_valid] the spikes were
     thresholded from, and with ``state_out`` and a ``state`` that carries
     its train's earlier steps the state the spikes were decided on
-    (``v_prev`` here: the plain version replays nothing)."""
+    (``v_prev`` here: the plain version replays nothing). A float x and its
+    q may come at their own rows, and then without a vld map
+    (``fused_pe_tile_operands``)."""
+    xp, wp, vld, bp, rp, qp = fused_pe_tile_operands(
+        (xp, wp, vld, bp, rp, qp))
     x = unpack_words(xp) if packing.x else xp
     r = unpack_words(rp, torch.float32) if packing.residual else rp
     q = unpack_words(qp) if packing.q else qp

@@ -110,9 +110,9 @@ def test_fused_pe_decode_operands_refuse_what_the_route_lacks(x_kind, extra):
 def test_fused_pe_decode_operands_pad_back_to_the_tiles(m, x_kind, q_kind,
                                                         out_format):
     """x and q at their own m rows (columns padded; packed words come
-    128-row padded), no vld map, in the tile's order; padded back, the
-    tile route's operands tensor for tensor, and the plain version on them
-    gives the wrapper's spikes."""
+    128-row padded), no vld map, in the tile's order, on both routes (the
+    float-x tile reads the same operands); padded to whole 128-row blocks,
+    the plain version on them gives the wrapper's spikes."""
     rng = np.random.default_rng(m)
     k, h, dh = 200, 3, 48
     n = h * dh
@@ -131,9 +131,10 @@ def test_fused_pe_decode_operands_pad_back_to_the_tiles(m, x_kind, q_kind,
     assert dec[15] is None and tile[15] is None    # a float x has no split
     if qp is not None:
         assert qp.shape[0] == (128 if q_kind == "packed" else m)
+    assert _same(dec, tile)
     back = F.fused_pe_tile_operands(dec)
-    assert _same(back, tile)
-    assert _same(F.fused_pe_tile_operands(tile), tile)
+    assert back[0].shape[0] == 128 and back[2].shape == (1, 2)
+    assert _same(F.fused_pe_tile_operands(back), back)
     for t in (back[0], back[5]):                   # the padded rows: zeros
         if t is not None and not t.dtype == torch.int32:
             assert not bool(t[m:].ne(0).any())

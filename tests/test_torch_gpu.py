@@ -1319,8 +1319,8 @@ def _same(a, b):
 
 
 def _both_routes(K, args):
-    """The decode route on its own operands and on the 128-row tile's,
-    and the tile route on the tile's, for one fused PE launch."""
+    """The decode route on its own operands and on the tile's padded ones,
+    and the tile route on the padded ones, for one fused PE launch."""
     tile = K.fused_pe_tile_operands(args)
     return (K.fused_pe_cuda(*args, route="decode"),
             K.fused_pe_cuda(*tile, route="decode"), K.fused_pe_cuda(*tile))
@@ -1333,7 +1333,7 @@ def test_decode_route_heads_bit_equal_to_tile(cuda, m, dh, h, dtype, pq,
                                              pout):
     """The LM's head-blocked, dense-activation pass (the HEAD_VARIANTS
     axes, with a bias) on the decode route: spikes, vld_next and packed
-    words equal to the 128-row tile's bit for bit, padded rows included,
+    words equal to the tile route's bit for bit, padded rows included,
     on the decode route's own operands and on the tile's."""
     from repro_torch.kernels import fused_pe as K
     from repro_torch.kernels.packed import pack_spikes_ref
@@ -1875,3 +1875,154 @@ def test_lm_train_step_fused_against_reference(cuda):
         d = torch.linalg.vector_norm((a - b).double())
         n = torch.linalg.vector_norm(b.double())
         assert float(d) <= 1e-3 * float(n)
+
+
+# ------------------------------------------------------- the float-x tile
+# the LM step's rows (8 x 129, a thin last tile of 8 rows), a ragged 65
+# and 129 (one live row past whole 64-row tiles) and 100 (a last tile of 36
+# rows on the full mapping, its last two row warps idle)
+FLOAT_TILE_ROWS = [65, 100, 129, 1032]
+
+
+def _float_tile_oracle(K, args):
+    """A float-x launch's outputs from the fused multiply-add chain over k
+    ascending (``fma_chain``, the tile's own sums) on the padded operands:
+    ((sum + bias) + residual) thresholded, gated, masked to the valid
+    extent; vld_next its block counts; the current at the valid extent."""
+    from repro_torch.core.events import (block_count_map_2d, pack_words,
+                                         unpack_words)
+    from repro_torch.kernels.chain import fma_chain
+
+    (xp, wp, vld, bp, rp, qp, m0, n0, v_th, qk, packing, block_n, _, heads,
+     _, _) = K.fused_pe_tile_operands(args)
+    cur = fma_chain(xp, wp)
+    if bp is not None:
+        cur = cur + bp.reshape(1, -1)
+    if rp is not None:
+        cur = cur + (unpack_words(rp, torch.float32) if packing.residual
+                     else rp)
+    spk = (cur >= v_th).to(torch.int8)
+    if qp is not None:
+        q = unpack_words(qp) if packing.q else qp
+        if heads is not None:
+            spk[:, :heads[0] * heads[1]] *= K.head_gate(q, heads, qk)
+        else:
+            spk *= (q.to(torch.float32).sum(dim=1, keepdim=True)
+                    >= qk).to(torch.int8)
+    spk[m0:] = 0
+    spk[:, n0:] = 0
+    return (pack_words(spk) if packing.out else spk,
+            block_count_map_2d(spk, 128, block_n), cur[:m0, :n0])
+
+
+def _filled_outputs(monkeypatch, K):
+    """Every launch's spikes and current preset to 0x7f7f7f7f bytes, so an
+    output the kernel does not write shows (vld_next is zeroed: the tile
+    adds into it)."""
+    real = K.ops.launch_outputs
+
+    def filled(*a, **kw):
+        spikes, vld_next, v_next, current = real(*a, **kw)
+        spikes.view(torch.int8).fill_(0x7f)
+        if current is not None:
+            current.view(torch.int32).fill_(0x7f7f7f7f)
+        return spikes, vld_next, v_next, current
+
+    monkeypatch.setattr(K.ops, "launch_outputs", filled)
+
+
+@pytest.mark.parametrize("m", FLOAT_TILE_ROWS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ["wq", "wk", "bias and residual"])
+def test_float_tile_is_the_fma_chain(cuda, monkeypatch, m, dtype, variant):
+    """The float-x tile at the LM's widths (K = N = 2048): wq (no q), the
+    grouped wk expanded to the query heads with the head-blocked mask (q
+    int8 and packed), and a bias with an f32 and a packed residual under
+    the whole-row mask; each with the emitted current and without, int8
+    and packed out, block_n 128 and 256, into outputs preset to
+    0x7f7f7f7f. The current is the fused multiply-add chain bit for bit,
+    the spikes, packed words and vld_next are the chain's (every position
+    written, padded rows included), the packed map is the int8 one, and
+    the spikes equal the plain version's (cuBLAS's order) away from v_th."""
+    from repro_torch.core.events import unpack_words
+    from repro_torch.kernels import fused_pe as K
+    from repro_torch.kernels.packed import pack_spikes_ref
+
+    _filled_outputs(monkeypatch, K)
+    gen = torch.Generator(device=cuda).manual_seed(m + 17 * len(variant))
+    k = n = 2048
+    x = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+    kw, qs = {}, [None]
+    if variant == "wq":
+        w = torch.randn((k, n), generator=gen, device=cuda) / k ** 0.5
+    elif variant == "wk":
+        w = (torch.randn((k, 8, 1, 128), generator=gen, device=cuda)
+             / k ** 0.5).expand(k, 8, 2, 128).reshape(k, n).contiguous()
+        q = (x.to(torch.float32) @ w >= 1.0).to(torch.int8)
+        qs = [q, pack_spikes_ref(q)]
+        kw = dict(heads=(16, 128), qk_threshold=20.0)
+    else:
+        w = torch.randn((k, n), generator=gen, device=cuda) / k ** 0.5
+        q = (torch.rand((m, 512), generator=gen, device=cuda) < 0.3
+             ).to(torch.int8)
+        qs = [q]
+        r = (torch.rand((m, n), generator=gen, device=cuda) < 0.3
+             ).to(torch.int8)
+        kw = dict(bias=0.2 * torch.randn((n,), generator=gen, device=cuda),
+                  qk_threshold=150.0)
+    for block_n in (128, 256):
+        residuals = ([None] if variant != "bias and residual" else
+                     [0.5 * torch.randn((m, n), generator=gen, device=cuda),
+                      pack_spikes_ref(r, block_m=128, block_k=block_n)])
+        for qq in qs:
+            for res in residuals:
+                maps = []
+                for emit in (True, False):
+                    for fmt in ("dense", "packed"):
+                        args = K.fused_pe_operands(
+                            x, w, q=qq, residual=res, out_format=fmt,
+                            emit_current=emit, block_n=block_n, **kw)
+                        assert args[0].shape[0] == m and args[2] is None
+                        got = K.fused_pe_cuda(*args)
+                        spk, vld, cur = _float_tile_oracle(K, args)
+                        what = (f"{variant} q {type(qq).__name__} residual "
+                                f"{type(res).__name__} bn {block_n} emit "
+                                f"{emit} {fmt}")
+                        assert torch.equal(got[0], spk), what
+                        assert torch.equal(got[1], vld), what
+                        if emit:
+                            assert torch.equal(got[2], cur), what
+                        maps.append(unpack_words(got[0]) if fmt == "packed"
+                                    else got[0])
+                        want = K.fused_pe_block_ref(*args)
+                        p_spk = (unpack_words(want[0]) if fmt == "packed"
+                                 else want[0])
+                        near = torch.zeros_like(p_spk, dtype=torch.bool)
+                        near[:m, :n] = (cur - 1.0).abs() < 1e-4
+                        assert not bool(((maps[-1] != p_spk) & ~near).any())
+                assert all(torch.equal(maps[0], t) for t in maps[1:])
+
+
+@pytest.mark.parametrize("m", [1, 33, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_float_tile_bit_equal_to_the_decode_route(cuda, m, dtype):
+    """At most 64 rows (the LM's decode ticks and prefill chunks) the
+    decode route gives the float-x tile's spikes, packed words and
+    vld_next bit for bit, padded rows included, at the LM's widths."""
+    from repro_torch.kernels import fused_pe as K
+    from repro_torch.kernels.packed import pack_spikes_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    k = n = 2048
+    x = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+    w = torch.randn((k, n), generator=gen, device=cuda) / k ** 0.5
+    q = (torch.rand((m, n), generator=gen, device=cuda) < 0.05).to(
+        torch.int8)
+    for qq in (None, q, pack_spikes_ref(q)):
+        for fmt in ("dense", "packed"):
+            kw = dict(q=qq, out_format=fmt, qk_threshold=5.0,
+                      heads=None if qq is None else (16, 128))
+            args = K.fused_pe_operands(x, w, **kw)
+            assert K.pick_route(x, "dense") == "decode"
+            assert _same(K.fused_pe_cuda(*args, route="decode"),
+                         K.fused_pe_cuda(*args))
