@@ -220,6 +220,36 @@ Phases, in order; any failure raises and the script exits non-zero:
              current bit for bit against the fused multiply-add chain over
              k ascending (``fma_chain``), the kernel's own order. Its first
              step's launches feed the timing phase's rows ``*_lm_train``.
+10. families — (run while the earlier launches wait in host memory) the
+             other LM families at their published widths and depths on
+             random weights from a CUDA ``torch.Generator`` seed 0, through
+             ``build_model`` and ``init``, each freed before the next, on
+             8-request greedy traces from ``numpy.random.default_rng(0)``
+             (16 new tokens each) through the serve phase's engine (16
+             slots, 512 rows, 64-token chunks), every engine run gated
+             equal to a direct loop at the engine's shapes (its buckets,
+             chunks, slot pool and per-slot lengths): olmoe-1b-7b spiking
+             ``qk_spiking`` under ``fused_dense``, ``fused_packed`` and
+             ``reference`` (K2 twice and K3 once a layer a tick and a
+             chunk, packed tokens equal dense's; a decode tick's launches
+             feed the rows ``*_olmoe``) and as published (softmax, the
+             MoE FFN); mamba2-130m and zamba2-7b chunked (on ssm_chunk
+             128) and blocking; phi-3-vision-4.2b spiking ``qk_spiking``:
+             a prefill of 4 x 1024 seeded patch embeddings (merged to 256
+             by spike counts) and 64 text tokens, 16 ``decode_step``s,
+             then the engine on the text trace (rows ``*_phi3``);
+             seamless-m4t-large-v2: a prefill of 4 x 256 seeded frames
+             (pooled to 128) and a 16-token target, 32 ``decode_step``s.
+             A ``[families]`` line a config: parameters, peak memory,
+             prefill, the decode tick's p50 / p99, tokens/s, a bare
+             tick's device busy and idle share. The f32 variants (full
+             width, 4 layers; zamba2 9, one group under its shared
+             attention site): spiking olmoe and phi-3 teacher-forced under
+             the three policies (spike totals 0.1 %, top-1 99 %); mamba2,
+             zamba2 and seamless (4 + 4 layers) decode equal to a longer
+             prefill's continuation (2e-3), mamba2 and zamba2 chunked
+             prefill equal to blocking (1e-4, greedy tokens exactly; at
+             bf16 the tokens are compared for information).
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Without a
@@ -495,6 +525,21 @@ ROWS.update({
                                  "src/repro/kernels/spike_matmul/"
                                  "backward.py:162"),
 })
+# the other LM families (phase 10): one decode tick at 16 slots of the
+# spiking QKFormer olmoe-1b-7b (16 heads of 128 over d_model 2048) and
+# phi-3-vision-4.2b (32 heads of 96 over 3072) under fused_dense, two fused
+# PE passes and one spike matmul a layer
+FAMILY_PATH = "families {} fused_dense decode"
+FAMILY_ROWS = {"olmoe": "olmoe-1b-7b", "phi3": "phi-3-vision-4.2b"}
+for _tag, _arch in FAMILY_ROWS.items():
+    ROWS[f"fused_pe_heads_{_tag}"] = (
+        "fused_pe", FAMILY_PATH.format(_arch),
+        "src/repro_torch/csrc/fused_pe.cuh",
+        "src/repro/kernels/fused_pe/fused_pe.py:362")
+    ROWS[f"spike_matmul_lm_{_tag}"] = (
+        "spike_matmul", FAMILY_PATH.format(_arch),
+        "src/repro_torch/csrc/spike_matmul.cu",
+        "src/repro/kernels/spike_matmul/spike_matmul.py:83")
 # where a gated kernel's row reads its launches, in order of preference:
 # the auto paths, then the explicit-skip launches on the model's operands
 GATED_PATHS = ("auto_packed quiet", "auto quiet", "auto_packed busy",
@@ -3355,7 +3400,7 @@ TICK_ITERS = 10               # timed decode ticks at 16 live slots
 def serve_namespace():
     """The LM, engine and config entry points the serve and softmax phases
     drive."""
-    from repro_torch.configs import get_config
+    from repro_torch.configs import build_model, get_config
     from repro_torch.models import attention, layers
     from repro_torch.models.lm import LM, spike_totals
     from repro_torch.ops import attention as ops_attention
@@ -3364,7 +3409,8 @@ def serve_namespace():
     from repro_torch.tree import tree_leaves
 
     return types.SimpleNamespace(
-        get_config=get_config, LM=LM, spike_totals=spike_totals,
+        get_config=get_config, build_model=build_model, LM=LM,
+        spike_totals=spike_totals,
         spike_log=layers.spike_log, with_policy=with_policy, Engine=Engine,
         EngineConfig=EngineConfig, tree_leaves=tree_leaves,
         project_qkv=attention._project_qkv, attn_full=attention._attn_full,
@@ -3579,10 +3625,12 @@ def agreement(torch, label: str, got, ref, rel_tol=None) -> tuple:
     return agree, worst
 
 
-def profile_tick(torch, S, build_mod, model, params, policy: str) -> None:
+def profile_tick(torch, S, build_mod, model, params, policy: str,
+                 top: int = 12) -> tuple:
     """Decode ticks at 16 live slots: median ms and the tokens/s it
     implies, then ``torch.profiler`` over 3 ticks: busy and idle share,
-    the top device ops, the kernels' time against the glue's."""
+    the top device ops, the kernels' time against the glue's. Returns
+    (median ms, device busy ms or None where the profiler saw none)."""
     _, _, (fn, toks, cache) = capture_tick(torch, S, build_mod, model,
                                            params, "decode")
     times = []
@@ -3603,16 +3651,17 @@ def profile_tick(torch, S, build_mod, model, params, policy: str) -> None:
     if busy == 0:
         say(f"[profile] serve {policy}: the profiler reported no device "
             f"time; breakdown not measured")
-        return
+        return med, None
     ours = sum(r[0] for r in rows if any(k in r[2] for k in HAND_WRITTEN))
     launched = sum(r[1] for r in rows)
     say(f"[profile] serve {policy} decode tick: device busy {busy:.3f} ms "
         f"of median {med:.3f} ms in {launched} device kernels: idle share "
         f"{max(0.0, 1 - busy / med):.3f}; hand-written kernels {ours:.3f} "
         f"ms, everything else {busy - ours:.3f} ms")
-    for ms, count, key in rows[:12]:
+    for ms, count, key in rows[:top]:
         say(f"[profile]   serve {policy} {ms:8.4f} ms  x{count:<4d} "
             f"{key[:100]}")
+    return med, busy
 
 
 def phase_serve(torch, S, K, build_mod, dev) -> dict:
@@ -3776,16 +3825,44 @@ K9_F32_TARGET_MS = {2048: 0.60, 8192: 8.21}
 K9_SCALED = ((300, 16, 8, 128, True), (2048, 16, 16, 64, False))
 
 
-def softmax_direct_loop(torch, S, model, params, trace, chunked: bool
-                        ) -> list:
+def put_slot(pool, new, slot: int, kind: str = "kv") -> None:
+    """A request's prefill cache written into row ``slot`` of a pool of
+    the same tree: a KV entry's first rows ([.., B, S, H, D]; none for an
+    empty one), a mamba state whole ("ssm" [.., B, H, P, N], "conv" [..,
+    B, K-1, C])."""
+    if isinstance(pool, dict):
+        for key in pool:
+            put_slot(pool[key], new[key], slot,
+                     key if key in ("ssm", "conv") else kind)
+        return
+    if isinstance(pool, (tuple, list)):
+        for p, n in zip(pool, new):
+            put_slot(p, n, slot, kind)
+        return
+    dst = pool.narrow(pool.ndim - (3 if kind == "conv" else 4), slot, 1)
+    if kind == "kv":
+        if new.shape[-3] == 0:
+            return
+        dst = dst.narrow(dst.ndim - 3, 0, new.shape[-3])
+    dst.copy_(new.to(pool.dtype))
+
+
+def pool_direct_loop(torch, S, model, params, trace, chunked: bool
+                     ) -> list:
     """The engine's work without the engine, at its shapes: each prompt
-    padded to its bucket and prefilled whole or in the engine's chunks, its
-    K/V rows written into a slot of a ``max_slots`` pool of ``max_len``
-    rows, then ``decode_step`` over the pool, ``max_slots`` requests at a
-    time, with a per-slot length vector (rows past a slot's length are
-    masked, so the slots do not see each other). Returns greedy tokens."""
-    chunk, slots = SERVE_ENGINE["prefill_chunk"], SERVE_ENGINE["max_slots"]
-    pad, max_len = SERVE_ENGINE["prefill_pad"], SERVE_ENGINE["max_len"]
+    padded to its bucket (its true length for the ssm and hybrid
+    families) and prefilled whole or in the engine's chunks (rounded up to
+    ``prefill_chunk_align``), its cache written into a slot of a
+    ``max_slots`` pool of ``max_len`` rows, then ``decode_step`` over the
+    pool, ``max_slots`` requests at a time, with a per-slot length vector
+    (rows past a slot's length are masked and the slots' states are
+    rows of their own, so the slots do not see each other). Returns greedy
+    tokens."""
+    slots, pad = SERVE_ENGINE["max_slots"], SERVE_ENGINE["prefill_pad"]
+    max_len = SERVE_ENGINE["max_len"]
+    align = model.cfg.prefill_chunk_align
+    chunk = -(-SERVE_ENGINE["prefill_chunk"] // align) * align
+    recurrent = model.cfg.family in ("ssm", "hybrid")
     dev = params["embed"]["emb"].device
     outs = []
     for g in range(0, len(trace), slots):
@@ -3794,7 +3871,7 @@ def softmax_direct_loop(torch, S, model, params, trace, chunked: bool
         out, lens = [], []
         for i, (prompt, _) in enumerate(group):
             s = len(prompt)
-            bucket = min(max_len, -(-s // pad) * pad)
+            bucket = s if recurrent else min(max_len, -(-s // pad) * pad)
             toks = torch.zeros((1, bucket), dtype=torch.int64, device=dev)
             toks[0, :s] = torch.tensor(prompt, device=dev)
             if chunked:
@@ -3809,8 +3886,7 @@ def softmax_direct_loop(torch, S, model, params, trace, chunked: bool
                 logits, cache = model.prefill(params, {"tokens": toks},
                                               return_all_logits=True)
                 first = logits[0, s - 1].argmax()
-            for dst, src in zip(pool["layers"], cache["layers"]):
-                dst[:, i:i + 1, :bucket] = src.to(dst.dtype)
+            put_slot(pool["layers"], cache["layers"], i)
             out.append([int(first)])
             lens.append(s)
         lens += [0] * (slots - len(group))
@@ -3832,8 +3908,10 @@ def softmax_direct_loop(torch, S, model, params, trace, chunked: bool
 
 def chunked_logits(torch, model, params, toks):
     """All-position logits of ``toks`` [1, S] fed through
-    ``prefill_chunk`` in the engine's chunks."""
-    chunk = SERVE_ENGINE["prefill_chunk"]
+    ``prefill_chunk`` in the engine's chunks (rounded up to
+    ``prefill_chunk_align``)."""
+    align = model.cfg.prefill_chunk_align
+    chunk = -(-SERVE_ENGINE["prefill_chunk"] // align) * align
     dev = toks.device
     cache = model.init_cache(1, toks.shape[1], device=dev)
     cache["len"] = torch.zeros((), dtype=torch.int32, device=dev)
@@ -4101,8 +4179,8 @@ def phase_softmax(torch, S, K, build_mod, dev, parity: Parity) -> dict:
             + json.dumps({k: v for k, v in st.items() if k != "autotune"}))
         require(res["launches"] == zero, f"softmax engine {mode}: launches "
                                          f"{res['launches']}")
-        tokens = softmax_direct_loop(torch, S, model, params, trace,
-                                     chunked=chunk > 0)
+        tokens = pool_direct_loop(torch, S, model, params, trace,
+                                  chunked=chunk > 0)
         same = sum(a == b for a, b in zip(tokens, res["tokens"]))
         say(f"[softmax] engine {mode}: tokens equal to the direct "
             f"{'prefill_chunk' if chunk else 'prefill'} / decode_step loop "
@@ -4610,6 +4688,366 @@ def phase_lm_train(torch, S, T, K, build_mod, dev, parking) -> dict:
         for policy in LM_TRAIN_POLICIES[:2]}
 
 
+# ----------------------------------------------------------------- phase 10
+FAMILY_REQUESTS = 8           # requests of each family's trace
+FAMILY_MAX_NEW = 16           # tokens each generates, greedy
+SPIKING_QK = dict(spiking=True, attention_kind="qk_spiking")
+VLM_IMAGES = (4, 1024, 1024)  # phi-3-vision's CLIP patches: B, N, d_vision
+VLM_TEXT = 64
+VLM_DECODES = 16
+ENCDEC_FRAMES = (4, 256, 1024)  # seamless's audio frames: B, S_src, d_src
+ENCDEC_TARGET = 16
+ENCDEC_DECODES = 32
+CONTINUATION = (4, 200)       # B, S of the continuation gate's sequences
+# the f32 precision variants' depth: 4 layers; zamba2 keeps one whole
+# group of its attn_every mamba layers under its shared attention site
+FAMILY_PARITY_LAYERS = {"zamba2-7b": 9}
+
+
+def family_trace(vocab: int) -> list:
+    """A family's serving trace: (prompt, max_new) per request, greedy,
+    from ``numpy.random.default_rng(0)``."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return [(rng.integers(0, vocab, int(rng.integers(
+        SERVE_PROMPT[0], SERVE_PROMPT[1] + 1))).astype(np.int32),
+        FAMILY_MAX_NEW) for _ in range(FAMILY_REQUESTS)]
+
+
+def family_params(torch, S, cfg, dev) -> tuple:
+    """``build_model(cfg).init`` on the card's generator, seed 0; the
+    parameters and their count."""
+    params = S.build_model(cfg).init(
+        torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    return params, sum(t.numel() for t in S.tree_leaves(params))
+
+
+def family_line(torch, card: str, label: str, n_params: int, cfg,
+                res: Optional[dict], tick: tuple, prefill_ms=None,
+                decode=None) -> None:
+    """One config's line: parameters, peak memory, prefill, the decode
+    tick's p50 / p99, tokens/s, a bare tick's device busy and idle."""
+    gb = n_params * torch.empty((), dtype=cfg.param_dtype).element_size()
+    if res is not None:
+        st = res["stats"]
+        prefill_ms = st["prefill_call_p50_s"] * 1e3
+        p50, p99 = (st["decode_tick_p50_s"] * 1e3,
+                    st["decode_tick_p99_s"] * 1e3)
+        tps, peak = st["tok_per_s"], res["peak_gib"]
+        where = (f"engine {st['prefill_mode']} over {st['decode_ticks']} "
+                 f"ticks and {st['prefill_calls']} prefill calls; "
+                 f"{res['base_gib']:.3f} GiB allocated before it")
+    else:
+        p50, p99, tps, peak = decode
+        where = "direct prefill / decode_step"
+    med, busy = tick
+    say(f"[families] {label}: {n_params} parameters ({gb / 1e9:.2f} GB "
+        f"{str(cfg.param_dtype)[6:]}); peak device memory {peak:.3f} GiB; "
+        f"prefill p50 {prefill_ms:.3f} ms; decode tick p50 {p50:.3f} ms, "
+        f"p99 {p99:.3f} ms ({where}); {tps:.1f} tokens/s; a bare tick "
+        f"{med:.3f} ms, device busy "
+        + ("not measured" if busy is None else
+           f"{busy:.3f} ms, idle share {max(0.0, 1 - busy / med):.3f}")
+        + f" [{card}]")
+
+
+def engine_gate(torch, S, build_mod, model, params, trace, label: str,
+                policy=None, chunk=None) -> dict:
+    """The trace through the engine (the serve phase's 16 slots, 512 rows,
+    64-token chunks) against a direct loop at its shapes: tokens equal.
+    Returns the engine's run."""
+    kw = {} if chunk is None else {"prefill_chunk": chunk}
+    res = run_engine(torch, S, build_mod, model, params, policy, trace, **kw)
+    st = res["stats"]
+    tokens = pool_direct_loop(torch, S, model, params, trace,
+                              chunked=st["prefill_mode"] == "chunked")
+    same = sum(a == b for a, b in zip(tokens, res["tokens"]))
+    say(f"[families] {label} engine ({st['prefill_mode']}, "
+        f"{st['prefill_calls']} prefill calls, {st['decode_ticks']} decode "
+        f"ticks): tokens equal to the direct loop for {same} of "
+        f"{len(trace)} requests; launches "
+        f"{ {k: v for k, v in res['launches'].items() if v} }")
+    require(same == len(trace), f"{label}: engine tokens differ from the "
+                                f"direct loop")
+    return res
+
+
+def continuation_gate(torch, S, cfg, dev, label: str,
+                      prompts=None) -> None:
+    """The f32 variant's decode equals the continuation of a longer
+    prefill (rtol = atol = 2e-3): prefill of S - 1 tokens then one
+    decode_step against the last position of a prefill of S. With
+    ``prompts`` also its chunked prefill against the blocking one (rtol =
+    atol = 1e-4, greedy tokens equal)."""
+    params, _ = family_params(torch, S, cfg, dev)
+    model = S.build_model(cfg)
+    if prompts is not None:
+        chunked_vs_blocking(torch, model, params, prompts, label, tol=1e-4)
+    b, s = CONTINUATION
+    gen = torch.Generator(device=dev).manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                         generator=gen)
+    if cfg.family == "encdec":
+        src = torch.randn((b, ENCDEC_FRAMES[1], cfg.d_src), device=dev,
+                          generator=gen)
+        full, _ = model.prefill(params, {"src_embeds": src,
+                                         "tgt_tokens": toks})
+        _, cache = model.prefill(params, {"src_embeds": src,
+                                          "tgt_tokens": toks[:, :-1]},
+                                 max_len=s)
+    else:
+        full, _ = model.prefill(params, {"tokens": toks})
+        _, cache = model.prefill(params, {"tokens": toks[:, :-1]},
+                                 max_len=s)
+    dec, _ = model.decode_step(params, toks[:, -1:], cache)
+    err = float((dec - full).abs().max())
+    require(bool(torch.isfinite(dec).all()), f"{label}: non-finite logits")
+    require(torch.allclose(dec, full, rtol=2e-3, atol=2e-3),
+            f"{label}: decode differs from the prefill continuation by "
+            f"{err}")
+    say(f"[families] {label}: decode of token {s} equal to the prefill "
+        f"continuation at rtol = atol = 2e-3 (largest difference "
+        f"{err:.3e}, {b} sequences)")
+    del params, cache
+    torch.cuda.empty_cache()
+
+
+def parity_variant(torch, cfg, arch: str):
+    """The config's f32 precision variant: f32 activations and parameters,
+    full width, ``PARITY_LAYERS`` layers (an encoder's too) or
+    ``FAMILY_PARITY_LAYERS``."""
+    return dataclasses.replace(
+        cfg, n_layers=FAMILY_PARITY_LAYERS.get(arch, PARITY_LAYERS),
+        n_enc_layers=PARITY_LAYERS if cfg.n_enc_layers else 0,
+        dtype=torch.float32, param_dtype=torch.float32)
+
+
+def spiking_policy_gates(torch, S, cfg, dev, arch: str, trace,
+                         tokens) -> None:
+    """The f32 variant (full width, ``PARITY_LAYERS`` layers) teacher-forced
+    over the trace's sequences under each policy: fused_dense and
+    fused_packed spike totals within 0.1 % of the reference's, top-1
+    agreement at least 0.99."""
+    cfg4 = parity_variant(torch, cfg, arch)
+    params4, _ = family_params(torch, S, cfg4, dev)
+    seqs = [list(p) + out for (p, _), out in zip(trace, tokens)]
+    runs = {policy: teacher_forced(torch, S, S.LM(S.with_policy(cfg4,
+                                                                 policy)),
+                                   params4, seqs)
+            for policy in SERVE_POLICIES}
+    for policy in ("fused_dense", "fused_packed"):
+        agreement(torch, f"{arch} {cfg4.n_layers}-layer f32 {policy} vs "
+                  f"reference", runs[policy], runs["reference"], 1e-3)
+    del params4, runs
+    torch.cuda.empty_cache()
+
+
+def phase_families(torch, S, K, build_mod, dev) -> dict:
+    """The other LM families at their published widths and depths on
+    random weights from seed 0, through ``build_model``, ``init`` on the
+    card's generator and the engine (or the model's own calls): the
+    spiking QKFormer olmoe-1b-7b under the three policies and olmoe as
+    published, mamba2-130m and zamba2-7b (chunked and blocking), the
+    spiking phi-3-vision-4.2b (image + text prefill and decode, then the
+    engine on text), seamless-m4t-large-v2 (frames + target prefill and
+    decode); each gated, timed and profiled, and the f32 variants held to
+    their gates. Returns the olmoe and phi-3 decode ticks' K2 / K3
+    launches for the timing phase's rows."""
+    card = gpu_name_and_power()
+    paths = {}
+    want_none = dict.fromkeys(build_mod.KERNELS, 0)
+    t_phase = time.perf_counter()
+
+    def start(arch, **over):
+        cfg = S.get_config(arch, **over)
+        t0 = time.perf_counter()
+        params, n = family_params(torch, S, cfg, dev)
+        say(f"[families] {arch}{' spiking qk_spiking' if over else ''}: "
+            f"{cfg.family}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+            f"{str(cfg.dtype)[6:]} activations, {n} parameters; init "
+            f"{time.perf_counter() - t0:.1f} s, {t0 - t_phase:.1f} s into "
+            f"the phase [{card}]")
+        return cfg, params, n, family_trace(cfg.vocab_size)
+
+    # -- olmoe-1b-7b, spiking qk_spiking: the three policies
+    arch = "olmoe-1b-7b"
+    cfg, params, n, trace = start(arch, **SPIKING_QK)
+    want = tick_launches(build_mod, cfg.n_layers)
+    runs = {}
+    for policy in SERVE_POLICIES:
+        model = S.LM(S.with_policy(cfg, policy))
+        res = runs[policy] = engine_gate(torch, S, build_mod, model, params,
+                                         trace, f"{arch} spiking {policy}",
+                                         policy=policy)
+        st = res["stats"]
+        calls = 0 if policy == "reference" else (st["decode_ticks"]
+                                                 + st["prefill_calls"])
+        require(res["launches"] == {k: v * calls for k, v in want.items()},
+                f"{arch} {policy}: launches {res['launches']}")
+        if policy == "fused_dense":
+            launches, captured, _ = capture_tick(torch, S, build_mod, model,
+                                                 params, "decode")
+            require(launches == want, f"{arch} decode tick launches "
+                                      f"{launches}")
+            paths[FAMILY_PATH.format(arch)] = (
+                None, None, launches, grouped_kv(cfg, captured))
+            say(f"[families] {arch} spiking fused_dense: one decode tick "
+                f"launches {launches['fused_pe']} fused_pe and "
+                f"{launches['spike_matmul']} spike_matmul")
+        family_line(torch, card, f"{arch} spiking {policy}", n, cfg, res,
+                    profile_tick(torch, S, build_mod, model, params,
+                                 f"{arch} {policy}", top=4))
+    require(runs["fused_packed"]["tokens"] == runs["fused_dense"]["tokens"],
+            f"{arch}: fused_packed tokens differ from fused_dense's")
+    say(f"[families] {arch} spiking: fused_packed tokens equal "
+        f"fused_dense's")
+    del params
+    torch.cuda.empty_cache()
+    spiking_policy_gates(torch, S, cfg, dev, arch, trace,
+                         runs["fused_dense"]["tokens"])
+
+    # -- olmoe-1b-7b as published (softmax attention, the MoE FFN)
+    cfg, params, n, trace = start(arch)
+    model = S.LM(cfg)
+    res = engine_gate(torch, S, build_mod, model, params, trace,
+                      f"{arch} as published")
+    require(res["launches"] == want_none, f"{arch}: a kernel launched")
+    family_line(torch, card, f"{arch} as published", n, cfg, res,
+                profile_tick(torch, S, build_mod, model, params, arch,
+                             top=4))
+    del params, model
+    torch.cuda.empty_cache()
+
+    # -- mamba2-130m and zamba2-7b: chunked (on ssm_chunk) and blocking
+    for arch in ("mamba2-130m", "zamba2-7b"):
+        cfg, params, n, trace = start(arch)
+        model = S.LM(cfg)
+        res = {mode: engine_gate(torch, S, build_mod, model, params, trace,
+                                 f"{arch} {mode}", chunk=chunk)
+               for mode, chunk in (("chunked", SERVE_ENGINE["prefill_chunk"]),
+                                   ("blocking", 0))}
+        same = sum(a == b for a, b in zip(res["chunked"]["tokens"],
+                                          res["blocking"]["tokens"]))
+        say(f"[families] {arch}: chunked prefill (chunks of "
+            f"{SERVE_ENGINE['prefill_chunk']} rounded up to ssm_chunk "
+            f"{cfg.ssm_chunk}) tokens equal blocking's for {same} of "
+            f"{len(trace)} requests at bf16 (information: cuBLAS sums a "
+            f"chunk's rows in another order; the gate is the f32 "
+            f"variant's)")
+        tick = profile_tick(torch, S, build_mod, model, params, arch, top=4)
+        for mode in res:
+            family_line(torch, card, f"{arch} {mode}", n, cfg, res[mode],
+                        tick)
+        del params, model, res
+        torch.cuda.empty_cache()
+        continuation_gate(torch, S, parity_variant(torch, cfg, arch), dev,
+                          f"{arch} f32 {FAMILY_PARITY_LAYERS.get(arch, 4)} "
+                          f"layers", prompts=[p for p, _ in trace])
+
+    # -- phi-3-vision-4.2b, spiking qk_spiking: image + text, then text
+    arch = "phi-3-vision-4.2b"
+    cfg, params, n, trace = start(arch, **SPIKING_QK)
+    model = S.LM(S.with_policy(cfg, "fused_dense"))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    img = torch.randn(VLM_IMAGES, device=dev, generator=gen)
+    toks = torch.randint(0, cfg.vocab_size, (VLM_IMAGES[0], VLM_TEXT),
+                         device=dev, generator=gen)
+    n_img = cfg.n_img_tokens // cfg.vision_pool_window ** 2
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, {"tokens": toks,
+                                           "img_embeds": img},
+                                  max_len=n_img + VLM_TEXT + VLM_DECODES)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    require(int(cache["len"]) == n_img + VLM_TEXT,
+            f"{arch}: cache len {int(cache['len'])}")
+    ticks = []
+    for _ in range(VLM_DECODES):
+        require(bool(torch.isfinite(logits).all()), f"{arch}: non-finite")
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(params, logits.argmax(-1)[:, None],
+                                          cache)
+        torch.cuda.synchronize()
+        ticks.append((time.perf_counter() - t0) * 1e3)
+    require(int(cache["len"]) == n_img + VLM_TEXT + VLM_DECODES,
+            f"{arch}: cache len {int(cache['len'])} after the decodes")
+    say(f"[families] {arch}: prefill of {VLM_IMAGES[1]} patches (merged "
+        f"to {n_img}) and {VLM_TEXT} text tokens x {VLM_IMAGES[0]}, then "
+        f"{VLM_DECODES} decode_steps: logits finite, cache len "
+        f"{int(cache['len'])}")
+    ticks.sort()
+    tick = profile_tick(torch, S, build_mod, model, params, arch, top=4)
+    family_line(torch, card, f"{arch} spiking fused_dense image + text", n,
+                cfg, None, tick, prefill_ms=prefill_ms,
+                decode=(statistics.median(ticks), ticks[-1],
+                        VLM_IMAGES[0] / statistics.median(ticks) * 1e3,
+                        torch.cuda.max_memory_allocated() / 2 ** 30))
+    del cache, logits
+    res = engine_gate(torch, S, build_mod, model, params, trace,
+                      f"{arch} spiking fused_dense text", policy="fused_dense")
+    launches, captured, _ = capture_tick(torch, S, build_mod, model, params,
+                                         "decode")
+    require(launches == tick_launches(build_mod, cfg.n_layers),
+            f"{arch} decode tick launches {launches}")
+    paths[FAMILY_PATH.format(arch)] = (None, None, launches,
+                                       grouped_kv(cfg, captured))
+    family_line(torch, card, f"{arch} spiking fused_dense text", n, cfg, res,
+                tick)
+    del params, model
+    torch.cuda.empty_cache()
+    spiking_policy_gates(torch, S, cfg, dev, arch, trace, res["tokens"])
+
+    # -- seamless-m4t-large-v2: frames + target prefill, then decode
+    arch = "seamless-m4t-large-v2"
+    cfg, params, n, _ = start(arch)
+    model = S.build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    src = torch.randn(ENCDEC_FRAMES, device=dev, generator=gen)
+    tgt = torch.randint(0, cfg.vocab_size, (ENCDEC_FRAMES[0], ENCDEC_TARGET),
+                        device=dev, generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, {"src_embeds": src,
+                                           "tgt_tokens": tgt},
+                                  max_len=ENCDEC_TARGET + ENCDEC_DECODES)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    src_len = cache["layers"]["cross"][0].shape[2]
+    ticks = []
+    for _ in range(ENCDEC_DECODES):
+        require(bool(torch.isfinite(logits).all()), f"{arch}: non-finite")
+        tok = logits.argmax(-1)[:, None]
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(params, tok, cache)
+        torch.cuda.synchronize()
+        ticks.append((time.perf_counter() - t0) * 1e3)
+    require(int(cache["len"]) == ENCDEC_TARGET + ENCDEC_DECODES,
+            f"{arch}: cache len {int(cache['len'])}")
+    say(f"[families] {arch}: prefill of {ENCDEC_FRAMES[1]} frames (pooled "
+        f"to {src_len}) and a {ENCDEC_TARGET}-token target x "
+        f"{ENCDEC_FRAMES[0]}, then {ENCDEC_DECODES} decode_steps: logits "
+        f"finite, cache len {int(cache['len'])}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rows = device_rows(torch, lambda: model.decode_step(params, tok, cache),
+                       3)
+    ticks.sort()
+    med = statistics.median(ticks)
+    busy = sum(r[0] for r in rows) or None
+    family_line(torch, card, f"{arch} as published", n, cfg, None,
+                (med, busy), prefill_ms=prefill_ms,
+                decode=(med, ticks[-1], ENCDEC_FRAMES[0] / med * 1e3, peak))
+    del params, cache, logits, model
+    torch.cuda.empty_cache()
+    continuation_gate(torch, S, parity_variant(torch, cfg, arch), dev,
+                      f"{arch} f32 {PARITY_LAYERS} + {PARITY_LAYERS} layers")
+    return paths
+
+
 def kernels_namespace(torch):
     """The launchers, plain versions and helpers the phases call."""
     from repro_torch.core import events
@@ -4795,8 +5233,12 @@ def main() -> int:
     paths.update(phase_lm_train(torch, serve_namespace(),
                                 lm_train_namespace(), K, _build, dev,
                                 parking))
-    parking.park([p[3] for p in paths.values()], "cuda")
     lap("lm train")
+    # the other LM families at full width hold up to 42 GB of parameters
+    # and their bf16 copies: they run while the launches wait there too
+    paths.update(phase_families(torch, serve_namespace(), K, _build, dev))
+    lap("families")
+    parking.park([p[3] for p in paths.values()], "cuda")
     rows = phase_timing(torch, K, snn_cnn, models, images, paths, parity,
                         ITERS, ops.get_tuner())
     time_training(torch, M, train_paths, TRAIN_BATCH, TRAIN_ITERS)

@@ -9,7 +9,10 @@ preset name): ``"reference"`` (the None default) is plain PyTorch,
 matmul through the fused PE and spike-matmul kernels, ``"fused_packed"``
 also ships every spike map bit-packed and caches the per-slot spike state
 packed. The deprecated flag pair of the reference (``use_event_kernels``,
-``spike_format``) is not ported.
+``spike_format``) is not ported. ``ShapeSpec`` / ``SHAPES`` are the
+assigned shape cells and ``cells_for`` the ones that apply to an
+architecture (long_500k for the sub-quadratic families and the spiking
+token attention).
 """
 from __future__ import annotations
 
@@ -96,8 +99,45 @@ class ModelConfig:
         return self.head_dim or (self.d_model // max(self.n_heads, 1))
 
     @property
+    def d_inner(self) -> int:        # ssm inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_nheads(self) -> int:
+        return self.d_inner // self.ssm_headdim
+
+    @property
     def prefill_chunk_align(self) -> int:
         """Chunked-prefill granularity that keeps chunked prefill equal to
         a blocking one: any chunk for attention, ``ssm_chunk`` bounds for
         the SSD scan of ssm / hybrid families."""
         return self.ssm_chunk if self.family in ("ssm", "hybrid") else 1
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str                        # train_4k | prefill_32k | decode_32k | long_500k
+    kind: str                        # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524_288, 1),
+}
+
+# families whose attention is not quadratic: long_500k applies to them
+SUBQUADRATIC_FAMILIES = ("ssm", "hybrid")
+
+
+def cells_for(cfg: ModelConfig) -> list[str]:
+    """The shape cells that apply to an architecture: long_500k only for a
+    sub-quadratic family or the spiking token attention."""
+    out = ["train_4k", "prefill_32k", "decode_32k"]
+    if (cfg.family in SUBQUADRATIC_FAMILIES
+            or cfg.attention_kind == "qk_spiking"):
+        out.append("long_500k")
+    return out

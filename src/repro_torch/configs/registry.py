@@ -1,8 +1,8 @@
 """Architecture registry (twin of ``repro.configs.registry``):
 ``get_config(id)`` returns the published ModelConfig, ``reduced(cfg)`` the
 family-preserving miniature the CPU tests use, ``build_model(cfg)`` the
-model. The port builds the ``dense`` family's decoder-only ``LM``; the
-other families raise, naming the ROADMAP item that ports them.
+model: the encoder-decoder ``EncDecLM`` for the encdec family, the
+decoder-only ``LM`` for every other.
 """
 from __future__ import annotations
 
@@ -30,9 +30,6 @@ ARCHS: dict[str, ModelConfig] = {
     ]
 }
 
-PORTED_FAMILIES = ("dense",)
-
-
 def get_config(name: str, **overrides) -> ModelConfig:
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; have {sorted(ARCHS)}")
@@ -41,14 +38,11 @@ def get_config(name: str, **overrides) -> ModelConfig:
 
 
 def build_model(cfg: ModelConfig):
-    """cfg -> the model (``init``, ``prefill``, ``prefill_chunk``,
-    ``decode_step``, ``init_cache``)."""
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family ({cfg.name}) is still to port "
-            f"(ROADMAP queue 1 item 4); the port builds {PORTED_FAMILIES}")
+    """cfg -> the model (``init``, ``loss``, ``prefill``, ``decode_step``,
+    ``init_cache``, ``input_specs``; the LM also ``prefill_chunk``)."""
+    from ..models.encdec import EncDecLM
     from ..models.lm import LM
-    return LM(cfg)
+    return EncDecLM(cfg) if cfg.family == "encdec" else LM(cfg)
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:

@@ -7,7 +7,8 @@ numpy arrays: ``variables_from_jax`` for the ``{"params", "state"}`` dict of
 the list of ``fuse_model``, ``optimizer_state_from_jax`` for the
 reference's ``SGDState`` or ``AdamWState``, so that both packages can train
 on from one state, ``lm_params_from_jax`` for the parameters of the
-reference's ``LM``, and ``train_state_from_jax`` for the reference's LM
+reference's ``LM`` (every family), ``encdec_params_from_jax`` for its
+``EncDecLM``, and ``train_state_from_jax`` for the reference's LM
 ``TrainState`` (step, parameters, AdamW state). This module imports neither JAX nor the JAX package: the
 caller converts leaves with ``np.asarray`` (``jax.tree_util.tree_map``).
 
@@ -68,17 +69,35 @@ def _unstack(tree: Any, i: int) -> Any:
     return tree[i]
 
 
+def _unstack_lists(params: dict, stacked: tuple, dev) -> dict:
+    """``params`` on ``dev``, each tree named in ``stacked`` (its leaves
+    stacked on a leading layer axis) made a list of one tree per layer."""
+    out = {k: _to_torch(v, dev) for k, v in params.items()
+           if k not in stacked}
+    for name in stacked:
+        blocks = params[name]
+        n_layers = len(next(iter(_leaves(blocks))))
+        out[name] = [_to_torch(_unstack(blocks, i), dev)
+                     for i in range(n_layers)]
+    return out
+
+
 def lm_params_from_jax(params: dict, device: DeviceLike = None) -> dict:
     """The reference ``LM.init`` tree with numpy leaves, its blocks stacked
     on a leading layer axis, -> the port's ``LM`` tree on ``device``: the
-    same dicts, with ``blocks`` a list of one dict per layer."""
-    dev = resolve_device(device)
-    out = {k: _to_torch(v, dev) for k, v in params.items() if k != "blocks"}
-    blocks = params["blocks"]
-    n_layers = len(next(iter(_leaves(blocks))))
-    out["blocks"] = [_to_torch(_unstack(blocks, i), dev)
-                     for i in range(n_layers)]
-    return out
+    same dicts, with ``blocks`` a list of one dict per layer. Every
+    family's tree: a moe block's expert stacks ([E, D, F] a layer), a
+    mamba block, the hybrid's ``shared_attn`` and the vlm's
+    ``vision_proj`` (neither stacked) come across as they are."""
+    return _unstack_lists(params, ("blocks",), resolve_device(device))
+
+
+def encdec_params_from_jax(params: dict, device: DeviceLike = None) -> dict:
+    """The reference ``EncDecLM.init`` tree with numpy leaves -> the
+    port's ``EncDecLM`` tree on ``device``, ``enc_blocks`` and
+    ``dec_blocks`` each a list of one dict per layer."""
+    return _unstack_lists(params, ("enc_blocks", "dec_blocks"),
+                          resolve_device(device))
 
 
 def _leaves(tree: Any):

@@ -7,6 +7,9 @@ engine, optionally chunk-prefilled (twin of ``repro.launch.serve``).
 
 Runs on the card unless ``--device`` says otherwise. The weights are
 random, drawn from a ``torch.Generator`` seeded 0 on the run's device.
+Every decoder-only family serves (a vlm on text alone); an encoder-decoder
+(seamless-m4t-large-v2) raises, as the reference's engine cannot serve it
+either.
 ``--replicas`` above 1, ``--chaos`` and ``--integrity-every`` are still to
 port (ROADMAP queue 1 item 5) and raise.
 """
@@ -65,6 +68,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     cfg = get_config(args.arch, **overrides)
     if args.reduced:
         cfg = reduce_cfg(cfg, **overrides)
+    if cfg.family == "encdec":
+        raise ValueError(
+            f"{args.arch} is an encoder-decoder: the engine serves the "
+            f"decoder-only families (drive EncDecLM.prefill / decode_step "
+            f"directly)")
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(0),
                         device=dev)

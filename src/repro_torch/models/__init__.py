@@ -1,2 +1,3 @@
-"""Models of the port: the layer library, the deployed SNN CNNs and the
-spiking LM of the dense family."""
+"""Models of the port: the layer library, the deployed SNN CNNs, the
+decoder-only LM of every family (dense, moe, ssm, hybrid, vlm) and the
+encoder-decoder."""

@@ -31,9 +31,8 @@ token alone, so decode keeps no KV cache: under a packed policy each slot
 keeps only the last token's masked spike map, packed, as its state (the
 engine's telemetry reads it).
 
-Still to port, and raising: the cross-attention ``kv_override`` of the
-encdec family (ROADMAP queue 1 item 4) and the context-parallel decode
-over a sequence-sharded cache, ``decode_cp_axis`` (item 6).
+Still to port, and raising: the context-parallel decode over a
+sequence-sharded cache, ``decode_cp_axis`` (ROADMAP queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -225,19 +224,24 @@ def attn_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
                positions: torch.Tensor, *, causal: bool = True,
                n_heads: Optional[int] = None, n_kv: Optional[int] = None,
                kv_override: Optional[tuple] = None) -> torch.Tensor:
-    """Full-sequence attention. Returns [B, S, D]. ``kv_override``
-    (cross-attention K/V of the encdec family) is still to port."""
+    """Full-sequence attention. Returns [B, S, D]. ``kv_override`` (k,
+    v) [B, Sk, Hkv, Dh] supplies external K/V (the encdec family's
+    cross-attention onto the encoder): only q is projected (and normed and
+    rotated). Under ``qk_spiking`` the token attention returns first, as
+    the reference's does: it reads no ``kv_override``."""
     h, hkv = _heads(cfg, n_heads, n_kv)
     if cfg.attention_kind == "qk_spiking":
         return _qk_spiking_apply(p, cfg, x, h, hkv)
-    if kv_override is not None:
-        raise NotImplementedError(
-            "attention over external K/V (kv_override, the encdec "
-            "family's cross-attention) is still to port (ROADMAP queue 1 "
-            "item 4)")
     b, s, _ = x.shape
     dh = cfg.resolved_head_dim
-    q, k, v = _project_qkv(p, cfg, x, positions, h, hkv)
+    if kv_override is None:
+        q, k, v = _project_qkv(p, cfg, x, positions, h, hkv)
+    else:
+        q = dense_apply(p["wq"], x).reshape(b, s, h, dh)
+        if cfg.qk_norm:
+            q = rmsnorm_apply(p["q_norm"], q, cfg.rms_eps)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k, v = kv_override
     out = _attend(cfg, q, k, v, dh ** -0.5, causal)
     return dense_apply(p["wo"], out.reshape(b, s, h * dh))
 

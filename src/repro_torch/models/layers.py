@@ -121,6 +121,24 @@ def rmsnorm_apply(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (xf * inv * p["scale"].to(torch.float32)).to(x.dtype)
 
 
+def rmsnorm_gated_apply(p: dict, x: torch.Tensor, z: torch.Tensor,
+                        eps: float = 1e-6) -> torch.Tensor:
+    """Mamba2's output norm: RMSNorm(x * silu(z)), in f32 (the root as
+    ``rmsnorm_apply`` takes it), rounded to x's dtype."""
+    g = x.to(torch.float32) * silu(z.to(torch.float32))
+    var = torch.mean(g * g, dim=-1, keepdim=True)
+    inv = torch.rsqrt((var + eps).to(torch.float64)).to(torch.float32)
+    return (g * inv * p["scale"].to(torch.float32)).to(x.dtype)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """x * sigmoid(x) with the sigmoid as 1 / (1 + exp(-x)), each step in
+    x's dtype: at bf16 that rounds where the reference's (XLA's logistic
+    on the CPU) rounds, which ``torch.nn.functional.silu`` (one rounding)
+    does not."""
+    return x * torch.reciprocal(1.0 + torch.exp(-x))
+
+
 # ---------------------------------------------------------------- embeddings
 def embedding_init(gen: torch.Generator, vocab: int, d: int,
                    dtype: torch.dtype = torch.float32) -> dict:

@@ -11,16 +11,22 @@ an elastic-FIFO chunked-prefill pipeline (twin of ``repro.serve.engine``).
     admitted on the next tick.
   * softmax models keep each slot's KV rows in the pool (``cfg.dtype``, or
     f8 e4m3 with ``kv_dtype="f8_e4m3"``); decode writes the new row of
-    every slot in place.
+    every slot in place. Mamba blocks (the ssm and hybrid families) keep
+    each slot's recurrent state ({"ssm" f32, "conv"}) in the pool's slot
+    row, and their prompts are prefilled at their true length: a pad token
+    is inert under causal attention but not in a recurrence.
   * spiking QKFormer models (``attention_kind="qk_spiking"``) keep no KV
     cache (their masks are token-local): under a packed policy each slot
     keeps its last token's masked spike map, packed, and the engine reads
     the spike telemetry off it every ``spike_stats_every`` decode ticks.
 
 Elastic FIFOs (``prefill_chunk > 0``): each prompt is split into chunks
-that run through ``LM.prefill_chunk``, at most ``prefill_chunks_per_tick``
-a tick, so a long prompt does not freeze the live decode slots; the result
-equals a blocking prefill's. ``max_queue`` bounds the admission FIFO and a
+(rounded up to ``cfg.prefill_chunk_align``: ``ssm_chunk`` bounds for the
+SSD scan) that run through ``LM.prefill_chunk``, at most
+``prefill_chunks_per_tick`` a tick, so a long prompt does not freeze the
+live decode slots; the result equals a blocking prefill's, except for the
+moe family, whose dispatch capacity depends on the group's length (a
+chunk is a group of its own). ``max_queue`` bounds the admission FIFO and a
 blocking ``submit`` donates engine ticks until a place frees; sampled
 tokens stream into a per-request output FIFO (``pop_output``), and with
 ``out_fifo_depth`` a slot whose consumer stops draining is stalled (its
@@ -33,7 +39,9 @@ Sampling is greedy or by temperature, from the engine's own
 ``jax.random``, so the two agree only on greedy requests). The cache pool
 is updated in place. The fault plan, the integrity guard with its
 quarantine, and the replica router are still to port (ROADMAP queue 1
-item 5): asking for them raises.
+item 5): asking for them raises. The encoder-decoder family is not served
+(its cache needs the source length and it has no ``prefill_chunk``, as in
+the reference): it is driven directly.
 """
 from __future__ import annotations
 
@@ -49,6 +57,7 @@ import torch
 from .. import ops
 from ..core.events import popcount32
 from ..models.lm import param_device
+from ..tree import tree_leaves, tree_map
 
 _UNPORTED = ("is still to port (ROADMAP queue 1 item 5: serving faults, "
              "the integrity guard and the replica router)")
@@ -140,6 +149,26 @@ class EngineConfig:
             raise NotImplementedError(f"the integrity guard {_UNPORTED}")
 
 
+def pool_leaves(layers: Any, kind: str = "kv") -> list:
+    """(kind, leaf) for every leaf of a cache's layers in ``tree_leaves``
+    order: "ssm" and "conv" for a mamba state's leaves, "kv" for the
+    attention entries."""
+    if isinstance(layers, dict):
+        return [pair for k in sorted(layers)
+                for pair in pool_leaves(layers[k], k if k in ("ssm", "conv")
+                                        else kind)]
+    if isinstance(layers, (list, tuple)):
+        return [pair for v in layers for pair in pool_leaves(v, kind)]
+    return [(kind, layers)]
+
+
+def slot_row(kind: str, leaf: torch.Tensor, slot: int) -> torch.Tensor:
+    """One slot's view of a pool leaf: the batch axis is the fourth from
+    the end of a KV entry [.., B, S, H, D] and of an ssm state [.., B, H,
+    P, N], the third of a conv state [.., B, K-1, C]."""
+    return leaf.narrow(leaf.ndim - (3 if kind == "conv" else 4), slot, 1)
+
+
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -150,6 +179,12 @@ class Engine:
                  rng_seed: int = 0, faults: Any = None):
         if faults is not None:
             raise NotImplementedError(f"the fault plan {_UNPORTED}")
+        if model.cfg.family == "encdec":
+            raise ValueError(
+                f"{model.cfg.name}: the engine serves the decoder-only LM "
+                f"families; an encoder-decoder's cache needs the source "
+                f"length and it has no prefill_chunk (drive EncDecLM's "
+                f"prefill / decode_step directly)")
         self.model = model
         self.params = params
         self.cfg = cfg
@@ -299,6 +334,10 @@ class Engine:
 
     # ------------------------------------------------------------- admission
     def _bucket_len(self, s: int) -> int:
+        if self.model.cfg.family in ("ssm", "hybrid"):
+            # a recurrence integrates pad positions into its state: prefill
+            # at the true length (attention pads are causal-inert)
+            return s
         return min(self.cfg.max_len,
                    -(-s // self.cfg.prefill_pad) * self.cfg.prefill_pad)
 
@@ -339,9 +378,9 @@ class Engine:
             # request's cache at compute precision and quantize once at
             # _write_slot, where the blocking path does
             dt = self.model.cfg.dtype
-            cache["layers"] = tuple(
-                a.to(dt) if a.dtype == torch.float8_e4m3fn else a
-                for a in cache["layers"])
+            cache["layers"] = tree_map(
+                lambda a: a.to(dt) if a.dtype == torch.float8_e4m3fn else a,
+                cache["layers"])
         self.prefill_fifo.append(_PrefillJob(req, slot, cache, bucket))
         self._prefill_fifo_hwm = max(self._prefill_fifo_hwm,
                                      len(self.prefill_fifo))
@@ -394,24 +433,31 @@ class Engine:
     # ---------------------------------------------------------- cache moves
     def _write_slot(self, slot: int, prefill_cache: dict) -> None:
         """Copy one request's prefill cache into its slot row (in place),
-        in the pool's dtype: KV rows quantized here when the pool is f8."""
-        for pool, new in zip(self.cache["layers"], prefill_cache["layers"]):
-            if new.shape[-3] == 0:          # qk_spiking: stateless
-                continue
-            pool[:, slot:slot + 1, :new.shape[-3]] = new.to(pool.dtype)
+        in the pool's dtype: KV rows quantized here when the pool is f8,
+        a mamba state whole."""
+        for (kind, pool), (_, new) in zip(
+                pool_leaves(self.cache["layers"]),
+                pool_leaves(prefill_cache["layers"])):
+            dst = slot_row(kind, pool, slot)
+            if kind == "kv":
+                if new.shape[-3] == 0:      # qk_spiking: stateless
+                    continue
+                dst = dst.narrow(dst.ndim - 3, 0, new.shape[-3])
+            dst.copy_(new.to(pool.dtype))
 
     def _snapshot_slots(self, slots: set) -> dict:
         """A copy of each slot's rows in every pool, taken before a decode
         that writes the pool in place."""
-        return {slot: tuple(pool[:, slot:slot + 1].clone()
-                            for pool in self.cache["layers"])
+        return {slot: [slot_row(kind, pool, slot).clone()
+                       for kind, pool in pool_leaves(self.cache["layers"])]
                 for slot in slots}
 
-    def _restore_slot(self, slot: int, saved: tuple) -> None:
+    def _restore_slot(self, slot: int, saved: list) -> None:
         """Write one slot's rows back from its snapshot, so a stalled
         slot's tick leaves its state as it was."""
-        for pool, prev in zip(self.cache["layers"], saved):
-            pool[:, slot:slot + 1] = prev
+        for (kind, pool), prev in zip(pool_leaves(self.cache["layers"]),
+                                      saved):
+            slot_row(kind, pool, slot).copy_(prev)
 
     def _sample(self, logits: torch.Tensor, req: Request,
                 greedy: Optional[int]) -> int:
@@ -547,7 +593,7 @@ class Engine:
         n_units = cfg.n_heads * cfg.resolved_head_dim
         idx = torch.tensor(live_slots, device=self.device)
         sums, packed_b, units, blk_groups = [], 0, 0, 0
-        for leaf in self.cache["layers"]:
+        for leaf in tree_leaves(self.cache["layers"]):
             if leaf.dtype != torch.int32 or leaf.ndim != 5:
                 continue                    # only the packed word pools
             sel = leaf.index_select(1, idx)

@@ -282,11 +282,25 @@ def test_f8_cache_writes_keep_the_bits():
 
 
 def test_unported_options_raise():
-    _, _, tcfg, tp = _layer("qwen3-1.7b")
+    """The context-parallel decode still raises. Attention over external
+    K/V (``kv_override``, the encdec family's cross-attention), which
+    raised until the other families were ported, now runs and gives JAX's
+    result: q projected, normed and rotated, k and v as given."""
+    jcfg, jp, tcfg, tp = _layer("qwen3-1.7b")
+    rng = np.random.default_rng(7)
+    xa = rng.standard_normal((2, 3, 64)).astype(np.float32)
+    kv = [rng.standard_normal((2, 5, tcfg.n_kv_heads, 16)).astype(np.float32)
+          for _ in range(2)]
+    pa = np.tile(np.arange(3, dtype=np.int32), (2, 1))
+    got = tattn.attn_apply(tp, tcfg, torch.tensor(xa), torch.tensor(pa),
+                           causal=False,
+                           kv_override=tuple(torch.tensor(a) for a in kv))
+    want = jattn.attn_apply(jp, jcfg, jnp.asarray(xa), jnp.asarray(pa),
+                            causal=False,
+                            kv_override=tuple(jnp.asarray(a) for a in kv))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
     x = torch.zeros((1, 2, 64))
-    pos = torch.zeros((1, 2), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        tattn.attn_apply(tp, tcfg, x, pos, kv_override=(x, x))
     cp = dataclasses.replace(tcfg, decode_cp_axis="data")
     c = torch.zeros((1, 4, tcfg.n_kv_heads, 16))
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):

@@ -2026,3 +2026,130 @@ def test_float_tile_bit_equal_to_the_decode_route(cuda, m, dtype):
             assert K.pick_route(x, "dense") == "decode"
             assert _same(K.fused_pe_cuda(*args, route="decode"),
                          K.fused_pe_cuda(*args))
+
+
+# ------------------------------------------------ the other LM families
+# (h, dh, k): the spiking olmoe-1b-7b's and phi-3-vision-4.2b's q / k
+# passes (K2, head-blocked) and wo (K3) at their published widths
+FAMILY_SHAPES = [(16, 128, 2048), (32, 96, 3072)]
+
+
+@pytest.mark.parametrize("m", [16, 64])
+@pytest.mark.parametrize("h,dh,k", FAMILY_SHAPES)
+def test_family_k2_k3_shapes_match_plain(cuda, h, dh, k, m):
+    """K2's head-blocked pass on a bf16 x and K3 on its masked spikes at
+    the two families' widths (a decode tick's 16 rows, a chunk's 64)
+    against their plain versions: spikes equal away from v_th, K3 at the
+    plain version's tolerance."""
+    from repro_torch.kernels import fused_pe as K
+    from repro_torch.kernels import spike_matmul as K3
+
+    gen = torch.Generator(device=cuda).manual_seed(h + m)
+    n = h * dh
+    x = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
+    w = torch.randn((k, n), generator=gen, device=cuda) / k ** 0.5
+    q = (torch.rand((m, n), generator=gen, device=cuda) < 0.05).to(
+        torch.int8)
+    args = K.fused_pe_operands(x, w, q=q, qk_threshold=1.0, heads=(h, dh))
+    spk, _ = K.fused_pe_cuda(*args)
+    ref, _ = K.fused_pe_block_ref(*args)
+    cur = x.float() @ w
+    near = torch.zeros_like(spk, dtype=torch.bool)
+    near[:m, :n] = (cur - 1.0).abs() < 1e-4
+    assert not bool(((spk != ref) & ~near).any())
+    wo = torch.randn((n, k), generator=gen, device=cuda) / n ** 0.5
+    margs = K3.spike_matmul_operands(spk[:m, :n].contiguous(), wo)
+    torch.testing.assert_close(K3.spike_matmul_cuda(*margs),
+                               K3.spike_matmul_block_ref(*margs),
+                               rtol=1e-5, atol=1e-4)
+
+
+FAMILY_ARCHS = ["olmoe-1b-7b", "mamba2-130m", "zamba2-7b",
+                "phi-3-vision-4.2b", "seamless-m4t-large-v2"]
+
+
+def _family_batch(cfg, dev, gen):
+    toks = torch.randint(0, cfg.vocab_size, (2, 12), device=dev,
+                         generator=gen)
+    if cfg.family == "encdec":
+        return {"src_embeds": torch.randn((2, 8, cfg.d_src), device=dev,
+                                          generator=gen),
+                "tgt_tokens": toks}
+    batch = {"tokens": toks}
+    if cfg.family == "vlm":
+        batch["img_embeds"] = torch.randn(
+            (2, cfg.n_img_tokens, cfg.d_vision), device=dev, generator=gen)
+    return batch
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_prefill_and_decode_on_the_card(cuda, arch):
+    """Each family at reduced width (f32): prefill and three decode steps
+    on the card against the same calls on the CPU, on the same parameters
+    (rtol = atol = 1e-3: TF32 is off, the products sum in another
+    order)."""
+    from repro_torch.configs import build_model, get_config, reduced
+    from repro_torch.tree import tree_map
+
+    cfg = reduced(get_config(arch))
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0),
+                        device=cuda)
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    batch = _family_batch(cfg, cuda,
+                          torch.Generator(device=cuda).manual_seed(1))
+    out = {}
+    for dev, p, b in ((cuda, params, batch),
+                      ("cpu", cpu_params,
+                       {k: v.cpu() for k, v in batch.items()})):
+        logits, cache = model.prefill(p, b, max_len=20)
+        steps = [logits]
+        tok = logits.argmax(-1)[:, None]
+        for _ in range(3):
+            logits, cache = model.decode_step(p, tok, cache)
+            steps.append(logits)
+            tok = logits.argmax(-1)[:, None]
+        out[str(dev)] = torch.stack(steps)
+    got, want = out[str(cuda)].cpu(), out["cpu"]
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba2-130m", "zamba2-7b",
+                                  "phi-3-vision-4.2b"])
+def test_family_engine_on_the_card(cuda, arch):
+    """The engine at reduced width on the card: every request finishes
+    with its tokens, chunked prefill; the spiking qk_spiking moe and vlm
+    under fused_dense launch K2 twice and K3 once a layer per decode tick
+    and prefill chunk."""
+    from repro_torch.configs import build_model, get_config, reduced
+    from repro_torch.kernels import _build
+    from repro_torch.serve import Engine, EngineConfig
+
+    spiking = arch in ("olmoe-1b-7b", "phi-3-vision-4.2b")
+    over = (dict(spiking=True, attention_kind="qk_spiking")
+            if spiking else {})
+    cfg = reduced(get_config(arch, **over))
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0),
+                        device=cuda)
+    _build.reset_launches()
+    eng = Engine(model, params, EngineConfig(
+        max_slots=3, max_len=64, prefill_pad=8, prefill_chunk=8,
+        policy="fused_dense" if spiking else None))
+    gen = torch.Generator().manual_seed(2)
+    uids = [eng.submit(torch.randint(0, cfg.vocab_size, (int(n),),
+                                     generator=gen).numpy(), max_new=4)
+            for n in (5, 19, 11, 30)]
+    fin = {r.uid: r for r in eng.run_until_drained()}
+    torch.cuda.synchronize()
+    assert all(len(fin[u].out) == 4 and fin[u].status == "done"
+               for u in uids)
+    st = eng.stats()
+    calls = st["decode_ticks"] + st["prefill_calls"]
+    launches = dict(_build.LAUNCHES)
+    if spiking:
+        assert launches["fused_pe"] == 2 * cfg.n_layers * calls
+        assert launches["spike_matmul"] == cfg.n_layers * calls
+    else:
+        assert sum(launches.values()) == 0

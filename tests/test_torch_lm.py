@@ -506,11 +506,20 @@ def test_fused_policies_spike_as_the_reference_does():
 
 
 def test_lm_is_built_for_the_dense_family_only():
-    """Other families raise; the dense family's softmax attention (every
-    config's default) runs: prefill, a chunk and a decode step give finite
-    logits of the expected shapes."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(reduced(get_config("olmoe-1b-7b")))
+    """The decoder-only ``LM`` is built for every family but encdec, which
+    gets ``EncDecLM`` (the other families are held to JAX in
+    ``test_torch_moe.py``, ``test_torch_ssm.py`` and
+    ``test_torch_vlm_encdec.py``); the dense family's softmax attention
+    (every config's default) runs: prefill, a chunk and a decode step give
+    finite logits of the expected shapes."""
+    from repro_torch.models.encdec import EncDecLM
+    from repro_torch.models.lm import LM
+
+    for arch in ("olmoe-1b-7b", "mamba2-130m", "zamba2-7b",
+                 "phi-3-vision-4.2b"):
+        assert type(build_model(reduced(get_config(arch)))) is LM
+    assert type(build_model(reduced(get_config(
+        "seamless-m4t-large-v2")))) is EncDecLM
     cfg = reduced(get_config("qwen3-1.7b"))      # softmax attention
     assert cfg.attention_kind == "softmax"
     model = build_model(cfg)
