@@ -269,6 +269,7 @@ import subprocess
 import sys
 import time
 import types
+import warnings
 from pathlib import Path
 from typing import Optional
 
@@ -3801,6 +3802,327 @@ def phase_serve(torch, S, K, build_mod, dev) -> dict:
     return paths
 
 
+# ------------------------------------------------------------- phase 7b
+CHAOS_POLICY = "fused_packed"
+CHAOS_REPLICAS = 2            # engine replicas behind the router, one card
+CHAOS_KILL_TICK = 12          # replica 1 dies at its 12th decode tick
+CHAOS_NAN_TICKS = (6, 9)      # NaN injections on replica 0
+CHAOS_RETRIES = 3             # slot -1 lets one request take all 3 poisonings
+GUARD_REPS = 50               # timed guard scans on a live pool
+# integrity_every of the clean runs: a warm-up with the guard on (the
+# tick time drifts down over the first runs of a process), then A B B A
+GUARD_ORDER = (1, 0, 1, 1, 0)
+
+
+def chaos_namespace():
+    """The router, the fault plan, the demotion log and the serving entry
+    point the chaos phase drives."""
+    from repro_torch.core.events import pad_lane_mask
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.models.attention import qk_spike_state_width
+    from repro_torch.ops import fallback
+    from repro_torch.serve import FaultPlan, ReplicaRouter, demo_chaos_plan
+
+    return types.SimpleNamespace(
+        FaultPlan=FaultPlan, ReplicaRouter=ReplicaRouter,
+        demo_chaos_plan=demo_chaos_plan, fallback=fallback,
+        serve_main=serve_main, pad_lane_mask=pad_lane_mask,
+        qk_spike_state_width=qk_spike_state_width)
+
+
+def count_engine_launches(build_mod, eng, tally: dict) -> None:
+    """Add the launches each ``eng.step`` makes to ``tally``: the counts
+    are global, so a replica's are the difference across its own steps."""
+    step = eng.step
+
+    def counted():
+        before = dict(build_mod.LAUNCHES)
+        try:
+            return step()
+        finally:
+            for k, v in build_mod.LAUNCHES.items():
+                tally[k] += v - before[k]
+
+    eng.step = counted
+
+
+def run_router(torch, S, C, build_mod, model, params, trace, faults=None,
+               **engine_kw) -> dict:
+    """The trace through a router of ``CHAOS_REPLICAS`` engines
+    (``SERVE_ENGINE`` with ``engine_kw`` over it) sharing the card: each
+    request's tokens (by trace order), the router, its stats, each
+    replica's kernel launches (counted over its own steps, from 0 when the
+    router is built) and the decode ticks' wall times."""
+    torch.cuda.synchronize()
+    build_mod.reset_launches()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        router = C.ReplicaRouter(model, params, S.EngineConfig(
+            **{**SERVE_ENGINE, **engine_kw}, policy=CHAOS_POLICY),
+            n_replicas=CHAOS_REPLICAS, faults=faults)
+        tallies = [dict.fromkeys(build_mod.KERNELS, 0)
+                   for _ in router.engines]
+        for eng, tally in zip(router.engines, tallies):
+            count_engine_launches(build_mod, eng, tally)
+        uids = [router.submit(p, max_new=n) for p, n in trace]
+        fin = router.run_until_drained()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for w in caught:
+        say(f"[chaos] warning: {w.category.__name__}: {w.message}")
+    by_uid = {r.uid: r for r in fin}
+    require(sorted(by_uid) == sorted(uids) and len(fin) == len(uids),
+            "a request did not finish exactly once")
+    require(all(by_uid[u].status == "done" for u in uids),
+            f"statuses {sorted({r.status for r in fin})}, not all done")
+    tokens = [by_uid[u].out for u in uids]
+    for (_, n), out in zip(trace, tokens):
+        require(len(out) == n, f"{len(out)} tokens, asked {n}")
+    ticks = [t for e in router.engines for t in e._tick_wall]
+    return {"tokens": tokens, "uids": uids, "router": router,
+            "stats": router.stats(), "launches": tallies, "wall_s": wall,
+            "ticks": ticks}
+
+
+def require_clean(C, res: dict, want: dict, label: str) -> None:
+    """A fault-free router run: no failover, no demotion, no quarantine,
+    and each replica's launches one pass of the layers a decode tick and
+    a prefill call."""
+    st = res["stats"]
+    require(st["failovers"] == 0 and st["alive"] == [True] * CHAOS_REPLICAS,
+            f"{label}: failovers {st['failures']}")
+    require(C.fallback.demotions() == [],
+            f"{label}: demotions {C.fallback.demotions()}")
+    for r, (per, got) in enumerate(zip(st["per_replica"], res["launches"])):
+        require(per["quarantined"] == 0, f"{label}: replica {r} quarantined "
+                                         f"{per['quarantined']}")
+        calls = per["decode_ticks"] + per["prefill_calls"]
+        want_run = {k: v * calls for k, v in want.items()}
+        require(got == want_run, f"{label}: replica {r} launches {got} != "
+                                 f"{want_run}")
+
+
+def planned_death(st: dict) -> bool:
+    """The router's one failure is the chaos plan's kill of its last
+    replica, not another exception in a replica's step."""
+    return [(f["replica"], f["reason"]) for f in st["failures"]] == [
+        (CHAOS_REPLICAS - 1,
+         f"step raised: injected replica death at tick {CHAOS_KILL_TICK}")]
+
+
+def tick_pcts(ticks) -> tuple:
+    import numpy as np
+
+    t = np.asarray(ticks) * 1e3
+    return float(np.percentile(t, 50)), float(np.percentile(t, 99)), len(t)
+
+
+def time_guard(torch, eng, vocab: int) -> tuple:
+    """The guard's own cost on a replica's live pool, apart from the
+    tick's spread: median host ms of the tick's one read (the greedy
+    tokens, read as ``Engine.step`` reads them) without and with the scan
+    (``Engine._integrity_verdict``) on
+    f32 logits of the pool's shape, each synchronised by its read, in
+    turns; and the scan's device ms (CUDA events)."""
+    gen = torch.Generator(device=eng.device).manual_seed(3)
+    logits = torch.randn((eng.cfg.max_slots, vocab), generator=gen,
+                         device=eng.device)
+
+    def read(scan: bool):
+        greedy = torch.argmax(logits, dim=-1)
+        if not scan:
+            return greedy.tolist()
+        rows = [greedy] + eng._integrity_verdict(logits)
+        return torch.stack([r.to(torch.int64) for r in rows]).tolist()
+
+    host = {False: [], True: []}
+    for _ in range(GUARD_REPS):
+        for scan in (False, True, True, False):
+            t0 = time.perf_counter()
+            read(scan)
+            host[scan].append((time.perf_counter() - t0) * 1e3)
+    dev_ms = device_time(torch, lambda: eng._integrity_verdict(logits),
+                         GUARD_REPS)
+    return (statistics.median(host[False]), statistics.median(host[True]),
+            dev_ms)
+
+
+def phase_chaos(torch, S, C, build_mod, dev, smi: str) -> None:
+    """Self-healing serving at qwen3-1.7b's published width: the spiking
+    LM under ``fused_packed`` through a router of two replicas on the
+    card, the integrity guard on every tick. Clean runs (guard off and on:
+    the guard's cost; launches gated), the chaos run (replica 1 killed,
+    two NaN injections, a corrupted packed word and a consumer stall on
+    replica 0, ``dense_lif`` failed at its first call) against a run whose
+    only fault is that kernel fault, K2 back after ``fallback.reset()``,
+    and the serving entry point under ``--chaos``."""
+    t_phase = time.perf_counter()
+    cfg = S.get_config(LM_ARCH, spiking=True, attention_kind="qk_spiking")
+    params = S.LM(cfg).init(torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    model = S.LM(S.with_policy(cfg, CHAOS_POLICY))
+    trace = lm_trace(cfg.vocab_size)
+    want = tick_launches(build_mod, cfg.n_layers)
+    say(f"[chaos] {LM_ARCH} spiking qk_spiking under {CHAOS_POLICY}: "
+        f"{len(trace)} requests through {CHAOS_REPLICAS} replicas sharing "
+        f"the card, engine {SERVE_ENGINE}")
+    guard = {0: [], 1: []}
+    clean = last = None
+    for i, every in enumerate(GUARD_ORDER):
+        res = run_router(torch, S, C, build_mod, model, params, trace,
+                         integrity_every=every)
+        require_clean(C, res, want, f"clean run, integrity_every {every}")
+        if i:
+            guard[every] += res["ticks"]
+        scans = sum(p["guard_scans"] for p in res["stats"]["per_replica"])
+        require((scans > 0) == bool(every), f"{scans} guard scans at "
+                                            f"integrity_every {every}")
+        if every and clean is None:
+            clean = res
+        last = res
+        p50, p99, n = tick_pcts(res["ticks"])
+        say(f"[chaos] clean run{' (warm-up)' if not i else ''}, "
+            f"integrity_every {every}: "
+            f"{res['stats']['tokens']} tokens in {res['wall_s']:.3f} s, "
+            f"decode tick p50 / p99 {p50:.3f} / {p99:.3f} ms over {n}, "
+            f"dispatch {res['stats']['dispatch']}, {scans} guard scans; "
+            f"launches per replica "
+            f"{[{k: v for k, v in t.items() if v} for t in res['launches']]}"
+            f" = {want} x (decode ticks + prefill calls)")
+    off, on = tick_pcts(guard[0]), tick_pcts(guard[1])
+    say(f"[timing] chaos guard cost ({smi}): clean decode tick p50 / p99 "
+        f"{on[0]:.3f} / {on[1]:.3f} ms over {on[2]} ticks with "
+        f"integrity_every 1, {off[0]:.3f} / {off[1]:.3f} ms over {off[2]} "
+        f"with 0 (after a warm-up, runs off, on, on, off): p50 "
+        f"{on[0] - off[0]:+.3f} ms "
+        f"({(on[0] / off[0] - 1) * 100:+.2f} %), p99 {on[1] - off[1]:+.3f} "
+        f"ms")
+    plain_ms, scan_ms, dev_ms = time_guard(torch, last["router"].engines[0],
+                                           cfg.vocab_size)
+    say(f"[timing] chaos guard alone ({smi}): the tick's read "
+        f"{plain_ms:.4f} ms host without the scan, {scan_ms:.4f} with it "
+        f"({scan_ms - plain_ms:+.4f} ms; median of {GUARD_REPS} each, in "
+        f"turns); the scan's device time {dev_ms:.4f} ms (cold L2)")
+    del last
+
+    C.fallback.reset()
+    only_kernel = run_router(
+        torch, S, C, build_mod, model, params, trace,
+        faults=C.FaultPlan(0).fail_kernel("dense_lif", 0),
+        integrity_every=1, quarantine_retries=CHAOS_RETRIES)
+    kst = only_kernel["stats"]
+    require(kst["failovers"] == 0 and sum(
+        p["quarantined"] for p in kst["per_replica"]) == 0,
+        f"kernel-only run: {kst['failures']}")
+    kdem = C.fallback.demotions()
+    require([d["op"] for d in kdem] == ["dense_lif"],
+            f"kernel-only run demotions {kdem}")
+    C.fallback.reset()
+    plan = (C.demo_chaos_plan(0, n_replicas=CHAOS_REPLICAS,
+                              kill_tick=CHAOS_KILL_TICK,
+                              nan_ticks=CHAOS_NAN_TICKS)
+            .corrupt_word(8).stall_consumer(4, ticks=3))
+    chaos = run_router(torch, S, C, build_mod, model, params, trace,
+                       faults=plan, integrity_every=1,
+                       quarantine_retries=CHAOS_RETRIES)
+    st = chaos["stats"]
+    dem = C.fallback.demotions()
+    per = [{**dict.fromkeys(("quarantined", "requeues", "failed",
+                             "stall_ticks"), 0), **p}
+           for p in st["per_replica"]]    # a replica that finished nothing
+    quarantined = sum(p["quarantined"] for p in per)
+    say(f"[chaos] chaos run: alive {st['alive']}, failovers "
+        f"{st['failovers']} ({[f['reason'] for f in st['failures']]}), "
+        f"requeued {st['requeued']}, dispatch {st['dispatch']}, "
+        f"quarantined {quarantined} "
+        f"({[p['quarantined'] for p in per]}), requeues "
+        f"{[p['requeues'] for p in per]}, failed "
+        f"{[p['failed'] for p in per]}, stall ticks "
+        f"{[p['stall_ticks'] for p in per]}, demotions "
+        f"{[(d['op'], d['mode'], d['reason']) for d in dem]}; plan "
+        f"{json.dumps(plan.summary())}; {st['tokens']} tokens in "
+        f"{chaos['wall_s']:.3f} s")
+    require(st["alive"] == [True, False], f"alive {st['alive']}")
+    # the one failover must be the planned death: any other exception in a
+    # replica's step would fail over too while the other one lives
+    require(st["failovers"] == 1 and planned_death(st),
+            f"failovers {st['failures']}")
+    # the guard sees a corrupted word only in its pad lanes: at a width
+    # whose n_heads * head_dim fills the word grid there are none, as in
+    # the reference, and the word is rewritten by the next tick unread
+    width = C.qk_spike_state_width(cfg)
+    pad = bool(C.pad_lane_mask(cfg.n_heads * cfg.resolved_head_dim,
+                               width).any())
+    visible = len(CHAOS_NAN_TICKS) + pad
+    say(f"[chaos] the packed state has {width} words a row for "
+        f"{cfg.n_heads * cfg.resolved_head_dim} units: "
+        + ("pad lanes, so the corrupted word is flagged" if pad else
+           "no pad lane, so the guard cannot see the corrupted word (it "
+           "is rewritten, unread, by the slot's next tick)")
+        + f"; {visible} poisonings the guard can flag")
+    require(quarantined >= visible, f"{quarantined} quarantines, "
+                                    f"{visible} poisonings visible")
+    require(st["requeued"] >= 1, f"requeued {st['requeued']}")
+    require([d["op"] for d in dem] == ["dense_lif"]
+            and dem[0]["reason"].startswith("InjectedKernelFault"),
+            f"demotions {dem}")
+    same = sum(a == b for a, b in zip(chaos["tokens"],
+                                      only_kernel["tokens"]))
+    say(f"[chaos] chaos tokens equal the kernel-only run's for {same} of "
+        f"{len(trace)} requests")
+    require(same == len(trace), "chaos tokens differ from the kernel-only "
+                                "run's")
+    for u, toks in zip(chaos["uids"], chaos["tokens"]):
+        require(chaos["router"].pop_output(u) == toks,
+                f"request {u}: the popped output is not its tokens")
+        require(chaos["router"].pop_output(u) == [],
+                f"request {u}: a second pop returned tokens")
+    say(f"[chaos] every request finished once with status done; each "
+        f"popped output came out once, a second pop returned []")
+    for label, res in (("chaos", chaos), ("kernel-only", only_kernel)):
+        agree = sum(a == b for a, b in zip(res["tokens"], clean["tokens"]))
+        say(f"[chaos] {label} run (dense_lif on its reference) tokens equal "
+            f"the clean fused run's for {agree} of {len(trace)} requests "
+            f"(information only: at bf16 the reference dense_lif and K2 "
+            f"are two functions; {smi})")
+
+    C.fallback.reset()
+    launches, _, _ = capture_tick(torch, S, build_mod, model, params,
+                                  "decode")
+    require(launches == want, f"after fallback.reset() a tick launches "
+                              f"{launches} != {want}")
+    say(f"[chaos] after fallback.reset(): one decode tick launches "
+        f"{ {k: v for k, v in launches.items() if v} }, K2 back")
+    del params, only_kernel, chaos, clean, res
+    torch.cuda.empty_cache()
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        est = C.serve_main(["--arch", LM_ARCH, "--spiking",
+                            "--qk-attention", "--policy", CHAOS_POLICY,
+                            "--replicas", str(CHAOS_REPLICAS), "--chaos",
+                            "--slots", str(SERVE_ENGINE["max_slots"]),
+                            "--max-len", str(SERVE_ENGINE["max_len"]),
+                            "--prefill-chunk",
+                            str(SERVE_ENGINE["prefill_chunk"])])
+    for w in caught:
+        say(f"[chaos] warning: {w.category.__name__}: {w.message}")
+    edem = [d["op"] for d in C.fallback.demotions()]
+    say(f"[chaos] launch.serve --replicas {CHAOS_REPLICAS} --chaos: "
+        f"{est['n']} requests done, {est['tokens']} tokens, alive "
+        f"{est['alive']}, failovers {est['failovers']}, requeued "
+        f"{est['requeued']}, quarantined "
+        f"{[p.get('quarantined') for p in est['per_replica']]}, demotions "
+        f"{edem}")
+    require(est["failovers"] == 1 and planned_death(est)
+            and est["n"] == 16 and edem == ["dense_lif"],
+            f"launch.serve --chaos: failovers {est['failures']}")
+    C.fallback.reset()
+    torch.cuda.empty_cache()
+    say(f"[chaos] phase {time.perf_counter() - t_phase:.1f} s ({smi})")
+
+
 # ------------------------------------------------------------------ phase 8
 F8_REQUESTS = 8               # requests of the f8-KV engine gate
 INFO_PROMPTS = 8              # prompts of the bf16 chunked-vs-blocking print
@@ -5156,6 +5478,7 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch import ops
     from repro_torch.kernels import _build
+    from repro_torch.ops import fallback
     from repro_torch.models import snn_cnn
 
     K = kernels_namespace(torch)
@@ -5165,7 +5488,12 @@ def main() -> int:
     marks = [t_start]
 
     def lap(tag: str) -> None:
-        """Print a phase's own seconds beside the running total."""
+        """Print a phase's own seconds beside the running total. No phase
+        may leave a fused op demoted to its reference (the guard in
+        ``ops.fallback`` would hide a kernel that failed to build or
+        launch): the chaos phase resets the demotions it made."""
+        require(fallback.demotions() == [],
+                f"{tag}: fused ops demoted {fallback.demotions()}")
         now = time.perf_counter()
         say(f"[{tag}] done: {now - marks[-1]:.1f} s this phase "
             f"({now - t_start:.1f} s so far)")
@@ -5218,6 +5546,9 @@ def main() -> int:
                f"({paths['explicit skip'][2][kernel]} launches)"))
     paths.update(phase_serve(torch, serve_namespace(), K, _build, dev))
     lap("serve")
+    phase_chaos(torch, serve_namespace(), chaos_namespace(), _build, dev,
+                smi)
+    lap("chaos")
     paths.update(phase_softmax(torch, serve_namespace(), K, _build, dev,
                                parity))
     lap("softmax")

@@ -3,15 +3,17 @@ engine, optionally chunk-prefilled (twin of ``repro.launch.serve``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
       --spiking --qk-attention --policy fused_packed [--reduced] \\
-      [--prefill-chunk 64] [--device cpu]
+      [--prefill-chunk 64] [--replicas 2] [--chaos] [--device cpu]
 
 Runs on the card unless ``--device`` says otherwise. The weights are
 random, drawn from a ``torch.Generator`` seeded 0 on the run's device.
 Every decoder-only family serves (a vlm on text alone); an encoder-decoder
 (seamless-m4t-large-v2) raises, as the reference's engine cannot serve it
-either.
-``--replicas`` above 1, ``--chaos`` and ``--integrity-every`` are still to
-port (ROADMAP queue 1 item 5) and raise.
+either. ``--replicas N`` serves through a least-loaded router of N engine
+replicas (dealt over the visible cards; on one card they share it);
+``--chaos`` runs the canned fault plan (a replica killed, two NaN
+injections, one fused-kernel fault) against the trace and implies
+``--integrity-every 1``.
 """
 from __future__ import annotations
 
@@ -46,18 +48,24 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--deadline-ticks", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
-    ap.add_argument("--replicas", type=int, default=1)
-    ap.add_argument("--integrity-every", type=int, default=0)
-    ap.add_argument("--chaos", action="store_true")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="data-parallel engine replicas behind a "
+                         "least-loaded router")
+    ap.add_argument("--integrity-every", type=int, default=0,
+                    help="run the numeric / packed-state integrity guard "
+                         "every N decode ticks; flagged slots are "
+                         "quarantined and replayed (0 = off)")
+    ap.add_argument("--chaos", action="store_true",
+                    help="run the canned deterministic fault plan (replica "
+                         "kill, NaN injections, a fused-kernel fault) "
+                         "against the trace; implies --integrity-every 1")
+    ap.add_argument("--chaos-seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.replicas != 1 or args.chaos or args.integrity_every:
-        raise NotImplementedError(
-            "replica routing, the chaos plan and the integrity guard are "
-            "still to port (ROADMAP queue 1 item 5)")
 
     from .. import resolve_device
     from ..configs import build_model, get_config, reduced as reduce_cfg
-    from ..serve import Engine, EngineConfig
+    from ..serve import (Engine, EngineConfig, ReplicaRouter,
+                         demo_chaos_plan)
 
     dev = resolve_device(args.device)
     overrides = {}
@@ -81,8 +89,18 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                         prefill_chunks_per_tick=args.chunks_per_tick,
                         max_queue=args.max_queue,
                         deadline_ticks=args.deadline_ticks,
+                        integrity_every=(args.integrity_every
+                                         or (1 if args.chaos else 0)),
                         policy=args.policy)
-    eng = Engine(model, params, ecfg)
+    faults = None
+    if args.chaos:
+        faults = demo_chaos_plan(args.chaos_seed, n_replicas=args.replicas)
+        print(f"[serve] chaos plan: {faults.summary()['events']}")
+    if args.replicas > 1:
+        eng = ReplicaRouter(model, params, ecfg, n_replicas=args.replicas,
+                            faults=faults)
+    else:
+        eng = Engine(model, params, ecfg, faults=faults)
     rng = np.random.default_rng(0)
     for _ in range(args.requests):
         plen = int(rng.integers(4, 24))

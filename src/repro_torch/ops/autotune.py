@@ -242,8 +242,8 @@ class AutoTuner:
 
     # ----------------------------------------------------------- demotion
     def demote(self, op: str) -> None:
-        """Exclude ``op``'s fused kernels from future plans (the serving
-        engine's self-healing path, still to port, calls this)."""
+        """Exclude ``op``'s fused kernels from future plans (a demotion in
+        ``ops.fallback`` calls this)."""
         if op not in self._demoted:
             self._demoted.add(op)
             self._plans.clear()

@@ -2,15 +2,19 @@
 -> callable, filled by ``repro_torch.ops.impls`` (the inference modes) and
 ``repro_torch.ops.grad`` (the ``+grad`` modes) on first lookup.
 
-Unlike the reference there is no graceful-degradation guard around the
-fused entries: a fused mode either runs its kernel or raises. A mode with
-no entry raises ``NotImplementedError`` on lookup. ``record_dispatches``
-records the ``(op, mode)`` pairs resolved inside a block.
+Every mode containing ``"fused"`` (the ``+grad`` modes too) goes out
+behind ``fallback.guarded``, as in the reference: a runtime failure of the
+kernel demotes the (op, mode) cell to its reference mode instead of
+crashing the caller. A mode with no entry raises ``NotImplementedError``
+on lookup. ``record_dispatches`` records the ``(op, mode)`` pairs resolved
+inside a block.
 """
 from __future__ import annotations
 
 import contextlib
 from typing import Callable, Iterator, Optional
+
+from . import fallback
 
 _REGISTRY: dict[tuple[str, str], Callable] = {}
 _LOADED = False
@@ -51,10 +55,10 @@ def lookup(op: str, mode: str) -> Callable:
     _ensure_loaded()
     if _DISPATCH_LOG is not None:
         _DISPATCH_LOG.append((op, mode))
-    try:
-        return _REGISTRY[(op, mode)]
-    except KeyError:
-        pass
+    fn = _REGISTRY.get((op, mode))
+    if fn is not None:
+        # a fused entry goes out behind the degradation guard
+        return fallback.guarded(op, mode, fn) if "fused" in mode else fn
     have = sorted(m for o, m in _REGISTRY if o == op)
     if not have:
         raise NotImplementedError(f"unknown op {op!r}")

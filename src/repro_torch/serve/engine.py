@@ -34,14 +34,24 @@ cache row restored after the pool decode, its token fed again next tick)
 while the others keep decoding (its rows are copied aside before the
 tick and written back after it).
 
+Self-healing: a ``FaultPlan`` (``serve.faults``) injects failures into
+the tick loop. With ``integrity_every`` the engine scans, every Nth decode
+tick, the decode logits, the float state rows (finite) and the packed
+spike-state words (clean pad lanes) of the slot pool, as plain torch on
+the device; a flagged live slot is quarantined (its rows zeroed, its
+request requeued at the front and replayed from its prompt; the output
+FIFO only receives tokens past those already pushed) before a token is
+sampled from it. The verdict comes back to the host in the same read as
+the greedy tokens, so the guard adds no wait for the device. A request
+quarantined more than ``quarantine_retries`` times fails. A ``die`` event
+raises ``ReplicaFailure`` for the router (``serve.router``) to fail over.
+
 Sampling is greedy or by temperature, from the engine's own
 ``torch.Generator`` (seeded by ``rng_seed``; the reference draws from
 ``jax.random``, so the two agree only on greedy requests). The cache pool
-is updated in place. The fault plan, the integrity guard with its
-quarantine, and the replica router are still to port (ROADMAP queue 1
-item 5): asking for them raises. The encoder-decoder family is not served
-(its cache needs the source length and it has no ``prefill_chunk``, as in
-the reference): it is driven directly.
+is updated in place. The encoder-decoder family is not served (its cache
+needs the source length and it has no ``prefill_chunk``, as in the
+reference): it is driven directly.
 """
 from __future__ import annotations
 
@@ -55,12 +65,10 @@ import numpy as np
 import torch
 
 from .. import ops
-from ..core.events import popcount32
+from ..core.events import pad_lane_mask, popcount32
 from ..models.lm import param_device
 from ..tree import tree_leaves, tree_map
-
-_UNPORTED = ("is still to port (ROADMAP queue 1 item 5: serving faults, "
-             "the integrity guard and the replica router)")
+from .faults import FaultPlan, ReplicaFailure
 
 
 class QueueFull(RuntimeError):
@@ -78,13 +86,16 @@ class StalledEngine(RuntimeError):
         self.report = report or {}
 
 
-# Request.status lifecycle; "done" is the only success.
+# Request.status lifecycle; "done" is the only success, ``done`` (the
+# bool) means any of the last four.
 STATUS_QUEUED = "queued"
 STATUS_PREFILL = "prefill"
 STATUS_DECODE = "decode"
 STATUS_DONE = "done"
 STATUS_CANCELLED = "cancelled"
 STATUS_DEADLINE = "deadline_miss"
+STATUS_FAILED = "failed"
+TERMINAL = (STATUS_DONE, STATUS_CANCELLED, STATUS_DEADLINE, STATUS_FAILED)
 
 
 @dataclasses.dataclass(eq=False)
@@ -102,6 +113,10 @@ class Request:
     slot: int = -1
     done: bool = False
     status: str = STATUS_QUEUED
+    retries: int = 0                    # quarantine evictions so far
+    # tokens ever pushed to the FIFO: a quarantine replay regenerates the
+    # greedy stream from the start and pushes only the tokens past this
+    pushed: int = 0
     enqueued_t: float = 0.0
     first_token_t: float = 0.0
     finished_t: float = 0.0
@@ -138,15 +153,18 @@ class EngineConfig:
     # read the packed spike telemetry every Nth decode tick (0 = never);
     # each reading waits for the device
     spike_stats_every: int = 1
-    # the integrity guard (every Nth decode tick) is still to port: 0 only
+    # run the integrity guard every Nth decode tick (0 = never): a scan of
+    # the logits and the slot pool whose verdict is a [max_slots] bool
+    # pair; a flagged live slot is quarantined instead of sampled
     integrity_every: int = 0
+    # a request evicted more than this many times fails instead of
+    # being requeued again
+    quarantine_retries: int = 2
     deadline_ticks: int = 0             # default per-request deadline
 
     def __post_init__(self):
         if self.policy is not None:
             self.policy = ops.as_policy(self.policy)
-        if self.integrity_every:
-            raise NotImplementedError(f"the integrity guard {_UNPORTED}")
 
 
 def pool_leaves(layers: Any, kind: str = "kv") -> list:
@@ -176,9 +194,7 @@ def _sync(dev: torch.device) -> None:
 
 class Engine:
     def __init__(self, model, params: dict, cfg: EngineConfig,
-                 rng_seed: int = 0, faults: Any = None):
-        if faults is not None:
-            raise NotImplementedError(f"the fault plan {_UNPORTED}")
+                 rng_seed: int = 0, faults: Optional[FaultPlan] = None):
         if model.cfg.family == "encdec":
             raise ValueError(
                 f"{model.cfg.name}: the engine serves the decoder-only LM "
@@ -189,6 +205,11 @@ class Engine:
         self.params = params
         self.cfg = cfg
         self.device = param_device(params)
+        # the fault script (None in production); its kernel faults are
+        # process-global and armed now
+        self.faults = faults
+        if faults is not None:
+            faults.arm_kernel_faults()
         spiking = model.cfg.attention_kind == "qk_spiking"
         self.policy = model.cfg.exec_policy
         if spiking:
@@ -223,6 +244,12 @@ class Engine:
         self._tokens_emitted = 0
         self._cancelled = 0
         self._deadline_miss = 0
+        self._quarantined = 0
+        self._requeues = 0
+        self._failed = 0
+        self._guard_scans = 0
+        self._pad_masks: dict = {}          # words a row -> pad-lane mask
+        self._forced_stalls: dict[int, int] = {}   # slot -> stalled until
         # the slot-pool cache; per-slot valid lengths kept on the host
         self.cache = self.model.init_cache(cfg.max_slots, cfg.max_len,
                                            device=self.device)
@@ -290,7 +317,7 @@ class Engine:
                 self._release_slot(job.slot)
         if req.slot >= 0 and self.active.get(req.slot) is req:
             del self.active[req.slot]
-            self._release_slot(req.slot)
+            self._release_slot(req.slot, scrub=self.cfg.integrity_every > 0)
         self._finish(req, status)
         if status == STATUS_CANCELLED:
             self._cancelled += 1
@@ -303,9 +330,11 @@ class Engine:
         req.finished_t = time.time()
         self.finished.append(req)
 
-    def _release_slot(self, slot: int) -> None:
+    def _release_slot(self, slot: int, scrub: bool = False) -> None:
         self.slot_len[slot] = 0
         self.free_slots.append(slot)
+        if scrub:
+            self._scrub_slot(slot)
 
     def _deadline_sweep(self) -> None:
         live = list(self.queue) + [j.req for j in self.prefill_fifo] \
@@ -331,6 +360,11 @@ class Engine:
         if req.done:
             del self.requests[uid]
         return out
+
+    def load(self) -> int:
+        """Requests in flight (queued, prefilling, decoding): the router's
+        dispatch metric."""
+        return len(self.queue) + len(self.prefill_fifo) + len(self.active)
 
     # ------------------------------------------------------------- admission
     def _bucket_len(self, s: int) -> int:
@@ -413,10 +447,14 @@ class Engine:
         return True
 
     def _emit(self, req: Request, tok: int) -> None:
+        """Record one sampled token; the FIFO only receives tokens past
+        ``req.pushed`` (a quarantine replay delivers nothing twice)."""
         req.out.append(tok)
         self._tokens_emitted += 1
-        req.fifo.append(tok)
-        self._out_fifo_hwm = max(self._out_fifo_hwm, len(req.fifo))
+        if len(req.out) > req.pushed:
+            req.fifo.append(tok)
+            req.pushed = len(req.out)
+            self._out_fifo_hwm = max(self._out_fifo_hwm, len(req.fifo))
 
     def _activate(self, req: Request, slot: int,
                   last_logits: torch.Tensor) -> None:
@@ -425,8 +463,9 @@ class Engine:
         greedy = int(torch.argmax(last_logits)) if req.temperature <= 0 \
             else None
         self._emit(req, self._sample(last_logits, req, greedy))
-        req.first_token_t = time.time()
-        req.first_token_tick = self._tick
+        if req.first_token_tick < 0:    # a replay keeps the first TTFT
+            req.first_token_t = time.time()
+            req.first_token_tick = self._tick
         req.status = STATUS_DECODE
         self.active[slot] = req
 
@@ -459,6 +498,115 @@ class Engine:
                                       saved):
             slot_row(kind, pool, slot).copy_(prev)
 
+    def _scrub_slot(self, slot: int) -> None:
+        """Zero one slot's rows in every pool: a poisoned row must not
+        reach the slot's next occupant (a prefill writes only its own
+        positions)."""
+        for kind, pool in pool_leaves(self.cache["layers"]):
+            slot_row(kind, pool, slot).zero_()
+
+    # ------------------------------------------------------ fault injection
+    def _resolve_fault_slot(self, slot: int) -> Optional[int]:
+        if slot >= 0:
+            return slot if slot in self.active else None
+        return min(self.active) if self.active else None
+
+    def _inject_faults(self, logits: torch.Tensor) -> None:
+        """Apply this tick's due state and logit faults, in place, after
+        the decode and before the guard (which must see them the tick
+        they land)."""
+        for ev in self.faults.due(
+                ("nan_logits", "nan_state", "corrupt_word"), self._tick):
+            slot = self._resolve_fault_slot(ev.slot)
+            if slot is None:            # no live slot yet: fire next tick
+                self.faults.defer(ev)
+                continue
+            if ev.kind == "corrupt_word" and self._corrupt_words(slot):
+                continue
+            if ev.kind == "nan_state" and self._corrupt_state(slot, ev.value):
+                continue
+            # nan_logits, and the fallback where a family keeps no float or
+            # packed per-slot state (qk_spiking under a dense policy)
+            logits[slot] = ev.value
+
+    def _corrupt_words(self, slot: int) -> bool:
+        """Set a slot's last packed spike-state word to all ones, pad
+        lanes included: the guard sees it where the row has pad lanes
+        (n_heads * head_dim short of the 128-lane grid). False where the
+        pool holds no packed words."""
+        for leaf in tree_leaves(self.cache["layers"]):
+            if leaf.dtype == torch.int32 and leaf.ndim == 5 and leaf.numel():
+                leaf[0, slot, 0, 0, -1] = -1
+                return True
+        return False
+
+    def _corrupt_state(self, slot: int, value: float) -> bool:
+        """Poison one element of a slot's float state row (KV, ssm, conv).
+        False where the model keeps no float per-slot state."""
+        for kind, leaf in pool_leaves(self.cache["layers"]):
+            if not (leaf.is_floating_point() and leaf.numel()):
+                continue
+            ax = leaf.ndim - (3 if kind == "conv" else 4)
+            if ax < 0 or leaf.shape[ax] != self.cfg.max_slots:
+                continue
+            idx = [0] * leaf.ndim
+            idx[ax] = slot
+            leaf[tuple(idx)].copy_(torch.tensor(value).to(leaf.dtype))
+            return True
+        return False
+
+    # ------------------------------------------------------ integrity guard
+    def _integrity_verdict(self, logits: torch.Tensor) -> list:
+        """Per-slot ``[numeric_bad, packed_bad]`` bool tensors on the
+        device. Numeric: a non-finite value in the slot's logits or float
+        state rows. Packed: a set bit in a packed word pool's pad lanes
+        (columns >= n_heads * head_dim, zero in well-formed spike state)."""
+        n = self.cfg.max_slots
+        bad_num = ~torch.isfinite(logits.reshape(n, -1)).all(dim=1)
+        bad_pack = torch.zeros(n, dtype=torch.bool, device=self.device)
+        cfg = self.model.cfg
+        d_logical = cfg.n_heads * cfg.resolved_head_dim
+        for kind, leaf in pool_leaves(self.cache["layers"]):
+            if not leaf.numel():
+                continue
+            ax = leaf.ndim - (3 if kind == "conv" else 4)
+            if ax < 0 or leaf.shape[ax] != n:
+                continue
+            rest = tuple(d for d in range(leaf.ndim) if d != ax)
+            if leaf.dtype == torch.float8_e4m3fn:   # NaN: all ones but sign
+                bad_num |= ((leaf.view(torch.uint8) & 0x7F) == 0x7F).any(
+                    dim=rest)
+            elif leaf.is_floating_point():
+                bad_num |= ~torch.isfinite(leaf).all(dim=rest)
+            elif leaf.dtype == torch.int32 and leaf.ndim == 5:
+                width = leaf.shape[-1]
+                if width not in self._pad_masks:
+                    self._pad_masks[width] = torch.from_numpy(
+                        pad_lane_mask(d_logical, width)).to(self.device)
+                bad_pack |= ((leaf & self._pad_masks[width]) != 0).any(
+                    dim=rest)
+        return [bad_num, bad_pack]
+
+    def _quarantine(self, slot: int) -> None:
+        """Evict a slot the guard flagged: zero its rows, free it, and
+        requeue its request at the front to replay from its prompt (greedy
+        decoding regenerates the same stream; ``pushed`` keeps the FIFO
+        from delivering it twice). Past the retry budget the request
+        fails."""
+        req = self.active.pop(slot)
+        self._release_slot(slot, scrub=True)
+        self._quarantined += 1
+        req.retries += 1
+        if req.retries > self.cfg.quarantine_retries:
+            self._finish(req, STATUS_FAILED)
+            self._failed += 1
+            return
+        req.out = []
+        req.slot = -1
+        req.status = STATUS_QUEUED
+        self.queue.appendleft(req)
+        self._requeues += 1
+
     def _sample(self, logits: torch.Tensor, req: Request,
                 greedy: Optional[int]) -> int:
         if req.temperature <= 0.0:
@@ -469,15 +617,31 @@ class Engine:
 
     # ------------------------------------------------------------------ tick
     def _stalled_slots(self) -> set:
-        if not self.cfg.out_fifo_depth:
-            return set()
-        return {slot for slot, req in self.active.items()
-                if len(req.fifo) >= self.cfg.out_fifo_depth}
+        stalled = set()
+        if self.faults is not None:
+            for ev in self.faults.due("stall_consumer", self._tick):
+                slot = self._resolve_fault_slot(ev.slot)
+                if slot is None:
+                    self.faults.defer(ev)
+                    continue
+                self._forced_stalls[slot] = self._tick + max(ev.ticks, 1)
+        if self._forced_stalls:
+            self._forced_stalls = {
+                s: until for s, until in self._forced_stalls.items()
+                if self._tick < until and s in self.active}
+            stalled |= set(self._forced_stalls)
+        if self.cfg.out_fifo_depth:
+            stalled |= {slot for slot, req in self.active.items()
+                        if len(req.fifo) >= self.cfg.out_fifo_depth}
+        return stalled
 
     def step(self) -> int:
         """One engine tick: admit, run up to ``prefill_chunks_per_tick``
         prefill chunks, then one pool decode for all live, un-stalled
         slots. Returns the number of live sequences."""
+        if self.faults is not None and self.faults.die_due(self._tick):
+            raise ReplicaFailure(
+                f"injected replica death at tick {self._tick}")
         self._deadline_sweep()
         self._admit()
         if self.cfg.prefill_chunk > 0:
@@ -503,8 +667,25 @@ class Engine:
         t0 = time.perf_counter()
         logits, self.cache = self.model.decode_step(
             self.params, self._tokens(toks), self.cache)
-        greedy = torch.argmax(logits, dim=-1).tolist()   # waits for the tick
+        if self.faults is not None:
+            # injected corruption lands after the decode and before the
+            # guard, which must catch it before a token is sampled from it
+            self._inject_faults(logits)
+        greedy = torch.argmax(logits, dim=-1)
+        guard = (self.cfg.integrity_every > 0
+                 and self._tick % self.cfg.integrity_every == 0)
+        # the tick's one read, which waits for the tick: with the guard on,
+        # the greedy tokens and its verdict come back together
+        if guard:
+            self._guard_scans += 1
+            rows = [greedy] + self._integrity_verdict(logits)
+            greedy, *verdict = torch.stack(
+                [r.to(torch.int64) for r in rows]).tolist()
+        else:
+            greedy = greedy.tolist()
         self._tick_wall.append(time.perf_counter() - t0)
+        bad = ({s for s in self.active if verdict[0][s] or verdict[1][s]}
+               if guard else set())
         if self._track_spikes and self._tick % self.cfg.spike_stats_every == 0:
             self._record_spike_step(sorted(self.active.keys()))
         if stalled:
@@ -513,6 +694,9 @@ class Engine:
                 # greedy: the state rolls back and the same token is fed
                 # again next tick, once the FIFO drains
                 self._restore_slot(slot, saved[slot])
+        for slot in sorted(bad):
+            # quarantine before sampling: no token leaves a poisoned slot
+            self._quarantine(slot)
         done_slots = []
         for slot, req in list(self.active.items()):
             if slot in stalled:
@@ -651,6 +835,10 @@ class Engine:
                "ticks": self._tick,
                "cancelled": self._cancelled,
                "deadline_miss": self._deadline_miss,
+               "quarantined": self._quarantined,
+               "requeues": self._requeues,
+               "failed": self._failed,
+               "guard_scans": self._guard_scans,
                "prefill_mode": ("chunked" if self.cfg.prefill_chunk > 0
                                 else "blocking"),
                "prefill_chunks": self._prefill_chunks,
@@ -685,7 +873,12 @@ class Engine:
                   if "block_active_frac" in e]
             if af:
                 out["block_active_frac_mean"] = float(np.mean(af))
+        from ..ops import fallback
         from ..ops.autotune import get_tuner
 
         out["autotune"] = get_tuner().snapshot()
+        # fused -> reference demotions (process-global: ops.fallback)
+        out["kernel_demotions"] = fallback.demotions()
+        if self.faults is not None:
+            out["fault_plan"] = self.faults.summary()
         return out

@@ -2153,3 +2153,134 @@ def test_family_engine_on_the_card(cuda, arch):
         assert launches["spike_matmul"] == cfg.n_layers * calls
     else:
         assert sum(launches.values()) == 0
+
+
+# ------------------------------------------------- self-healing serving
+def test_guarded_kernel_passes_its_result_through(cuda):
+    """The degradation guard around a fused mode hands back the kernel's
+    own result, bit for bit, launches the kernel once and demotes
+    nothing."""
+    from repro_torch import ops
+    from repro_torch.kernels import _build
+    from repro_torch.ops import fallback
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = _spikes(gen, 300, 200, 0.3, cuda)
+    w = torch.randn((200, 150), generator=gen, device=cuda)
+    blocks = ops.DEFAULT_BLOCKS
+    bare = ops.implementations("matmul")["matmul", "fused"](
+        ops.SpikeTensor.dense(x), w,
+        block_m=blocks.m, block_n=blocks.n, block_k=blocks.k, skip="dense")
+    _build.reset_launches()
+    out = ops.matmul(x, w, policy="fused_dense")
+    torch.cuda.synchronize()
+    assert torch.equal(out, bare)
+    assert _build.LAUNCHES["spike_matmul"] == 1
+    assert fallback.demotions() == []
+
+
+@pytest.mark.parametrize("fault", ["shape", "out_of_memory"])
+def test_a_real_kernel_error_on_the_card_propagates(cuda, fault):
+    """On CUDA tensors a real ``RuntimeError`` inside a guarded fused
+    wrapper (a shape mismatch torch raises, an allocation the card
+    refuses) reaches the caller: no demotion, no call of the reference."""
+    from repro_torch import ops
+    from repro_torch.ops import fallback
+    from repro_torch.ops.registry import _REGISTRY, lookup
+
+    x = torch.ones((300, 200), device=cuda)
+    w = torch.ones((200, 150), device=cuda)
+    real = ops.implementations("matmul")["matmul", "fused"]
+    called = []
+
+    def failing(*args, **kwargs):
+        if fault == "shape":
+            torch.mm(w, w)
+        else:
+            torch.empty(1 << 50, device=cuda)
+        return real(*args, **kwargs)
+
+    def reference(*args, **kwargs):
+        called.append(True)
+        return x @ w
+
+    saved = {m: _REGISTRY[("matmul", m)] for m in ("fused", "reference")}
+    try:
+        _REGISTRY[("matmul", "fused")] = failing
+        _REGISTRY[("matmul", "reference")] = reference
+        with pytest.raises(RuntimeError) as info:
+            lookup("matmul", "fused")(ops.SpikeTensor.dense(x), w)
+        assert not isinstance(info.value, fallback.InjectedKernelFault)
+        if fault == "out_of_memory":
+            assert isinstance(info.value, torch.cuda.OutOfMemoryError)
+        assert fallback.demotions() == [] and called == []
+    finally:
+        _REGISTRY.update({("matmul", m): f for m, f in saved.items()})
+        fallback.reset()
+
+
+def test_chaos_trace_equals_the_kernel_only_run(cuda):
+    """The reduced spiking LM under fused_packed on the card, two replicas
+    sharing it, the guard on every tick: the chaos plan (a replica killed,
+    NaN injections, a corrupted packed word, a consumer stall, dense_lif
+    failed) gives every request once, done, with the tokens of a run whose
+    only fault is the kernel fault; after a reset K2 launches again."""
+    import warnings
+
+    import numpy as np
+
+    from repro_torch.configs import build_model, get_config, reduced
+    from repro_torch.kernels import _build
+    from repro_torch.ops import fallback, with_policy
+    from repro_torch.serve import (EngineConfig, FaultPlan, ReplicaRouter,
+                                   demo_chaos_plan)
+
+    cfg = reduced(get_config("qwen3-1.7b", spiking=True,
+                             attention_kind="qk_spiking"))
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0),
+                        device=cuda)
+    ecfg = EngineConfig(max_slots=4, max_len=64, prefill_pad=8,
+                        prefill_chunk=8, policy="fused_packed",
+                        integrity_every=1, quarantine_retries=3)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(3, 20)))
+               for _ in range(8)]
+
+    def run(plan):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            router = ReplicaRouter(model, params, ecfg, n_replicas=2,
+                                   faults=plan)
+            uids = [router.submit(p, max_new=8) for p in prompts]
+            fin = {r.uid: r for r in router.run_until_drained()}
+        assert sorted(fin) == sorted(uids)
+        assert all(r.status == "done" for r in fin.values())
+        return router, uids, [fin[u].out for u in uids]
+
+    try:
+        _, _, want = run(FaultPlan(0).fail_kernel("dense_lif", 0))
+        fallback.reset()
+        plan = (demo_chaos_plan(0, n_replicas=2, kill_tick=6,
+                                nan_ticks=(2, 5))
+                .corrupt_word(4).stall_consumer(1, ticks=2))
+        router, uids, got = run(plan)
+        assert got == want
+        st = router.stats()
+        assert st["alive"] == [True, False] and st["failovers"] == 1
+        assert [f["reason"] for f in st["failures"]] == [
+            "step raised: injected replica death at tick 6"]
+        assert sum(p.get("quarantined", 0) for p in st["per_replica"]) >= 3
+        assert [d["op"] for d in fallback.demotions()] == ["dense_lif"]
+        for u, toks in zip(uids, got):
+            assert router.pop_output(u) == toks
+            assert router.pop_output(u) == []
+    finally:
+        fallback.reset()
+    fused = build_model(with_policy(cfg, "fused_packed"))
+    cache = fused.init_cache(4, 16, device=cuda)
+    _build.reset_launches()
+    fused.decode_step(params, torch.zeros((4, 1), dtype=torch.int64,
+                                          device=cuda), cache)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fused_pe"] == 2 * cfg.n_layers

@@ -24,7 +24,8 @@ from repro_torch.core.lif import LIFConfig
 from repro_torch.launch.serve import main as serve_main
 from repro_torch.models import snn_cnn
 from repro_torch.models.attention import attn_apply
-from repro_torch.serve import Engine, EngineConfig
+from repro_torch.ops import fallback
+from repro_torch.serve import Engine, EngineConfig, FaultPlan
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -73,7 +74,8 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import repro_torch.models.layers, repro_torch.models.attention\n"
         "import repro_torch.models.ffn, repro_torch.serve\n"
         "import repro_torch.models.ssm, repro_torch.models.encdec\n"
-        "import repro_torch.launch.serve\n"
+        "import repro_torch.launch.serve, repro_torch.serve.router\n"
+        "import repro_torch.serve.faults, repro_torch.ops.fallback\n"
         "repro_torch.ops.lookup('matmul', 'reference')\n"
         "repro_torch.ops.lookup('dense_lif', 'fused')\n"
         "repro_torch.ops.lookup('matmul', 'fused+grad')\n"
@@ -172,23 +174,11 @@ def _unported():
     lm_softmax_params = lm_softmax.init(torch.Generator(), device="cpu")
     lm_softmax_cp = build_model(reduced(get_config("qwen3-1.7b"),
                                         decode_cp_axis="data"))
-    lm_spiking = build_model(reduced(get_config(
-        "qwen3-1.7b", spiking=True, attention_kind="qk_spiking")))
-    lm_spiking_params = lm_spiking.init(torch.Generator(), device="cpu")
     return {
         "lm softmax context-parallel decode":
             lambda: lm_softmax_cp.decode_step(
                 lm_softmax_params, torch.zeros((1, 1), dtype=torch.int64),
                 lm_softmax_cp.init_cache(1, 8, device="cpu")),
-        "engine fault plan": lambda: Engine(
-            lm_spiking, lm_spiking_params, EngineConfig(), faults=object()),
-        "engine integrity guard": lambda: EngineConfig(integrity_every=1),
-        "serve replica router": lambda: serve_main(
-            ["--reduced", "--spiking", "--qk-attention", "--replicas", "2",
-             "--device", "cpu"]),
-        "serve chaos plan": lambda: serve_main(
-            ["--reduced", "--spiking", "--qk-attention", "--chaos",
-             "--device", "cpu"]),
     }
 
 
@@ -197,6 +187,95 @@ def test_unported_variants_raise(case):
     with pytest.raises((NotImplementedError, TypeError)) as err:
         _unported()[case]()
     assert "ROADMAP" in str(err.value)
+
+
+SERVE_SPIKING = ["--reduced", "--spiking", "--qk-attention", "--requests",
+                 "4", "--device", "cpu"]
+
+
+def _ported_with_self_healing():
+    """Parts of the serving path that raised until self-healing serving
+    was ported: each serves a few requests of the reduced spiking
+    qwen3-1.7b on the CPU to the end. Returns (stats, requests, tokens
+    each request asks for)."""
+    def engine(faults, **kw):
+        def run():
+            model = build_model(reduced(get_config(
+                "qwen3-1.7b", spiking=True, attention_kind="qk_spiking")))
+            params = model.init(torch.Generator().manual_seed(0),
+                                device="cpu")
+            eng = Engine(model, params, EngineConfig(
+                max_slots=2, max_len=32, prefill_pad=8, **kw), faults=faults)
+            for n in (3, 5, 4):
+                eng.submit(np.arange(1, n + 1), max_new=4)
+            eng.run_until_drained()
+            return eng.stats(), 3, 4
+        return run
+
+    return {
+        "engine fault plan": engine(FaultPlan(0).stall_consumer(1, ticks=2)),
+        "engine integrity guard": engine(None, integrity_every=1),
+        "serve replica router": lambda: (serve_main(
+            SERVE_SPIKING + ["--replicas", "2"]), 4, 16),
+        "serve chaos plan": lambda: (serve_main(
+            SERVE_SPIKING + ["--chaos"]), 4, 16),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_ported_with_self_healing()))
+def test_variants_ported_with_self_healing_run(case):
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            st, n, max_new = _ported_with_self_healing()[case]()
+    finally:
+        fallback.reset()
+    per = [p for p in st.get("per_replica", [st]) if p]
+    assert st["n"] == n and sum(p["n_terminal"] for p in per) == n
+    assert all(p["tokens"] == max_new * p["n"] for p in per)
+
+
+def test_launch_serve_replicas_chaos_fails_over_and_demotes():
+    """The canned chaos plan through two replicas on the CPU: the second
+    replica dies, its requests finish on the first, and the armed fault
+    demotes the fused ``dense_lif`` (the engine runs ``fused_packed``: the
+    reduced model's own policy, ``reference``, has no fused call to
+    fail)."""
+    try:
+        with pytest.warns(RuntimeWarning, match="dense_lif"):
+            st = serve_main(SERVE_SPIKING + [
+                "--replicas", "2", "--chaos", "--policy", "fused_packed"])
+        demoted = [d["op"] for d in fallback.demotions()]
+    finally:
+        fallback.reset()
+    assert st["failovers"] == 1 and st["alive"] == [True, False]
+    assert [f["reason"] for f in st["failures"]] == [
+        "step raised: injected replica death at tick 12"]
+    assert st["n"] == 4 and demoted == ["dense_lif"]
+    assert [d["op"] for d in st["per_replica"][0]["kernel_demotions"]] \
+        == ["dense_lif"]
+
+
+def test_serve_example_twin_runs_on_the_cpu():
+    """``examples/torch_serve_lm.py`` at reduced width on the CPU: the
+    spiking packed engine behind two replicas under the chaos plan streams
+    every request to its end."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_serve_lm", ROOT / "examples" / "torch_serve_lm.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    try:
+        with pytest.warns(RuntimeWarning, match="demoted"):
+            out = mod.main(["--device", "cpu", "--requests", "6",
+                            "--spiking", "--policy", "fused_packed",
+                            "--replicas", "2", "--chaos"])
+    finally:
+        fallback.reset()
+    st = out["stats"]
+    assert st["n"] == 6 and st["failovers"] == 1
+    assert all(out["streamed"].values())
 
 
 def _ported_with_the_families():
