@@ -250,6 +250,28 @@ Phases, in order; any failure raises and the script exits non-zero:
              prefill's continuation (2e-3), mamba2 and zamba2 chunked
              prefill equal to blocking (1e-4, greedy tokens exactly; at
              bf16 the tokens are compared for information).
+11. driver — (run while the earlier launches wait in host memory) the
+             training entry point as a user launches it,
+             ``repro_torch.launch.train.main`` with ``--arch qwen3-1.7b
+             --spiking --qk-attention --policy fused_dense --batch 8 --seq
+             128`` at full width and depth, on ``torch.distributed`` (NCCL,
+             a world of one): 4 steps with ``--ckpt-every 2
+             --simulate-failure 3`` (a checkpoint of the 20.6 GB state
+             under ``build/``, the failure, the restore and remesh), then
+             4 steps uninterrupted; counts set to 0 before each run and
+             read after it (per step ``fused_pe`` 56, ``spike_matmul`` 28,
+             dx 28, dw 28). Gates: the reference's events; step 0's loss
+             bit-equal to phase 9's first ``fused_dense+grad`` loss; the
+             four losses and every leaf of the final parameters and AdamW
+             moments bit-equal between the two runs. Then ``--compress``
+             for 3 steps: step 0's loss bit-equal to the uncompressed
+             one's, every loss finite, step 2's within 0.5 of the
+             uncompressed run's; and one compressed step's residual of the
+             embedding equal to g - decompress(compress(g)) of the first
+             step's gradient. Prints the checkpoint's bytes, save and
+             restore seconds and GB/s, the disk's free space, the driver's
+             steps beside phase 9's, and an A/B of ``make_train_step``
+             with and without the all-reduce; no process group is left.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Without a
@@ -264,6 +286,7 @@ import itertools
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -4885,14 +4908,15 @@ def lm_train_gates_f32(torch, S, T, K, build_mod, cfg, batch) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_lm_train(torch, S, T, K, build_mod, dev, parking) -> dict:
+def phase_lm_train(torch, S, T, K, build_mod, dev, parking) -> tuple:
     """The spiking QKFormer LM trained at qwen3-1.7b's published width and
     depth (random weights from a CUDA ``torch.Generator`` seed 0): 3 steps
     of ``make_train_step`` (AdamW, clip 1.0, ``linear_warmup_cosine(3e-4,
     10, 3)``) on 8 x 129-token batches of ``SyntheticTokenDataset`` under
     each policy, packed bit-equal to dense; the f32 4-layer variant against
     the reference; one sequence-KD step from a frozen softmax teacher.
-    Returns the two kernel paths' first steps for the timing phase."""
+    Returns the two kernel paths' first steps for the timing phase, and
+    the dense path's first loss and median step for phase 11."""
     cfg = S.get_config(LM_ARCH, spiking=True, attention_kind="qk_spiking")
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated() / 2 ** 30
@@ -5004,10 +5028,12 @@ def phase_lm_train(torch, S, T, K, build_mod, dev, parking) -> dict:
         f"equal a training step's")
     del teacher, student, opt, grads, new_p, params, params_host
     torch.cuda.empty_cache()
+    dense = runs["fused_dense+grad"]
     return {LM_TRAIN_PATH.format(policy): (
         None, None, runs[policy]["launches"][0],
         grouped_kv(cfg, runs[policy]["captured"]))
-        for policy in LM_TRAIN_POLICIES[:2]}
+        for policy in LM_TRAIN_POLICIES[:2]}, {
+            "first_loss": dense["loss"][0], "median_ms": dense["median_ms"]}
 
 
 # ----------------------------------------------------------------- phase 10
@@ -5370,6 +5396,256 @@ def phase_families(torch, S, K, build_mod, dev) -> dict:
     return paths
 
 
+# ----------------------------------------------------------------- phase 11
+DRIVER_ARGS = ["--arch", LM_ARCH, "--spiking", "--qk-attention", "--policy",
+               "fused_dense", "--batch", str(LM_TRAIN_BATCH), "--seq",
+               str(LM_TRAIN_SEQ)]
+DRIVER_STEPS = 4
+COMPRESS_STEPS = 3
+
+
+@contextlib.contextmanager
+def timed_checkpoints(rec: dict):
+    """Record, around the elastic runner's checkpoint calls, the host copy
+    of a save (on the caller's thread), its write (the writer thread:
+    CRC32s, ``.npy`` files, the rename) and each restore, in seconds."""
+    import repro_torch.train.checkpoint as ck
+    import repro_torch.train.elastic as el
+
+    def wrap(mod, name):
+        fn = getattr(mod, name)
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            rec.setdefault(name, []).append(time.perf_counter() - t0)
+            return out
+        setattr(mod, name, timed)
+        return fn
+
+    saved = [(ck, n, wrap(ck, n)) for n in ("_flatten_host", "_write")]
+    saved.append((el, "restore_checkpoint", wrap(el, "restore_checkpoint")))
+    try:
+        yield rec
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def driver_run(torch, build_mod, argv: list, steps: int) -> tuple:
+    """``launch.train.main(argv)`` with the launch counts set to 0 just
+    before and read just after; each kernel of the LM step launched its
+    count a step, ``steps`` times."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import main as train_main
+
+    torch.cuda.synchronize()
+    build_mod.reset_launches()
+    t0 = time.perf_counter()
+    run = train_main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = dict(build_mod.LAUNCHES)
+    want = {k: v * steps for k, v in lm_step_launches(
+        build_mod, get_config(LM_ARCH).n_layers, "fused_dense+grad").items()}
+    require(got == want, f"driver {' '.join(argv[-6:])}: launches {got} != "
+                         f"{want}")
+    require(not torch.distributed.is_initialized(),
+            "the driver left a process group behind")
+    return run, seconds, {k: v for k, v in got.items() if v}
+
+
+def dp_ab(torch, model, batch, mesh, smi: str) -> None:
+    """The step's data-parallel all-reduce by itself: ``make_train_step``
+    with and without the world's group (NCCL, one rank), alternating on
+    one state after a step of warm-up, each step waited for; and the
+    loader's host work for one batch."""
+    from repro_torch.data import ShardedLoader, SyntheticTokenDataset
+    from repro_torch.optim import linear_warmup_cosine
+    from repro_torch.train import make_train_step, train_state_init
+
+    dev = batch["tokens"].device
+    sched = linear_warmup_cosine(3e-4, 10, 8)
+    world = mesh.make_test_mesh((1,), ("data",))
+    steps = {"plain": make_train_step(model, schedule=sched),
+             "dp": make_train_step(model, schedule=sched,
+                                   dp_group=world.get_group("data"))}
+    state = train_state_init(model.init(
+        torch.Generator(device=dev).manual_seed(0), device=dev))
+    ms = {"plain": [], "dp": []}
+    for name in ("dp", "plain", "dp", "dp", "plain", "plain", "dp"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = steps[name](state, batch)
+        m["loss"].item()
+        ms[name].append((time.perf_counter() - t0) * 1e3)
+    del state, m
+    ds = SyntheticTokenDataset(model.cfg.vocab_size, LM_TRAIN_SEQ + 1)
+    loader = ShardedLoader(lambda st, bs, sh, n: {"tokens": ds.batch(
+        st, bs, sh, n)}, LM_TRAIN_BATCH, world)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for st in range(5):
+        loader(st)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) / 5 * 1e3
+    say(f"[timing] driver A/B {smi}: make_train_step without the group "
+        f"{[round(t, 3) for t in ms['plain']]} ms (median "
+        f"{statistics.median(ms['plain']):.3f}), with the all-reduce over it "
+        f"{[round(t, 3) for t in ms['dp'][1:]]} (median "
+        f"{statistics.median(ms['dp'][1:]):.3f}; the first, "
+        f"{ms['dp'][0]:.3f}, a warm-up); ShardedLoader {load_ms:.3f} ms a "
+        f"batch")
+
+
+def phase_driver(torch, build_mod, dev, smi: str, lm_dense: dict) -> None:
+    """The training entry point at qwen3-1.7b's full width and depth:
+    checkpoint, failure, restore and remesh bit-equal to the uninterrupted
+    run; the compressed path; see the module docstring (phase 11)."""
+    from repro_torch.configs import build_model, get_config
+    from repro_torch.data import SyntheticTokenDataset
+    from repro_torch.launch import mesh
+    from repro_torch.optim import (compress_int8, constant_lr,
+                                   decompress_int8, error_feedback_init)
+    from repro_torch.train import (make_compressed_train_step, make_grad_fn,
+                                   train_state_init)
+    from repro_torch.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "driver_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    free = shutil.disk_usage(root).free
+    say(f"[driver] {smi}: {free / 1e9:.1f} GB free on the checkpoint's disk "
+        f"({root}) before the save")
+    try:
+        # the run with the failure first: its save's host copy is gone
+        # when its final state is kept in host memory
+        rec: dict = {}
+        with timed_checkpoints(rec):
+            cut, cut_s, launches = driver_run(
+                torch, build_mod, DRIVER_ARGS + [
+                    "--steps", str(DRIVER_STEPS), "--ckpt-every", "2",
+                    "--simulate-failure", "3", "--ckpt-dir",
+                    str(root / "cut")], DRIVER_STEPS)
+        events = [{k: v for k, v in e.items() if k != "path"}
+                  for e in cut.events]
+        want = [{"kind": "checkpoint", "step": 2},
+                {"kind": "failure", "step": 3},
+                {"kind": "restore", "step": 2},
+                {"kind": "remesh", "mesh": {"data": 1}, "resume_step": 3}]
+        require(events == want, f"driver events {events} != {want}")
+        ckpt = root / "cut" / "step_00000002"
+        nbytes = sum(f.stat().st_size for f in ckpt.glob("*.npy"))
+        state_bytes = sum(t.numel() * t.element_size()
+                          for t in tree_leaves(cut.state))
+        copy_s, write_s = rec["_flatten_host"][0], rec["_write"][0]
+        restore_s = rec["restore_checkpoint"][0]
+        say(f"[driver] {smi}: events {events}; the checkpoint "
+            f"{nbytes / 1e9:.3f} GB in {len(list(ckpt.glob('*.npy')))} "
+            f".npy files ({state_bytes / 1e9:.3f} GB of state); save "
+            f"{copy_s + write_s:.2f} s ({nbytes / 1e9 / (copy_s + write_s):.3f}"
+            f" GB/s: host copy {copy_s:.2f} s on the caller's thread, write "
+            f"with CRC32s {write_s:.2f} s), restore with CRC32 checks "
+            f"{restore_s:.2f} s ({nbytes / 1e9 / restore_s:.3f} GB/s); run "
+            f"{cut_s:.1f} s; launches {launches}")
+        require(cut.losses[0] == lm_dense["first_loss"],
+                f"driver step 0 loss {cut.losses[0]!r} != phase 9's "
+                f"{lm_dense['first_loss']!r}")
+        kept = [t.to("cpu") for t in tree_leaves(cut.state)]
+        cut_losses, cut_ms = cut.losses, cut.step_ms
+        del cut
+        torch.cuda.empty_cache()
+
+        whole, whole_s, launches = driver_run(
+            torch, build_mod, DRIVER_ARGS + [
+                "--steps", str(DRIVER_STEPS), "--ckpt-every", "100",
+                "--ckpt-dir", str(root / "whole")], DRIVER_STEPS)
+        require(whole.events == [], f"uninterrupted events {whole.events}")
+        require(cut_losses == whole.losses,
+                f"driver losses with the failure {cut_losses} != "
+                f"uninterrupted {whole.losses}")
+        leaves = tree_leaves(whole.state)
+        bad = [i for i, (t, k) in enumerate(zip(leaves, kept))
+               if not torch.equal(t, k.to(dev))]
+        require(len(leaves) == len(kept) and not bad,
+                f"driver final state leaves {bad[:8]} differ after the "
+                f"checkpoint round trip")
+        med = statistics.median(whole.step_ms[1:])
+        say(f"[driver] {smi}: step 0 loss {whole.losses[0]!r} equals phase "
+            f"9's first fused_dense+grad loss; losses {whole.losses} and all "
+            f"{len(leaves)} leaves of the final parameters and AdamW moments "
+            f"bit-equal with and without the failure")
+        say(f"[timing] driver {smi}: step median {med:.3f} ms over steps 2-"
+            f"{DRIVER_STEPS} (steps {[round(t, 3) for t in whole.step_ms]} "
+            f"ms; with the failure {[round(t, 3) for t in cut_ms]}) against "
+            f"phase 9's make_train_step {lm_dense['median_ms']:.3f} ms; "
+            f"{LM_TRAIN_BATCH * LM_TRAIN_SEQ / med * 1e3:.1f} tokens/s; "
+            f"run {whole_s:.1f} s; launches {launches}")
+        whole_losses, whole_ms = whole.losses, whole.step_ms
+        del whole, leaves, kept
+        torch.cuda.empty_cache()
+
+        comp, comp_s, launches = driver_run(
+            torch, build_mod, DRIVER_ARGS + [
+                "--steps", str(COMPRESS_STEPS), "--compress"],
+            COMPRESS_STEPS)
+        require(comp.losses[0] == whole_losses[0],
+                f"compressed step 0 loss {comp.losses[0]!r} != "
+                f"{whole_losses[0]!r}")
+        require(all(math.isfinite(v) for v in comp.losses)
+                and abs(comp.losses[2] - whole_losses[2]) <= 0.5,
+                f"compressed losses {comp.losses} against {whole_losses}")
+        say(f"[timing] driver --compress {smi}: losses {comp.losses} "
+            f"(uncompressed {whole_losses[:COMPRESS_STEPS]}); steps "
+            f"{[round(t, 3) for t in comp.step_ms]} ms against uncompressed "
+            f"{[round(t, 3) for t in whole_ms[:COMPRESS_STEPS]]}; run "
+            f"{comp_s:.1f} s; launches {launches}")
+        del comp
+        torch.cuda.empty_cache()
+
+        # the residual of one leaf after one compressed step, against the
+        # first step's gradient
+        cfg = get_config(LM_ARCH, spiking=True, attention_kind="qk_spiking",
+                         policy="fused_dense+grad")
+        model = build_model(cfg)
+        ds = SyntheticTokenDataset(cfg.vocab_size, LM_TRAIN_SEQ + 1)
+        batch = {"tokens": torch.from_numpy(ds.batch(0, LM_TRAIN_BATCH)).to(
+            dev)}
+        made = mesh.init_distributed(dev)
+        try:
+            dp_ab(torch, model, batch, mesh, smi)
+            params = model.init(torch.Generator(device=dev).manual_seed(0),
+                                device=dev)
+            _, _, g = make_grad_fn(model.loss)(params, batch)
+            g_emb = g["embed"]["emb"]
+            del g
+            step = make_compressed_train_step(
+                model, mesh.make_test_mesh((1,), ("data",)),
+                schedule=constant_lr(3e-4))
+            (state, err), _ = step((train_state_init(params),
+                                    error_feedback_init(params)), batch)
+            del params, state
+            want = g_emb - decompress_int8(*compress_int8(g_emb))
+            require(torch.equal(err["embed"]["emb"], want),
+                    "compressed residual of embed.emb != g - "
+                    "decompress(compress(g))")
+            say(f"[driver] {smi}: the compressed step's residual of "
+                f"embed.emb ({g_emb.numel()} values) equals g - "
+                f"decompress(compress(g)) of the first step's gradient bit "
+                f"for bit")
+            del err, want, g_emb
+        finally:
+            if made:
+                mesh.shutdown_distributed()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    require(not torch.distributed.is_initialized(),
+            "a process group was left behind")
+    say(f"[driver] {smi}: phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def kernels_namespace(torch):
     """The launchers, plain versions and helpers the phases call."""
     from repro_torch.core import events
@@ -5561,14 +5837,17 @@ def main() -> int:
     say(f"[lm train] the earlier phases' captured launches moved to host "
         f"memory: {held:.3f} GiB on the card before, "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB after")
-    paths.update(phase_lm_train(torch, serve_namespace(),
-                                lm_train_namespace(), K, _build, dev,
-                                parking))
+    lm_paths, lm_dense = phase_lm_train(torch, serve_namespace(),
+                                        lm_train_namespace(), K, _build,
+                                        dev, parking)
+    paths.update(lm_paths)
     lap("lm train")
     # the other LM families at full width hold up to 42 GB of parameters
     # and their bf16 copies: they run while the launches wait there too
     paths.update(phase_families(torch, serve_namespace(), K, _build, dev))
     lap("families")
+    phase_driver(torch, _build, dev, smi, lm_dense)
+    lap("driver")
     parking.park([p[3] for p in paths.values()], "cuda")
     rows = phase_timing(torch, K, snn_cnn, models, images, paths, parity,
                         ITERS, ops.get_tuner())

@@ -1,8 +1,11 @@
 """Training steps (twin of ``repro.train.trainer``): the LM's causal
 training step (``make_train_step``: AdamW, global-norm clipping, optional
-gradient accumulation over microbatches) and the paper's KD step (C1,
+gradient accumulation over microbatches, the gradients averaged over a
+data-parallel process group), the paper's KD step (C1,
 ``make_kd_train_step``): a spiking student trained against a frozen ANN
-teacher with the logit KD loss, SGD with momentum by default.
+teacher with the logit KD loss, SGD with momentum by default, and the
+data-parallel step with int8 + error-feedback gradient compression
+(``make_compressed_train_step``).
 
 The steps are eager PyTorch: autograd differentiates the model's forward,
 whose ops run the policy's kernels forward and their surrogate-gradient
@@ -17,9 +20,11 @@ from __future__ import annotations
 from typing import Any, Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from ..core.kd import KDConfig, kd_loss
-from ..optim import adamw_init, adamw_update, global_norm, sgd_update
+from ..optim import (adamw_init, adamw_update, compressed_psum_grads,
+                     global_norm, sgd_update)
 from ..optim.adamw import AdamWState
 from ..tree import tree_leaves, tree_map, tree_unflatten_like
 
@@ -84,17 +89,50 @@ def _clip_own(grads: Any, max_norm: float) -> tuple[Any, torch.Tensor]:
                     (g.to(torch.float32) * scale).to(g.dtype), grads), norm
 
 
+@torch.no_grad()
+def _pmean(metrics: dict, group) -> dict:
+    """The metrics averaged over ``group``: one all-reduce of them stacked
+    in f32, divided by the group's size (a tensor, so a true division on
+    the card)."""
+    keys = sorted(metrics)
+    stacked = torch.stack([metrics[k].to(torch.float32) for k in keys])
+    dist.all_reduce(stacked, op=dist.ReduceOp.SUM, group=group)
+    stacked.div_(stacked.new_full((), float(dist.get_world_size(group))))
+    return {k: stacked[i].to(metrics[k].dtype) for i, k in enumerate(keys)}
+
+
+@torch.no_grad()
+def _average_grads(grads: Any, group) -> Any:
+    """The step's own gradients summed over ``group`` in place, then
+    divided by its size (not at a size of 1, where that is exact)."""
+    leaves = tree_leaves(grads)
+    for g in leaves:
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group)
+    size = dist.get_world_size(group)
+    if size > 1:
+        n = leaves[0].new_full((), float(size), dtype=torch.float32)
+        for g in leaves:
+            g.div_(n)
+    return grads
+
+
 def make_train_step(model, *, schedule: Callable[[torch.Tensor],
                                                  torch.Tensor],
                     weight_decay: float = 0.1, clip_norm: float = 1.0,
-                    microbatch: int = 0) -> Callable:
+                    microbatch: int = 0, dp_group=None) -> Callable:
     """The LM training step: ``step(state, batch) -> (state, metrics)``.
 
     The gradient of ``model.loss``, accumulated in f32 over ``microbatch``
     equal slices of the batch when ``microbatch > 1`` (the metrics their
     means), clipped to the global norm ``clip_norm``, then one AdamW update
     at ``schedule(state.step)``. The metrics add ``grad_norm`` (before
-    clipping) and ``lr``. The state is not updated in place."""
+    clipping) and ``lr``. The state is not updated in place.
+
+    With ``dp_group`` (a ``torch.distributed`` process group; the batch is
+    this rank's rows) the gradients are averaged over the group before the
+    clip, and so are the metrics: the port's form of the reference's
+    batch-sharded step, whose mean loss spans the global batch. The
+    all-reduce runs at a group size of 1 too."""
     grad_fn = make_grad_fn(model.loss)
 
     def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
@@ -114,6 +152,9 @@ def make_train_step(model, *, schedule: Callable[[torch.Tensor],
                        for k in mets[0]}
         else:
             _, metrics, grads = grad_fn(state.params, batch)
+        if dp_group is not None:
+            grads = _average_grads(grads, dp_group)
+            metrics = _pmean(metrics, dp_group)
         grads, gnorm = _clip_own(grads, clip_norm)
         lr = schedule(state.step)
         new_p, new_o = adamw_update(grads, state.opt_state, state.params,
@@ -225,3 +266,41 @@ def observe_train_sparsity(metrics: dict) -> None:
     from ..ops.autotune import get_tuner
 
     get_tuner().observe(float(frac))
+
+
+def make_compressed_train_step(model, mesh, *, schedule,
+                               dp_axis: str = "data",
+                               weight_decay: float = 0.1,
+                               clip_norm: float = 1.0) -> Callable:
+    """Data-parallel train step with int8 + error-feedback gradient
+    compression.
+
+    The parameters are replicated over ``dp_axis`` of ``mesh`` (pure DP):
+    each rank takes its rows of the global batch (as the reference's
+    ``shard_map`` gives each replica its shard), computes its gradients,
+    quantises them with its carried error (``compressed_psum_grads``: the
+    dequantised values all-reduced and averaged), clips, and takes one
+    AdamW step; the metrics are averaged over the group.
+
+    Returns ``step((state, err), batch) -> ((state, err), metrics)``."""
+    from ..data.loader import local_rows
+
+    grad_fn = make_grad_fn(model.loss)
+
+    def step(carry, batch):
+        state, err = carry
+        group = mesh.get_group(dp_axis)
+        local = tree_map(lambda x: local_rows(x, mesh), batch)
+        _, metrics, grads = grad_fn(state.params, local)
+        grads, new_err = compressed_psum_grads(grads, err, group)
+        grads, gnorm = _clip_own(grads, clip_norm)
+        lr = schedule(state.step)
+        new_p, new_o = adamw_update(grads, state.opt_state, state.params,
+                                    lr=lr, weight_decay=weight_decay)
+        del grads
+        metrics = _pmean(metrics, group)
+        return ((TrainState(step=state.step + 1, params=new_p,
+                            opt_state=new_o), new_err),
+                dict(metrics, grad_norm=gnorm, lr=lr))
+
+    return step

@@ -37,6 +37,41 @@ def tree_leaves(tree: Any) -> list:
     return [] if tree is None else [tree]
 
 
+class Field(str):
+    """A NamedTuple field in a key path (``jax``'s ``GetAttrKey``)."""
+
+
+def tree_leaves_with_path(tree: Any, path: tuple = ()) -> list:
+    """(key path, leaf) in ``tree_leaves`` order: the path a tuple of its
+    keys, a dict key as itself, a list or tuple index as an int, a
+    NamedTuple field as a ``Field``. The one walker that every path-aware
+    function (``keystr``, ``models.sharding``, ``optim.compression``)
+    derives its paths from."""
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree)
+                for pl in tree_leaves_with_path(tree[k], path + (k,))]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [pl for name, v in zip(tree._fields, tree)
+                for pl in tree_leaves_with_path(v, path + (Field(name),))]
+    if isinstance(tree, (list, tuple)):
+        return [pl for i, v in enumerate(tree)
+                for pl in tree_leaves_with_path(v, path + (i,))]
+    return [] if tree is None else [(path, tree)]
+
+
+def keystr(path: tuple) -> str:
+    """``path`` written as ``jax.tree_util.keystr`` writes it: ``['k']`` a
+    dict key, ``[i]`` an index, ``.field`` a NamedTuple field."""
+    return "".join(f".{k}" if isinstance(k, Field) else f"[{k!r}]"
+                   for k in path)
+
+
+def tree_map_with_path(fn: Callable, tree: Any) -> Any:
+    """``fn(path, leaf)`` over ``tree``'s leaves, in its structure."""
+    return tree_unflatten_like(
+        tree, [fn(p, leaf) for p, leaf in tree_leaves_with_path(tree)])
+
+
 def tree_unflatten_like(tree: Any, leaves: list) -> Any:
     """``leaves`` (in ``tree_leaves`` order) put back in ``tree``'s
     structure."""

@@ -2284,3 +2284,78 @@ def test_chaos_trace_equals_the_kernel_only_run(cuda):
                                           device=cuda), cache)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["fused_pe"] == 2 * cfg.n_layers
+
+
+# ------------------------------------------------------- the training driver
+def test_driver_resumes_bit_equal_on_the_card(cuda, tmp_path):
+    """``launch.train.main`` on the card (NCCL, a world of one) at reduced
+    width under ``fused_dense+grad``: a checkpoint at step 2, a failure at
+    3, the restore and remesh, then steps 3 and 4: the reference's events,
+    and losses and final state bit-equal to the uninterrupted run's; the
+    step's kernels launched; no process group left behind."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch.train import main
+    from repro_torch.tree import tree_leaves
+
+    args = ["--reduced", "--spiking", "--qk-attention", "--policy",
+            "fused_dense", "--steps", "5", "--batch", "4", "--seq", "32"]
+    _build.reset_launches()
+    cut = main(args + ["--ckpt-every", "2", "--simulate-failure", "3",
+                       "--ckpt-dir", str(tmp_path / "cut")])
+    assert _build.LAUNCHES["fused_pe"] > 0
+    assert _build.LAUNCHES["spike_matmul_dw"] > 0
+    whole = main(args + ["--ckpt-every", "100",
+                         "--ckpt-dir", str(tmp_path / "whole")])
+    assert [{k: v for k, v in e.items() if k != "path"}
+            for e in cut.events] == [
+        {"kind": "checkpoint", "step": 2}, {"kind": "failure", "step": 3},
+        {"kind": "restore", "step": 2},
+        {"kind": "remesh", "mesh": {"data": 1}, "resume_step": 3},
+        {"kind": "checkpoint", "step": 4}]
+    assert whole.events == [] and cut.losses == whole.losses
+    a, b = tree_leaves(cut.state), tree_leaves(whole.state)
+    assert len(a) == len(b)
+    assert all(x.device.type == "cuda" and torch.equal(x, y)
+               for x, y in zip(a, b))
+    assert not torch.distributed.is_initialized()
+
+
+@pytest.mark.parametrize("magnitude", [1.0, 3e4, 1e-20])
+def test_compress_int8_on_the_card_equals_the_cpu(cuda, magnitude):
+    """int8 compression divides by tensors, so the card's quotients are the
+    CPU's (a host scalar divisor would be a reciprocal multiply there):
+    q, scale, the dequantised values and, through NCCL at a world of one,
+    ``compressed_psum_grads``'s means and residuals, bit for bit; the
+    int8 ties at .5 rounded to even."""
+    from repro_torch.launch import mesh
+    from repro_torch.optim import (compress_int8, compressed_psum_grads,
+                                   decompress_int8)
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((1000, 333), generator=gen) * magnitude
+    ties = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -1.5, 126.5, -2.5])
+    for host in (x, ties):
+        q, s = compress_int8(host.to(cuda))
+        qh, sh = compress_int8(host)
+        assert torch.equal(q.cpu(), qh) and torch.equal(s.cpu(), sh)
+        assert torch.equal(decompress_int8(q, s).cpu(),
+                           decompress_int8(qh, sh))
+    assert compress_int8(ties.to(cuda))[0].tolist() == [127, 0, 2, 2, 0, -2,
+                                                        126, -2]
+    err = torch.randn((1000, 333), generator=gen) * 1e-3 * magnitude
+    made = mesh.init_distributed(cuda)
+    try:
+        mean, new_err = compressed_psum_grads(
+            {"blocks": [{"w": x.to(cuda)}, {"w": 2 * x.to(cuda)}]},
+            {"blocks": [{"w": err.to(cuda)}, {"w": err.to(cuda)}]})
+    finally:
+        if made:
+            mesh.shutdown_distributed()
+    scale = torch.clamp(torch.maximum((x + err).abs().max(),
+                                      (2 * x + err).abs().max()),
+                        min=1e-12) / torch.tensor(127.0)
+    for i, g in enumerate((x + err, 2 * x + err)):
+        deq = torch.clamp(torch.round(g / scale), -127, 127).to(
+            torch.int8).float() * scale
+        assert torch.equal(mean["blocks"][i]["w"].cpu(), deq)
+        assert torch.equal(new_err["blocks"][i]["w"].cpu(), g - deq)

@@ -10,6 +10,7 @@ import os
 import pathlib
 import subprocess
 import sys
+import tempfile
 import warnings
 
 import jax.numpy as jnp
@@ -21,8 +22,10 @@ import repro_torch
 from repro_torch import convert, ops
 from repro_torch.configs import build_model, get_config, reduced
 from repro_torch.core.lif import LIFConfig
+from repro_torch.launch.mesh import Mesh
 from repro_torch.launch.serve import main as serve_main
-from repro_torch.models import snn_cnn
+from repro_torch.launch.train import main as train_main
+from repro_torch.models import sharding, snn_cnn
 from repro_torch.models.attention import attn_apply
 from repro_torch.ops import fallback
 from repro_torch.serve import Engine, EngineConfig, FaultPlan
@@ -76,6 +79,10 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import repro_torch.models.ssm, repro_torch.models.encdec\n"
         "import repro_torch.launch.serve, repro_torch.serve.router\n"
         "import repro_torch.serve.faults, repro_torch.ops.fallback\n"
+        "import repro_torch.launch.train, repro_torch.launch.mesh\n"
+        "import repro_torch.train.elastic, repro_torch.train.checkpoint\n"
+        "import repro_torch.train.straggler, repro_torch.data.loader\n"
+        "import repro_torch.optim.compression, repro_torch.models.sharding\n"
         "repro_torch.ops.lookup('matmul', 'reference')\n"
         "repro_torch.ops.lookup('dense_lif', 'fused')\n"
         "repro_torch.ops.lookup('matmul', 'fused+grad')\n"
@@ -110,6 +117,9 @@ def _entry_points():
              "blocks": {"ln1": {"scale": np.ones((2, 2), np.float32)}}}),
         "launch.serve": lambda: serve_main(
             ["--reduced", "--spiking", "--qk-attention", "--requests", "1"]),
+        "launch.train": lambda: train_main(
+            ["--reduced", "--steps", "1", "--batch", "2", "--seq", "8",
+             "--ckpt-dir", tempfile.mkdtemp()]),
         "resolve_device": lambda: repro_torch.resolve_device(),
         "init": lambda: snn_cnn.init(torch.Generator(), cfg),
         "variables_from_jax": lambda: convert.variables_from_jax(
@@ -179,6 +189,9 @@ def _unported():
             lambda: lm_softmax_cp.decode_step(
                 lm_softmax_params, torch.zeros((1, 1), dtype=torch.int64),
                 lm_softmax_cp.init_cache(1, 8, device="cpu")),
+        "param_shardings over a model axis": lambda: sharding.param_shardings(
+            lm_softmax_params, Mesh((1, 2), ("data", "model"),
+                                    device="cpu")),
     }
 
 
@@ -276,6 +289,57 @@ def test_serve_example_twin_runs_on_the_cpu():
     st = out["stats"]
     assert st["n"] == 6 and st["failovers"] == 1
     assert all(out["streamed"].values())
+
+
+TRAIN_REDUCED = ["--reduced", "--device", "cpu", "--steps", "4", "--batch",
+                 "2", "--seq", "8"]
+
+
+def _ported_with_the_training_driver():
+    """The training driver, which raised until it was ported: the reduced
+    qwen3-1.7b on the CPU through a checkpoint, a failure and the remesh,
+    and the int8 + error-feedback compressed path, each to its last step.
+    Returns (the run, the events it must give)."""
+    def run(extra):
+        return lambda: train_main(TRAIN_REDUCED + extra + [
+            "--ckpt-dir", tempfile.mkdtemp()])
+
+    elastic = [{"kind": "checkpoint", "step": 2},
+               {"kind": "failure", "step": 3}, {"kind": "restore", "step": 2},
+               {"kind": "remesh", "mesh": {"data": 1}, "resume_step": 3}]
+    return {
+        "launch.train --simulate-failure": lambda: (run(
+            ["--ckpt-every", "2", "--simulate-failure", "3"])(), elastic),
+        "launch.train spiking fused_dense --simulate-failure": lambda: (run(
+            ["--spiking", "--qk-attention", "--policy", "fused_dense",
+             "--ckpt-every", "2", "--simulate-failure", "3"])(), elastic),
+        "launch.train --compress": lambda: (run(["--compress"])(), []),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_ported_with_the_training_driver()))
+def test_variants_ported_with_the_training_driver_run(case):
+    out, events = _ported_with_the_training_driver()[case]()
+    assert int(out.state.step) == 4 and len(out.losses) == 4
+    assert all(np.isfinite(out.losses))
+    assert [{k: v for k, v in e.items() if k != "path"}
+            for e in out.events] == events
+    assert not torch.distributed.is_initialized()
+
+
+def test_training_runs_without_a_ckpt_dir_share_no_checkpoint(monkeypatch,
+                                                            tmp_path):
+    """Two runs without ``--ckpt-dir`` each checkpoint into a directory of
+    their own under the temporary directory, removed at the end: the
+    second starts at step 0 and restores nothing of the first."""
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    args = ["--reduced", "--device", "cpu", "--steps", "2", "--batch", "2",
+            "--seq", "8", "--ckpt-every", "1"]
+    first, second = train_main(args), train_main(args)
+    assert ([e["kind"] for e in first.events]
+            == [e["kind"] for e in second.events] == ["checkpoint"])
+    assert first.losses == second.losses
+    assert list(tmp_path.iterdir()) == []
 
 
 def _ported_with_the_families():
