@@ -272,6 +272,28 @@ Phases, in order; any failure raises and the script exits non-zero:
              restore seconds and GB/s, the disk's free space, the driver's
              steps beside phase 9's, and an A/B of ``make_train_step``
              with and without the all-reduce; no process group is left.
+12. kd pipeline — (run while the earlier launches wait in host memory)
+             the paper's experiment as ``examples/torch_train_kd_cifar.py``
+             runs it: ``run("vgg11", 220, policy="fused_dense", width=1.0)``,
+             the ResNet-18 teacher and the VGG-11 student at full width,
+             batch 64, KDT, F&Q (4-bit), KD-QAT and the W2TTFS head; counts
+             set to 0 before the run and read after it. Gates: KDT's first
+             step against the same step with every launcher swapped for
+             its plain version (``plain_launchers``: spike totals 1e-3,
+             loss 1e-4, gradients a relative L2 error of 1e-3 per leaf;
+             ``reference+grad`` printed for information), one KDT step's
+             launches from the layer list, the W2TTFS head's logits
+             against the AP head's on the KD-QAT weights over the 512
+             evaluation images (top-1 agreement >= 99 %), every stage's
+             accuracy finite, and the deployment artifact's spikes per
+             image equal under ``fused_dense`` and ``fused_packed``.
+             Prints the five accuracies, the claim lines, each stage's
+             seconds, the step medians, the peak memory and the
+             profiler's breakdown of a KDT step.
+13. contracts — the contract sweep (``repro_torch.analysis.contracts``)
+             on fake CPU tensors, then every fused registry point of its
+             corpus on CUDA tensors: each output's shapes, dtypes,
+             formats and ``vld_cnt`` grids equal to the sweep's.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Without a
@@ -1066,6 +1088,7 @@ def check_qk(torch, K, args, parity: Parity, label: str) -> None:
     bad = int((out != K.qk_attention_ref(q, k, threshold=threshold)).sum())
     require(bad == 0, f"qk_attention {label}: {bad} elements differ")
     parity.note("qk_attention", float(bad))
+    # a measured row count, never differentiated  # neurallint: disable=NL-BARE-HEAVISIDE
     rows_on = float((q.to(torch.float32).sum(dim=1) >= threshold).float()
                     .mean()) if q.shape[0] else 0.0
     say(f"[parity] qk_attention {label}: bit-equal; rows kept {rows_on:.4f}")
@@ -1716,6 +1739,7 @@ def parity_lm_train_pe(torch, K, gen, dev, parity: Parity) -> None:
                           device=dev) / math.sqrt(LM_PE_K)).expand(
             LM_PE_K, LM_KV_HEADS, LM_HEADS // LM_KV_HEADS, LM_DH).reshape(
             LM_PE_K, n).contiguous()
+        # a parity input's spikes, never differentiated  # neurallint: disable=NL-BARE-HEAVISIDE
         q = (x.to(torch.float32) @ wq >= V_TH).to(torch.int8)
         for name, w, qq, heads in (("wq", wq, None, None),
                                    ("wk", wk, q, (LM_HEADS, LM_DH))):
@@ -2038,6 +2062,7 @@ def tuned_layer_names(cfg, snn_cnn) -> list:
 
 def active_fracs(captured) -> list:
     """Active-block fraction of x in each fused PE / spike matmul launch."""
+    # a measured fraction, never differentiated  # neurallint: disable=NL-BARE-HEAVISIDE
     return [float((args[2] > 0).float().mean()) for name, args, *_ in captured
             if name in ("fused_pe", "spike_matmul")]
 
@@ -2162,6 +2187,7 @@ def phase_explicit(torch, K, build_mod, ops, paths, train_captured):
     from repro_torch.kernels.spike_matmul import spike_matmul_dw
 
     def most_silent(captured, name):
+        # a measured fraction, never differentiated  # neurallint: disable=NL-BARE-HEAVISIDE
         cands = [(float((a[2] > 0).float().mean()), i, a, inp)
                  for i, (n_, a, inp, _) in enumerate(captured) if n_ == name]
         return min(cands, key=lambda c: (c[0], c[1]))
@@ -2918,6 +2944,7 @@ def bound(torch, K, name: str, args, inputs) -> tuple[float, float, float]:
         xa, g, vld = args
         x = dense_x(K, xa)
         (m, k), n = x.shape, g.shape[1]
+        # a bound's active blocks, never differentiated  # neurallint: disable=NL-BARE-HEAVISIDE
         active = (vld > 0).to(torch.float64).cpu()
         rows = valid_extent(torch, m, active.shape[0])
         cols = valid_extent(torch, k, active.shape[1])
@@ -2950,6 +2977,7 @@ def bound(torch, K, name: str, args, inputs) -> tuple[float, float, float]:
     nnz = int(K.popcount32(xp).sum()) if packed_x else int((xp != 0).sum())
     if xp.is_floating_point():   # a dense activation: the full product
         nnz = m0 * k0
+    # a bound's active blocks, never differentiated  # neurallint: disable=NL-BARE-HEAVISIDE
     active = (vld > 0).to(torch.float64).cpu()
     bk = K.block_width(wp.shape[0], active.shape[1])   # 128, or 256
     rows = valid_extent(torch, m0, active.shape[0])
@@ -5646,6 +5674,167 @@ def phase_driver(torch, build_mod, dev, smi: str, lm_dense: dict) -> None:
     say(f"[driver] {smi}: phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# ----------------------------------------------------------------- phase 12
+KD_STEPS = 220            # the pipeline's default budget (teacher and KDT)
+KD_POLICY = "fused_dense"
+KD_AGREEMENT = 0.99       # top-1 agreement of the W2TTFS and AP heads
+
+
+def kd_pipeline_module():
+    """``examples/torch_train_kd_cifar.py``, the pipeline a user runs."""
+    import importlib.util
+
+    path = ROOT / "examples" / "torch_train_kd_cifar.py"
+    spec = importlib.util.spec_from_file_location("torch_train_kd_cifar",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def kd_first_step_gate(torch, M, build_mod, P, rec: dict, dev) -> None:
+    """KDT's first step under the kernels against the same step on the
+    launchers' plain versions (and, for information, reference+grad), its
+    launches against the layer list, and the profiler's breakdown of the
+    step beside the pipeline's median KDT step."""
+    cfg = rec["cfg"]["KDT"]
+    params, state = rec["init"]
+    _, tparams, tstate, tcfg = rec["teacher"]
+    tvar = {"params": tparams, "state": tstate}
+    variables = {"params": params, "state": state}
+    batch = [P._batch(P._dataset(), 0, P.BATCH, dev)]
+    kernels = TrainPath(torch, M, cfg, variables, tcfg, tvar, "unfused",
+                        f"{KD_POLICY}+grad", suffix=" (KDT)")
+    kernels.run(batch, build_mod)
+    plain = TrainPath(torch, M, cfg, variables, tcfg, tvar, "unfused",
+                      f"{KD_POLICY}+grad", suffix=" (KDT, plain versions)")
+    with plain_launchers():
+        plain.run(batch, build_mod)
+    compare_training(kernels, plain)
+    profile_step(torch, kernels, statistics.median(rec["step_ms"]["KDT"]))
+    ref = TrainPath(torch, M, cfg, variables, tcfg, tvar, "unfused",
+                    "reference+grad", suffix=" (KDT)")
+    ref.run(batch, build_mod)
+    rel_loss, errs, worst_spikes = training_distance(kernels, ref)
+    say(f"[kd pipeline] for information, {kernels.name} vs {ref.name} step "
+        f"1: loss rel diff {rel_loss:.3e}; gradient leaves past 1e-3: "
+        f"{sum(e > 1e-3 for e in errs)} of {len(errs)}; worst spike total "
+        f"rel diff {worst_spikes:.3e}")
+    want = unfused_step_launches(cfg, M.snn_cnn)
+    want["w2ttfs_pool"] = int(cfg.head == "w2ttfs")
+    got = kernels.launches[0]
+    say(f"[kd pipeline] launches of one KDT step: {got}")
+    require(got == want, f"KDT step launches {got} != {want}")
+
+
+def kd_head_gate(torch, P, rec: dict, dev) -> None:
+    """The W2TTFS head against the AP head on the KD-QAT weights over the
+    evaluation images."""
+    params, state = rec["vars"]["KD-QAT"]
+    ds = P._dataset()
+    agree = total = 0
+    worst = 0.0
+    with torch.no_grad():
+        for i in range(P.EVAL_BATCHES):
+            x = P._batch(ds, 10_000 + i, 128, dev)["images"]
+            logits = [P.snn_cnn.forward({"params": params, "state": state},
+                                        x, rec["cfg"][stage], train=False,
+                                        policy=KD_POLICY)[0]
+                      for stage in ("KD-QAT", "W2TTFS")]
+            agree += int((logits[0].argmax(-1) == logits[1].argmax(-1))
+                         .sum())
+            total += x.shape[0]
+            worst = max(worst, float((logits[0] - logits[1]).abs().max()))
+    say(f"[kd pipeline] W2TTFS vs AP head on the KD-QAT weights, {total} "
+        f"images: top-1 agreement {agree / total:.4f} (gate "
+        f"{KD_AGREEMENT}); worst logit difference {worst:.3e}")
+    require(agree / total >= KD_AGREEMENT,
+            f"W2TTFS and AP heads agree on {agree} of {total} images")
+
+
+def phase_kd_pipeline(torch, M, build_mod, dev) -> None:
+    P = kd_pipeline_module()
+    say(f"[kd pipeline] run('vgg11', {KD_STEPS}, policy={KD_POLICY!r}, "
+        f"width=1.0): ANN ResNet-18 teacher, VGG-11 student, batch "
+        f"{P.BATCH}, 32x32 images at noise 0.8, seed 0")
+    rec = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    build_mod.reset_launches()
+    t0 = time.perf_counter()
+    res = P.run("vgg11", KD_STEPS, policy=KD_POLICY, width=1.0, device=dev,
+                record=rec)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(build_mod.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    say(f"[kd pipeline] launches over the run: {launches}")
+    for kernel in ("lif_update", "spike_matmul", "spike_matmul_dx",
+                   "spike_matmul_dw", "w2ttfs_pool"):
+        require(launches[kernel] > 0, f"kd pipeline: {kernel} never "
+                                      f"launched")
+    for stage, acc in res.items():
+        require(math.isfinite(acc), f"kd pipeline: {stage} accuracy {acc}")
+    say("[kd pipeline] stage seconds: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in rec["seconds"].items())
+        + f"; the run {seconds:.3f} s; peak memory {peak / 2**30:.3f} GiB "
+        f"({(peak - held) / 2**30:.3f} GiB above the {held / 2**30:.3f} "
+        f"held before it)")
+    import numpy as np
+
+    for stage, ms in rec["step_ms"].items():
+        p10, p50, p90 = np.percentile(ms, [10, 50, 90])
+        say(f"[timing] kd pipeline {stage} step: median {p50:.3f} ms, p10 "
+            f"{p10:.3f}, p90 {p90:.3f}, first {ms[0]:.3f} over {len(ms)} "
+            f"steps")
+    kd_first_step_gate(torch, M, build_mod, P, rec, dev)
+    kd_head_gate(torch, P, rec, dev)
+    build_mod.reset_launches()
+    per_img = {pol: P.deployment_spikes("vgg11", pol, width=1.0, device=dev)
+               for pol in ("fused_dense", "fused_packed")}
+    launches = dict(build_mod.LAUNCHES)
+    say(f"[kd pipeline] deployment artifact (fused + int8, 16 images): "
+        f"total_spikes/img {per_img}; launches {launches}")
+    require(per_img["fused_dense"] == per_img["fused_packed"],
+            f"deployment spikes differ between formats: {per_img}")
+    for kernel in ("lif_update", "fused_pe", "w2ttfs_pool", "pack_spikes",
+                   "unpack_spikes"):
+        require(launches[kernel] > 0, f"deployment: {kernel} never "
+                                      f"launched")
+
+
+# ----------------------------------------------------------------- phase 13
+CONTRACT_KERNELS = ("lif_update", "fused_pe", "spike_matmul", "w2ttfs_pool",
+                    "pack_spikes", "unpack_spikes", "qk_attention",
+                    "fused_pe_gated", "spike_matmul_gated", "flash_attention")
+
+
+def phase_contracts(torch, build_mod, dev) -> None:
+    from repro_torch.analysis.contracts import device_check, verify_contracts
+
+    t0 = time.perf_counter()
+    report = verify_contracts()
+    t1 = time.perf_counter()
+    require(not report.findings, "contract sweep: "
+            + "; ".join(str(f) for f in report.findings[:5]))
+    require(report.coverage == report.registered,
+            f"contract sweep: uncovered {sorted(report.uncovered)}")
+    build_mod.reset_launches()
+    n, bad = device_check(dev, report)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(build_mod.LAUNCHES)
+    say(f"[contracts] the sweep on the CPU: {len(report.coverage)}/"
+        f"{len(report.registered)} (op, mode) pairs, {report.cells} cells "
+        f"({report.abstract} on fake tensors, {report.concrete} on seeded "
+        f"operands), {t1 - t0:.3f} s; {n} fused cells on {dev}: "
+        f"{len(bad)} mismatches, {t2 - t1:.3f} s; launches {launches}")
+    require(not bad, "contracts on the card: " + "; ".join(bad[:5]))
+    for kernel in CONTRACT_KERNELS:
+        require(launches[kernel] > 0, f"contracts: {kernel} never launched")
+
+
 def kernels_namespace(torch):
     """The launchers, plain versions and helpers the phases call."""
     from repro_torch.core import events
@@ -5848,6 +6037,10 @@ def main() -> int:
     lap("families")
     phase_driver(torch, _build, dev, smi, lm_dense)
     lap("driver")
+    phase_kd_pipeline(torch, M, _build, dev)
+    lap("kd pipeline")
+    phase_contracts(torch, _build, dev)
+    lap("contracts")
     parking.park([p[3] for p in paths.values()], "cuda")
     rows = phase_timing(torch, K, snn_cnn, models, images, paths, parity,
                         ITERS, ops.get_tuner())

@@ -106,6 +106,7 @@ def block_occupancy(spikes: torch.Tensor, block_m: int = DEFAULT_BLOCKS.m,
     flat = pad_to_blocks(spikes.reshape(-1, spikes.shape[-1]), block_m,
                          block_k)
     cnt = block_count_map_2d(flat, block_m, block_k)
+    # an occupancy metric, never differentiated  # neurallint: disable=NL-BARE-HEAVISIDE
     return (cnt > 0).to(torch.float32).mean()
 
 

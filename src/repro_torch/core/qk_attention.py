@@ -22,7 +22,7 @@ def qk_token_mask(q_spikes: torch.Tensor, mode: str = "threshold",
     """Per-token mask from Q spikes [..., N, D] -> [..., N, 1] {0,1}."""
     rowsum = q_spikes.sum(dim=-1, keepdim=True)
     if mode == "or":
-        # hardware atten_reg: deliberately no gradient into Q
+        # hardware atten_reg: deliberately no gradient into Q  # neurallint: disable=NL-BARE-HEAVISIDE
         return (rowsum > 0).to(q_spikes.dtype)
     if mode != "threshold":
         raise ValueError(f"unknown QK mask mode {mode!r}")
@@ -35,7 +35,7 @@ def qk_channel_mask(q_spikes: torch.Tensor, mode: str = "threshold",
     """Per-channel mask from Q spikes [..., N, D] -> [..., 1, D] {0,1}."""
     colsum = q_spikes.sum(dim=-2, keepdim=True)
     if mode == "or":
-        # hardware atten_reg: deliberately no gradient into Q
+        # hardware atten_reg: deliberately no gradient into Q  # neurallint: disable=NL-BARE-HEAVISIDE
         return (colsum > 0).to(q_spikes.dtype)
     if mode != "threshold":
         raise ValueError(f"unknown QK mask mode {mode!r}")

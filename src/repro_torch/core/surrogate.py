@@ -58,6 +58,7 @@ class _Spike(torch.autograd.Function):
     def forward(ctx, v: torch.Tensor, surrogate: str, alpha: float):
         ctx.save_for_backward(v)
         ctx.surrogate, ctx.alpha = surrogate, alpha
+        # the primitive the rule points everyone at  # neurallint: disable=NL-BARE-HEAVISIDE
         return (v >= 0).to(v.dtype)
 
     @staticmethod

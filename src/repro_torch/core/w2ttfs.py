@@ -55,6 +55,7 @@ def w2ttfs_time_reuse(spike_map: torch.Tensor, fc_w: torch.Tensor,
     acc = torch.zeros((cnt.shape[0], fc_w.shape[1]), dtype=fc_w.dtype,
                       device=fc_w.device)
     for u in range(window * window):
+        # the deployed head's window thresholds, never differentiated  # neurallint: disable=NL-BARE-HEAVISIDE
         acc = acc + ((flat_cnt > u).to(fc_w.dtype) @ fc_w) * unit
     return acc + fc_b
 

@@ -28,8 +28,13 @@ from typing import NamedTuple, Optional
 import torch
 
 from .. import _build
+from ..contract import KernelContract, declare, flash_attention_smem
 from ..spike_matmul.ops import SMS
 from .ref import attention_ref
+
+CONTRACT = declare(KernelContract(
+    family="flash_attention", ops=("attention",), formats=("dense",),
+    smem_bytes=flash_attention_smem))
 
 MAX_HEAD_DIM = 128
 WGMMA_HEAD_DIMS = (32, 64, 128)      # the wgmma route's instances

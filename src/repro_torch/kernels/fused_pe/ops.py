@@ -42,6 +42,7 @@ from ...core.events import (LANE_BITS, PackedSpikes, block_count_map_2d,
                             pad_to_blocks, popcount_block_map, vld_or_compute)
 from ...tree import derived
 from .. import _build
+from ..contract import KernelContract, declare, fused_pe_smem
 from ..packed.ops import pack_spikes, unpack_spikes
 from ..spike_matmul.ops import (DECODE_ROWS, ROUTE_IDS, SKIP_IDS, SMS, TILE,
                                 Gate, check_block_contract, check_route,
@@ -49,6 +50,12 @@ from ..spike_matmul.ops import (DECODE_ROWS, ROUTE_IDS, SKIP_IDS, SMS, TILE,
                                 row_vld, weight_operand, x_occupancy)
 from .ref import (LIFState, Packing, fused_pe_block_ref,
                   fused_pe_tile_operands, head_gate, split_weight)
+
+CONTRACT = declare(KernelContract(
+    family="fused_pe", ops=("fused_pe", "fused_pe_layer", "dense_lif"),
+    skips=("dense", "gated", "two_level"), grad=True,
+    grad_ops=("fused_pe", "fused_pe_layer", "dense_lif"), emits_spikes=True,
+    head_blocked=True, smem_bytes=fused_pe_smem))
 
 Spikes = Union[torch.Tensor, PackedSpikes]
 

@@ -4,7 +4,13 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from ..contract import KernelContract, declare
 from .ref import lif_update_ref
+
+CONTRACT = declare(KernelContract(
+    family="lif_update", ops=("lif",), formats=("dense",), grad=True,
+    # elementwise: csrc/lif_update.cu declares no shared memory
+    smem_bytes=lambda bm, bn, bk, packed: 0))
 
 
 def lif_update_cuda(current: torch.Tensor, v_prev: torch.Tensor,

@@ -16,8 +16,16 @@ import torch
 
 from ...core.events import LANE_BITS, PackedSpikes
 from .. import _build
+from ..contract import KernelContract, declare, pack_smem
 from ..spike_matmul.ops import TILE
 from .ref import pack_spikes_ref, unpack_spikes_ref
+
+# pack / unpack, and the word-level patch extraction and OR pooling the
+# registry binds beside them (im2col / pool differentiate, the conversions
+# do not)
+CONTRACT = declare(KernelContract(
+    family="packed", ops=("pack", "unpack", "im2col", "pool"),
+    grad_ops=("im2col", "pool"), emits_spikes=True, smem_bytes=pack_smem))
 
 
 def _padded(n: int) -> int:

@@ -7,7 +7,13 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from ..contract import KernelContract, declare
 from .ref import qk_attention_ref
+
+CONTRACT = declare(KernelContract(
+    family="qk_attention", ops=("qk_mask",), grad=True, emits_spikes=True,
+    # one row a warp: csrc/qk_attention.cu declares no shared memory
+    smem_bytes=lambda bm, bn, bk, packed: 0))
 
 _DTYPES = {torch.float32: 0, torch.int8: 1}
 

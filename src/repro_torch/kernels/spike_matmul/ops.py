@@ -32,8 +32,14 @@ from ...core.events import (LANE_BITS, PackedSpikes, compact_kmap,
                             pad_to_blocks, vld_or_compute,
                             word_occupancy_map, word_occupancy_map_dense)
 from .. import _build
+from ..contract import KernelContract, declare, matmul_smem
 from .ref import (block_width, spike_matmul_block_ref,
                   spike_matmul_gated_block_ref)
+
+CONTRACT = declare(KernelContract(
+    family="spike_matmul", ops=("matmul",),
+    skips=("dense", "gated", "two_level"), grad=True, grad_ops=("matmul",),
+    smem_bytes=matmul_smem))
 
 TILE = 128          # the kernel's CTA tile == the metadata block's rows
 # the byte-skip strategies shared by spike_matmul, fused_pe and the dw

@@ -5,13 +5,15 @@ from typing import NamedTuple
 
 import torch
 
+from ...launch.roofline import SMEM_BYTES_PER_BLOCK
 from .. import _build
+from ..contract import KernelContract, declare
 from .ref import w2ttfs_pool_fc_ref
 
 # the spike dtypes the kernel reads as they are (its ``kind`` argument)
 SPIKE_KINDS = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
 MAX_BLOCK_B = 8              # images a CTA, as the TPU kernel's block_b
-SMEM_BYTES = 227 * 1024      # shared memory a CTA can take on the H100
+SMEM_BYTES = SMEM_BYTES_PER_BLOCK    # shared memory a CTA can take
 THREADS = 256                # the kernel's CTA
 
 
@@ -38,6 +40,16 @@ def w2ttfs_plan(b: int, features: int, classes: int, *,
                  + block_b * classes)
     rows_chunk = max(1, min(features, (SMEM_BYTES - fixed) // (4 * classes)))
     return HeadPlan(block_b, rows_chunk, fixed + 4 * rows_chunk * classes)
+
+
+CONTRACT = declare(KernelContract(
+    family="w2ttfs_pool", ops=("w2ttfs_head",), formats=("dense",),
+    grad=True,
+    # csrc/w2ttfs_pool.cu's dynamic shared memory, as its plan sizes it:
+    # the main path's 256 images of 512 features into 10 classes, and
+    # CIFAR-100's 100
+    smem_bytes=lambda bm, bn, bk, packed: max(
+        w2ttfs_plan(256, 512, classes).smem for classes in (10, 100))))
 
 
 def w2ttfs_pool_cuda(spikes: torch.Tensor, fc_w: torch.Tensor,

@@ -11,11 +11,15 @@ priced with other figures.
 
 The reference's dry-run report half (``analyze_cell``, ``load``,
 ``markdown``, ``main``) reads XLA dry-run files and waits for the port of
-the dry runs (ROADMAP queue 1 item 8).
+the dry runs (ROADMAP queue 1 item 7).
 """
 from __future__ import annotations
 
 import dataclasses
+
+#: shared memory one block (CTA) may take on an H100: 227 KiB, the limit
+#: every ``kernels.contract`` shared-memory model is checked against
+SMEM_BYTES_PER_BLOCK = 232448
 
 
 @dataclasses.dataclass(frozen=True)

@@ -333,7 +333,7 @@ class _FusedPE(torch.autograd.Function):
                 return _row_masked(s, q_, cfg, ctx.qk_threshold, ctx.heads)
 
             # the primal spikes, reconstructed: a constant wrt cur; the
-            # surrogate factor flows through the dx kernel instead
+            # surrogate factor flows through the dx kernel instead  # neurallint: disable=NL-BARE-HEAVISIDE
             s_raw = (cur >= cfg.v_th).to(gs.dtype)
             with torch.enable_grad():
                 q_ = q2.detach().requires_grad_(True)

@@ -317,12 +317,14 @@ def _dense_lif_ref(p: dict, flat: torch.Tensor, lif_cfg: LIFConfig, *, q,
         g = h // hkv
         rs = q.to_dense(torch.float32).reshape(m, -1)[:, :h * dh].reshape(
             m, h, dh).sum(dim=-1)
+        # the inference QK mask (the +grad modes differentiate it)  # neurallint: disable=NL-BARE-HEAVISIDE
         mask = (rs >= qk_threshold).to(torch.int8)
         spk = (spk.reshape(m, hkv, 1, dh)
                * mask.reshape(m, hkv, g, 1)).reshape(m, h * dh)
     elif q is not None:
         rowsum = q.to_dense(torch.float32).reshape(m, -1).sum(
             dim=-1, keepdim=True)
+        # the inference QK mask (the +grad modes differentiate it)  # neurallint: disable=NL-BARE-HEAVISIDE
         spk = spk * (rowsum >= qk_threshold).to(torch.int8)
     elif heads is not None and kv_heads is not None and kv_heads != heads[0]:
         h, dh = heads

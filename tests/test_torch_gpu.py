@@ -2359,3 +2359,18 @@ def test_compress_int8_on_the_card_equals_the_cpu(cuda, magnitude):
             torch.int8).float() * scale
         assert torch.equal(mean["blocks"][i]["w"].cpu(), deq)
         assert torch.equal(new_err["blocks"][i]["w"].cpu(), g - deq)
+
+
+def test_contract_sweep_outputs_on_the_card(cuda):
+    """The contract sweep's fused cells on CUDA tensors (the kernels'
+    pad and tile algebra at the ragged 130 x 96 x 72 included): every
+    output's shapes, dtypes, formats and vld_cnt grids are those the sweep
+    found on the CPU, with no downgrade and no demotion."""
+    from repro_torch.analysis.contracts import device_check, verify_contracts
+    from repro_torch.ops import fallback
+
+    report = verify_contracts()
+    assert not report.findings, [str(f) for f in report.findings]
+    n, bad = device_check(cuda, report)
+    assert n > 50 and not bad, bad[:10]
+    assert fallback.demotions() == []

@@ -6,6 +6,7 @@ ported since run.
 """
 import ast
 import dataclasses
+import importlib.util
 import os
 import pathlib
 import subprocess
@@ -36,7 +37,24 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "examples" / "torch_train_kd_cifar.py",
+        ROOT / "tools" / "torch_neurallint.py"]
+
+
+def _kd_pipeline():
+    spec = importlib.util.spec_from_file_location(
+        "torch_train_kd_cifar", ROOT / "examples" / "torch_train_kd_cifar.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _kd_run():
+    """The KD pipeline's ``run`` with no device: its KDT weights."""
+    rec = {}
+    _kd_pipeline().run(steps=1, quiet=True, record=rec)
+    return rec["vars"]["KDT"]
 
 
 def _imported_roots(path):
@@ -121,6 +139,7 @@ def _entry_points():
             ["--reduced", "--steps", "1", "--batch", "2", "--seq", "8",
              "--ckpt-dir", tempfile.mkdtemp()]),
         "resolve_device": lambda: repro_torch.resolve_device(),
+        "kd pipeline run": _kd_run,
         "init": lambda: snn_cnn.init(torch.Generator(), cfg),
         "variables_from_jax": lambda: convert.variables_from_jax(
             {"params": [{"w": np.ones(2, np.float32)}], "state": [{}]}),
