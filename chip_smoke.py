@@ -294,6 +294,27 @@ Phases, in order; any failure raises and the script exits non-zero:
              on fake CPU tensors, then every fused registry point of its
              corpus on CUDA tensors: each output's shapes, dtypes,
              formats and ``vld_cnt`` grids equal to the sweep's.
+14. dryrun — (run while the earlier launches wait in host memory) phase
+             11's cell, qwen3-1.7b spiking ``qk_spiking`` at full width,
+             8 x 129 tokens, traced by ``launch.dryrun.run_cell`` on fake
+             CPU tensors at a (1, 1) mesh under ``reference+grad`` and
+             ``fused_dense+grad``, then the same ``make_train_step`` step
+             run once, untimed, on the card (NCCL, a world of one) under
+             ``launch.hlo_analysis.OpRecorder``; counts set to 0 before
+             the step and read after it (the LM step's launches under
+             ``fused_dense+grad``, none under the reference). Gates: the
+             spec half's argument bytes equal the parameters', AdamW
+             state's and batch's on the card exactly; under
+             ``reference+grad`` the card's record has the trace's ops,
+             flops and bytes exactly; the all-reduces, in the trace and on
+             the card, number the gradient leaves plus the metrics' one;
+             the predicted peak (arguments + temp) within 10 % of
+             ``torch.cuda.max_memory_allocated()`` over the step (after
+             ``reset_peak_memory_stats``). Printed: the same under
+             ``fused_dense+grad`` (fused ops one node each), the useful
+             ratio 6 N D / traced flops, the spec half of every registry
+             cell at the ``single`` and ``multi`` meshes, and the roofline
+             report's markdown priced as one H100 SXM.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Without a
@@ -5835,6 +5856,179 @@ def phase_contracts(torch, build_mod, dev) -> None:
         require(launches[kernel] > 0, f"contracts: {kernel} never launched")
 
 
+# ----------------------------------------------------------------- phase 14
+DRYRUN_POLICIES = ("reference+grad", "fused_dense+grad")
+DRYRUN_PEAK_BAND = 0.10   # predicted peak against max_memory_allocated
+
+
+def storage_bytes(torch, *trees) -> int:
+    """Bytes of the distinct storages under ``trees``."""
+    from repro_torch.launch.hlo_analysis import tensors
+
+    seen = {}
+    for t in tensors(list(trees)):
+        s = t.untyped_storage()
+        seen[s._cdata] = s.nbytes()
+    return sum(seen.values())
+
+
+def first_difference(a: list, b: list) -> str:
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x["op"] != y["op"]:
+            return f"entry {i}: {x['op']} != {y['op']}"
+    return f"lengths {len(a)} != {len(b)}"
+
+
+def dryrun_real_step(torch, build_mod, dev, cfg, hlo) -> dict:
+    """One untimed ``make_train_step`` step of phase 11's cell on the card
+    (NCCL, a world of one), recorded: the argument bytes on the card, the
+    record, its analysis and memory fields, the step's own peak by the
+    allocator and the launches."""
+    from repro_torch.configs import build_model
+    from repro_torch.data import SyntheticTokenDataset
+    from repro_torch.launch import mesh as M
+    from repro_torch.optim import constant_lr
+    from repro_torch.train import make_train_step, train_state_init
+    from repro_torch.tree import tree_leaves
+
+    model = build_model(cfg)
+    made = M.init_distributed(dev)
+    try:
+        state = train_state_init(model.init(
+            torch.Generator(device=dev).manual_seed(0), device=dev))
+        ds = SyntheticTokenDataset(cfg.vocab_size, LM_TRAIN_SEQ + 1)
+        batch = {"tokens": torch.from_numpy(ds.batch(0, LM_TRAIN_BATCH)).to(
+            dev)}
+        world = M.Mesh((1, 1), ("data", "model"), device=dev)
+        step = make_train_step(model, schedule=constant_lr(3e-4),
+                               weight_decay=0.1, clip_norm=1.0,
+                               dp_group=world.get_group(("data",)))
+        args = storage_bytes(torch, state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        build_mod.reset_launches()
+        with hlo.OpRecorder((state, batch), donated=state) as rec:
+            out = step(state, batch)
+        torch.cuda.synchronize()
+        launches = dict(build_mod.LAUNCHES)
+        # the step's own peak, with the arguments it was called on
+        peak = torch.cuda.max_memory_allocated() - base + args
+        res = {"arguments": args, "record": rec.record,
+               "analysis": hlo.analyze(rec.record),
+               "memory": rec.memory_analysis(out), "peak": peak,
+               "launches": launches, "loss": float(out[1]["loss"]),
+               "leaves": len(tree_leaves(state.params))}
+        del state, batch, out, step, rec
+    finally:
+        if made:
+            M.shutdown_distributed()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_dryrun(torch, build_mod, dev, smi: str) -> None:
+    """The dry runs held against the card (phase 14): phase 11's cell
+    traced on fake CPU tensors (``launch.dryrun.run_cell`` at a (1, 1)
+    mesh), then the same step run once on the card under the recorder."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun, hlo_analysis as hlo, roofline
+    from repro_torch.launch.mesh import Mesh
+
+    t_phase = time.perf_counter()
+    shape = ShapeSpec(f"driver_{LM_TRAIN_BATCH}x{LM_TRAIN_SEQ}", "train",
+                      LM_TRAIN_SEQ + 1, LM_TRAIN_BATCH)
+    outdir = ROOT / "build" / "dryrun_smoke"
+    shutil.rmtree(outdir, ignore_errors=True)
+    one = Mesh((1, 1), ("data", "model"), device="cpu")
+    records = []
+    for policy in DRYRUN_POLICIES:
+        overrides = dict(SPIKING_QK, policy=policy)
+        t0 = time.perf_counter()
+        fake = dryrun.run_cell(LM_ARCH, shape, "single", outdir,
+                               overrides=overrides, tag=policy.replace(
+                                   "+", "_"), mesh=one)
+        fake_s = time.perf_counter() - t0
+        records.append(fake)
+        fake_ops = dryrun.read_ops(
+            outdir / f"{LM_ARCH}__{shape.name}__single__"
+                     f"{policy.replace('+', '_')}.ops.gz")
+        t0 = time.perf_counter()
+        real = dryrun_real_step(torch, build_mod, dev,
+                                get_config(LM_ARCH, **overrides), hlo)
+        real_s = time.perf_counter() - t0
+        want = lm_step_launches(build_mod, get_config(LM_ARCH).n_layers,
+                                policy)
+        require(real["launches"] == want,
+                f"[dryrun] {policy}: the step launched {real['launches']} "
+                f"!= {want}")
+        fa, ra = fake["hlo"], real["analysis"]
+        pred_args = fake["per_device_bytes"]["arguments"]
+        pred_peak = fake["memory_analysis"]["peak_bytes"]
+        ratio = pred_peak / real["peak"]
+        n_coll = [sum(e["op"].startswith("c10d.") for e in r)
+                  for r in (fake_ops, real["record"])]
+        useful = fake["model_flops"] / fa["flops"]
+        say(f"[dryrun] {policy} {smi}: fake trace {fake['trace_s']} s "
+            f"({fake_s:.1f} s with the spec half), the card's step "
+            f"{real_s:.1f} s (init, one untimed step, loss "
+            f"{real['loss']!r}); ops {len(fake_ops)} / {len(real['record'])}"
+            f" (fake / card), flops {fa['flops']!r} / {ra['flops']!r}, "
+            f"bytes {fa['bytes']!r} / {ra['bytes']!r}, all-reduces "
+            f"{n_coll[0]} / {n_coll[1]}; arguments {pred_args} predicted, "
+            f"{real['arguments']} on the card; peak {pred_peak} predicted "
+            f"(arguments {fake['memory_analysis']['argument_size_in_bytes']}"
+            f" + temp {fake['memory_analysis']['temp_size_in_bytes']}), "
+            f"{real['peak']} by max_memory_allocated (the step's own plus "
+            f"its arguments): ratio {ratio:.4f}; the recorder on the card: "
+            f"temp {real['memory']['temp_size_in_bytes']}; useful ratio "
+            f"6 N D / traced flops {useful:.4f}; launches "
+            f"{ {k: v for k, v in real['launches'].items() if v} }")
+        # (a) the spec half's argument bytes are the card's
+        require(pred_args == real["arguments"],
+                f"[dryrun] {policy}: predicted arguments {pred_args} != "
+                f"{real['arguments']} on the card")
+        # (c) the recorded all-reduces: one a gradient leaf and the
+        # metrics' one, in the fake trace and on the card alike
+        n_leaves = real["leaves"]
+        require(n_coll[0] == n_coll[1] == n_leaves + 1,
+                f"[dryrun] {policy}: all-reduces {n_coll} (fake, card), "
+                f"want {n_leaves} leaves + 1")
+        if policy.startswith("reference"):
+            # (b) the reference step's record on the card is the trace's
+            require(len(fake_ops) == len(real["record"])
+                    and [e["op"] for e in fake_ops]
+                    == [e["op"] for e in real["record"]],
+                    f"[dryrun] {policy}: op records differ: "
+                    f"{first_difference(fake_ops, real['record'])}")
+            require(fa["flops"] == ra["flops"] and fa["bytes"] == ra["bytes"],
+                    f"[dryrun] {policy}: flops {fa['flops']} / {ra['flops']}"
+                    f", bytes {fa['bytes']} / {ra['bytes']} (fake / card)")
+            # (d) the predicted peak against the allocator's
+            require(abs(ratio - 1.0) <= DRYRUN_PEAK_BAND,
+                    f"[dryrun] {policy}: predicted peak {pred_peak} against "
+                    f"{real['peak']} on the card: ratio {ratio:.4f}")
+        del real, fake_ops
+    t0 = time.perf_counter()
+    cells = dryrun.spec_records(["single", "multi"])
+    spec_s = time.perf_counter() - t0
+    for c in cells:
+        b = c["per_device_bytes"]
+        say(f"[dryrun] spec {c['arch']} {c['shape']} {c['mesh']}: "
+            f"{c['n_chips']} chips, per device {b['arguments'] / 1e9:.3f} GB"
+            f" ({', '.join(f'{k} {v}' for k, v in b.items())}); "
+            f"model flops {c['model_flops']:.4e}")
+    say(f"[dryrun] the spec half of {len(cells)} registry cells in "
+        f"{spec_s:.1f} s; the report, priced as one "
+        f"{roofline.H100_SXM.name} (data sheet):")
+    table = roofline.markdown(
+        [roofline.analyze_cell(r) for r in records + cells])
+    for line in table.splitlines():
+        say(f"[dryrun] {line}")
+    say(f"[dryrun] phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def kernels_namespace(torch):
     """The launchers, plain versions and helpers the phases call."""
     from repro_torch.core import events
@@ -6041,6 +6235,8 @@ def main() -> int:
     lap("kd pipeline")
     phase_contracts(torch, _build, dev)
     lap("contracts")
+    phase_dryrun(torch, _build, dev, smi)
+    lap("dryrun")
     parking.park([p[3] for p in paths.values()], "cuda")
     rows = phase_timing(torch, K, snn_cnn, models, images, paths, parity,
                         ITERS, ops.get_tuner())

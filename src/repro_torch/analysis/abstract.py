@@ -16,12 +16,18 @@ Operands are described, not built: ``sds(shape, dtype)`` for a tensor and
 ``spike_aval(m, k, fmt, ...)`` for a spike map in either format. The two
 evaluators materialise them, as fake tensors or as seeded values on a
 device, and call the function on the result.
+
+The dry run (``launch.dryrun``) walks a whole model the same way:
+``module_param_shapes`` runs a model's ``init`` and ``optimizer_shapes`` an
+optimizer's on fake CPU tensors of one mode, which the step's trace then
+goes on in.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import math
+import unittest.mock
 import warnings
 from typing import Any, Callable, NamedTuple
 
@@ -211,14 +217,26 @@ def _call(fn: Callable, args: tuple, kwargs: dict, what: str,
         raise AbstractEvalError(name, _shape_str((args, kwargs)), e) from e
 
 
-def abstract_eval(fn: Callable, *args, what: str = "", **kwargs):
+def fake_mode():
+    """A fake-tensor mode for a shape walk. Real tensors an op meets enter
+    it as fakes: a constant a model made once and keeps (the RoPE
+    frequencies) needs no values there."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    return FakeTensorMode(allow_non_fake_inputs=True)
+
+
+def abstract_eval(fn: Callable, *args, what: str = "", mode=None, **kwargs):
     """``fn(*args, **kwargs)`` with every ``TensorSpec`` / ``SpikeSpec``
     built as a fake CPU tensor: the outputs' shapes and dtypes, no FLOP,
-    no launch. A failure raises ``AbstractEvalError``."""
+    no launch. ``mode``: the fake-tensor mode to run in (a fresh one when
+    None), so that a walk can go on with the fakes of an earlier one. A
+    failure raises ``AbstractEvalError``."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     makers = (lambda t: torch.empty(t.shape, dtype=t.dtype), _fake_spikes)
-    return _call(fn, args, kwargs, what, makers, FakeTensorMode())
+    return _call(fn, args, kwargs, what, makers,
+                 FakeTensorMode() if mode is None else mode)
 
 
 def concrete_eval(fn: Callable, *args, what: str = "", device=None,
@@ -241,6 +259,33 @@ def concrete_eval(fn: Callable, *args, what: str = "", device=None,
 
     makers = (leaf, lambda s: _seeded_spikes(s, gen, dev))
     return _call(fn, args, kwargs, what, makers, contextlib.nullcontext())
+
+
+# ------------------------------------------------- model-level shape walking
+# (the dry run's side of the shared implementation)
+def module_param_shapes(init_fn: Callable, *init_args, **init_kwargs):
+    """The parameter tree of a model ``init`` as fake CPU tensors (its
+    ``torch.Generator`` seeded 0, on the CPU: shapes do not depend on
+    either). No tensor is made on a device and no FLOP is spent; the
+    leaves' ``fake_mode`` goes on to the optimizer walk and the step."""
+    if not init_args:
+        init_args = (torch.Generator().manual_seed(0),)
+    init_kwargs.setdefault("device", "cpu")
+    # a fake tensor has no values, and the truncated normal's rejection
+    # sampler reads them: nothing is drawn (every other init is shape-only)
+    with unittest.mock.patch.object(torch.nn.init, "trunc_normal_",
+                                    lambda t, *a, **k: t):
+        return abstract_eval(init_fn, *init_args, what="model.init",
+                             mode=fake_mode(), **init_kwargs)
+
+
+def optimizer_shapes(opt_init: Callable, params_shape):
+    """The optimizer-state tree for a fake parameter tree, as fake tensors
+    of the parameters' mode."""
+    from ..tree import tree_leaves
+
+    return abstract_eval(opt_init, params_shape, what="optimizer.init",
+                         mode=tree_leaves(params_shape)[0].fake_mode)
 
 
 # ---------------------------------------------------------- tile models

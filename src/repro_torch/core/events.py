@@ -24,6 +24,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils import _pytree as pytree
 
 LANE_BITS = 32                  # spikes per packed int32 word
 
@@ -302,6 +303,10 @@ class PackedSpikes:
                             tuple(self.shape[1:]), self.block_m,
                             self.block_k,
                             None if self.occ is None else self.occ[idx])
+
+
+# a pytree node, as the reference registers it with jax.tree_util
+pytree.register_dataclass(PackedSpikes)
 
 
 def packed_from_words(words: torch.Tensor, shape: tuple, *,

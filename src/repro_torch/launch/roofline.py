@@ -1,5 +1,5 @@
-"""The kernel cost model of the sparsity-adaptive autotuner (twin of the
-kernel half of ``repro.launch.roofline``).
+"""The kernel cost model of the sparsity-adaptive autotuner, and the
+roofline report over dry-run cells (twin of ``repro.launch.roofline``).
 
 ``spike_matmul_traffic``, ``spike_matmul_grad_traffic``, ``qk_chain_traffic``
 and ``kernel_time_s`` carry the reference's traffic arithmetic unchanged:
@@ -9,13 +9,58 @@ port's: a ``CostModel`` describes the port's kernels on one card, and every
 function takes one (``H100`` by default), so the same arithmetic can be
 priced with other figures.
 
-The reference's dry-run report half (``analyze_cell``, ``load``,
-``markdown``, ``main``) reads XLA dry-run files and waits for the port of
-the dry runs (ROADMAP queue 1 item 7).
+The report half (``analyze_cell``, ``suggestion``, ``load``, ``markdown``,
+``main``) reads the cells ``launch.dryrun`` writes, with the reference's
+logic unchanged. A ``Chip`` prices it, frozen as ``CostModel`` is: ``H100``
+for the port (the H100 SXM's data-sheet rates), or any other. All inputs
+are per device, so
+
+  compute_term    = flops_per_dev / chip.peak_flops             [s]
+  memory_term     = bytes_per_dev / chip.hbm_bw                 [s]
+  collective_term = wire_bytes_per_dev / chip.link_bw           [s]
+
+``bound`` is the largest term; ``useful_ratio`` = MODEL_FLOPS / (chips *
+flops_per_dev) (the share of the traced math that is the model's: catches
+remat and redundancy) and ``roofline_fraction`` = (MODEL_FLOPS / chips /
+peak) / max(terms). A cell whose trace waits for tensor parallelism
+(ROADMAP queue 1 item 6) shows its argument bytes only; its terms read
+"not ported".
+
+Usage:
+  python -m repro_torch.launch.roofline [--dir build/dryrun] [--mesh single]
+         [--tag TAG] [--json out.json] [--suggest]
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import json
+from pathlib import Path
+
+DEFAULT_DIR = Path(__file__).resolve().parents[3] / "build" / "dryrun"
+
+
+@dataclasses.dataclass(frozen=True)
+class Chip:
+    """The per-device rates the report prices a cell with.
+
+    peak_flops   — dense operations per second
+    hbm_bw       — device memory bytes per second
+    link_bw      — interconnect bytes per second, each direction
+    hbm_per_chip — device memory bytes (the "fits" column)
+    """
+    name: str
+    peak_flops: float
+    hbm_bw: float
+    link_bw: float
+    hbm_per_chip: float
+
+
+#: the NVIDIA H100 SXM 80GB by its data sheet: dense bf16 tensor-core rate
+#: (the rate the kernel rows' bounds in PERF.md use), HBM3 rate, NVLink 4
+#: (900 GB/s both ways together), device memory
+H100_SXM = Chip("H100 SXM", peak_flops=989.4e12, hbm_bw=3.35e12,
+                link_bw=450e9, hbm_per_chip=80e9)
 
 #: shared memory one block (CTA) may take on an H100: 227 KiB, the limit
 #: every ``kernels.contract`` shared-memory model is checked against
@@ -214,3 +259,127 @@ def kernel_time_s(traffic: dict, costs: CostModel = H100) -> float:
                                   * max(traffic["mxu_eff"], 1e-3))
     memory = traffic["hbm_bytes"] / costs.hbm_bw
     return max(compute, memory) + traffic.get("overhead_s", 0.0)
+
+
+# ----------------------------------------------------------------- report
+def analyze_cell(rec: dict, chip: Chip = H100_SXM) -> dict:
+    """One dry-run cell -> its three terms, bound, useful ratio, roofline
+    fraction and footprint. A cell without a trace has its argument bytes
+    only: its terms are None and its bound "not ported"."""
+    n = rec["n_chips"]
+    hlo = rec.get("hlo")
+    mem = rec.get("memory_analysis", {})
+    hbm = (mem.get("argument_size_in_bytes", 0) or 0) + \
+          (mem.get("temp_size_in_bytes", 0) or 0)
+    cell = {"arch": rec["arch"], "shape": rec["shape"], "mesh": rec["mesh"],
+            "tag": rec.get("tag", ""), "model_flops": rec["model_flops"],
+            "hbm_bytes": hbm, "fits": hbm <= chip.hbm_per_chip}
+    if hlo is None:
+        return dict(cell, compute_s=None, memory_s=None, collective_s=None,
+                    bound="not ported", useful_ratio=None,
+                    roofline_fraction=None, step_time_s=None,
+                    collectives={}, ported=False)
+    compute = hlo["flops"] / chip.peak_flops
+    memory = hlo["bytes"] / chip.hbm_bw
+    collective = hlo["collective_wire_bytes"] / chip.link_bw
+    terms = {"compute": compute, "memory": memory, "collective": collective}
+    bound = max(terms, key=terms.get)
+    useful = rec["model_flops"] / max(n * hlo["flops"], 1e-30)
+    ideal = rec["model_flops"] / n / chip.peak_flops
+    frac = ideal / max(max(terms.values()), 1e-30)
+    return dict(cell, compute_s=compute, memory_s=memory,
+                collective_s=collective, bound=bound, useful_ratio=useful,
+                roofline_fraction=frac, step_time_s=max(terms.values()),
+                collectives=hlo.get("collectives", {}), ported=True)
+
+
+def suggestion(cell: dict) -> str:
+    """One sentence on what would move the dominant term down."""
+    b = cell["bound"]
+    if b == "not ported":
+        return ("trace not ported (tensor parallelism, ROADMAP queue 1 item "
+                f"6): only the argument bytes are known, "
+                f"{cell['hbm_bytes'] / 1e9:.3f} GB a device")
+    colls = cell.get("collectives", {})
+    big = max(colls.items(), key=lambda kv: kv[1]["wire_bytes"])[0] \
+        if colls else "none"
+    if b == "collective":
+        return (f"collective-bound (top op: {big}) — reshard to cut {big} "
+                "volume (more DP / fewer TP boundaries, or overlap via "
+                "collective-matmul)")
+    if b == "memory":
+        if cell["useful_ratio"] < 0.5:
+            return ("memory-bound with low useful-FLOP ratio — remove "
+                    "redundant passes (remat policy / fusion) before "
+                    "touching layout")
+        return ("memory-bound — increase arithmetic intensity: larger "
+                "per-device batch, fused kernels, lower-precision "
+                "weights/KV (int8)")
+    return ("compute-bound — already at the right wall; chase MXU "
+            "utilization (tile alignment, bf16 accumulation) and overlap "
+            "the remaining comms")
+
+
+def load(dirpath: Path, mesh: str | None, tag: str = "",
+         chip: Chip = H100_SXM) -> list[dict]:
+    cells = []
+    for p in sorted(dirpath.glob("*.json")):
+        rec = json.loads(p.read_text())
+        if mesh and rec["mesh"] != mesh:
+            continue
+        if (rec.get("tag") or "") != tag:
+            continue
+        cells.append(analyze_cell(rec, chip))
+    return cells
+
+
+def _num(x, fmt: str) -> str:
+    return "not ported" if x is None else format(x, fmt)
+
+
+def markdown(cells: list[dict], chip: Chip = H100_SXM) -> str:
+    hdr = ("| arch | shape | mesh | compute (s) | memory (s) | collective (s) "
+           f"| bound | useful | roofline frac | fits "
+           f"{chip.hbm_per_chip / 1e9:.0f}G |")
+    sep = "|" + "---|" * 10
+    rows = [hdr, sep]
+    for c in sorted(cells, key=lambda c: (c["arch"], c["shape"], c["mesh"])):
+        fits = "yes" if c["fits"] else "NO"
+        if c["bound"] == "not ported":         # its arguments alone
+            fits += f" ({c['hbm_bytes'] / 1e9:.3f} GB of arguments)"
+        rows.append(
+            f"| {c['arch']} | {c['shape']} | {c['mesh']} "
+            f"| {_num(c['compute_s'], '.3e')} | {_num(c['memory_s'], '.3e')} "
+            f"| {_num(c['collective_s'], '.3e')} | **{c['bound']}** "
+            f"| {_num(c['useful_ratio'], '.2f')} "
+            f"| {_num(c['roofline_fraction'], '.3f')} "
+            f"| {fits} |")
+    return "\n".join(rows)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--dir", type=Path, default=DEFAULT_DIR)
+    ap.add_argument("--mesh", default=None)
+    ap.add_argument("--tag", default="")
+    ap.add_argument("--json", type=Path, default=None)
+    ap.add_argument("--suggest", action="store_true")
+    args = ap.parse_args(argv)
+
+    cells = load(args.dir, args.mesh, args.tag)
+    print(f"priced as one {H100_SXM.name}: "
+          f"{H100_SXM.peak_flops / 1e12:.1f} TFLOP/s, "
+          f"{H100_SXM.hbm_bw / 1e12:.2f} TB/s HBM, "
+          f"{H100_SXM.link_bw / 1e9:.0f} GB/s link (data sheet)")
+    print(markdown(cells))
+    if args.suggest:
+        print()
+        for c in cells:
+            print(f"- {c['arch']} x {c['shape']} ({c['mesh']}): "
+                  f"{suggestion(c)}")
+    if args.json:
+        args.json.write_text(json.dumps(cells, indent=1))
+
+
+if __name__ == "__main__":
+    main()

@@ -7,7 +7,9 @@ behind ``fallback.guarded``, as in the reference: a runtime failure of the
 kernel demotes the (op, mode) cell to its reference mode instead of
 crashing the caller. A mode with no entry raises ``NotImplementedError``
 on lookup. ``record_dispatches`` records the ``(op, mode)`` pairs resolved
-inside a block.
+inside a block; ``node_hook`` hands every fused entry through a function
+inside a block (``launch.hlo_analysis.OpRecorder`` makes each fused call
+one node of its op record).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from . import fallback
 _REGISTRY: dict[tuple[str, str], Callable] = {}
 _LOADED = False
 _DISPATCH_LOG: Optional[list] = None
+_NODE_HOOK: Optional[Callable] = None
 
 
 def register(op: str, mode: str) -> Callable[[Callable], Callable]:
@@ -51,14 +54,45 @@ def record_dispatches() -> Iterator[list[tuple[str, str]]]:
         _DISPATCH_LOG = prev
 
 
+@contextlib.contextmanager
+def node_hook(hook: Callable[[str, str, Callable], Callable]) -> Iterator:
+    """Inside the block, ``lookup`` returns ``hook(op, mode, fn)`` for every
+    fused entry ``fn`` (the guarded one)."""
+    global _NODE_HOOK
+    prev, _NODE_HOOK = _NODE_HOOK, hook
+    try:
+        yield
+    finally:
+        _NODE_HOOK = prev
+
+
+def plain(op: str, mode: str) -> Callable:
+    """``op``'s plain version for ``mode`` (its ``reference`` twin), as
+    registered: not logged as a dispatch and not guarded. For pricing a
+    call (``launch.hlo_analysis``), not for running one."""
+    _ensure_loaded()
+    return _REGISTRY[(op, mode.replace("fused", "reference"))]
+
+
+def plain(op: str, mode: str) -> Callable:
+    """``op``'s plain version for ``mode`` (its ``reference`` twin), as
+    registered: not logged as a dispatch and not guarded. For pricing a
+    call (``launch.hlo_analysis``), not for running one."""
+    _ensure_loaded()
+    return _REGISTRY[(op, mode.replace("fused", "reference"))]
+
+
 def lookup(op: str, mode: str) -> Callable:
     _ensure_loaded()
     if _DISPATCH_LOG is not None:
         _DISPATCH_LOG.append((op, mode))
     fn = _REGISTRY.get((op, mode))
     if fn is not None:
+        if "fused" not in mode:
+            return fn
         # a fused entry goes out behind the degradation guard
-        return fallback.guarded(op, mode, fn) if "fused" in mode else fn
+        fn = fallback.guarded(op, mode, fn)
+        return fn if _NODE_HOOK is None else _NODE_HOOK(op, mode, fn)
     have = sorted(m for o, m in _REGISTRY if o == op)
     if not have:
         raise NotImplementedError(f"unknown op {op!r}")

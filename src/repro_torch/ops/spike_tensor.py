@@ -18,6 +18,7 @@ import math
 from typing import Optional, Union
 
 import torch
+from torch.utils import _pytree as pytree
 
 from ..core.events import (DEFAULT_BLOCKS, LANE_BITS, PackedSpikes,
                            unpack_words)
@@ -146,5 +147,8 @@ class SpikeTensor:
                            self.block_k,
                            None if self.occ is None else self.occ[idx])
 
+
+# a pytree node, as the reference registers it with jax.tree_util
+pytree.register_dataclass(SpikeTensor)
 
 Spikes = Union[torch.Tensor, PackedSpikes, SpikeTensor]

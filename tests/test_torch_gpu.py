@@ -2374,3 +2374,64 @@ def test_contract_sweep_outputs_on_the_card(cuda):
     n, bad = device_check(cuda, report)
     assert n > 50 and not bad, bad[:10]
     assert fallback.demotions() == []
+
+
+# ---------------------------------------------------------- the dry runs
+@pytest.mark.parametrize("policy", ["reference+grad", "fused_dense+grad"])
+def test_op_recorder_on_the_card_against_the_fake_trace(cuda, policy):
+    """One ``make_train_step`` step of the reduced spiking qwen3-1.7b on
+    the card (NCCL, a world of one) under ``launch.hlo_analysis``'s
+    recorder, against ``launch.dryrun.trace_step`` of the same step on
+    fake CPU tensors: the same argument bytes and all-reduces (a gradient
+    leaf each and the metrics' one); under ``reference+grad`` the same
+    ops, flops, bytes and memory fields; under ``fused_dense+grad`` each
+    fused call one node (the dx / dw launches of its backward are no aten
+    op, so the card's flops are at most the trace's)."""
+    from repro_torch.analysis.abstract import (module_param_shapes,
+                                               optimizer_shapes)
+    from repro_torch.configs import build_model, get_config, reduced
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun, hlo_analysis, mesh
+    from repro_torch.optim import adamw_init, constant_lr
+    from repro_torch.train import make_train_step, train_state_init
+    from repro_torch.tree import tree_leaves
+
+    cfg = reduced(get_config("qwen3-1.7b", spiking=True,
+                             attention_kind="qk_spiking", policy=policy))
+    model = build_model(cfg)
+    shape = ShapeSpec("small", "train", 33, 4)
+    params = module_param_shapes(model.init)
+    one = mesh.Mesh((1, 1), ("data", "model"), device="cpu")
+    fake, fake_out = dryrun.trace_step(model, shape, one, params,
+                                       optimizer_shapes(adamw_init, params))
+    made = mesh.init_distributed(cuda)
+    try:
+        state = train_state_init(model.init(
+            torch.Generator(device=cuda).manual_seed(0), device=cuda))
+        batch = {"tokens": torch.randint(
+            0, cfg.vocab_size, (4, 33), dtype=torch.int32, device=cuda)}
+        step = make_train_step(
+            model, schedule=constant_lr(3e-4), weight_decay=0.1,
+            clip_norm=1.0, dp_group=mesh.Mesh(
+                (1, 1), ("data", "model"), device=cuda).get_group("data"))
+        with hlo_analysis.OpRecorder((state, batch), donated=state) as rec:
+            out = step(state, batch)
+        torch.cuda.synchronize()
+    finally:
+        if made:
+            mesh.shutdown_distributed()
+    a, b = hlo_analysis.analyze(fake.record), hlo_analysis.analyze(
+        rec.record)
+    ma, mb = fake.memory_analysis(fake_out), rec.memory_analysis(out)
+    assert ma["argument_size_in_bytes"] == mb["argument_size_in_bytes"]
+    n_leaves = len(tree_leaves(state.params))
+    assert a["collectives"]["all-reduce"]["count"] == \
+        b["collectives"]["all-reduce"]["count"] == n_leaves + 1
+    if policy.startswith("reference"):
+        assert [e["op"] for e in fake.record] == [e["op"] for e in
+                                                  rec.record]
+        assert a == b and ma == mb
+    else:
+        nodes = [e["op"] for e in rec.record if e.get("node")]
+        assert nodes == [e["op"] for e in fake.record if e.get("node")]
+        assert nodes and 0 < b["flops"] <= a["flops"]

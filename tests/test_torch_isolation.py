@@ -21,8 +21,9 @@ import torch
 
 import repro_torch
 from repro_torch import convert, ops
-from repro_torch.configs import build_model, get_config, reduced
+from repro_torch.configs import SHAPES, build_model, get_config, reduced
 from repro_torch.core.lif import LIFConfig
+from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import Mesh
 from repro_torch.launch.serve import main as serve_main
 from repro_torch.launch.train import main as train_main
@@ -101,6 +102,8 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import repro_torch.train.elastic, repro_torch.train.checkpoint\n"
         "import repro_torch.train.straggler, repro_torch.data.loader\n"
         "import repro_torch.optim.compression, repro_torch.models.sharding\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.hlo_analysis\n"
+        "import repro_torch.analysis.abstract\n"
         "repro_torch.ops.lookup('matmul', 'reference')\n"
         "repro_torch.ops.lookup('dense_lif', 'fused')\n"
         "repro_torch.ops.lookup('matmul', 'fused+grad')\n"
@@ -211,6 +214,10 @@ def _unported():
         "param_shardings over a model axis": lambda: sharding.param_shardings(
             lm_softmax_params, Mesh((1, 2), ("data", "model"),
                                     device="cpu")),
+        "dry-run trace over a model axis": lambda: dryrun.trace_step(
+            lm_softmax, SHAPES["train_4k"],
+            Mesh((1, 2), ("data", "model"), device="cpu"),
+            lm_softmax_params),
     }
 
 
